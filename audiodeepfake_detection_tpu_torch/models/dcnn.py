@@ -15,15 +15,27 @@ is ``T//8 + time_dim_add`` (12 for 1 s at 22050 Hz).  Its under-padded
 convs shrink (64, 32) -> (40, 8), the 320 features the head reads per time
 step; the head's logits are averaged over time.
 
-In eval the JAX reference's ``folded_bn_conv`` and ``first_conv`` compute
-exactly BatchNorm followed by a conv, which is what this module runs; their
-training-side rewrites wait for the training slice.
+The JAX reference's ``folded_bn_conv`` and ``first_conv`` are schedules of
+BatchNorm -> conv and of a conv's weight gradient for XLA; their math is
+``nn.BatchNorm2d`` -> ``nn.Conv2d`` under autograd, which this module runs.
+
+``fused_layer1`` runs the first block (conv + PReLU + pool) through
+``ops/fused_conv1.py``: ``True`` in training only, ``"always"`` in eval too.
+It applies when ``in_channels == 1`` and ``kernel1 == 3``, reads the
+parameters of ``cnn[0]`` and ``cnn[1]`` (no new ones, so every state dict
+loads either way), and in training feeds ``cnn[3]`` from the moments the
+kernel accumulated.
 """
 
 from __future__ import annotations
 
+from typing import Union
+
 import torch
 from torch import nn
+
+from ..ops.fused_conv1 import fused_conv1_prelu_pool, fused_conv1_prelu_pool_stats
+from .layers import batch_norm_from_moments
 
 
 def _bn_conv(cin: int, cout: int, k: int, padding: int, affine: bool, dilation: int = 1):
@@ -53,8 +65,16 @@ class DCNN(nn.Module):
         nclasses: int = 2,
         with_dropout: bool = True,
         with_dilation: bool = True,
+        fused_layer1: Union[bool, str] = False,
     ) -> None:
         super().__init__()
+        if fused_layer1 not in (False, True, "always"):
+            raise ValueError(
+                f"fused_layer1 must be False, True or 'always': {fused_layer1!r}"
+            )
+        self.fused_layer1 = fused_layer1
+        self.in_channels = in_channels
+        self.kernel1 = kernel1
         self.flattend_size = flattend_size
         self.with_dropout = with_dropout
         self.with_dilation = with_dilation
@@ -87,9 +107,44 @@ class DCNN(nn.Module):
             self.dil_conv = nn.Sequential(*dil)
         self.fc = nn.Sequential(nn.Flatten(2), nn.Linear(flattend_size, nclasses))
 
+    def _fused_first_block(self, x: torch.Tensor) -> torch.Tensor:
+        """``cnn[0:3]`` (and ``cnn[3]`` in training) through the fused block,
+        then the rest of ``cnn``.  ``x``: ``[B, 1, T, F]``."""
+        conv, prelu = self.cnn[0], self.cnn[1]
+        plane = x[:, 0].contiguous()
+        args = (
+            plane,
+            conv.weight.reshape(conv.out_channels, 9).t(),
+            conv.bias,
+            prelu.weight,
+        )
+        # [B, h2, w2, C] -> NCHW, copied into NCHW memory: left channels-last
+        # (the permuted view as it is), cuDNN's fp32 convolutions behind it
+        # run slower by more than the fused block saves (PERF.md, Findings)
+        if self.training:
+            out, s, q = fused_conv1_prelu_pool_stats(*args)
+            x = out.permute(0, 3, 1, 2).contiguous()
+            x = batch_norm_from_moments(self.cnn[3], x, s, q)
+            rest = 4
+        else:
+            x = fused_conv1_prelu_pool(*args).permute(0, 3, 1, 2).contiguous()
+            rest = 3
+        for layer in list(self.cnn)[rest:]:
+            x = layer(x)
+        return x
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # [B, C, F, T] -> [B, C, T, F]: time on H (reference permute)
-        x = self.cnn(x.permute(0, 1, 3, 2))
+        x = x.permute(0, 1, 3, 2)
+        if (
+            self.fused_layer1
+            and self.in_channels == 1
+            and self.kernel1 == 3
+            and (self.training or self.fused_layer1 == "always")
+        ):
+            x = self._fused_first_block(x)
+        else:
+            x = self.cnn(x)
         # [B, 64, T/8, F/8] -> [B, T/8, 64, F/8]: time becomes the channels
         # of the dilated block (reference models.py:307)
         x = x.permute(0, 2, 1, 3)

@@ -15,7 +15,9 @@ translation step:
   ``{"params", "batch_stats"}`` tree (numpy arrays) into the port's
   ``state_dict``: conv ``[kh, kw, I, O] -> [O, I, kh, kw]``, linear
   ``[in, out] -> [out, in]``, PReLU ``() -> [1]``, ``num_batches_tracked``
-  int32 -> int64.
+  int32 -> int64.  :func:`adam_state_from_jax` carries optax's Adam state
+  (``count / mu / nu``) into a ``torch.optim.Adam`` with the same key map,
+  so both packages can continue from one mid-training state.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ from __future__ import annotations
 import re
 from collections import defaultdict
 from typing import Any, Dict, List, Tuple
+
+from torch import nn
 
 import numpy as np
 import torch
@@ -40,6 +44,19 @@ def load_torch_state_dict(path: str) -> StateDict:
     blob = torch.load(path, map_location="cpu", weights_only=False)
     state = blob.get("MODEL_STATE", blob) if isinstance(blob, dict) else blob
     return strip_module_prefix(state)
+
+
+def load_epochs_run(path: str) -> int:
+    """The 0-based index of the snapshot's last completed epoch.
+
+    Reference semantics (train_classifier.py:997-1008): ``EPOCHS_RUN`` is
+    the loop index at save time, i.e. the epoch that had just finished.
+    Returns -1 when the blob has no ``EPOCHS_RUN`` (bare state dicts).
+    """
+    blob = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(blob, dict) and "EPOCHS_RUN" in blob:
+        return int(blob["EPOCHS_RUN"])
+    return -1
 
 
 def strip_module_prefix(state) -> StateDict:
@@ -179,10 +196,12 @@ def state_dict_from_jax(variables: Dict[str, Any]) -> StateDict:
                 out[f"{prefix}.weight"] = np.asarray(params[name]["kernel"]).T
                 out[f"{prefix}.bias"] = np.asarray(params[name]["bias"])
             else:  # batchnorm
-                bs = batch_stats[name]
                 if name in params:
                     out[f"{prefix}.weight"] = np.asarray(params[name]["scale"])
                     out[f"{prefix}.bias"] = np.asarray(params[name]["bias"])
+                if name not in batch_stats:  # a parameter-only tree
+                    continue
+                bs = batch_stats[name]
                 out[f"{prefix}.running_mean"] = np.asarray(bs["mean"])
                 out[f"{prefix}.running_var"] = np.asarray(bs["var"])
                 out[f"{prefix}.num_batches_tracked"] = np.asarray(
@@ -190,3 +209,36 @@ def state_dict_from_jax(variables: Dict[str, Any]) -> StateDict:
                 )
     # copy: the tensors must own their memory, not view the caller's arrays
     return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
+
+
+def adam_state_from_jax(
+    model: nn.Module,
+    optimizer: torch.optim.Adam,
+    count: int,
+    mu: Dict[str, Any],
+    nu: Dict[str, Any],
+) -> None:
+    """Install optax ``ScaleByAdamState(count, mu, nu)`` in ``optimizer``.
+
+    ``mu`` / ``nu`` are numpy trees shaped like the JAX ``params``; they
+    become ``exp_avg`` / ``exp_avg_sq`` of the matching parameter of
+    ``model`` and ``count`` its ``step``.  ``optimizer`` must hold exactly
+    ``model``'s parameters.
+    """
+    exp_avg = state_dict_from_jax({"params": mu})
+    exp_avg_sq = state_dict_from_jax({"params": nu})
+    names = {id(p): name for name, p in model.named_parameters()}
+    blob = optimizer.state_dict()
+    state = {}
+    index = 0
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            name = names[id(p)]
+            state[index] = {
+                "step": torch.tensor(float(count)),
+                "exp_avg": exp_avg[name].to(p).reshape(p.shape),
+                "exp_avg_sq": exp_avg_sq[name].to(p).reshape(p.shape),
+            }
+            index += 1
+    blob["state"] = state
+    optimizer.load_state_dict(blob)

@@ -1,10 +1,16 @@
-"""Host-side resampling (numpy).
+"""Waveform utilities: training augmentations and host-side resampling.
 
-Copy of ``resample_kernel`` / ``resample`` from
-``audiodeepfake_detection_tpu/ops/audio.py``: windowed-sinc polyphase
-resampling matching ``torchaudio.functional.resample`` (sinc_interp_hann,
-lowpass_filter_width=6, rolloff=0.99).  The training augmentations
-(``contrast``, ``add_noise``, ``augment``) wait for the training slice.
+Counterpart of ``audiodeepfake_detection_tpu/ops/audio.py``:
+
+* ``contrast``   -- sox contrast enhancement waveshaper
+  (``torchaudio.functional.contrast``; reference utils.py:398-401).
+* ``add_noise``  -- noise mixed in at a given SNR
+  (``torchaudio.functional.add_noise``; reference utils.py:404-409).
+* ``augment``    -- the reference's random draws around both, from an
+  explicit ``torch.Generator`` on the waveform's device.
+* ``resample_kernel`` / ``resample`` -- numpy copy of the windowed-sinc
+  polyphase resampling matching ``torchaudio.functional.resample``
+  (sinc_interp_hann, lowpass_filter_width=6, rolloff=0.99).
 """
 
 from __future__ import annotations
@@ -13,6 +19,56 @@ import math
 from functools import lru_cache
 
 import numpy as np
+import torch
+
+
+def contrast(waveform: torch.Tensor, enhancement_amount) -> torch.Tensor:
+    """Sox contrast effect; enhancement_amount in [0, 100]."""
+    scale = enhancement_amount / 750.0
+    temp1 = waveform * (math.pi / 2.0)
+    temp2 = scale * torch.sin(temp1 * 4.0)
+    return torch.sin(temp1 + temp2)
+
+
+def add_noise(
+    waveform: torch.Tensor, noise: torch.Tensor, snr_db: torch.Tensor
+) -> torch.Tensor:
+    """Mix ``noise`` into ``waveform`` at ``snr_db`` (per leading-batch entry)."""
+    energy_signal = torch.sum(waveform**2, dim=-1)
+    energy_noise = torch.sum(noise**2, dim=-1)
+    original_snr_db = 10.0 * (torch.log10(energy_signal) - torch.log10(energy_noise))
+    scale = 10.0 ** ((original_snr_db - snr_db) / 20.0)
+    return waveform + scale[..., None] * noise
+
+
+def augment(
+    generator: torch.Generator,
+    waveform: torch.Tensor,
+    use_contrast: bool = False,
+    use_noise: bool = False,
+) -> torch.Tensor:
+    """The reference's training augmentations, drawn from ``generator``
+    (which must live on ``waveform``'s device; no value reaches the host).
+
+    contrast: enhancement ~ U(5, 20); noise: white, SNR ~ U(30, 40) dB
+    (reference utils.py:398-409, applied to the raw waveform before the
+    transform at train_classifier.py:959-962).
+    """
+
+    def uniform(lo: float, hi: float) -> torch.Tensor:
+        u = torch.rand((), generator=generator, device=waveform.device)
+        return lo + (hi - lo) * u
+
+    if use_contrast:
+        waveform = contrast(waveform, uniform(5.0, 20.0))
+    if use_noise:
+        noise = torch.randn(
+            waveform.shape, generator=generator,
+            device=waveform.device, dtype=waveform.dtype,
+        )
+        snr = uniform(30.0, 40.0).expand(waveform.shape[:-1])
+        waveform = add_noise(waveform, noise, snr)
+    return waveform
 
 
 @lru_cache(maxsize=32)

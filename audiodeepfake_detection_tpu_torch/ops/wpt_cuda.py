@@ -6,10 +6,9 @@ Gray-code (frequency) node order, with an optional fused
 ``log(|x|**power + 1e-12)``.  The kernel's header says what bounds it on
 the H100 and how its design answers that.
 
-The library is compiled with ``nvcc`` for ``sm_90a`` from the package's own
-source at first use, into ``build/kernels/`` under the repository root,
-keyed by the hash of the source and flags, and bound with ``ctypes``.
-Nothing here imports or invokes the CUDA toolchain at import time.
+The library is compiled at first use (``cuda_build.compile_library``) and
+bound with ``ctypes``.  Nothing here imports or invokes the CUDA toolchain
+at import time.
 
 ``wpt_packets_cuda`` takes the plain PyTorch version (``wpt.wpt_analysis``)
 only for a CPU tensor.  A CUDA tensor gets the kernel or an exception.
@@ -22,41 +21,21 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
-from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
 
+from .cuda_build import CSRC_DIR, compile_library
 from .wpt import dec_kernel, log_power, wpt_analysis, wpt_output_length
 
 #: kernel launches made by :func:`wpt_packets_cuda` in this process
 LAUNCHES = 0
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "wpt_cascade.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
-)
+SOURCE = CSRC_DIR / "wpt_cascade.cu"
 
 _LIB: Optional[ctypes.CDLL] = None
 _BUILD_LOCK = threading.Lock()
-
-
-def _nvcc() -> str:
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise RuntimeError(
-            "nvcc not found (PATH or /usr/local/cuda/bin): the CUDA toolkit "
-            "is needed to build the wavelet-packet kernel"
-        )
-    return nvcc
 
 
 def build() -> str:
@@ -69,26 +48,7 @@ def build() -> str:
     with _BUILD_LOCK:
         if _LIB is not None:
             return ""
-        digest = hashlib.sha256(
-            SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
-        lib_path = BUILD_DIR / f"libwpt_cascade-{digest}.so"
-        report = ""
-        if not lib_path.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                capture_output=True,
-                text=True,
-            )
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}) on {SOURCE}:\n"
-                    f"{proc.stdout}{proc.stderr}"
-                )
-            os.replace(tmp, lib_path)  # atomic: concurrent builds agree
-            report = proc.stdout + proc.stderr
+        lib_path, report = compile_library(SOURCE)
         lib = ctypes.CDLL(str(lib_path))
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.wpt_cascade_launch.argtypes = [

@@ -1,6 +1,7 @@
 """Experiment / checkpoint naming, compatible with the reference scheme.
 
-Copy of ``experiment_model_file`` and ``parse_model_file`` from
+Copy of ``experiment_model_file``, ``parse_model_file`` and
+``norm_cache_prefix`` from
 ``audiodeepfake_detection_tpu/utils/naming.py``.  The reference encodes the
 full experiment configuration into the snapshot filename, which acts as its
 checkpoint registry (reference: src/audiofakedetect/train_classifier.py:
@@ -125,3 +126,29 @@ def parse_model_file(path: str) -> DotDict:
     if wavelet is not None:
         cfg.wavelet = wavelet
     return cfg
+
+
+def norm_cache_prefix(args: DotDict) -> str:
+    """Normalization-stats cache path prefix (reference wavelet_math.py:327-347)."""
+    loss_less = "_loss_less" if args.loss_less == "True" else ""
+    return (
+        args.log_dir
+        + "/norms/"
+        + args.data_path.replace("/", "_")
+        + "_"
+        + "-".join(args.only_use)
+        + "_"
+        + args.transform
+        + "_"
+        + args.wavelet
+        + "_"
+        + str(args.num_of_scales)
+        + "_"
+        + str(args.power)
+        + loss_less
+        + "_"
+        + str(args.sample_rate)
+        + "_"
+        + str(args.seconds)
+        + "secs"
+    )
