@@ -2,10 +2,16 @@
 
 Counterpart of ``audiodeepfake_detection_tpu/models/factory.py`` (reference
 ``get_model``, src/audiofakedetect/models.py:710-765) with the same
-model-name vocabulary.  Ported so far: ``"modules"`` with a DCNN-family
-class named by ``args.module`` (a string name or a callable).  ``"lcnn"``,
-``"gridmodel"``, the AST and ``Regression`` raise ``NotImplementedError``
-naming the ROADMAP slice that brings them.
+model-name vocabulary:
+
+* ``"lcnn"``      -- LCNN with ``lstm_channels`` derived from the feature mode
+                    (doubledelta 60 / delta 40 / lfcc 20 / else num_of_scales);
+* ``"gridmodel"`` -- string-defined model from ``args.model_data``;
+* ``"modules"``   -- a DCNN-family class or ``Regression`` named by
+                    ``args.module`` (a string name or a callable).
+
+The AST raises ``NotImplementedError`` naming the ROADMAP slice that brings
+it.
 """
 
 from __future__ import annotations
@@ -15,6 +21,9 @@ from torch import nn
 
 from ..utils.config import DotDict
 from .dcnn import DCNN
+from .gridmodel import get_gridsearch_model
+from .lcnn import LCNN
+from .regression import Regression
 
 _MODULE_REGISTRY = {
     "DCNN": dict(with_dropout=True, with_dilation=True),
@@ -41,12 +50,16 @@ def _tri_flag(value):
     return bool(value)
 
 
-def _build_dcnn(args: DotDict, variant: str, nclasses: int, in_channels: int) -> DCNN:
+def _require_float32(args: DotDict) -> None:
     if str(args.dtype or "float32") != "float32":
         raise NotImplementedError(
             f"dtype={args.dtype!r} (the bf16 autocast mode) is not ported "
             "yet (ROADMAP.md queue 1, slice 5: AST)"
         )
+
+
+def _build_dcnn(args: DotDict, variant: str, nclasses: int, in_channels: int) -> DCNN:
+    _require_float32(args)
     for flag in ("fused_pool", "fused_layer2"):
         if _tri_flag(args.get(flag)):
             raise NotImplementedError(
@@ -81,14 +94,29 @@ def get_model(
 ) -> nn.Module:
     """Build the model named by ``model_name`` from the experiment config."""
     if model_name == "lcnn":
-        raise NotImplementedError(
-            "the LCNN is not ported yet (ROADMAP.md queue 1, slice 4: LCNN)"
+        _require_float32(args)
+        features = args.features or "none"
+        if "doubledelta" in features:
+            lstm_channels = 60
+        elif "delta" in features:
+            lstm_channels = 40
+        elif "lfcc" in features:
+            lstm_channels = 20
+        else:
+            lstm_channels = int(args.num_of_scales)
+        return LCNN(
+            classes=nclasses,
+            in_channels=in_channels,
+            lstm_channels=lstm_channels,
+            fused_layer1=_tri_flag(args.fused_layer1),
         )
     if model_name == "gridmodel":
-        raise NotImplementedError(
-            "string-defined grid models are not ported yet (ROADMAP.md "
-            "queue 1, slice 4: LCNN)"
-        )
+        if args.model_data is None:
+            raise RuntimeError(
+                "Config dict does not contain the key model_data,"
+                "which should hold the list like model structure."
+            )
+        return get_gridsearch_model(args.model_data)
     if model_name == "modules":
         module = args.module
         if callable(module) and not isinstance(module, str):
@@ -102,10 +130,7 @@ def get_model(
                 "the AST is not ported yet (ROADMAP.md queue 1, slice 5: AST)"
             )
         elif name == "Regression":
-            raise NotImplementedError(
-                "the Regression model is not ported yet (ROADMAP.md queue 1, "
-                "slice 4: LCNN)"
-            )
+            model = Regression(nclasses=nclasses)
         elif callable(module):
             model = module(args)
         else:

@@ -1,9 +1,16 @@
-"""BatchNorm from supplied moments.
+"""Layers that ``torch.nn`` does not hold.
 
-Counterpart of ``_torch_bn_stats(..., stats=(sum, sumsq))`` in
-``audiodeepfake_detection_tpu/models/layers.py``: the fused first block
-returns the per-channel ``(sum, sumsq)`` of its output, and the BatchNorm
-that follows normalises with them instead of reading the activation again.
+Counterparts in ``audiodeepfake_detection_tpu/models/layers.py``:
+
+* :func:`batch_norm_from_moments` -- ``_torch_bn_stats(..., stats=(sum,
+  sumsq))``: the DCNN's fused first block returns the per-channel ``(sum,
+  sumsq)`` of its output, and the BatchNorm that follows normalises with
+  them instead of reading the activation again;
+* :class:`MaxFeatureMap2D` -- ``max_feature_map_2d``, the LCNN's maxout
+  over channel halves (reference src/audiofakedetect/models.py:161-209);
+* :class:`BLSTMLayer` -- the bidirectional LSTM that keeps the sequence
+  length (reference models.py:212-237).
+
 Everything else the JAX module holds (``folded_bn_conv``, ``Conv2d``,
 ``PReLU``, ...) is ``torch.nn`` here.
 """
@@ -45,3 +52,37 @@ def batch_norm_from_moments(
     # one pass over x: x * scale + shift
     y = torch.addcmul(shift.reshape(shape), x.float(), scale.reshape(shape))
     return y.to(x.dtype)
+
+
+class MaxFeatureMap2D(nn.Module):
+    """Maxout over the two channel halves of ``[B, C, H, W]``: channel ``j``
+    against channel ``j + C/2``, giving ``C/2`` channels."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        c = x.shape[1]
+        if c % 2:
+            raise ValueError(f"MaxFeatureMap2D needs an even channel count, got {c}")
+        return torch.maximum(x[:, : c // 2], x[:, c // 2 :])
+
+
+class BLSTMLayer(nn.Module):
+    """Bidirectional LSTM on ``[B, T, input_dim]`` keeping the sequence
+    length; ``output_dim`` is both directions' hidden sizes together.
+
+    The member is named ``l_blstm`` as in the reference, so state-dict keys
+    read ``...l_blstm.weight_ih_l0`` and so on.  Gates are ordered ``i, f,
+    g, o`` and both biases are added, as in the JAX package's scan.
+    """
+
+    def __init__(self, input_dim: int, output_dim: int) -> None:
+        super().__init__()
+        if output_dim % 2:
+            raise ValueError(
+                f"BLSTMLayer: output_dim {output_dim} must be even (two directions)"
+            )
+        self.l_blstm = nn.LSTM(
+            input_dim, output_dim // 2, bidirectional=True, batch_first=True
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.l_blstm(x)[0]

@@ -1,4 +1,5 @@
-"""Carry DCNN weights across: reference ``.pt`` snapshots and JAX variables.
+"""Carry DCNN and LCNN weights across: reference ``.pt`` snapshots and JAX
+variables.
 
 Counterpart of ``audiodeepfake_detection_tpu/models/torch_import.py``.  The
 port's modules use the reference ``nn.Sequential`` layout, so a snapshot in
@@ -7,17 +8,19 @@ translation step:
 
 * **older snapshots.**  The bundled coif4 checkpoint uses other Sequential
   indices than the stft/sym5 ones (an older layer arrangement), so
-  :func:`import_dcnn` matches layers by their *ordered kind sequence*
-  (conv / prelu / batchnorm / linear) within each block (``cnn`` /
-  ``dil_conv`` / ``fc``) instead of by index, and re-keys them onto the
-  port's indices.
+  :func:`import_dcnn` and :func:`import_lcnn` match layers by their
+  *ordered kind sequence* (conv / prelu / batchnorm / linear / lstm) within
+  each block (``cnn`` / ``dil_conv`` / ``fc``; ``lcnn`` / ``lstm`` /
+  ``fc``) instead of by index, and re-key them onto the port's indices.
 * **JAX variables.**  :func:`state_dict_from_jax` turns the JAX package's
   ``{"params", "batch_stats"}`` tree (numpy arrays) into the port's
   ``state_dict``: conv ``[kh, kw, I, O] -> [O, I, kh, kw]``, linear
-  ``[in, out] -> [out, in]``, PReLU ``() -> [1]``, ``num_batches_tracked``
-  int32 -> int64.  :func:`adam_state_from_jax` carries optax's Adam state
-  (``count / mu / nu``) into a ``torch.optim.Adam`` with the same key map,
-  so both packages can continue from one mid-training state.
+  ``[in, out] -> [out, in]``, PReLU ``() -> [1]``, the BLSTM's ``w_ih_fw``
+  ... ``b_hh_bw`` -> ``l_blstm.weight_ih_l0`` ... ``bias_hh_l0_reverse``,
+  ``num_batches_tracked`` int32 -> int64.  :func:`adam_state_from_jax`
+  carries optax's Adam state (``count / mu / nu``) into a
+  ``torch.optim.Adam`` with the same key map, so both packages can continue
+  from one mid-training state.
 """
 
 from __future__ import annotations
@@ -69,7 +72,8 @@ def strip_module_prefix(state) -> StateDict:
     return out
 
 
-# (flax name, kind, port Sequential index) per block, in forward order
+# (flax name, kind, port Sequential index) per block, in forward order; an
+# index of None is a module that is no Sequential member (``fc.weight``)
 _DCNN_CNN = [
     ("cnn_0", "conv", 0),
     ("cnn_1", "prelu", 1),
@@ -101,11 +105,47 @@ _DCNN_DIL = [
     ("dil_8", "prelu", 8),
 ]
 _DCNN_FC = [("fc_1", "linear", 1)]
-_DCNN_BLOCKS = (("cnn", _DCNN_CNN), ("dil_conv", _DCNN_DIL), ("fc", _DCNN_FC))
+_LCNN_CNN = [
+    ("lcnn_0", "conv", 0),
+    ("lcnn_3", "conv", 3),
+    ("lcnn_5", "batchnorm", 5),
+    ("lcnn_6", "conv", 6),
+    ("lcnn_9", "batchnorm", 9),
+    ("lcnn_10", "conv", 10),
+    ("lcnn_12", "batchnorm", 12),
+    ("lcnn_13", "conv", 13),
+    ("lcnn_16", "conv", 16),
+    ("lcnn_18", "batchnorm", 18),
+    ("lcnn_19", "conv", 19),
+    ("lcnn_21", "batchnorm", 21),
+    ("lcnn_22", "conv", 22),
+    ("lcnn_24", "batchnorm", 24),
+    ("lcnn_25", "conv", 25),
+]
+_LCNN_LSTM = [("lstm_0", "lstm", 0), ("lstm_1", "lstm", 1)]
+_LCNN_FC = [("fc", "linear", None)]
+_LAYOUTS = {
+    "dcnn": (("cnn", _DCNN_CNN), ("dil_conv", _DCNN_DIL), ("fc", _DCNN_FC)),
+    "lcnn": (("lcnn", _LCNN_CNN), ("lstm", _LCNN_LSTM), ("fc", _LCNN_FC)),
+}
+# the reference wraps each LSTM in a BLSTMLayer whose member is ``l_blstm``
+_LSTM_PREFIX = "l_blstm."
+_LSTM_NAMES = (  # (JAX BLSTMLayer parameter, nn.LSTM parameter)
+    ("w_ih_fw", "weight_ih_l0"),
+    ("w_hh_fw", "weight_hh_l0"),
+    ("b_ih_fw", "bias_ih_l0"),
+    ("b_hh_fw", "bias_hh_l0"),
+    ("w_ih_bw", "weight_ih_l0_reverse"),
+    ("w_hh_bw", "weight_hh_l0_reverse"),
+    ("b_ih_bw", "bias_ih_l0_reverse"),
+    ("b_hh_bw", "bias_hh_l0_reverse"),
+)
 
 
 def _kind_of(tensors: Dict[str, torch.Tensor]) -> str:
     names = set(tensors)
+    if any(n.startswith(_LSTM_PREFIX + "weight_ih") for n in names):
+        return "lstm"
     if "running_mean" in names:
         return "batchnorm"
     w = tensors.get("weight")
@@ -119,41 +159,41 @@ def _kind_of(tensors: Dict[str, torch.Tensor]) -> str:
 
 
 def _group_layers(
-    state: StateDict,
+    state: StateDict, what: str
 ) -> Dict[str, List[Tuple[str, Dict[str, torch.Tensor]]]]:
-    """Group ``block.index.name`` keys into ordered (kind, tensors) lists."""
+    """Group ``block.index.name`` keys (and ``block.name`` keys of a block
+    that is one module) into ordered (kind, tensors) lists."""
     blocks: Dict[str, Dict[int, Dict[str, torch.Tensor]]] = defaultdict(
         lambda: defaultdict(dict)
     )
     for key, val in state.items():
         m = re.match(r"^(\w+)\.(\d+)\.(.+)$", key)
+        if m is not None:
+            blocks[m.group(1)][int(m.group(2))][m.group(3)] = val
+            continue
+        m = re.match(r"^(\w+)\.(\w+)$", key)
         if m is None:
-            raise ValueError(f"unexpected key {key!r} in a DCNN state dict")
-        blocks[m.group(1)][int(m.group(2))][m.group(3)] = val
+            raise ValueError(f"unexpected key {key!r} in a {what} state dict")
+        blocks[m.group(1)][-1][m.group(2)] = val
     return {
         block: [(_kind_of(layers[i]), layers[i]) for i in sorted(layers)]
         for block, layers in blocks.items()
     }
 
 
-def import_dcnn(state: StateDict) -> StateDict:
-    """Re-key a DCNN state dict onto the port's Sequential indices.
-
-    Layers are matched by their ordered kinds within each block, so both
-    the current reference layout and the older coif4 arrangement load.
-    Raises on a kind mismatch or on layers left over.
-    """
-    groups = _group_layers(strip_module_prefix(state))
-    unknown = set(groups) - {name for name, _ in _DCNN_BLOCKS}
+def _import(state: StateDict, layout: str, optional: Tuple[str, ...] = ()) -> StateDict:
+    what = layout.upper()
+    groups = _group_layers(strip_module_prefix(state), what)
+    unknown = set(groups) - {name for name, _ in _LAYOUTS[layout]}
     if unknown:
-        raise ValueError(f"unexpected DCNN blocks {sorted(unknown)}")
+        raise ValueError(f"unexpected {what} blocks {sorted(unknown)}")
     out: StateDict = {}
-    for block, slots in _DCNN_BLOCKS:
+    for block, slots in _LAYOUTS[layout]:
         layers = groups.get(block)
         if layers is None:
-            if block == "dil_conv":  # DCNNxDilation has no dilated block
+            if block in optional:
                 continue
-            raise ValueError(f"DCNN state dict has no {block!r} block")
+            raise ValueError(f"{what} state dict has no {block!r} block")
         if len(layers) != len(slots):
             raise ValueError(
                 f"{block}: {len(layers)} layers in the checkpoint for "
@@ -165,25 +205,45 @@ def import_dcnn(state: StateDict) -> StateDict:
                     f"Layer kind mismatch at {name}: expected {kind}, "
                     f"checkpoint has {got_kind}"
                 )
+            prefix = block if index is None else f"{block}.{index}"
             for tname, val in tensors.items():
-                out[f"{block}.{index}.{tname}"] = val
+                out[f"{prefix}.{tname}"] = val
     return out
 
 
-def state_dict_from_jax(variables: Dict[str, Any]) -> StateDict:
-    """The port's DCNN ``state_dict`` from JAX ``{"params", "batch_stats"}``.
+def import_dcnn(state: StateDict) -> StateDict:
+    """Re-key a DCNN state dict onto the port's Sequential indices.
 
-    Inverse of the JAX package's ``import_dcnn`` and equal, key by key and
-    value by value, to its ``export_state_dict(variables, "dcnn")``.
+    Layers are matched by their ordered kinds within each block, so both
+    the current reference layout and the older coif4 arrangement load.
+    Raises on a kind mismatch or on layers left over.
+    """
+    # DCNNxDilation has no dilated block
+    return _import(state, "dcnn", optional=("dil_conv",))
+
+
+def import_lcnn(state: StateDict) -> StateDict:
+    """Re-key an LCNN state dict (``lcnn.N.*``, ``lstm.N.l_blstm.*``,
+    ``fc.*``) onto the port's Sequential indices, matching layers by their
+    ordered kinds as :func:`import_dcnn` does."""
+    return _import(state, "lcnn")
+
+
+def state_dict_from_jax(variables: Dict[str, Any], layout: str = "dcnn") -> StateDict:
+    """The port's ``state_dict`` from JAX ``{"params", "batch_stats"}``.
+
+    ``layout`` is ``"dcnn"`` or ``"lcnn"``.  Inverse of the JAX package's
+    ``import_dcnn`` / ``import_lcnn`` and equal, key by key and value by
+    value, to its ``export_state_dict(variables, layout)``.
     """
     params = variables["params"]
     batch_stats = variables.get("batch_stats", {})
     out: StateDict = {}
-    for block, slots in _DCNN_BLOCKS:
+    for block, slots in _LAYOUTS[layout]:
         for name, kind, index in slots:
             if name not in params and name not in batch_stats:
                 continue  # e.g. the dilated block of DCNNxDilation
-            prefix = f"{block}.{index}"
+            prefix = block if index is None else f"{block}.{index}"
             if kind == "conv":
                 conv = params[name]["Conv_0"]
                 kern = np.asarray(conv["kernel"])
@@ -195,6 +255,11 @@ def state_dict_from_jax(variables: Dict[str, Any]) -> StateDict:
             elif kind == "linear":
                 out[f"{prefix}.weight"] = np.asarray(params[name]["kernel"]).T
                 out[f"{prefix}.bias"] = np.asarray(params[name]["bias"])
+            elif kind == "lstm":
+                for jax_name, torch_name in _LSTM_NAMES:
+                    out[f"{prefix}.{_LSTM_PREFIX}{torch_name}"] = np.asarray(
+                        params[name][jax_name]
+                    )
             else:  # batchnorm
                 if name in params:
                     out[f"{prefix}.weight"] = np.asarray(params[name]["scale"])
@@ -217,16 +282,17 @@ def adam_state_from_jax(
     count: int,
     mu: Dict[str, Any],
     nu: Dict[str, Any],
+    layout: str = "dcnn",
 ) -> None:
     """Install optax ``ScaleByAdamState(count, mu, nu)`` in ``optimizer``.
 
-    ``mu`` / ``nu`` are numpy trees shaped like the JAX ``params``; they
-    become ``exp_avg`` / ``exp_avg_sq`` of the matching parameter of
-    ``model`` and ``count`` its ``step``.  ``optimizer`` must hold exactly
-    ``model``'s parameters.
+    ``mu`` / ``nu`` are numpy trees shaped like the JAX ``params`` of a
+    model of ``layout``; they become ``exp_avg`` / ``exp_avg_sq`` of the
+    matching parameter of ``model`` and ``count`` its ``step``.
+    ``optimizer`` must hold exactly ``model``'s parameters.
     """
-    exp_avg = state_dict_from_jax({"params": mu})
-    exp_avg_sq = state_dict_from_jax({"params": nu})
+    exp_avg = state_dict_from_jax({"params": mu}, layout)
+    exp_avg_sq = state_dict_from_jax({"params": nu}, layout)
     names = {id(p): name for name, p in model.named_parameters()}
     blob = optimizer.state_dict()
     state = {}

@@ -1,4 +1,5 @@
-"""Fused first DCNN block: conv2d(1->C, 3x3, pad 2) + PReLU + max-pool 2x2.
+"""Fused first blocks: the DCNN's conv2d(1->C, 3x3, pad 2) + PReLU + max-pool
+2x2, and the LCNN's conv2d(1->C, 5x5, pad 2) + MaxFeatureMap + max-pool 2x2.
 
 Counterpart of ``audiodeepfake_detection_tpu/ops/fused_conv1.py``
 (``fused_conv1_prelu_pool`` and ``fused_conv1_prelu_pool_stats``), with the
@@ -32,6 +33,21 @@ PyTorch version below (``F.conv2d`` -> PReLU -> ``F.max_pool2d`` -> moments,
 ordinary autograd) runs only for a CPU tensor, and is what the kernels are
 checked against.  Both return the true ``dalpha`` at ``alpha == 0`` (the
 JAX kernel returns 0 there).
+
+The LCNN block (``fused_conv_mfm_pool``, the JAX function of that name)::
+
+    x [B, H, W], w [25, C], b [C] -> out [B, H // 2, W // 2, C // 2]
+
+Tap ``w[dh * 5 + dw, c]`` is torch's ``conv.weight[c, 0, dh, dw]``.  Each
+output is the maximum of eight conv values: the four pool phases of channel
+``k`` and of channel ``k + C/2``.  The gradient of a tie goes to the first
+maximal candidate in the order phase-major, lower half first -- what the
+JAX kernel's selection code records, and what ``torch.where(a >= b, a, b)``
+followed by ``F.max_pool2d`` do in the plain version (``torch.maximum``
+would split a tie in halves).  Ties are real: a silent frame makes every
+conv value of a channel equal to its bias.  Same rules as above for types,
+for ``x`` (no gradient, raises if asked) and for the device: a CUDA tensor
+launches the kernels of ``csrc/fused_conv1.cu`` or raises.
 """
 
 from __future__ import annotations
@@ -144,3 +160,60 @@ def fused_conv1_prelu_pool_stats(x, w, b, alpha):
     """Like :func:`fused_conv1_prelu_pool`, also returning the float32
     per-channel ``(sum, sumsq)`` of the output."""
     return _run(x, w, b, alpha, True)
+
+
+# ------------------------------------------ conv 5x5 + MaxFeatureMap + pool
+
+K_MFM = 5
+
+
+def plain_conv_mfm_pool(x, w, b) -> torch.Tensor:
+    """The LCNN block in plain PyTorch ops, differentiable by autograd."""
+    dt = x.dtype
+    c = w.shape[1]
+    conv = F.conv2d(
+        x.float()[:, None],
+        w.to(dt).float().t().reshape(c, 1, K_MFM, K_MFM),
+        b.to(dt).float(),
+        padding=PAD,
+    )
+    lo, hi = conv[:, : c // 2], conv[:, c // 2 :]
+    act = torch.where(lo >= hi, lo, hi)  # a tie's gradient goes to the lower half
+    pooled = F.max_pool2d(act, 2)  # floor mode; its backward takes the first max
+    return pooled.permute(0, 2, 3, 1).contiguous().to(dt)
+
+
+class _FusedConvMfm(torch.autograd.Function):
+    """The CUDA kernels: forward (with the selection code when a parameter
+    needs a gradient) and backward (``dW``, ``db``; nothing for ``x``)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        wq = w.to(x.dtype).float().contiguous()
+        bq = b.to(x.dtype).float().contiguous()
+        want_code = any(ctx.needs_input_grad[1:3])
+        out, code = fused_conv1_cuda.mfm_forward(x, wq, bq, want_code)
+        if want_code:
+            ctx.save_for_backward(x, code)
+            ctx.channels = w.shape[1]
+            ctx.param_dtypes = (w.dtype, b.dtype)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, code = ctx.saved_tensors
+        dw, db = fused_conv1_cuda.mfm_backward(x, g.contiguous(), code, ctx.channels)
+        wt, bt = ctx.param_dtypes
+        return None, dw.to(wt), db.to(bt)
+
+
+def fused_conv_mfm_pool(x, w, b) -> torch.Tensor:
+    """``[B, H, W] x [25, C] x [C] -> [B, H//2, W//2, C//2]`` fused block."""
+    if x.requires_grad:
+        raise ValueError(
+            "fused_conv_mfm_pool defines no gradient for x (the transform's "
+            "output needs none); detach it, or use the unfused block"
+        )
+    if x.device.type == "cpu":
+        return plain_conv_mfm_pool(x, w, b)
+    return _FusedConvMfm.apply(x, w, b)

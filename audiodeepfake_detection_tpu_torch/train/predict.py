@@ -192,8 +192,9 @@ def build_scorer_from_snapshot(
     """Rebuild ``(model, normalized transform, cfg)`` from a snapshot.
 
     The snapshot filename encodes the experiment configuration (decoded by
-    ``utils.naming.parse_model_file``); ``time_dim`` and ``flattend_size``
-    are recovered from the tensors.  ``norm`` names the ``*_mean_std.pkl``
+    ``utils.naming.parse_model_file``); a DCNN's ``time_dim`` and
+    ``flattend_size`` are recovered from the tensors, an LCNN's width from
+    the encoded features and ``num_of_scales``.  ``norm`` names the ``*_mean_std.pkl``
     written at training time; without it, a ``<snapshot>.norm.pkl``
     sidecar is used when present, and otherwise scoring runs
     UN-normalized (with a warning).  The model comes back on the CPU in
@@ -202,7 +203,8 @@ def build_scorer_from_snapshot(
     CUDA kernel is timed against).
     """
     from ..models.dcnn import DCNN
-    from ..models.torch_import import import_dcnn, load_torch_state_dict
+    from ..models.factory import get_model
+    from ..models.torch_import import import_dcnn, import_lcnn, load_torch_state_dict
     from ..utils.config import default_config
     from ..utils.naming import parse_model_file
     from .transforms import make_transform, normalized_transform
@@ -211,15 +213,10 @@ def build_scorer_from_snapshot(
     cfg.update(parse_model_file(snapshot))
     cfg.log_scale = log_scale
     name = cfg.model_name
-    if name == "LCNN":
-        raise NotImplementedError(
-            "LCNN snapshot scoring is not ported yet (ROADMAP.md queue 1, "
-            "slice 4: LCNN)"
-        )
-    if not name.startswith("DCNN"):
+    if name != "LCNN" and not name.startswith("DCNN"):
         raise ValueError(
             f"snapshot model {name!r} has no standalone-scoring support "
-            "(the DCNN family does)"
+            "(DCNN family and LCNN checkpoints are)"
         )
     base = make_transform(cfg, use_kernel=use_kernel)
 
@@ -245,6 +242,10 @@ def build_scorer_from_snapshot(
             )
         transform = base
 
+    if name == "LCNN":
+        model = get_model(cfg, "lcnn")
+        model.load_state_dict(import_lcnn(load_torch_state_dict(snapshot)), strict=True)
+        return model.eval(), transform, cfg
     state = import_dcnn(load_torch_state_dict(snapshot))
     kw = {"flattend_size": int(state["fc.1.weight"].shape[1])}
     if cfg.loss_less == "True":

@@ -12,7 +12,7 @@ src/audiofakedetect/train_classifier.py:232-1065):
   device after every step;
 * a snapshot is the reference-layout ``.pt`` (``{"MODEL_STATE",
   "EPOCHS_RUN"}``, which the serving path and the JAX package's
-  ``import_dcnn`` load) with its ``.norm.pkl`` sidecar, plus one
+  ``import_dcnn`` / ``import_lcnn`` load) with its ``.norm.pkl`` sidecar, plus one
   ``.state.pt`` holding model, optimizer, epoch, step and generator states
   for ``--resume``;
 * EER and the per-label accuracy tables are computed on the host from the
@@ -359,6 +359,7 @@ class Trainer:
         full state is looked for beside it."""
         from ..models.torch_import import (
             import_dcnn,
+            import_lcnn,
             load_epochs_run,
             load_torch_state_dict,
         )
@@ -379,6 +380,7 @@ class Trainer:
             self.epochs_run = int(blob["epoch"]) + 1
             self.step_total = int(blob["step"])
         else:
-            self.load_variables(import_dcnn(load_torch_state_dict(path)))
+            importer = import_lcnn if self.args.model == "lcnn" else import_dcnn
+            self.load_variables(importer(load_torch_state_dict(path)))
             # EPOCHS_RUN holds the completed epoch's index (-1 if absent)
             self.epochs_run = load_epochs_run(path) + 1

@@ -2,8 +2,9 @@
 
 Counterpart of ``audiodeepfake_detection_tpu/train/transforms.py`` (the
 reference's ``get_transforms``, src/audiofakedetect/wavelet_math.py:
-266-452) for the wavelet-packet front-end.  A transform is a plain function
-on tensors; it runs on the device its input lies on.
+266-452): the wavelet-packet and STFT front-ends with the optional LFCC /
+delta feature stack.  A transform is a plain function on tensors; it runs on
+the device its input lies on.
 """
 
 from __future__ import annotations
@@ -16,12 +17,14 @@ from typing import Callable, Dict, Iterable, Optional, Tuple
 import numpy as np
 import torch
 
+from ..ops.lfcc import compute_deltas, lfcc
 from ..ops.normalize import (
     normalize,
     welford_finalize,
     welford_init,
     welford_update,
 )
+from ..ops.stft import spectrogram
 from ..ops.wpt import packet_image
 from ..utils.config import DotDict
 from ..utils.naming import norm_cache_prefix
@@ -32,40 +35,75 @@ TransformFn = Callable[[torch.Tensor], torch.Tensor]
 def make_transform(args: DotDict, use_kernel: bool = True) -> TransformFn:
     """Build the time-frequency transform: ``[B, 1, T] -> [B, C, F, T']``.
 
+    ``transform="stft"`` is the power spectrogram (``n_fft = 2 *
+    num_of_scales - 1``), ``"packets"`` the wavelet-packet image;
+    ``features`` stacks ``lfcc`` and one or two ``compute_deltas`` on top, in
+    the reference's order.  The log scaling applies to the base image only
+    when no features follow (the LFCC takes its own log).
     ``use_kernel=False`` runs the plain PyTorch wavelet-packet cascade on
-    any device (what the CUDA kernel is timed against).  Ported: the
-    ``packets`` transform without extra features, for serving and for
-    training.  The ``stft`` transform and the ``lfcc`` / ``delta`` features
-    raise ``NotImplementedError`` naming the ROADMAP slice that ports them.
+    any device (what the CUDA kernel is timed against).
     """
     features = args.features or "none"
-    if args.transform == "stft":
-        raise NotImplementedError(
-            "transform='stft' is not ported yet (ROADMAP.md queue 1, slice 3: "
-            "STFT through torch.stft); ported: transform='packets'"
-        )
-    if args.transform != "packets":
-        raise ValueError(f"Unknown transform {args.transform!r}")
-    if features != "none":
-        raise NotImplementedError(
-            f"features={features!r} (lfcc/delta) are not ported yet "
-            "(ROADMAP.md queue 1, slice 4: LCNN); ported: features='none'"
-        )
-    level = int(math.log2(args.num_of_scales))
-    log_scale = bool(args.log_scale)
+    log_scale = bool(features == "none" and args.log_scale)
     loss_less = args.loss_less == "True" or args.loss_less is True
 
+    if args.transform == "stft":
+        if loss_less:
+            raise ValueError(
+                "Sign channel not possible for stft due to complex data type."
+            )
+        n_fft = int(args.num_of_scales) * 2 - 1
+
+        def base(audio: torch.Tensor) -> torch.Tensor:
+            return spectrogram(
+                audio,
+                n_fft=n_fft,
+                hop_length=int(args.hop_length),
+                power=args.power,
+                log_scale=log_scale,
+            )
+
+    elif args.transform == "packets":
+        level = int(math.log2(args.num_of_scales))
+
+        def base(audio: torch.Tensor) -> torch.Tensor:
+            return packet_image(
+                audio,
+                args.wavelet,
+                level=level,
+                log_scale=log_scale,
+                loss_less=loss_less,
+                power=args.power,
+                block_norm=bool(args.block_norm),
+                use_kernel=use_kernel,
+            )
+
+    else:
+        raise ValueError(f"Unknown transform {args.transform!r}")
+
+    stack = [base]
+    if "lfcc" in features or "delta" in features:
+
+        def lfcc_step(x: torch.Tensor) -> torch.Tensor:
+            return lfcc(
+                x,
+                sample_rate=args.sample_rate,
+                f_min=args.f_min,
+                f_max=args.f_max,
+                num_of_scales=args.num_of_scales,
+            )
+
+        stack.append(lfcc_step)
+    if "delta" in features:
+        stack.append(compute_deltas)
+    if "doubledelta" in features:
+        stack.append(compute_deltas)
+
     def transform(audio: torch.Tensor) -> torch.Tensor:
-        return packet_image(
-            audio,
-            args.wavelet,
-            level=level,
-            log_scale=log_scale,
-            loss_less=loss_less,
-            power=args.power,
-            block_norm=bool(args.block_norm),
-            use_kernel=use_kernel,
-        )
+        x = audio
+        for fn in stack:
+            x = fn(x)
+        return x
 
     return transform
 

@@ -1,5 +1,5 @@
-"""Drive the PyTorch/CUDA port's serving and training paths once on one
-NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving and training paths (DCNN and LCNN)
+once on one NVIDIA GPU.
 
 Run from the repository root, with no arguments:
 
@@ -32,7 +32,25 @@ Phases, in order; any failure propagates and the script exits non-zero
 8. time: the fused kernels alone vs plain, the whole train step fused vs
    unfused, and the eval step, at batch 128;
 9. profile: ``torch.profiler`` over a few fused train steps, device time
-   by kernel.
+   by kernel;
+10. fused LCNN block vs plain: forward, ``dW`` and ``db`` of the conv 5x5 +
+    MaxFeatureMap + pool kernels against the plain PyTorch version at the
+    LCNN's shape (B=128, 101x256, C=64; fp32 and bf16), the packet and LFCC
+    images, an odd and a wide geometry and a case full of ties; every
+    selection the kernel made is held against the plain conv values, its
+    gradients are rebuilt from its own code in float64, and two runs are
+    compared bit for bit;
+11. train the LCNN: the same corpus through ``run_experiment`` on ``cuda``
+    (stft, hop 220, log scale, full-width LCNN with the fused first block,
+    batch 128, 2 epochs with validation, test and snapshot), the kernels'
+    launch counts read over exactly this run; the same training fused
+    against unfused loss by loss (dropout 0); a few steps each of
+    packets-sym5 + LCNN and stft + LFCC + LCNN;
+12. serve the trained LCNN snapshot on ``cuda`` over HTTP, scores against
+    the same snapshot on the CPU;
+13. time: the LCNN kernels alone vs plain, the LCNN train step fused (with
+    either memory layout behind the block) vs unfused, the eval step and
+    the two BLSTMs alone at batch 128; a profile of the fused LCNN step.
 
 The last lines are the kernels' JSON record, the measurements with the
 card's name and power limit, and ``{"ok": true, "device": ...}``.
@@ -84,6 +102,22 @@ FUSED_BF16_RTOL = 1e-2
 # per-step loss, fused vs unfused training from the same seed: BatchNorm
 # moments one-pass vs centred, gradient sums reordered, then Adam
 LOSS_RTOL = 2e-3
+# ---- the LCNN path (phases 10-13)
+LCNN_SHAPE = (128, 101, 256, 64)  # B, H (time), W (frequency), C of the first block
+# forward of the LCNN block: 25 fp32 FMAs per conv value on both sides
+MFM_FWD_ATOL = 2e-5
+# dW / db against the plain version's autograd, relative to each tensor's
+# largest entry.  Nearly all of it is the plain side's: cuDNN sums 3.3 M fp32
+# terms per tap at B=128 (measured 5.9e-4 and 2.9e-3 on two seeds, 1e-7 at
+# B=2), while the kernel lies 2.2e-7 from the float64 rebuild below and only
+# 2 of its 26 M selections differ from the plain conv's, both near-ties
+MFM_SUM_RTOL = 1e-2
+# a selection that differs from the plain conv's first maximum must be a
+# near-tie: the two values within this many fp32 ulps of the larger
+MFM_TIE_ULPS = 8
+# dW / db rebuilt in float64 from the kernel's own code: what is left is the
+# kernel's fp32 summation (64 terms a thread, 8 threads, 1664 blocks)
+MFM_CODE_RTOL = 2e-5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12
 BATCH = 128
@@ -184,8 +218,10 @@ def http(url: str, body: bytes | None = None):
         return err.code, json.loads(err.read())
 
 
-def serve(wpt_cuda, snapshot: str):
-    """Phase 4: HTTP uploads scored on the card through the kernel."""
+def serve(wpt_cuda, snapshot: str, kernel_on_path: bool = True):
+    """Phases 4 and 12: HTTP uploads scored on the card.  The DCNN snapshot's
+    transform is the wavelet-packet kernel (``kernel_on_path``); the LCNN
+    snapshot's is the STFT, and its fused block is for training only."""
     from audiodeepfake_detection_tpu_torch.train.predict import (
         build_scorer_from_snapshot,
         make_score_fn,
@@ -259,7 +295,7 @@ def serve(wpt_cuda, snapshot: str):
             f"{payload['p_fake']:.6f}, max|cuda - cpu| {err:.3e}")
     if not worst <= SCORE_ATOL:
         raise AssertionError(f"cuda vs cpu scores: {worst} > {SCORE_ATOL}")
-    if launches < max(dispatches, 1):
+    if kernel_on_path and launches < max(dispatches, 1):
         raise AssertionError(
             f"kernel launched {launches} times for {dispatches} dispatches"
         )
@@ -461,14 +497,10 @@ def train_args(root: str, data: str, log_dir: str, **extra):
     return args
 
 
-def train(wpt_cuda, fused_cuda, root: str):
+def train(wpt_cuda, fused_cuda, root: str, data: str):
     """Phase 7: the training path through ``run_experiment`` on the card."""
     from audiodeepfake_detection_tpu_torch.train.experiment import run_experiment
     from audiodeepfake_detection_tpu_torch.train.serve import service_from_snapshot
-
-    t0 = time.perf_counter()
-    data = write_corpus(root)
-    log(f"  corpus: 56 clips of 10 s written in {time.perf_counter() - t0:.1f} s")
 
     # the main path: the reference's defaults (dropout 0.6 / 0.3) with both
     # augmentations on
@@ -599,13 +631,16 @@ def train_timing(fc, fused_cuda, norm, card_line: str):
 
 # kernel-name fragments (lower case) -> group, first match wins
 KERNEL_GROUPS = (
+    ("fused_conv_mfm", ("fused_conv_mfm",)),
     ("fused_conv1", ("fused_conv1",)),
     ("wpt_cascade", ("wpt_cascade",)),
+    ("lstm_cell", ("lstm", "rnn")),
     ("convolution", ("fft", "gemm", "wgrad", "dgrad", "fprop", "pointwise_mult_and_sum",
                      "region_transform", "nhwctonchw", "nchwtonhwc", "cudnn::engines",
                      "implicit", "conv")),
     ("batch_norm", ("batch_norm", "bn_")),
     ("max_pool", ("max_pool",)),
+    ("maximum", ("maximum",)),
     ("optimizer", ("multi_tensor",)),
     ("reduce", ("reduce_kernel",)),
     ("softmax_loss", ("softmax", "nll_loss")),
@@ -613,7 +648,10 @@ KERNEL_GROUPS = (
 
 
 def profile_train(train_step, n: int = 5):
-    """Phase 9: device time by kernel over ``n`` fused train steps."""
+    """Phases 9 and 13: device time by kernel over ``n`` fused train steps.
+    (cuDNN's LSTM runs its matrix products through GEMM kernels that the
+    names cannot tell from a convolution's: ``lstm_cell`` holds the cell
+    kernels only, and phase 13 times the BLSTMs alone.)"""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):
@@ -641,12 +679,335 @@ def profile_train(train_step, n: int = 5):
         hit = next((g for g, keys in KERNEL_GROUPS if any(k in low for k in keys)), "other")
         groups[hit] += ms
     log("  by group (ms/step): " + ", ".join(f"{g} {ms:.3f}" for g, ms in groups.items()))
-    ours = [r for r in rows if "fused_conv1" in r[0] or "wpt_cascade" in r[0]]
+    ours = [r for r in rows if any(k in r[0] for k in ("fused_conv", "wpt_cascade"))]
     for name, ms, count in ours + rows[:12]:
         log(f"    {ms:8.3f} ms  x{count:<3d} {name[:100]}")
     return {"wall_ms": wall_ms, "device_ms": device_ms, "groups": groups,
             "top": [{"name": n_[:100], "ms": ms, "calls": c}
                     for n_, ms, c in ours + rows[:12]]}
+
+
+# ------------------------------------------------ the LCNN path (10-13)
+
+
+def mfm_bounds(b, h, w, c, itemsize=4):
+    """Training forward: x and the parameters read, out and code written;
+    8 candidates x 25 FMAs per output.  Backward: g, code and x read, dW/db
+    written; 25 FMAs and one add per output."""
+    n_out = b * (h // 2) * (w // 2) * (c // 2)
+    params = 4 * (25 * c + c)
+    fwd = bound_ms(itemsize * b * h * w + params + n_out * (itemsize + 1), n_out * 400)
+    bwd = bound_ms(itemsize * b * h * w + n_out * (itemsize + 1) + params, n_out * 51)
+    return fwd, bwd
+
+
+def mfm_case(b, h, w, c, dtype, seed):
+    gen = torch.Generator().manual_seed(seed)
+    make = lambda *shape, scale=1.0: (  # noqa: E731
+        scale * torch.randn(*shape, generator=gen)).cuda().to(dtype)
+    x = make(b, h, w)
+    params = [make(25, c, scale=0.1).requires_grad_(), make(c, scale=0.1).requires_grad_()]
+    return x, params, make(b, h // 2, w // 2, c // 2)
+
+
+def mfm_tie_case():
+    """Silence, duplicated rows and equal channel halves: ties across
+    phases and halves in every window of frames 0 and 1."""
+    gen = torch.Generator().manual_seed(40)
+    x = torch.zeros(3, 12, 16)
+    x[1] = torch.randn(6, 16, generator=gen).repeat_interleave(2, 0)
+    x[2] = torch.randn(12, 16, generator=gen)
+    w = 0.1 * torch.randn(25, 6, generator=gen)
+    w[:, 3:] = w[:, :3]
+    params = [w.cuda().requires_grad_(), torch.zeros(6).cuda().requires_grad_()]
+    return x.cuda(), params, torch.randn(3, 6, 8, 3, generator=gen).cuda()
+
+
+def mfm_code_check(fc, fcc, x, params, g):
+    """Hold every selection of the kernel against the plain fp32 conv, and
+    its gradients against a float64 rebuild from its own code."""
+    import torch.nn.functional as F
+
+    w, bias = [p.detach() for p in params]
+    c, c_half = w.shape[1], w.shape[1] // 2
+    b, h, win = x.shape
+    h2, w2 = h // 2, win // 2
+    out, code = fcc.mfm_forward(x, w, bias, True)
+    dw, db = fcc.mfm_backward(x, g, code, c)
+    conv = F.conv2d(x[:, None], w.t().reshape(c, 1, 5, 5), bias, padding=2)
+    cands = torch.stack([  # [8, B, C/2, h2, w2], the kernel's candidate order
+        conv[:, half * c_half:(half + 1) * c_half, a:2 * h2:2, q:2 * w2:2]
+        for a in (0, 1) for q in (0, 1) for half in (0, 1)])
+    del conv
+    code_nchw = code.permute(0, 3, 1, 2).long()
+    first = cands.argmax(dim=0)  # the first of several maxima
+    differ = code_nchw != first
+    v_kernel = cands.gather(0, code_nchw[None])[0][differ]
+    v_plain = cands.gather(0, first[None])[0][differ]
+    del cands, first
+    n_differ = int(differ.sum())
+    ulps = 0.0
+    if n_differ:
+        ulp = torch.maximum(v_plain.abs(), v_kernel.abs()).clamp(min=2.0 ** -126) * 2.0 ** -23
+        ulps = ((v_plain - v_kernel).abs() / ulp).max().item()
+    # float64 gradients from the kernel's own code: scatter g to the selected
+    # candidate's conv position, then the convolution's weight gradient
+    d_conv = torch.zeros(b, c, h, win, dtype=torch.float64, device=x.device)
+    g_nchw = g.permute(0, 3, 1, 2).double()
+    for idx in range(8):
+        ph, half = idx >> 1, idx & 1
+        d_conv[:, half * c_half:(half + 1) * c_half, (ph >> 1):2 * h2:2, (ph & 1):2 * w2:2] = (
+            torch.where(code_nchw == idx, g_nchw, 0.0))
+    want_dw = torch.nn.grad.conv2d_weight(
+        x[:, None].double(), (c, 1, 5, 5), d_conv, padding=2).reshape(c, 25).t()
+    want_db = d_conv.sum(dim=(0, 2, 3))
+    torch.cuda.synchronize()
+    return {"windows": differ.numel(), "selections_differ": n_differ,
+            "worst_near_tie_ulps": ulps,
+            "dW_from_code_rel_err": rel_err(dw, want_dw), "db_from_code_rel_err": rel_err(db, want_db)}
+
+
+def mfm_vs_plain(fc, fcc):
+    """Phase 10: kernel 3 against its plain version, and against itself."""
+    out = {}
+    cases = [(*LCNN_SHAPE, torch.float32), (*LCNN_SHAPE, torch.bfloat16),
+             (128, 95, 256, 64, torch.float32), (8, 101, 20, 64, torch.float32),
+             (3, 7, 5, 12, torch.float32), (2, 40, 700, 64, torch.float32), "ties"]
+    for i, case in enumerate(cases):
+        if case == "ties":
+            x, params, g = mfm_tie_case()
+            dtype, key = torch.float32, "ties-B3-H12-W16-C6-float32"
+        else:
+            b, h, w, c, dtype = case
+            x, params, g = mfm_case(b, h, w, c, dtype, seed=30 + i)
+            key = f"B{b}-H{h}-W{w}-C{c}-{str(dtype).split('.')[-1]}"
+        runs = []
+        for _ in range(2):
+            y = fc.fused_conv_mfm_pool(x, *params)
+            runs.append((y, *torch.autograd.grad(y, params, g)))
+        torch.cuda.synchronize()
+        py = fc.plain_conv_mfm_pool(x, *params)
+        pgrads = torch.autograd.grad(py, params, g)
+        torch.cuda.synchronize()
+        y, *grads = runs[0]
+        bitwise = all(torch.equal(u, v) for u, v in zip(*runs))
+        fp32 = dtype == torch.float32
+        fwd_err = (y.float() - py.float()).abs().max().item()
+        fwd_tol = MFM_FWD_ATOL if fp32 else py.float().abs().max().item() * 2.0 ** -7
+        gerr = {n: rel_err(gr, pg) for n, gr, pg in zip(("dW", "db"), grads, pgrads)}
+        out[key] = {
+            "fwd_max_abs_err": fwd_err, "grad_rel_err": gerr,
+            "dW_max_abs_err": (grads[0].float() - pgrads[0].float()).abs().max().item(),
+            "dW_max_abs": pgrads[0].float().abs().max().item(), "bitwise_repeat": bitwise,
+        }
+        log(f"  {key}: out max|err| {fwd_err:.3e} (tol {fwd_tol:.1e}), grads rel {gerr}, "
+            f"repeat bit-equal {bitwise}")
+        # ties are exact on both sides (equal sums of equal terms): no flips
+        grad_tol = 1e-5 if case == "ties" else MFM_SUM_RTOL if fp32 else FUSED_BF16_RTOL
+        if not (fwd_err <= fwd_tol and max(gerr.values()) <= grad_tol):
+            raise AssertionError(f"fused conv mfm vs plain at {key}: {out[key]}")
+        if not bitwise:
+            raise AssertionError(f"fused conv mfm at {key}: two runs differ")
+        if case == "ties" and not torch.all(grads[1][3:] == 0):
+            raise AssertionError("a tie's gradient reached the upper channel half")
+        if fp32 and case != "ties" and (b, h, w, c) in (LCNN_SHAPE, (8, 101, 20, 64)):
+            chk = mfm_code_check(fc, fcc, x, params, g)
+            out[key]["code_check"] = chk
+            log(f"    code: {chk['selections_differ']} of {chk['windows']} selections differ "
+                f"from the plain conv's first maximum (worst {chk['worst_near_tie_ulps']:.2f} "
+                f"ulp apart); dW / db from the code, float64: rel "
+                f"{chk['dW_from_code_rel_err']:.2e} / {chk['db_from_code_rel_err']:.2e}")
+            if not (chk["worst_near_tie_ulps"] <= MFM_TIE_ULPS
+                    and chk["dW_from_code_rel_err"] <= MFM_CODE_RTOL
+                    and chk["db_from_code_rel_err"] <= MFM_CODE_RTOL):
+                raise AssertionError(f"fused conv mfm code check at {key}: {chk}")
+    return out
+
+
+def lcnn_args(root: str, data: str, log_dir: str, **extra):
+    """stft (n_fft 511, hop 220, log power) + LCNN with the fused block."""
+    args = train_args(root, data, log_dir)
+    args.update(transform="stft", hop_length=220, model="lcnn", module=None,
+                learning_rate=1e-4, weight_decay=0.01)
+    args.update(extra)
+    return args
+
+
+def train_lcnn(wpt_cuda, fused_cuda, root: str, data: str):
+    """Phase 11: the LCNN path through ``run_experiment`` on the card."""
+    import shutil
+
+    from audiodeepfake_detection_tpu_torch.models.lcnn import LCNN
+    from audiodeepfake_detection_tpu_torch.train.experiment import run_experiment
+
+    def reset():
+        wpt_cuda.LAUNCHES = fused_cuda.FWD_LAUNCHES = fused_cuda.BWD_LAUNCHES = 0
+        fused_cuda.MFM_FWD_LAUNCHES = fused_cuda.MFM_BWD_LAUNCHES = 0
+
+    def read():
+        torch.cuda.synchronize()
+        return {"wpt": wpt_cuda.LAUNCHES, "mfm_fwd": fused_cuda.MFM_FWD_LAUNCHES,
+                "mfm_bwd": fused_cuda.MFM_BWD_LAUNCHES,
+                "conv1": fused_cuda.FWD_LAUNCHES + fused_cuda.BWD_LAUNCHES}
+
+    # the main path: the reference's dropout 0.7, both augmentations on
+    reset()
+    t0 = time.perf_counter()
+    trainer = run_experiment(
+        lcnn_args(root, data, "log_lcnn", aug_contrast=True, aug_noise=True))
+    counts = read()
+    wall = time.perf_counter() - t0
+    steps = EPOCHS * STEPS_PER_EPOCH
+    losses = [row[2] for row in trainer.loss_list]
+    log(f"  main run: input {trainer.args.input_dim}, {steps} steps, losses "
+        f"{['%.4f' % v for v in losses]}, test {trainer.test_results}, launches {counts}, "
+        f"{wall:.1f} s wall")
+    if trainer.args.input_dim != [BATCH, 1, 256, 101]:
+        raise AssertionError(f"LCNN input {trainer.args.input_dim}")
+    if len(losses) != steps or not np.isfinite(losses).all():
+        raise AssertionError(f"LCNN main run losses: {losses}")
+    if not (counts["mfm_fwd"] == counts["mfm_bwd"] == steps and counts["wpt"] == 0
+            and counts["conv1"] == 0):
+        raise AssertionError(f"launch counts {counts} for {steps} LCNN train steps")
+    if (trainer.model.get_name() != "LCNN" or trainer.model.fused_layer1 is not True
+            or trainer.device.type != "cuda"):
+        raise AssertionError("the LCNN main run left the fused path or the card")
+    acc, eer = trainer.test_results[:2]
+    if not (0.0 <= acc <= 1.0 and 0.0 <= eer <= 1.0):  # NaN fails too
+        raise AssertionError(f"LCNN test results {trainer.test_results}")
+
+    # fused vs unfused from the same seed; the reference hard-codes the
+    # LCNN's dropout, so a dropout-free one comes in as a "modules" callable
+    pair = {}
+    for name, flag in (("fused", True), ("unfused", False)):
+        run = run_experiment(lcnn_args(
+            root, data, f"log_lcnn_{name}", model="modules",
+            module=lambda _args, flag=flag: LCNN(fused_layer1=flag, dropout=0.0)))
+        pair[name] = [row[2] for row in run.loss_list]
+    worst = max(abs(a - b) / abs(b) for a, b in zip(pair["fused"], pair["unfused"]))
+    log(f"  fused   losses {['%.6f' % v for v in pair['fused']]}")
+    log(f"  unfused losses {['%.6f' % v for v in pair['unfused']]} (worst rel diff {worst:.2e})")
+    if not worst <= LOSS_RTOL:
+        raise AssertionError(f"LCNN fused vs unfused losses differ by {worst} > {LOSS_RTOL}")
+
+    # the other two front-ends, one epoch each: packets-sym5 (kernels 1 and
+    # 3 in one step, x [B, 95, 256]) and stft + LFCC (x [B, 101, 20])
+    others = {}
+    for name, extra, dim in (
+        ("packets", dict(transform="packets"), [BATCH, 1, 256, 95]),
+        ("lfcc", dict(features="lfcc"), [BATCH, 1, 20, 101]),
+    ):
+        reset()
+        run = run_experiment(lcnn_args(root, data, f"log_lcnn_{name}", epochs=1, **extra))
+        got = read()
+        run_losses = [row[2] for row in run.loss_list]
+        log(f"  {name} + LCNN: input {run.args.input_dim}, losses "
+            f"{['%.4f' % v for v in run_losses]}, launches {got}")
+        n = STEPS_PER_EPOCH
+        if not (run.args.input_dim == dim and len(run_losses) == n
+                and np.isfinite(run_losses).all()
+                and got["mfm_fwd"] == got["mfm_bwd"] == n
+                and (got["wpt"] >= n if name == "packets" else got["wpt"] == 0)):
+            raise AssertionError(f"{name} + LCNN: {run.args.input_dim} {run_losses} {got}")
+        others[name] = {"losses": run_losses, "launches": got}
+
+    # run_experiment names every non-"modules" model customModel; to serve
+    # the trained LCNN its snapshot takes a name whose model token is LCNN
+    served = trainer.snapshot_path.replace("_customModel_", "_LCNN_")
+    if served == trainer.snapshot_path:
+        raise AssertionError(f"unexpected snapshot name {trainer.snapshot_path}")
+    for suffix in ("", ".norm.pkl"):
+        shutil.copy(trainer.snapshot_path + suffix, served + suffix)
+    return {"launches": counts, "steps": steps, "losses": losses,
+            "fused_losses": pair["fused"], "unfused_losses": pair["unfused"],
+            "loss_rel_diff": worst, "others": others, "wall_s": wall, "snapshot": served,
+            "norm": [np.asarray(v).tolist() for v in trainer.norm_stats]}
+
+
+def lcnn_step_fns(norm, fused: bool, nchw_copy: bool = True):
+    """An LCNN train step and eval step at full width on a fixed batch."""
+    from audiodeepfake_detection_tpu_torch.models.lcnn import LCNN
+    from audiodeepfake_detection_tpu_torch.train.steps import (
+        make_eval_step, make_optimizer, make_train_step)
+    from audiodeepfake_detection_tpu_torch.train.transforms import (
+        make_transform, normalized_transform)
+
+    args = lcnn_args("", "", "")
+    transform = normalized_transform(make_transform(args), *[np.asarray(v) for v in norm])
+    torch.manual_seed(0)
+    model = LCNN(fused_layer1=fused).cuda()
+    model.nchw_copy = nchw_copy
+    optimizer = make_optimizer(model.parameters(), args.learning_rate, args.weight_decay)
+    gen = torch.Generator().manual_seed(5)
+    batch = {"audio": (0.3 * torch.randn(BATCH, 1, SR, generator=gen)).cuda(),
+             "label": torch.randint(0, 2, (BATCH,), generator=gen).cuda()}
+    train_step = make_train_step(model, transform, optimizer)
+    eval_step = make_eval_step(model, transform)
+    return (lambda: train_step(batch)), (lambda: eval_step(batch))
+
+
+def lcnn_timing(fc, fused_cuda, norm, card_line: str):
+    """Phase 13: kernel 3 alone vs plain (through its launchers, as phase 8
+    times kernel 2), the LCNN train step unfused and fused with either
+    layout behind the block, the eval step, and the two BLSTMs alone."""
+    from audiodeepfake_detection_tpu_torch.models.layers import BLSTMLayer
+
+    x, params, g = mfm_case(*LCNN_SHAPE, torch.float32, seed=50)
+    raw = [p.detach() for p in params]
+    _, code = fused_cuda.mfm_forward(x, *raw, True)
+    plain_graph = fc.plain_conv_mfm_pool(x, *params)
+    fwd = median_ms({
+        "plain": lambda: fc.plain_conv_mfm_pool(x, *params),
+        "kernel": lambda: fused_cuda.mfm_forward(x, *raw, True),
+    }, reps=10)
+    bwd = median_ms({
+        "plain": lambda: torch.autograd.grad(plain_graph, params, g, retain_graph=True),
+        "kernel": lambda: fused_cuda.mfm_backward(x, g, code, LCNN_SHAPE[3]),
+    }, reps=10)
+    with torch.no_grad():
+        infer = median_ms({
+            "plain": lambda: fc.plain_conv_mfm_pool(x, *params),
+            "kernel": lambda: fused_cuda.mfm_forward(x, *raw, False),
+        }, reps=10)
+    del plain_graph, code
+    fused_train, fused_eval = lcnn_step_fns(norm, True)
+    cl_train, _ = lcnn_step_fns(norm, True, nchw_copy=False)
+    plain_train, _ = lcnn_step_fns(norm, False)
+    steps = median_ms({"unfused": plain_train, "fused": fused_train,
+                       "fused_channels_last": cl_train}, reps=3)
+    evals = median_ms({"eval": fused_eval}, reps=3)
+
+    # the two BLSTMs alone, forward and backward, at the step's shape
+    torch.manual_seed(1)
+    lstm = torch.nn.Sequential(BLSTMLayer(512, 512), BLSTMLayer(512, 512)).cuda()
+    seq = torch.randn(BATCH, 6, 512, device="cuda", requires_grad=True)
+
+    def lstm_fwd_bwd():
+        lstm(seq).sum().backward()
+
+    blstm = median_ms({"blstm": lstm_fwd_bwd}, reps=5)
+    out = {
+        "fwd_kernel_ms": fwd["kernel"], "fwd_plain_ms": fwd["plain"],
+        "bwd_kernel_ms": bwd["kernel"], "bwd_plain_ms": bwd["plain"],
+        "infer_fwd_kernel_ms": infer["kernel"], "infer_fwd_plain_ms": infer["plain"],
+        "train_step_fused_ms": steps["fused"], "train_step_unfused_ms": steps["unfused"],
+        "train_step_fused_channels_last_ms": steps["fused_channels_last"],
+        "train_fused_frames_per_s": BATCH / steps["fused"] * 1e3,
+        "train_unfused_frames_per_s": BATCH / steps["unfused"] * 1e3,
+        "eval_step_ms": evals["eval"], "eval_frames_per_s": BATCH / evals["eval"] * 1e3,
+        "blstm_fwd_bwd_ms": blstm["blstm"],
+    }
+    log(f"  B={BATCH} [{card_line}]: LCNN block fwd (train) kernel {fwd['kernel']:.4f} ms, "
+        f"plain {fwd['plain']:.4f} ms; bwd kernel {bwd['kernel']:.4f} ms, plain "
+        f"{bwd['plain']:.4f} ms; fwd (no grad) kernel {infer['kernel']:.4f} ms, plain "
+        f"{infer['plain']:.4f} ms")
+    log(f"  LCNN train step fused {steps['fused']:.3f} ms "
+        f"({out['train_fused_frames_per_s']:.1f} frames/s), fused left channels-last "
+        f"{steps['fused_channels_last']:.3f} ms, unfused {steps['unfused']:.3f} ms "
+        f"({out['train_unfused_frames_per_s']:.1f} frames/s); eval step "
+        f"{evals['eval']:.3f} ms ({out['eval_frames_per_s']:.1f} frames/s); the two BLSTMs "
+        f"alone, fwd + bwd, {blstm['blstm']:.3f} ms")
+    return out, fused_train
 
 
 def main() -> None:
@@ -689,22 +1050,37 @@ def main() -> None:
     log("[6 fused first block vs plain]")
     fused_errs = fused_vs_plain(fused_conv1)
     with tempfile.TemporaryDirectory(dir=build_root) as root:
-        log("[7 train]")
-        trained = train(wpt_cuda, fused_conv1_cuda, root)
-    log("[8 time, training]")
-    train_times, fused_step = train_timing(
-        fused_conv1, fused_conv1_cuda, trained["norm"], card_line)
-    log("[9 profile, fused train step]")
-    prof = profile_train(fused_step)
+        t0 = time.perf_counter()
+        data = write_corpus(root)
+        log(f"[7 train] corpus: 56 clips of 10 s written in {time.perf_counter() - t0:.1f} s")
+        trained = train(wpt_cuda, fused_conv1_cuda, root, data)
+        log("[8 time, training]")
+        train_times, fused_step = train_timing(
+            fused_conv1, fused_conv1_cuda, trained["norm"], card_line)
+        log("[9 profile, fused train step]")
+        prof = profile_train(fused_step)
+        del fused_step
+        log("[10 fused LCNN block vs plain]")
+        mfm_errs = mfm_vs_plain(fused_conv1, fused_conv1_cuda)
+        log("[11 train the LCNN]")
+        lcnn = train_lcnn(wpt_cuda, fused_conv1_cuda, root, data)
+        log("[12 serve the trained LCNN]")
+        lcnn_served = serve(wpt_cuda, lcnn.pop("snapshot"), kernel_on_path=False)
+    log("[13 time and profile, LCNN]")
+    lcnn_times, lcnn_step = lcnn_timing(
+        fused_conv1, fused_conv1_cuda, lcnn["norm"], card_line)
+    lcnn_prof = profile_train(lcnn_step)
 
     main_key = f"{MAIN[0]}-L{MAIN[1]}-B64-T{SR}"
     train_key = "B{}-H{}-W{}-C{}-float32".format(*TRAIN_SHAPE)
     fused_src = "audiodeepfake_detection_tpu_torch/csrc/fused_conv1.cu"
     wpt_b, wpt_by = wpt_bound(wpt, 64, SR)
     (fwd_b, fwd_by), (bwd_b, bwd_by) = fused_bounds(*TRAIN_SHAPE)
+    lcnn_key = "B{}-H{}-W{}-C{}-float32".format(*LCNN_SHAPE)
+    (mfwd_b, mfwd_by), (mbwd_b, mbwd_by) = mfm_bounds(*LCNN_SHAPE)
     # library_ms is null throughout: no single PyTorch call computes a
-    # wavelet-packet cascade, or conv + PReLU + pool with moments, or its
-    # parameter gradients from a selection code
+    # wavelet-packet cascade, or conv + PReLU + pool with moments, or conv +
+    # MaxFeatureMap + pool with a code, or parameter gradients from a code
     print(json.dumps({"kernels": [
         {
             "name": "wpt_cascade", "route": "cuda",
@@ -731,12 +1107,31 @@ def main() -> None:
             "ms": train_times["bwd_kernel_ms"], "plain_ms": train_times["bwd_plain_ms"],
             "bound_ms": bwd_b, "bound_by": bwd_by, "library_ms": None,
         },
+        {
+            "name": "fused_conv_mfm_fwd", "route": "cuda", "source": fused_src,
+            "replaces": "audiodeepfake_detection_tpu/ops/fused_conv1.py:756",
+            "launches": lcnn["launches"]["mfm_fwd"],
+            "max_abs_err": mfm_errs[lcnn_key]["fwd_max_abs_err"],
+            "ms": lcnn_times["fwd_kernel_ms"], "plain_ms": lcnn_times["fwd_plain_ms"],
+            "bound_ms": mfwd_b, "bound_by": mfwd_by, "library_ms": None,
+        },
+        {
+            "name": "fused_conv_mfm_bwd", "route": "cuda", "source": fused_src,
+            "replaces": "audiodeepfake_detection_tpu/ops/fused_conv1.py:806",
+            "launches": lcnn["launches"]["mfm_bwd"],
+            "max_abs_err": mfm_errs[lcnn_key]["dW_max_abs_err"],
+            "ms": lcnn_times["bwd_kernel_ms"], "plain_ms": lcnn_times["bwd_plain_ms"],
+            "bound_ms": mbwd_b, "bound_by": mbwd_by, "library_ms": None,
+        },
     ]}))
     trained.pop("norm")
+    lcnn.pop("norm")
     print(json.dumps({
         "card": card_line, "build_s": build_s, "max_abs_err": errs,
         "serve": served, "timing": times, "fused_vs_plain": fused_errs,
         "train": trained, "train_timing": train_times, "profile": prof,
+        "mfm_vs_plain": mfm_errs, "lcnn_train": lcnn, "lcnn_serve": lcnn_served,
+        "lcnn_timing": lcnn_times, "lcnn_profile": lcnn_prof,
     }))
     print(card_line)
     print(json.dumps({"ok": True, "device": {

@@ -197,3 +197,146 @@ def test_dcnn_fused_train_step_matches_unfused_on_the_card(card):
     for (name, p), (_, f) in zip(plain.named_parameters(), fused.named_parameters()):
         denom = p.grad.norm().clamp(min=1e-30)
         assert ((p.grad - f.grad).norm() / denom).item() <= (0.1 if p.numel() == 1 else 0.02), name
+
+
+# --------------------------------------- fused conv 5x5 + MaxFeatureMap + pool
+
+
+def _mfm_inputs(b, h, w, c, dtype, device, seed=0):
+    rng = np.random.RandomState(seed)
+    make = lambda a: torch.from_numpy(a.astype(np.float32)).to(device).to(dtype)  # noqa: E731
+    x = make(rng.randn(b, h, w))
+    params = [make(rng.randn(25, c) * 0.1), make(rng.randn(c) * 0.1)]
+    g = make(rng.randn(b, h // 2, w // 2, c // 2))
+    return x, [p.requires_grad_() for p in params], g
+
+
+@pytest.mark.parametrize(
+    "h,w,c", [(101, 256, 8), (95, 256, 4), (101, 20, 64), (21, 30, 6), (40, 700, 64), (7, 5, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_mfm_matches_plain(card, h, w, c, dtype):
+    x, params, g = _mfm_inputs(2, h, w, c, dtype, card)
+    before = (fused_conv1_cuda.MFM_FWD_LAUNCHES, fused_conv1_cuda.MFM_BWD_LAUNCHES)
+    out = fused_conv1.fused_conv_mfm_pool(x, *params)
+    grads = torch.autograd.grad(out, params, g)
+    torch.cuda.synchronize()
+    assert (fused_conv1_cuda.MFM_FWD_LAUNCHES, fused_conv1_cuda.MFM_BWD_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    want = fused_conv1.plain_conv_mfm_pool(x, *params)
+    wgrads = torch.autograd.grad(want, params, g)
+    assert out.dtype == dtype and out.shape == want.shape == (2, h // 2, w // 2, c // 2)
+    assert out.is_contiguous()
+    # bf16: the same fp32 value rounded once on both sides (one bf16 ulp)
+    atol = FUSED_FWD_ATOL if dtype == torch.float32 else want.float().abs().max().item() * 2.0**-7
+    torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=atol)
+    tol = FUSED_SUM_RTOL if dtype == torch.float32 else 1e-2
+    for name, got, wg in zip(("dW", "db"), grads, wgrads):
+        assert got.dtype == dtype and got.shape == wg.shape, name
+        assert _rel(got, wg) <= tol, name
+
+
+def test_fused_mfm_is_deterministic_and_skips_the_code_in_eval(card):
+    x, params, g = _mfm_inputs(4, 101, 256, 64, torch.float32, card, seed=1)
+    runs = []
+    for _ in range(2):
+        out = fused_conv1.fused_conv_mfm_pool(x, *params)
+        runs.append((out, *torch.autograd.grad(out, params, g)))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)  # per-block partials, fixed order: no atomics
+    with torch.no_grad():
+        before = fused_conv1_cuda.MFM_BWD_LAUNCHES
+        eval_out = fused_conv1.fused_conv_mfm_pool(x, *params)
+        assert torch.equal(eval_out, runs[0][0]) and not eval_out.requires_grad
+        assert fused_conv1_cuda.MFM_BWD_LAUNCHES == before
+
+
+def test_fused_mfm_ties_go_to_the_first_candidate(card):
+    """Silence, duplicated rows and equal channel halves: the kernel's code
+    selects what the plain version's ``where(a >= b)`` + first-max pool do."""
+    h, w, c = 12, 16, 6
+    rng = np.random.RandomState(4)
+    x = np.zeros((3, h, w), np.float32)
+    x[1] = np.repeat(rng.randn(h // 2, w), 2, axis=0)
+    x[2] = rng.randn(h, w)
+    wgt = rng.randn(25, c).astype(np.float32) * 0.1
+    wgt[:, c // 2 :] = wgt[:, : c // 2]
+    b = np.zeros(c, np.float32)
+    g = rng.randn(3, h // 2, w // 2, c // 2).astype(np.float32)
+    grads = {}
+    for device in (card, torch.device("cpu")):
+        params = [torch.from_numpy(wgt).to(device).requires_grad_(),
+                  torch.from_numpy(b).to(device).requires_grad_()]
+        out = fused_conv1.fused_conv_mfm_pool(torch.from_numpy(x).to(device), *params)
+        grads[device.type] = [t.cpu() for t in torch.autograd.grad(out, params, torch.from_numpy(g).to(device))]
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert torch.all(grads["cuda"][1][c // 2 :] == 0)  # the upper half never wins a tie
+
+
+def test_fused_mfm_takes_a_hop_length_1_image(card):
+    """``--hop-length 1`` (the CLI default) gives 22051 time steps: 2757 row
+    strips of one frame, no other path."""
+    x, params, g = _mfm_inputs(1, 22051, 256, 64, torch.float32, card, seed=2)
+    out = fused_conv1.fused_conv_mfm_pool(x, *params)
+    grads = torch.autograd.grad(out, params, g)
+    want = fused_conv1.plain_conv_mfm_pool(x, *params)
+    wgrads = torch.autograd.grad(want, params, g)
+    assert out.shape == (1, 11025, 128, 32)
+    torch.testing.assert_close(out, want, rtol=0, atol=FUSED_FWD_ATOL)
+    for got, wg in zip(grads, wgrads):
+        # cuDNN sums 5.6 M fp32 terms per tap on the plain side: measured
+        # 1.1e-3 of the largest entry here (chip_smoke.py holds the kernel to
+        # 2e-5 of a float64 rebuild from its own code)
+        assert _rel(got, wg) <= 5e-3
+
+
+def test_lcnn_takes_a_hop_length_1_image(card):
+    """The whole LCNN on the ``--hop-length 1`` image ``[1, 1, 256, 22051]``
+    (1378 BLSTM steps), first block fused and unfused."""
+    from audiodeepfake_detection_tpu_torch.models.lcnn import LCNN
+
+    torch.manual_seed(0)
+    plain, fused = LCNN().to(card).eval(), LCNN(fused_layer1="always").to(card).eval()
+    fused.load_state_dict(plain.state_dict())
+    x = torch.randn(1, 1, 256, 22051, device=card)
+    with torch.inference_mode():
+        want, got = plain(x), fused(x)
+    assert got.shape == (1, 2) and torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+def test_fused_mfm_refuses_what_it_does_not_take(card):
+    x, params, _ = _mfm_inputs(2, 9, 12, 4, torch.float32, card)
+    with pytest.raises(ValueError, match="no gradient for x"):
+        fused_conv1.fused_conv_mfm_pool(x.clone().requires_grad_(), *params)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fused_conv1.fused_conv_mfm_pool(x.half(), *params)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_conv1.fused_conv_mfm_pool(x.transpose(1, 2), *params)
+    with pytest.raises(ValueError, match="C=300"):
+        fused_conv1.fused_conv_mfm_pool(
+            x, torch.zeros(25, 300, device=card), torch.zeros(300, device=card))
+    with pytest.raises(ValueError, match=r"w must be \[25, C\]"):
+        fused_conv1.fused_conv_mfm_pool(x, torch.zeros(9, 4, device=card), params[1])
+
+
+def test_lcnn_fused_train_step_matches_unfused_on_the_card(card):
+    from audiodeepfake_detection_tpu_torch.models.lcnn import LCNN
+
+    torch.manual_seed(0)
+    plain, fused = LCNN(dropout=0.0).to(card), LCNN(dropout=0.0, fused_layer1=True).to(card)
+    fused.load_state_dict(plain.state_dict())
+    x = torch.randn(8, 1, 256, 101, device=card)
+    y = torch.randint(0, 2, (8,), device=card)
+    losses = []
+    for model in (plain, fused):
+        model.train()
+        loss = torch.nn.functional.cross_entropy(model(x), y)
+        loss.backward()
+        losses.append(loss.item())
+    # the first block's 25-term sums in another order; everything behind it
+    # is the same code
+    assert abs(losses[0] - losses[1]) <= 1e-5
+    for (name, p), (_, f) in zip(plain.named_parameters(), fused.named_parameters()):
+        denom = p.grad.norm().clamp(min=1e-30)
+        assert ((p.grad - f.grad).norm() / denom).item() <= 0.02, name

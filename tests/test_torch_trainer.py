@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from audiodeepfake_detection_tpu.models.torch_import import import_dcnn as jax_import_dcnn
+from audiodeepfake_detection_tpu.models.torch_import import import_lcnn as jax_import_lcnn
 from audiodeepfake_detection_tpu.train import predict as jax_predict
 from audiodeepfake_detection_tpu_torch.models.dcnn import DCNN
 from audiodeepfake_detection_tpu_torch.models.factory import (
@@ -229,12 +230,146 @@ def test_unsupported_trainer_flags_name_their_slice(tmp_path, flag, value, where
     "extra,where",
     [(dict(only_ig=True), "slice 9"), (dict(tensorboard=True), "slice 9"),
      (dict(frame_cache=True), "slice 8"), (dict(dtype="bfloat16"), "slice 5"),
-     (dict(fused_pool=True), "queue 2"), (dict(model="lcnn"), "slice 4"),
-     (dict(module="AST"), "slice 5"), (dict(transform="stft"), "slice 3")],
+     (dict(fused_pool=True), "queue 2"), (dict(fused_layer2=True), "queue 2"),
+     (dict(module="AST"), "slice 5"),
+     (dict(block_norm=True, calc_normalization=True), "slice 9")],
 )
 def test_unsupported_experiment_flags_name_their_slice(corpus, tmp_path, extra, where):
     with pytest.raises(NotImplementedError, match=where):
         run_experiment(_args(corpus, tmp_path / "log", tmp_path / "meta", **extra))
+
+
+def _lcnn_args(corpus, log_dir, meta, **extra):
+    """The LCNN path: ``--model lcnn --transform stft --hop-length 220``."""
+    kw = dict(model="lcnn", transform="stft", hop_length=220, wavelet="sym8",
+              module=None, epochs=1, fused_layer1=True)
+    kw.update(extra)
+    return _args(corpus, log_dir, meta, **kw)
+
+
+@pytest.fixture(scope="module")
+def trained_lcnn(corpus, tmp_path_factory):
+    args = _lcnn_args(corpus, tmp_path_factory.mktemp("lcnn_log"), tmp_path_factory.mktemp("lcnn_meta"))
+    return run_experiment(args), args
+
+
+def test_lcnn_stft_trains_validates_and_snapshots(trained_lcnn):
+    trainer, args = trained_lcnn
+    assert args.input_dim == [8, 1, 256, 101]
+    assert trainer.model.get_name() == "LCNN" and trainer.model.fused_layer1 is True
+    assert trainer.model.lstm_channels == 256
+    assert [row[:2] for row in trainer.loss_list] == [[1, 0], [2, 0]]
+    assert all(np.isfinite(row[2]) for row in trainer.loss_list)
+    assert [row[0] for row in trainer.validation_list] == ["val known", "test known"]
+    acc, eer = trainer.test_results[:2]
+    assert 0.0 <= acc <= 1.0 and 0.0 <= eer <= 1.0
+    # every non-"modules" model is named customModel, as in the JAX package
+    assert "_stft_none_220_" in trainer.snapshot_path and "_customModel_" in trainer.snapshot_path
+    blob = torch.load(trainer.snapshot_path, weights_only=True)
+    assert set(blob["MODEL_STATE"]) == set(trainer.model.state_dict())
+    assert "lstm.0.l_blstm.weight_ih_l0" in blob["MODEL_STATE"] and "fc.weight" in blob["MODEL_STATE"]
+    assert int(trainer.model.lcnn[5].num_batches_tracked) == 2
+    with pytest.raises(ValueError, match="no standalone-scoring support"):
+        predict.build_scorer_from_snapshot(trainer.snapshot_path)
+
+
+def test_lcnn_snapshot_scores_alike_in_both_packages_and_resumes(trained_lcnn):
+    trainer, args = trained_lcnn
+    # to serve it, the snapshot takes a name whose model token is LCNN
+    served = trainer.snapshot_path.replace("_customModel_", "_LCNN_")
+    for suffix in ("", ".norm.pkl"):
+        shutil.copy(trainer.snapshot_path + suffix, served + suffix)
+    clip = (0.3 * np.tanh(np.random.RandomState(5).randn(2, 1, SR))).astype(np.float32)
+    model, transform, cfg = predict.build_scorer_from_snapshot(served)
+    assert (cfg.transform, cfg.hop_length, cfg.model_name) == ("stft", 220, "LCNN")
+    assert model.fused_layer1 is False and not model.training
+    got = predict.make_score_fn(model, transform, "cpu")(torch.from_numpy(clip)).numpy()
+    jmodel, jtransform, jvars, _ = jax_predict.build_scorer_from_snapshot(served)
+    want = np.asarray(jax_predict.make_score_fn(jmodel, jtransform, jvars)(jnp.asarray(clip)))
+    # P(fake) in fp32 through two frameworks from the same file; measured 0.0 at 7 digits
+    np.testing.assert_allclose(got, want, atol=1e-5)
+    own = trainer.eval_step(
+        {"audio": torch.from_numpy(clip), "label": torch.zeros(2, dtype=torch.int32)}
+    )["scores"].numpy()
+    np.testing.assert_allclose(got, own, atol=1e-6)
+    variables = jax_import_lcnn(served)
+    assert variables["params"]["lcnn_0"]["Conv_0"]["kernel"].shape == (5, 5, 1, 64)
+
+    # --resume on the completed run trains nothing more; weights only
+    # (.pt without its .state.pt) go through import_lcnn
+    again_args = args.copy()
+    again_args.update(resume=True)
+    again = run_experiment(again_args)
+    assert again.loss_list == [] and again.epochs_run == 1
+    os.remove(trainer.state_path)
+    only = args.copy()
+    only.update(only_testing=True)
+    tested = run_experiment(only)
+    assert tested.epochs_run == 1
+    torch.testing.assert_close(
+        tested.model.state_dict()["lstm.1.l_blstm.weight_hh_l0"],
+        trainer.model.state_dict()["lstm.1.l_blstm.weight_hh_l0"], rtol=0, atol=0)
+
+
+GRID_MODEL = [[
+    {"layers": ["Conv2d 1 4 3 2 1", "MaxFeatureMap2D", "BatchNorm2d 2", "MaxPool2d 4 4",
+                "Flatten 1", "Linear 768 2"]},
+]]
+
+
+@pytest.mark.parametrize(
+    "extra,input_dim,name",
+    [(dict(transform="packets", wavelet="haar"), [8, 1, 256, 87], "LCNN"),
+     (dict(features="lfcc", f_min=1000.0), [8, 1, 20, 101], "LCNN"),
+     (dict(model="gridmodel", model_data=GRID_MODEL, fused_layer1=False), [8, 1, 256, 101], "GridModel"),
+     (dict(model="modules", module="Regression", fused_layer1=False), [8, 1, 256, 101], "Regression")],
+    ids=["packets-lcnn", "stft-lfcc-lcnn", "stft-gridmodel", "stft-regression"],
+)
+def test_other_front_ends_and_models_train(corpus, tmp_path, extra, input_dim, name):
+    trainer = run_experiment(_lcnn_args(corpus, tmp_path / "log", tmp_path / "meta", **extra))
+    assert trainer.args.input_dim == input_dim and trainer.model.get_name() == name
+    assert len(trainer.loss_list) == 2 and all(np.isfinite(r[2]) for r in trainer.loss_list)
+    assert os.path.exists(trainer.snapshot_path)
+    if extra.get("features") == "lfcc":
+        assert trainer.model.lstm_channels == 20 and "_stft_lfcc_220_" in trainer.snapshot_path
+
+
+def test_feature_guards(corpus, tmp_path):
+    """LFCC features need the LCNN; delta features build an LCNN whose
+    BLSTM width (the reference's 40 / 60 rule) does not fit the 20-row delta
+    image, which raises with the numbers; stft has no sign channel."""
+    with pytest.raises(NotImplementedError, match="LFCC features are currently not implemented"):
+        run_experiment(_args(corpus, tmp_path / "a", tmp_path / "meta", features="lfcc"))
+    for features, channels in (("delta", 40), ("doubledelta", 60)):
+        with pytest.raises(ValueError, match=f"lstm_channels={channels}"):
+            run_experiment(_lcnn_args(corpus, tmp_path / features, tmp_path / "meta", features=features))
+    with pytest.raises(ValueError, match="Sign channel not possible"):
+        run_experiment(_lcnn_args(corpus, tmp_path / "c", tmp_path / "meta", loss_less="True"))
+
+
+def test_lcnn_cli_defaults_are_the_jax_package_defaults(corpus, tmp_path, capsys):
+    """``main`` with no ``--model`` / ``--transform`` trains stft + LCNN."""
+    import argparse
+
+    parsed = add_default_parser_args(argparse.ArgumentParser()).parse_args([])
+    assert (parsed.model, parsed.transform, parsed.features, parsed.hop_length) == (
+        "lcnn", "stft", "none", 1)
+    config = tmp_path / "grid.py"
+    config.write_text(
+        "def get_config():\n"
+        f"    return {{'data_path': [{str(corpus)!r}], 'save_path': [{str(tmp_path / 'meta')!r}],\n"
+        "            'only_use': [['real', 'fbmelgan']], 'limit_train': [(100, 100, 100)]}\n"
+    )
+    main([
+        "--enable-gs", "--config", str(config), "--init-seeds", "0", "--device", "cpu",
+        "--epochs", "1", "--batch-size", "8", "--hop-length", "220", "--log-scale",
+        "--calc-normalization", "--fused-layer1", "train", "--log-dir", str(tmp_path / "log"),
+        "--data-prefix", str(corpus) + "/fake_22050_22050_0.7_fbmelgan",
+    ])
+    out = capsys.readouterr().out
+    assert out.count("Training done, now testing...") == 1
+    (snapshot,) = [f for f in os.listdir(tmp_path / "log" / "models") if f.endswith("_0.pt")]
+    assert "_stft_none_220_" in snapshot and "_customModel_" in snapshot
 
 
 def test_missing_cuda_raises_unless_cpu_asked(corpus, tmp_path):
