@@ -60,15 +60,11 @@ def _require_float32(args: DotDict) -> None:
 
 def _build_dcnn(args: DotDict, variant: str, nclasses: int, in_channels: int) -> DCNN:
     _require_float32(args)
-    for flag in ("fused_pool", "fused_layer2"):
-        if _tri_flag(args.get(flag)):
-            raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP.md queue 2: TPU kernels "
-                "to port)"
-            )
     time_dim = int(args.input_dim[-1]) // 8 + int(args.time_dim_add or 0)
     return DCNN(
         fused_layer1=_tri_flag(args.fused_layer1),
+        fused_pool=_tri_flag(args.fused_pool),
+        fused_layer2=_tri_flag(args.fused_layer2),
         in_channels=in_channels,
         ochannels1=args.ochannels1 or 64,
         ochannels2=args.ochannels2 or 64,

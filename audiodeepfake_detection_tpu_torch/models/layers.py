@@ -6,19 +6,48 @@ Counterparts in ``audiodeepfake_detection_tpu/models/layers.py``:
   sumsq))``: the DCNN's fused first block returns the per-channel ``(sum,
   sumsq)`` of its output, and the BatchNorm that follows normalises with
   them instead of reading the activation again;
+* :func:`batch_norm_scale_shift` -- ``BatchNormStats``: the per-channel
+  ``(s, t)`` of ``BN(x) = x * s + t``, for the DCNN's fused second block,
+  whose kernel takes the BatchNorm folded into its weights (``weight * s``)
+  and an additive map (the convolution of the constant ``t``);
 * :class:`MaxFeatureMap2D` -- ``max_feature_map_2d``, the LCNN's maxout
   over channel halves (reference src/audiofakedetect/models.py:161-209);
 * :class:`BLSTMLayer` -- the bidirectional LSTM that keeps the sequence
   length (reference models.py:212-237).
 
-Everything else the JAX module holds (``folded_bn_conv``, ``Conv2d``,
-``PReLU``, ...) is ``torch.nn`` here.
+Everything else the JAX module holds (``Conv2d``, ``PReLU``, ...) is
+``torch.nn`` here; its ``folded_bn_conv`` is a schedule of BatchNorm -> conv
+for XLA and is ``nn.BatchNorm2d`` -> ``nn.Conv2d`` here.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+
+def _affine_scale_shift(bn: nn.BatchNorm2d, mean, var):
+    """``(scale, shift)`` with ``bn(x) = x * scale + shift`` for the given
+    float32 per-channel ``mean`` and ``var``."""
+    scale = torch.rsqrt(var + bn.eps)
+    shift = -mean * scale
+    if bn.affine:
+        scale = scale * bn.weight
+        shift = shift * bn.weight + bn.bias
+    return scale, shift
+
+
+def _train_scale_shift(bn: nn.BatchNorm2d, n: int, mean, var):
+    """``(scale, shift)`` of train-mode ``bn`` from the batch's float32
+    ``mean`` and biased ``var`` over ``n`` values per channel, moving
+    ``bn``'s running buffers as torch does."""
+    if bn.track_running_stats:
+        with torch.no_grad():
+            m = bn.momentum
+            bn.running_mean.mul_(1 - m).add_(mean, alpha=m)
+            bn.running_var.mul_(1 - m).add_(var * (n / max(n - 1.0, 1.0)), alpha=m)
+            bn.num_batches_tracked += 1
+    return _affine_scale_shift(bn, mean, var)
 
 
 def batch_norm_from_moments(
@@ -37,21 +66,27 @@ def batch_norm_from_moments(
     n = x.numel() // x.shape[1]
     mean = s.float() / n
     var = torch.clamp(q.float() / n - mean * mean, min=0.0)
-    if bn.track_running_stats:
-        with torch.no_grad():
-            m = bn.momentum
-            bn.running_mean.mul_(1 - m).add_(mean, alpha=m)
-            bn.running_var.mul_(1 - m).add_(var * (n / max(n - 1.0, 1.0)), alpha=m)
-            bn.num_batches_tracked += 1
-    scale = torch.rsqrt(var + bn.eps)
-    shift = -mean * scale
-    if bn.affine:
-        scale = scale * bn.weight
-        shift = shift * bn.weight + bn.bias
+    scale, shift = _train_scale_shift(bn, n, mean, var)
     shape = (1, -1, 1, 1)
     # one pass over x: x * scale + shift
     y = torch.addcmul(shift.reshape(shape), x.float(), scale.reshape(shape))
     return y.to(x.dtype)
+
+
+def batch_norm_scale_shift(bn: nn.BatchNorm2d, x: torch.Tensor):
+    """Float32 per-channel ``(s, t)`` with ``bn(x) = x * s + t``, without
+    normalising ``x``.
+
+    In training ``s`` and ``t`` come from the batch moments of ``x [B, C, H,
+    W]`` (differentiable through ``x``) and ``bn``'s running buffers and
+    ``num_batches_tracked`` move exactly as in
+    :func:`batch_norm_from_moments`; in eval they come from the running
+    buffers.
+    """
+    if bn.training:
+        var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
+        return _train_scale_shift(bn, x.numel() // x.shape[1], mean, var)
+    return _affine_scale_shift(bn, bn.running_mean, bn.running_var)
 
 
 class MaxFeatureMap2D(nn.Module):

@@ -1,5 +1,5 @@
-"""Drive the PyTorch/CUDA port's serving and training paths (DCNN and LCNN)
-once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving and training paths (DCNN, with and
+without its fused mid blocks, and LCNN) once on one NVIDIA GPU.
 
 Run from the repository root, with no arguments:
 
@@ -9,8 +9,9 @@ Phases, in order; any failure propagates and the script exits non-zero
 (there is no CPU fallback):
 
 1. device: require CUDA, print ``nvidia-smi``'s card name and power limit;
-2. build: compile ``csrc/wpt_cascade.cu`` and ``csrc/fused_conv1.cu`` for
-   sm_90a from this checkout, both at once;
+2. build: compile ``csrc/wpt_cascade.cu``, ``csrc/fused_conv1.cu``,
+   ``csrc/fused_pool.cu`` and ``csrc/fused_conv2.cu`` for sm_90a from this
+   checkout, all at once;
 3. kernel vs plain: the wavelet-packet kernel against the plain PyTorch
    cascade on the card, at the serving shapes and a few other geometries;
 4. serve: a seeded full-width DCNN snapshot behind ``service_from_snapshot``
@@ -50,7 +51,23 @@ Phases, in order; any failure propagates and the script exits non-zero
     the same snapshot on the CPU;
 13. time: the LCNN kernels alone vs plain, the LCNN train step fused (with
     either memory layout behind the block) vs unfused, the eval step and
-    the two BLSTMs alone at batch 128; a profile of the fused LCNN step.
+    the two BLSTMs alone at batch 128; a profile of the fused LCNN step;
+14. fused mid blocks vs plain: PReLU + pool (forward, moments, ``dx``,
+    ``dalpha``) and conv 3x3 + PReLU + pool (forward, moments, ``dx``,
+    ``dw``, ``dcorr``, ``dalpha``) against their plain PyTorch versions at
+    the DCNN's shapes (B=128: [96, 48, 129] and [64, 24, 64] for the pool,
+    64 -> 96 channels at 48x129 for the conv; fp32 and bf16), odd heights
+    and widths, a negative and a zero slope and a case full of ties; two
+    runs compared bit for bit;
+15. train with the fused mid blocks: the corpus through ``run_experiment``
+    on ``cuda`` with (a) ``fused_layer1`` + ``fused_pool`` and (b) those +
+    ``fused_layer2`` (2 epochs with validation, test and snapshot, dropout
+    0), the kernels' launch counts read over exactly each run, each run
+    against phase 7's unfused one loss by loss; the snapshot of (b) served
+    over HTTP and its score held against the trainer's own;
+16. time: the mid-block kernels alone vs plain, the train step at batch 128
+    unfused, with ``fused_layer1`` only, (a) and (b), the eval step; a
+    profile of step (b).
 
 The last lines are the kernels' JSON record, the measurements with the
 card's name and power limit, and ``{"ok": true, "device": ...}``.
@@ -118,6 +135,23 @@ MFM_TIE_ULPS = 8
 # dW / db rebuilt in float64 from the kernel's own code: what is left is the
 # kernel's fp32 summation (64 terms a thread, 8 threads, 1664 blocks)
 MFM_CODE_RTOL = 2e-5
+# ---- the fused mid blocks (phases 14-16)
+POOL2_SHAPE = (128, 96, 48, 129)  # B, C, H, W in front of the second pool
+POOL3_SHAPE = (128, 64, 24, 64)  # ... and of the third
+CONV2_SHAPE = (128, 64, 96, 48, 129)  # B, Cin, Cout, H, W of the second block
+# PReLU + pool is elementwise: the same fp32 value on both sides; one ulp of
+# room for a product the compiler may contract into a fused multiply-add
+POOL_ATOL = 1e-6
+# forward of the conv block: 576 fp32 FMAs per conv value on both sides
+# (cuDNN's implicit-GEMM kernel happens to sum in the same order: 0.0 read)
+CONV2_FWD_ATOL = 2e-5
+# moments, dalpha, dw, dcorr and dx of the mid blocks, relative to each
+# tensor's largest entry: fp32 sums in another order than the plain ops'
+# (read: at most 3e-5, dw at B=16; 7e-6 for the pool's dalpha over 75 M terms)
+MID_SUM_RTOL = 1e-3
+# bf16 dalpha of the conv block: the kernel takes the conv value back from the
+# stored bf16 output (out / alpha: 2**-9 per term) and the terms cancel
+MID_BF16_DALPHA_RTOL = 3e-2
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12
 BATCH = 128
@@ -497,10 +531,27 @@ def train_args(root: str, data: str, log_dir: str, **extra):
     return args
 
 
+def served_vs_trainer(trainer) -> float:
+    """The snapshot behind the serving path scores like the trainer itself."""
+    from audiodeepfake_detection_tpu_torch.train.serve import service_from_snapshot
+
+    clip = (0.3 * np.tanh(np.random.RandomState(13).randn(3 * SR))).astype(np.float32)
+    frames = torch.from_numpy(clip.reshape(3, 1, SR)).cuda()
+    own = trainer.eval_step(
+        {"audio": frames, "label": torch.zeros(3, dtype=torch.int32, device="cuda")}
+    )["scores"].cpu().numpy()
+    with service_from_snapshot(trainer.snapshot_path, device="cuda", batch_size=64) as svc:
+        p_fake, served = svc.score_clip(clip, SR)
+    err = float(np.abs(np.asarray(served) - own).max())
+    log(f"  snapshot served on cuda: p_fake {p_fake:.6f}, max|served - trainer| {err:.3e}")
+    if not err <= SCORE_ATOL:
+        raise AssertionError(f"served vs trainer scores: {err} > {SCORE_ATOL}")
+    return err
+
+
 def train(wpt_cuda, fused_cuda, root: str, data: str):
     """Phase 7: the training path through ``run_experiment`` on the card."""
     from audiodeepfake_detection_tpu_torch.train.experiment import run_experiment
-    from audiodeepfake_detection_tpu_torch.train.serve import service_from_snapshot
 
     # the main path: the reference's defaults (dropout 0.6 / 0.3) with both
     # augmentations on
@@ -539,18 +590,7 @@ def train(wpt_cuda, fused_cuda, root: str, data: str):
     if not worst <= LOSS_RTOL:
         raise AssertionError(f"fused vs unfused losses differ by {worst} > {LOSS_RTOL}")
 
-    # the snapshot behind the serving path scores like the trainer itself
-    clip = (0.3 * np.tanh(np.random.RandomState(13).randn(3 * SR))).astype(np.float32)
-    frames = torch.from_numpy(clip.reshape(3, 1, SR)).cuda()
-    own = trainer.eval_step(
-        {"audio": frames, "label": torch.zeros(3, dtype=torch.int32, device="cuda")}
-    )["scores"].cpu().numpy()
-    with service_from_snapshot(trainer.snapshot_path, device="cuda", batch_size=64) as svc:
-        p_fake, served = svc.score_clip(clip, SR)
-    err = float(np.abs(np.asarray(served) - own).max())
-    log(f"  snapshot served on cuda: p_fake {p_fake:.6f}, max|served - trainer| {err:.3e}")
-    if not err <= SCORE_ATOL:
-        raise AssertionError(f"served vs trainer scores: {err} > {SCORE_ATOL}")
+    err = served_vs_trainer(trainer)
     return {"launches": counts, "steps": steps, "eval_steps": eval_steps,
             "losses": losses, "fused_losses": pair["fused"],
             "unfused_losses": pair["unfused"], "loss_rel_diff": worst,
@@ -558,8 +598,9 @@ def train(wpt_cuda, fused_cuda, root: str, data: str):
             "norm": [np.asarray(v).tolist() for v in trainer.norm_stats]}
 
 
-def step_fns(norm, fused: bool):
-    """A train step and an eval step at full width on a fixed device batch."""
+def step_fns(norm, fused: bool, **flags):
+    """A train step and an eval step at full width on a fixed device batch;
+    ``flags``: the DCNN's ``fused_pool`` / ``fused_layer2``."""
     from audiodeepfake_detection_tpu_torch.models.dcnn import DCNN
     from audiodeepfake_detection_tpu_torch.train.steps import (
         make_eval_step, make_optimizer, make_train_step)
@@ -569,7 +610,7 @@ def step_fns(norm, fused: bool):
     args = train_args("", "", "")
     transform = normalized_transform(make_transform(args), *[np.asarray(v) for v in norm])
     torch.manual_seed(0)
-    model = DCNN(time_dim=12, fused_layer1=fused).cuda()
+    model = DCNN(time_dim=12, fused_layer1=fused, **flags).cuda()
     optimizer = make_optimizer(model.parameters(), 4e-4, 1e-3)
     gen = torch.Generator().manual_seed(5)
     batch = {"audio": (0.3 * torch.randn(BATCH, 1, SR, generator=gen)).cuda(),
@@ -631,6 +672,8 @@ def train_timing(fc, fused_cuda, norm, card_line: str):
 
 # kernel-name fragments (lower case) -> group, first match wins
 KERNEL_GROUPS = (
+    ("fused_conv2", ("fused_conv2",)),
+    ("fused_pool", ("fused_pool",)),
     ("fused_conv_mfm", ("fused_conv_mfm",)),
     ("fused_conv1", ("fused_conv1",)),
     ("wpt_cascade", ("wpt_cascade",)),
@@ -679,7 +722,7 @@ def profile_train(train_step, n: int = 5):
         hit = next((g for g, keys in KERNEL_GROUPS if any(k in low for k in keys)), "other")
         groups[hit] += ms
     log("  by group (ms/step): " + ", ".join(f"{g} {ms:.3f}" for g, ms in groups.items()))
-    ours = [r for r in rows if any(k in r[0] for k in ("fused_conv", "wpt_cascade"))]
+    ours = [r for r in rows if any(k in r[0] for k in ("fused_conv", "fused_pool", "wpt_cascade"))]
     for name, ms, count in ours + rows[:12]:
         log(f"    {ms:8.3f} ms  x{count:<3d} {name[:100]}")
     return {"wall_ms": wall_ms, "device_ms": device_ms, "groups": groups,
@@ -1010,11 +1053,283 @@ def lcnn_timing(fc, fused_cuda, norm, card_line: str):
     return out, fused_train
 
 
+# ------------------------------------------- the fused mid blocks (14-16)
+
+
+def pool_bounds(b, c, h, w, n_negative, itemsize=4):
+    """Training forward: x read, out, code and the per-plane moments written;
+    4 compare-selects per output.  Backward: g, code and out read, dx
+    written, and x read at the selected negative elements (counted from this
+    run's code); 2 operations per element of dx."""
+    n_out = b * c * (h // 2) * (w // 2)
+    n_in = b * c * h * w
+    fwd = bound_ms(itemsize * n_in + n_out * (itemsize + 1) + 8 * b * c, 8 * n_out)
+    bwd = bound_ms(n_out * (2 * itemsize + 1) + itemsize * (n_in + n_negative), 2 * n_in)
+    return fwd, bwd
+
+
+def conv2_bounds(b, c_in, c_out, h, w, itemsize=4):
+    """Training forward: x, the weights and corr read, out, code and moments
+    written; a max over four conv values needs all of them: 2 * 9 * Cin flops
+    for each of the 4 * n_out conv values.  Backward: x, g, out, code and the
+    weights read, dx, dw and dcorr written; the conv-output cotangent is zero
+    at three of a window's four positions, so dx and dw need 2 * 9 * Cin
+    flops per pooled element each (the kernels run the dense products: four
+    times that)."""
+    n_out = b * c_out * (h // 2) * (w // 2)
+    n_x = b * c_in * h * w
+    small = 4 * (9 * c_in * c_out + c_out * h * w)
+    fwd = bound_ms(itemsize * n_x + small + n_out * (itemsize + 1), 4 * n_out * 18 * c_in)
+    bwd = bound_ms(2 * itemsize * n_x + n_out * (2 * itemsize + 1) + 2 * small,
+                   2 * n_out * 18 * c_in)
+    return fwd, bwd
+
+
+def _maker(seed):
+    gen = torch.Generator().manual_seed(seed)
+    return lambda *shape, scale=1.0, dtype=torch.float32: (
+        scale * torch.randn(*shape, generator=gen)).cuda().to(dtype)
+
+
+def pool_case(b, c, h, w, dtype, alpha, seed):
+    make = _maker(seed)
+    args = [make(b, c, h, w, dtype=dtype), torch.tensor([alpha]).cuda().to(dtype)]
+    cot = [make(b, c, h // 2, w // 2, dtype=dtype), make(c, scale=0.01), make(c, scale=0.001)]
+    return [a.requires_grad_() for a in args], cot
+
+
+def conv2_case(b, c_in, c_out, h, w, dtype, alpha, seed):
+    make = _maker(seed)
+    args = [make(b, c_in, h, w, dtype=dtype), make(9 * c_in, c_out, scale=0.05, dtype=dtype),
+            make(c_out, h, w, scale=0.1), torch.tensor([alpha]).cuda().to(dtype)]
+    cot = [make(b, c_out, h // 2, w // 2, dtype=dtype), make(c_out, scale=0.01),
+           make(c_out, scale=0.001)]
+    return [a.requires_grad_() for a in args], cot
+
+
+def tie_cases(slope):
+    """Windows whose four values are equal: a constant negative plane for
+    the pool, and for the conv a channel with zero weights under a constant
+    negative ``corr`` (at a zero slope every such window also ties at 0)."""
+    (x, alpha), pool_cot = pool_case(3, 4, 8, 10, torch.float32, slope, seed=70)
+    with torch.no_grad():
+        x[0] = -1.5
+        x[1] = x[1, :, ::2, ::2].repeat_interleave(2, 1).repeat_interleave(2, 2)
+    conv_args, conv_cot = conv2_case(3, 3, 4, 8, 10, torch.float32, slope, seed=71)
+    with torch.no_grad():
+        conv_args[1][:, 0] = 0.0
+        conv_args[2][0] = -0.75
+    return ([x, alpha], pool_cot), (conv_args, conv_cot)
+
+
+def mid_vs_plain(fp, f2):
+    """Phase 14: kernels 5 and 6 against their plain versions, and against
+    themselves.  Every case runs the ``_stats`` variant with cotangents on
+    all three outputs, so the moments' share of the gradients is held too."""
+    pool2, pool3 = ("B{}-C{}-H{}-W{}".format(*s) for s in (POOL2_SHAPE, POOL3_SHAPE))
+    conv2 = "B{}-Cin{}-Cout{}-H{}-W{}".format(*CONV2_SHAPE)
+    f32, bf16 = torch.float32, torch.bfloat16
+    blocks = (
+        ("pool", fp.fused_prelu_pool_stats, fp.plain_prelu_pool_stats, ("dx", "dalpha"), [
+            (lambda: pool_case(*POOL2_SHAPE, f32, 0.25, 60), pool2),
+            (lambda: pool_case(*POOL2_SHAPE, bf16, 0.25, 61), pool2),
+            (lambda: pool_case(*POOL3_SHAPE, f32, 0.25, 62), pool3),
+            (lambda: pool_case(3, 5, 7, 9, f32, -0.5, 63), "odd-B3-C5-H7-W9-negative-slope"),
+            (lambda: pool_case(3, 4, 51, 8, bf16, -0.5, 64), "odd-B3-C4-H51-W8-negative-slope"),
+            (lambda: pool_case(2, 3, 6, 701, f32, 0.0, 65), "odd-B2-C3-H6-W701-zero-slope"),
+            (lambda: tie_cases(0.0)[0], "ties-zero-slope-B3-C4-H8-W10"),
+            (lambda: tie_cases(0.25)[0], "ties-B3-C4-H8-W10"),
+        ]),
+        ("conv2", f2.fused_conv2_prelu_pool_stats, f2.plain_conv2_prelu_pool_stats,
+         ("dx", "dw", "dcorr", "dalpha"), [
+            (lambda: conv2_case(*CONV2_SHAPE, f32, 0.25, 80), conv2),
+            (lambda: conv2_case(*CONV2_SHAPE, bf16, 0.25, 81), conv2),
+            (lambda: conv2_case(2, 3, 5, 7, 9, f32, -0.3, 82),
+             "odd-B2-Cin3-Cout5-H7-W9-negative-slope"),
+            (lambda: conv2_case(2, 8, 12, 25, 33, bf16, -0.3, 83),
+             "odd-B2-Cin8-Cout12-H25-W33-negative-slope"),
+            (lambda: conv2_case(2, 40, 160, 51, 70, f32, 0.0, 84),
+             "odd-B2-Cin40-Cout160-H51-W70-zero-slope"),
+            (lambda: tie_cases(0.0)[1], "ties-zero-slope-B3-Cin3-Cout4-H8-W10"),
+            (lambda: tie_cases(0.25)[1], "ties-B3-Cin3-Cout4-H8-W10"),
+        ]),
+    )
+    out = {}
+    for block, fused_fn, plain_fn, names, cases in blocks:
+        for make_case, label in cases:
+            args, cot = make_case()
+            dtype = args[0].dtype
+            key = f"{block}-{label}-{str(dtype).split('.')[-1]}"
+            runs = []
+            for _ in range(2):
+                y, s, q = fused_fn(*args)
+                runs.append((y, s, q, *torch.autograd.grad([y, s, q], args, cot)))
+            torch.cuda.synchronize()
+            py, ps, pq = plain_fn(*args)
+            pgrads = torch.autograd.grad([py, ps, pq], args, cot)
+            torch.cuda.synchronize()
+            y, s, q, *grads = runs[0]
+            bitwise = all(torch.equal(u, v) for u, v in zip(*runs))
+            fp32 = dtype == f32
+            fwd_err = (y.float() - py.float()).abs().max().item()
+            fwd_tol = py.float().abs().max().item() * 2.0 ** -7 if not fp32 else (
+                POOL_ATOL if block == "pool" else CONV2_FWD_ATOL)
+            sums = {"sum": rel_err(s, ps), "sumsq": rel_err(q, pq)}
+            gerr = {n: rel_err(g, pg) for n, g, pg in zip(names, grads, pgrads)}
+            out[key] = {
+                "fwd_max_abs_err": fwd_err, "moments_rel_err": sums, "grad_rel_err": gerr,
+                "dx_max_abs_err": (grads[0].float() - pgrads[0].float()).abs().max().item(),
+                "dalpha": grads[-1].item(), "bitwise_repeat": bitwise,
+            }
+            if block == "conv2":
+                out[key]["dw_max_abs_err"] = (
+                    grads[1].float() - pgrads[1].float()).abs().max().item()
+            log(f"  {key}: out max|err| {fwd_err:.3e} (tol {fwd_tol:.1e}), moments rel "
+                f"{max(sums.values()):.2e}, grads rel {gerr}, repeat bit-equal {bitwise}")
+            # float32 corr keeps a float32 dcorr under bf16 inputs as well
+            tols = {n: MID_SUM_RTOL if fp32 or n == "dcorr" else FUSED_BF16_RTOL for n in names}
+            if block == "conv2" and not fp32:
+                tols["dalpha"] = MID_BF16_DALPHA_RTOL
+            if not (fwd_err <= fwd_tol and max(sums.values()) <= MID_SUM_RTOL
+                    and all(gerr[n] <= tols[n] for n in names)):
+                raise AssertionError(f"fused {block} vs plain at {key}: {out[key]}")
+            if not bitwise:
+                raise AssertionError(f"fused {block} at {key}: two runs differ")
+            if "zero-slope" in key and not abs(grads[-1].item()) > 0:
+                raise AssertionError(f"fused {block} at {key}: dalpha is 0 at a zero slope")
+            if "ties" in key:
+                # all of a tied window's gradient sits at position (0, 0) (a
+                # zero slope passes none on)
+                tied = grads[0][0] if block == "pool" else grads[2][0]
+                if (tied[..., 1::2, :].any() or tied[..., 1::2].any()
+                        or tied[..., ::2, ::2].all() == ("zero-slope" in key)):
+                    raise AssertionError(f"fused {block} at {key}: a tie left position (0, 0)")
+            del runs, grads, pgrads, y, py, args, cot
+    return out
+
+
+def train_mid(wpt_cuda, fused_cuda, pool_cuda, conv2_cuda, root: str, data: str, unfused_losses):
+    """Phase 15: the training path with the fused mid blocks, through
+    ``run_experiment`` on the card; ``unfused_losses``: phase 7's unfused
+    run from the same seed (dropout 0 there and here)."""
+    from audiodeepfake_detection_tpu_torch.train.experiment import run_experiment
+
+    steps = EPOCHS * STEPS_PER_EPOCH
+    out = {"steps": steps}
+    # per train step: (a) kernel 5 behind cnn[7] (with moments) and cnn[17];
+    # (b) kernel 6 takes cnn[6:10], kernel 5 is left with cnn[18:20]
+    runs = (("a", dict(fused_pool=True), 2, 0),
+            ("b", dict(fused_pool=True, fused_layer2=True), 1, 1))
+    for name, flags, pool_per_step, conv2_per_step in runs:
+        wpt_cuda.LAUNCHES = fused_cuda.FWD_LAUNCHES = fused_cuda.BWD_LAUNCHES = 0
+        pool_cuda.POOL_FWD_LAUNCHES = pool_cuda.POOL_BWD_LAUNCHES = 0
+        conv2_cuda.CONV2_FWD_LAUNCHES = conv2_cuda.CONV2_BWD_LAUNCHES = 0
+        t0 = time.perf_counter()
+        trainer = run_experiment(train_args(
+            root, data, f"log_mid_{name}", dropout_cnn=0.0, dropout_lstm=0.0, **flags))
+        torch.cuda.synchronize()
+        counts = {"wpt": wpt_cuda.LAUNCHES, "conv1_fwd": fused_cuda.FWD_LAUNCHES,
+                  "conv1_bwd": fused_cuda.BWD_LAUNCHES,
+                  "pool_fwd": pool_cuda.POOL_FWD_LAUNCHES, "pool_bwd": pool_cuda.POOL_BWD_LAUNCHES,
+                  "conv2_fwd": conv2_cuda.CONV2_FWD_LAUNCHES,
+                  "conv2_bwd": conv2_cuda.CONV2_BWD_LAUNCHES}
+        wall = time.perf_counter() - t0
+        losses = [row[2] for row in trainer.loss_list]
+        worst = max(abs(u - v) / abs(v) for u, v in zip(losses, unfused_losses))
+        log(f"  run ({name}) {flags}: losses {['%.6f' % v for v in losses]} (worst rel diff "
+            f"to unfused {worst:.2e}), test {trainer.test_results}, launches {counts}, "
+            f"{wall:.1f} s wall")
+        if len(losses) != steps or not np.isfinite(losses).all():
+            raise AssertionError(f"run ({name}) losses: {losses}")
+        want = {"conv1_fwd": steps, "conv1_bwd": steps,
+                "pool_fwd": pool_per_step * steps, "pool_bwd": pool_per_step * steps,
+                "conv2_fwd": conv2_per_step * steps, "conv2_bwd": conv2_per_step * steps}
+        if any(counts[k] != v for k, v in want.items()) or counts["wpt"] < steps:
+            raise AssertionError(f"run ({name}) launch counts {counts}, want {want}")
+        model = trainer.model
+        if ((model.fused_layer1, model.fused_pool, bool(model.fused_layer2))
+                != (True, True, "fused_layer2" in flags) or trainer.device.type != "cuda"):
+            raise AssertionError(f"run ({name}) left the fused path or the card")
+        if not worst <= LOSS_RTOL:
+            raise AssertionError(
+                f"run ({name}) vs unfused losses differ by {worst} > {LOSS_RTOL}")
+        acc, eer = trainer.test_results[:2]
+        if not (0.0 <= acc <= 1.0 and 0.0 <= eer <= 1.0):  # NaN fails too
+            raise AssertionError(f"run ({name}) test results {trainer.test_results}")
+        out[name] = {"launches": counts, "losses": losses, "loss_rel_diff": worst,
+                     "wall_s": wall}
+    out["served_vs_trainer"] = served_vs_trainer(trainer)
+    out["snapshot"] = trainer.snapshot_path
+    return out
+
+
+def mid_timing(fp, pool_cuda, f2, conv2_cuda, norm, card_line: str):
+    """Phase 16: kernels 5 and 6 alone vs plain (through their launchers, as
+    phase 8 times kernel 2), the DCNN train step with each set of flags, and
+    the eval step."""
+    out = {}
+    for name, shape in (("pool2", POOL2_SHAPE), ("pool3", POOL3_SHAPE)):
+        (x, alpha), cot = pool_case(*shape, torch.float32, 0.25, seed=90)
+        raw = (x.detach(), alpha.detach())
+        y, code, _, _ = pool_cuda.forward(*raw, True, True)
+        graph = fp.plain_prelu_pool_stats(x, alpha)
+        fwd = median_ms({
+            "plain": lambda: fp.plain_prelu_pool_stats(x, alpha),
+            "kernel": lambda: pool_cuda.forward(*raw, True, True),
+        }, reps=10)
+        bwd = median_ms({
+            "plain": lambda: torch.autograd.grad(graph, (x, alpha), cot, retain_graph=True),
+            "kernel": lambda: pool_cuda.backward(*raw, cot[0], y, code, cot[1], cot[2]),
+        }, reps=10)
+        out[name] = {"fwd_kernel_ms": fwd["kernel"], "fwd_plain_ms": fwd["plain"],
+                     "bwd_kernel_ms": bwd["kernel"], "bwd_plain_ms": bwd["plain"],
+                     "n_negative": int((code >= 4).sum())}
+        del graph, y, code, x, raw
+    (x, w, corr, alpha), cot = conv2_case(*CONV2_SHAPE, torch.float32, 0.25, seed=91)
+    raw = tuple(t.detach() for t in (x, w, corr, alpha))
+    y, code, _, _ = conv2_cuda.forward(*raw, True, True)
+    graph = f2.plain_conv2_prelu_pool_stats(x, w, corr, alpha)
+    fwd = median_ms({
+        "plain": lambda: f2.plain_conv2_prelu_pool_stats(x, w, corr, alpha),
+        "kernel": lambda: conv2_cuda.forward(*raw, True, True),
+    }, reps=5)
+    bwd = median_ms({
+        "plain": lambda: torch.autograd.grad(graph, (x, w, corr, alpha), cot, retain_graph=True),
+        "kernel": lambda: conv2_cuda.backward(*raw, cot[0], y, code, cot[1], cot[2]),
+        "kernel_without_dx": lambda: conv2_cuda.backward(
+            *raw, cot[0], y, code, cot[1], cot[2], need_dx=False),
+    }, reps=5)
+    out["conv2"] = {"fwd_kernel_ms": fwd["kernel"], "fwd_plain_ms": fwd["plain"],
+                    "bwd_kernel_ms": bwd["kernel"], "bwd_plain_ms": bwd["plain"],
+                    "bwd_kernel_without_dx_ms": bwd["kernel_without_dx"]}
+    del graph, y, code, x, raw
+    log(f"  B={BATCH} [{card_line}]: " + "; ".join(
+        f"{k} fwd kernel {v['fwd_kernel_ms']:.4f} ms, plain {v['fwd_plain_ms']:.4f} ms, bwd "
+        f"kernel {v['bwd_kernel_ms']:.4f} ms, plain {v['bwd_plain_ms']:.4f} ms"
+        for k, v in out.items()) + "; conv2 bwd without dx "
+        f"{out['conv2']['bwd_kernel_without_dx_ms']:.4f} ms")
+
+    variants = {"unfused": (False, {}), "layer1": (True, {}),
+                "a_layer1_pool": (True, dict(fused_pool=True)),
+                "b_layer1_pool_layer2": (True, dict(fused_pool=True, fused_layer2=True))}
+    fns = {name: step_fns(norm, fused, **flags) for name, (fused, flags) in variants.items()}
+    steps = median_ms({name: fn[0] for name, fn in fns.items()}, reps=3)
+    evals = median_ms({"eval": fns["b_layer1_pool_layer2"][1]}, reps=3)
+    out["train_step_ms"] = steps
+    out["train_frames_per_s"] = {k: BATCH / v * 1e3 for k, v in steps.items()}
+    out["eval_step_ms"] = evals["eval"]
+    log("  train step: " + ", ".join(
+        f"{k} {v:.3f} ms ({BATCH / v * 1e3:.1f} frames/s)" for k, v in steps.items())
+        + f"; eval step {evals['eval']:.3f} ms")
+    return out, fns["b_layer1_pool_layer2"][0]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; needs a CUDA device")
     from audiodeepfake_detection_tpu_torch.ops import (
-        fused_conv1, fused_conv1_cuda, wpt, wpt_cuda)
+        fused_conv1, fused_conv1_cuda, fused_conv2, fused_conv2_cuda, fused_pool,
+        fused_pool_cuda, wpt, wpt_cuda)
 
     # fp32 convolutions on both sides of every comparison (TF32 keeps ~3
     # digits); the JAX reference runs its convolutions at HIGHEST
@@ -1028,10 +1343,11 @@ def main() -> None:
         t0 = time.perf_counter()
         return mod.build(), time.perf_counter() - t0
 
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:  # one nvcc each
-        builds = list(pool.map(timed_build, (wpt_cuda, fused_conv1_cuda)))
+    kernel_mods = (wpt_cuda, fused_conv1_cuda, fused_pool_cuda, fused_conv2_cuda)
+    with concurrent.futures.ThreadPoolExecutor(len(kernel_mods)) as pool:  # one nvcc each
+        builds = list(pool.map(timed_build, kernel_mods))
     build_s = {}
-    for mod, (report, secs) in zip((wpt_cuda, fused_conv1_cuda), builds):
+    for mod, (report, secs) in zip(kernel_mods, builds):
         build_s[mod.SOURCE.name] = secs
         log(f"[2 build] {mod.SOURCE.name} -> sm_90a in {secs:.3f} s\n{report.strip()}")
 
@@ -1066,10 +1382,22 @@ def main() -> None:
         lcnn = train_lcnn(wpt_cuda, fused_conv1_cuda, root, data)
         log("[12 serve the trained LCNN]")
         lcnn_served = serve(wpt_cuda, lcnn.pop("snapshot"), kernel_on_path=False)
-    log("[13 time and profile, LCNN]")
-    lcnn_times, lcnn_step = lcnn_timing(
-        fused_conv1, fused_conv1_cuda, lcnn["norm"], card_line)
-    lcnn_prof = profile_train(lcnn_step)
+        log("[13 time and profile, LCNN]")
+        lcnn_times, lcnn_step = lcnn_timing(
+            fused_conv1, fused_conv1_cuda, lcnn["norm"], card_line)
+        lcnn_prof = profile_train(lcnn_step)
+        del lcnn_step
+        log("[14 fused mid blocks vs plain]")
+        mid_errs = mid_vs_plain(fused_pool, fused_conv2)
+        log("[15 train with the fused mid blocks]")
+        mid = train_mid(wpt_cuda, fused_conv1_cuda, fused_pool_cuda, fused_conv2_cuda,
+                        root, data, trained["unfused_losses"])
+        log("  the snapshot of run (b) over HTTP")
+        mid["serve"] = serve(wpt_cuda, mid.pop("snapshot"))
+    log("[16 time and profile, fused mid blocks]")
+    mid_times, mid_step = mid_timing(
+        fused_pool, fused_pool_cuda, fused_conv2, fused_conv2_cuda, trained["norm"], card_line)
+    mid_prof = profile_train(mid_step)
 
     main_key = f"{MAIN[0]}-L{MAIN[1]}-B64-T{SR}"
     train_key = "B{}-H{}-W{}-C{}-float32".format(*TRAIN_SHAPE)
@@ -1078,9 +1406,19 @@ def main() -> None:
     (fwd_b, fwd_by), (bwd_b, bwd_by) = fused_bounds(*TRAIN_SHAPE)
     lcnn_key = "B{}-H{}-W{}-C{}-float32".format(*LCNN_SHAPE)
     (mfwd_b, mfwd_by), (mbwd_b, mbwd_by) = mfm_bounds(*LCNN_SHAPE)
+    pool_src = "audiodeepfake_detection_tpu_torch/csrc/fused_pool.cu"
+    conv2_src = "audiodeepfake_detection_tpu_torch/csrc/fused_conv2.cu"
+    pool_key = "pool-B{}-C{}-H{}-W{}-float32".format(*POOL2_SHAPE)
+    conv2_key = "conv2-B{}-Cin{}-Cout{}-H{}-W{}-float32".format(*CONV2_SHAPE)
+    (pfwd_b, pfwd_by), (pbwd_b, pbwd_by) = pool_bounds(
+        *POOL2_SHAPE, mid_times["pool2"]["n_negative"])
+    (cfwd_b, cfwd_by), (cbwd_b, cbwd_by) = conv2_bounds(*CONV2_SHAPE)
+    mid_launches = {k: mid["a"]["launches"][k] + mid["b"]["launches"][k]
+                    for k in ("pool_fwd", "pool_bwd", "conv2_fwd", "conv2_bwd")}
     # library_ms is null throughout: no single PyTorch call computes a
     # wavelet-packet cascade, or conv + PReLU + pool with moments, or conv +
-    # MaxFeatureMap + pool with a code, or parameter gradients from a code
+    # MaxFeatureMap + pool with a code, or PReLU + pool with a code, or
+    # gradients from a code
     print(json.dumps({"kernels": [
         {
             "name": "wpt_cascade", "route": "cuda",
@@ -1123,6 +1461,44 @@ def main() -> None:
             "ms": lcnn_times["bwd_kernel_ms"], "plain_ms": lcnn_times["bwd_plain_ms"],
             "bound_ms": mbwd_b, "bound_by": mbwd_by, "library_ms": None,
         },
+        {
+            "name": "fused_pool_fwd", "route": "cuda", "source": pool_src,
+            "replaces": "audiodeepfake_detection_tpu/ops/fused_pool.py:197",
+            "launches": mid_launches["pool_fwd"],
+            "max_abs_err": mid_errs[pool_key]["fwd_max_abs_err"],
+            "ms": mid_times["pool2"]["fwd_kernel_ms"],
+            "plain_ms": mid_times["pool2"]["fwd_plain_ms"],
+            "bound_ms": pfwd_b, "bound_by": pfwd_by, "library_ms": None,
+        },
+        {
+            "name": "fused_pool_bwd", "route": "cuda", "source": pool_src,
+            "replaces": "audiodeepfake_detection_tpu/ops/fused_pool.py:241",
+            "launches": mid_launches["pool_bwd"],
+            "max_abs_err": mid_errs[pool_key]["dx_max_abs_err"],
+            "ms": mid_times["pool2"]["bwd_kernel_ms"],
+            "plain_ms": mid_times["pool2"]["bwd_plain_ms"],
+            "bound_ms": pbwd_b, "bound_by": pbwd_by, "library_ms": None,
+        },
+        {
+            "name": "fused_conv2_fwd", "route": "cuda", "source": conv2_src,
+            "replaces": "audiodeepfake_detection_tpu/ops/fused_conv2.py:323",
+            "launches": mid_launches["conv2_fwd"],
+            "max_abs_err": mid_errs[conv2_key]["fwd_max_abs_err"],
+            "ms": mid_times["conv2"]["fwd_kernel_ms"],
+            "plain_ms": mid_times["conv2"]["fwd_plain_ms"],
+            "bound_ms": cfwd_b, "bound_by": cfwd_by, "library_ms": None,
+        },
+        {
+            # one launch counted per backward call: its dx, dw and dcorr /
+            # dalpha kernels together
+            "name": "fused_conv2_bwd", "route": "cuda", "source": conv2_src,
+            "replaces": "audiodeepfake_detection_tpu/ops/fused_conv2.py:383",
+            "launches": mid_launches["conv2_bwd"],
+            "max_abs_err": mid_errs[conv2_key]["dw_max_abs_err"],
+            "ms": mid_times["conv2"]["bwd_kernel_ms"],
+            "plain_ms": mid_times["conv2"]["bwd_plain_ms"],
+            "bound_ms": cbwd_b, "bound_by": cbwd_by, "library_ms": None,
+        },
     ]}))
     trained.pop("norm")
     lcnn.pop("norm")
@@ -1132,6 +1508,8 @@ def main() -> None:
         "train": trained, "train_timing": train_times, "profile": prof,
         "mfm_vs_plain": mfm_errs, "lcnn_train": lcnn, "lcnn_serve": lcnn_served,
         "lcnn_timing": lcnn_times, "lcnn_profile": lcnn_prof,
+        "mid_vs_plain": mid_errs, "mid_train": mid, "mid_timing": mid_times,
+        "mid_profile": mid_prof,
     }))
     print(card_line)
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,15 @@ import numpy as np
 import pytest
 import torch
 
-from audiodeepfake_detection_tpu_torch.ops import fused_conv1, fused_conv1_cuda, wpt_cuda
+from audiodeepfake_detection_tpu_torch.ops import (
+    fused_conv1,
+    fused_conv1_cuda,
+    fused_conv2,
+    fused_conv2_cuda,
+    fused_pool,
+    fused_pool_cuda,
+    wpt_cuda,
+)
 from audiodeepfake_detection_tpu_torch.ops.wpt import log_power, wpt_analysis
 
 pytestmark = pytest.mark.cuda
@@ -340,3 +348,223 @@ def test_lcnn_fused_train_step_matches_unfused_on_the_card(card):
     for (name, p), (_, f) in zip(plain.named_parameters(), fused.named_parameters()):
         denom = p.grad.norm().clamp(min=1e-30)
         assert ((p.grad - f.grad).norm() / denom).item() <= 0.02, name
+
+
+# ------------------------------------------------------ fused PReLU + pool
+
+
+def _pool_inputs(b, c, h, w, dtype, device, alpha=0.25, seed=0):
+    rng = np.random.RandomState(seed)
+    make = lambda a: torch.from_numpy(a.astype(np.float32)).to(device).to(dtype)  # noqa: E731
+    args = [make(rng.randn(b, c, h, w)), make(np.asarray([alpha]))]
+    cot = [make(rng.randn(b, c, h // 2, w // 2)),
+           make(rng.randn(c) * 0.5).float(), make(rng.randn(c) * 0.05).float()]
+    return [a.requires_grad_() for a in args], cot
+
+
+@pytest.mark.parametrize(
+    "c,h,w,alpha", [(96, 48, 129, 0.25), (64, 24, 64, -0.5), (5, 7, 9, 0.25), (4, 51, 8, 0.0),
+                    (3, 2, 700, -0.5)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_pool_matches_plain(card, c, h, w, alpha, dtype):
+    args, cot = _pool_inputs(3, c, h, w, dtype, card, alpha=alpha)
+    before = (fused_pool_cuda.POOL_FWD_LAUNCHES, fused_pool_cuda.POOL_BWD_LAUNCHES)
+    out, s, q = fused_pool.fused_prelu_pool_stats(*args)
+    grads = torch.autograd.grad([out, s, q], args, cot)
+    torch.cuda.synchronize()
+    assert (fused_pool_cuda.POOL_FWD_LAUNCHES, fused_pool_cuda.POOL_BWD_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    want, ws, wq = fused_pool.plain_prelu_pool_stats(*args)
+    wgrads = torch.autograd.grad([want, ws, wq], args, cot)
+    assert out.dtype == dtype and out.shape == want.shape and out.is_contiguous()
+    # elementwise on both sides: the same float32 value, rounded once
+    assert torch.equal(out, want)
+    assert _rel(s, ws) <= FUSED_SUM_RTOL and _rel(q, wq) <= FUSED_SUM_RTOL
+    # dx is elementwise (bf16: one rounding of the same value, which a fused
+    # multiply-add may move by an ulp); dalpha an fp32 sum in another order
+    assert grads[0].dtype == dtype and grads[1].dtype == dtype
+    assert _rel(grads[0], wgrads[0]) <= (1e-6 if dtype == torch.float32 else 1e-2)
+    assert _rel(grads[1], wgrads[1]) <= (FUSED_SUM_RTOL if dtype == torch.float32 else 1e-2)
+    if h % 2:
+        assert not grads[0][:, :, -1].any()
+    if w % 2:
+        assert not grads[0][..., -1].any()
+
+
+def test_fused_pool_ties_zero_slope_and_determinism(card):
+    """A constant negative plane: every window ties (at 0 under a zero
+    slope), the gradient goes to position (0, 0) and ``dalpha`` is the true
+    sum, as in the plain version; two runs are bit-equal; eval saves no
+    code."""
+    x = torch.randn(2, 3, 8, 10, device=card)
+    x[0] = -1.5
+    for alpha in (0.0, 0.25, -0.5):
+        args = [x.clone().requires_grad_(), torch.tensor([alpha], device=card).requires_grad_()]
+        g = torch.randn(2, 3, 4, 5, device=card)
+        runs = []
+        for _ in range(2):
+            out = fused_pool.fused_prelu_pool(*args)
+            runs.append((out, *torch.autograd.grad(out, args, g)))
+        for a, b in zip(*runs):
+            assert torch.equal(a, b)
+        want = fused_pool.plain_prelu_pool(*args)
+        wgrads = torch.autograd.grad(want, args, g)
+        assert torch.equal(runs[0][0], want)
+        torch.testing.assert_close(runs[0][1], wgrads[0], rtol=0, atol=1e-6)
+        torch.testing.assert_close(runs[0][2], wgrads[1], rtol=1e-5, atol=1e-5)
+        dx0 = runs[0][1][0]
+        assert not dx0[:, 1::2].any() and not dx0[:, :, 1::2].any()
+        assert wgrads[1].abs().item() > 0.1
+    with torch.no_grad():
+        before = fused_pool_cuda.POOL_BWD_LAUNCHES
+        assert torch.equal(fused_pool.fused_prelu_pool(*args), runs[0][0])
+        assert fused_pool_cuda.POOL_BWD_LAUNCHES == before
+
+
+def test_fused_pool_refuses_what_it_does_not_take(card):
+    (x, alpha), _ = _pool_inputs(2, 4, 8, 10, torch.float32, card)
+    x = x.detach()
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fused_pool.fused_prelu_pool(x.half(), alpha)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_pool.fused_prelu_pool(x.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2), alpha)
+    with pytest.raises(ValueError, match="H=1, W=10 leaves no output"):
+        fused_pool.fused_prelu_pool(x[:, :, :1].contiguous(), alpha)
+
+
+# ------------------------------------- fused conv 3x3 (Cin -> Cout) + PReLU + pool
+
+# forward: 9 * Cin fp32 FMAs per conv value on both sides
+CONV2_FWD_ATOL = 2e-5
+# moments and gradients: fp32 sums taken in another order than cuDNN's,
+# relative to the largest entry of each tensor
+CONV2_SUM_RTOL = 1e-4
+CONV2_NAMES = ("dx", "dw", "dcorr", "dalpha")
+
+
+def _conv2_inputs(b, c_in, c_out, h, w, dtype, device, alpha=0.25, seed=0):
+    rng = np.random.RandomState(seed)
+    make = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)  # noqa: E731
+    args = [make(rng.randn(b, c_in, h, w)).to(dtype), make(rng.randn(9 * c_in, c_out) * 0.1).to(dtype),
+            make(rng.randn(c_out, h, w) * 0.1), make(np.asarray([alpha])).to(dtype)]
+    cot = [make(rng.randn(b, c_out, h // 2, w // 2)).to(dtype),
+           make(rng.randn(c_out) * 0.5), make(rng.randn(c_out) * 0.05)]
+    return [a.requires_grad_() for a in args], cot
+
+
+@pytest.mark.parametrize(
+    "c_in,c_out,h,w,alpha",
+    [(64, 96, 48, 129, 0.25), (3, 5, 7, 9, -0.3), (8, 12, 25, 33, 0.25), (8, 160, 4, 70, -0.3),
+     (40, 12, 51, 8, 0.0), (2, 4, 2, 2, 0.25)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_conv2_matches_plain(card, c_in, c_out, h, w, alpha, dtype):
+    args, cot = _conv2_inputs(2, c_in, c_out, h, w, dtype, card, alpha=alpha)
+    before = (fused_conv2_cuda.CONV2_FWD_LAUNCHES, fused_conv2_cuda.CONV2_BWD_LAUNCHES)
+    out, s, q = fused_conv2.fused_conv2_prelu_pool_stats(*args)
+    grads = torch.autograd.grad([out, s, q], args, cot)
+    torch.cuda.synchronize()
+    assert (fused_conv2_cuda.CONV2_FWD_LAUNCHES, fused_conv2_cuda.CONV2_BWD_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    want, ws, wq = fused_conv2.plain_conv2_prelu_pool_stats(*args)
+    wgrads = torch.autograd.grad([want, ws, wq], args, cot)
+    assert out.dtype == dtype and out.shape == want.shape and out.is_contiguous()
+    atol = CONV2_FWD_ATOL if dtype == torch.float32 else want.float().abs().max().item() * 2.0**-7
+    torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=atol)
+    assert _rel(s, ws) <= CONV2_SUM_RTOL and _rel(q, wq) <= CONV2_SUM_RTOL
+    # bf16 gradients are returned in bf16 on both sides: 2**-8 of the largest
+    tol = CONV2_SUM_RTOL if dtype == torch.float32 else 1e-2
+    for name, g, wg, arg in zip(CONV2_NAMES, grads, wgrads, args):
+        assert g.dtype == arg.dtype and g.shape == wg.shape, name
+        # bf16 dalpha: the kernel takes the conv value back from the stored
+        # bf16 output (out / alpha, 2**-9 per term, as the JAX kernel does)
+        # and the few hundred terms here cancel to a sum near 1
+        cap = CONV2_SUM_RTOL if name == "dcorr" else (
+            3e-2 if name == "dalpha" and dtype == torch.bfloat16 else tol)
+        assert _rel(g, wg) <= cap, name
+    if h % 2:
+        assert not grads[2][:, -1].any() and grads[0][:, :, -1].any()
+    if w % 2:
+        assert not grads[2][..., -1].any() and grads[0][..., -1].any()
+
+
+def test_fused_conv2_ties_zero_slope_and_determinism(card):
+    """Channel 0 has zero weights and a constant negative ``corr``: every
+    window ties (at 0 under a zero slope), the gradient goes to position
+    (0, 0) and ``dalpha`` is the true sum, as in the plain version; two runs
+    are bit-equal; eval saves no code and skips ``dx`` when ``x`` needs
+    none."""
+    for alpha in (0.0, 0.25, -0.3):
+        args, cot = _conv2_inputs(3, 3, 4, 8, 10, torch.float32, card, alpha=alpha, seed=3)
+        with torch.no_grad():
+            args[1][:, 0] = 0.0
+            args[2][0] = -0.75
+        runs = []
+        for _ in range(2):
+            out, s, q = fused_conv2.fused_conv2_prelu_pool_stats(*args)
+            runs.append((out, s, q, *torch.autograd.grad([out, s, q], args, cot)))
+        for a, b in zip(*runs):
+            assert torch.equal(a, b)  # per-block partials, fixed order: no atomics
+        want = fused_conv2.plain_conv2_prelu_pool_stats(*args)
+        wgrads = torch.autograd.grad(want, args, cot, retain_graph=True)
+        torch.testing.assert_close(runs[0][0], want[0], rtol=0, atol=CONV2_FWD_ATOL)
+        for name, g, wg in zip(CONV2_NAMES, runs[0][3:], wgrads):
+            assert _rel(g, wg) <= CONV2_SUM_RTOL, name
+        dcorr0 = runs[0][5][0]
+        assert not dcorr0[1::2].any() and not dcorr0[:, 1::2].any()
+        assert wgrads[3].abs().item() > 0.1
+    with torch.no_grad():
+        before = fused_conv2_cuda.CONV2_BWD_LAUNCHES
+        assert torch.equal(fused_conv2.fused_conv2_prelu_pool(*args), runs[0][0])
+        assert fused_conv2_cuda.CONV2_BWD_LAUNCHES == before
+    params_only = [args[0].detach()] + args[1:]
+    out = fused_conv2.fused_conv2_prelu_pool(*params_only)
+    for g, wg in zip(torch.autograd.grad(out, params_only[1:], cot[0]),
+                     torch.autograd.grad(want[0], args[1:], cot[0])):
+        assert _rel(g, wg) <= CONV2_SUM_RTOL
+
+
+def test_fused_conv2_refuses_what_it_does_not_take(card):
+    (x, w, corr, alpha), _ = _conv2_inputs(2, 3, 5, 8, 10, torch.float32, card)
+    x, w, corr, alpha = x.detach(), w.detach(), corr.detach(), alpha.detach()
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fused_conv2.fused_conv2_prelu_pool(x.half(), w, corr, alpha)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_conv2.fused_conv2_prelu_pool(
+            x.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2), w, corr, alpha)
+    with pytest.raises(ValueError, match=r"w must be \[9 \* Cin, Cout\] = \[27, Cout\]"):
+        fused_conv2.fused_conv2_prelu_pool(x, w[:18].contiguous(), corr, alpha)
+    with pytest.raises(ValueError, match="corr must be"):
+        fused_conv2.fused_conv2_prelu_pool(x, w, corr[:, :7].contiguous(), alpha)
+
+
+@pytest.mark.parametrize(
+    "flags", [dict(fused_pool=True), dict(fused_layer2=True),
+              dict(fused_layer1=True, fused_pool=True, fused_layer2=True)],
+    ids=["pool", "layer2", "all"])
+def test_dcnn_fused_mid_blocks_train_step_matches_unfused_on_the_card(card, flags):
+    from audiodeepfake_detection_tpu_torch.models.dcnn import DCNN
+
+    torch.manual_seed(0)
+    kw = dict(time_dim=12, dropout_cnn=0.0, dropout_lstm=0.0)
+    plain, fused = DCNN(**kw).to(card), DCNN(**kw, **flags).to(card)
+    fused.load_state_dict(plain.state_dict())
+    x = torch.randn(8, 1, 256, 95, device=card)
+    y = torch.randint(0, 2, (8,), device=card)
+    counts = (fused_pool_cuda.POOL_FWD_LAUNCHES, fused_conv2_cuda.CONV2_FWD_LAUNCHES)
+    losses = []
+    for model in (plain, fused):
+        model.train()
+        loss = torch.nn.functional.cross_entropy(model(x), y)
+        loss.backward()
+        losses.append(loss.item())
+    assert fused_pool_cuda.POOL_FWD_LAUNCHES - counts[0] == (
+        0 if "fused_pool" not in flags else 1 if "fused_layer2" in flags else 2)
+    assert fused_conv2_cuda.CONV2_FWD_LAUNCHES - counts[1] == int("fused_layer2" in flags)
+    # centred (cuDNN BatchNorm) vs one-pass moments; fp32 sums reordered
+    assert abs(losses[0] - losses[1]) <= 1e-5
+    # relative l2 per parameter, the caps of the first block's test above
+    for (name, p), (_, f) in zip(plain.named_parameters(), fused.named_parameters()):
+        denom = p.grad.norm().clamp(min=1e-30)
+        assert ((p.grad - f.grad).norm() / denom).item() <= (0.1 if p.numel() == 1 else 0.02), name
+    for (name, p), (_, f) in zip(plain.named_buffers(), fused.named_buffers()):
+        torch.testing.assert_close(f, p, rtol=1e-4, atol=1e-5, msg=name)

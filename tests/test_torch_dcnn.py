@@ -176,3 +176,105 @@ def test_load_torch_state_dict_reference_format(tmp_path):
     assert set(loaded) == set(state)
     port = DCNN(**SMALL["kw"])
     port.load_state_dict(loaded, strict=True)
+
+
+# ---------------------------------------------- the fused mid blocks
+# narrow widths, no dilated block: [2, 1, 32, 24] reaches the second pool as
+# 13 x 17 (odd both ways) and the third as 6 x 8
+MID = dict(
+    kw=dict(with_dilation=False, flattend_size=256, ochannels1=8, ochannels2=8,
+            ochannels3=12, ochannels4=16, ochannels5=8, dropout_cnn=0.0),
+    shape=(2, 1, 32, 24),
+)
+MID_FLAGS = {
+    "pool": dict(fused_pool="always"),
+    "layer2": dict(fused_layer2="always"),
+    "both": dict(fused_pool="always", fused_layer2="always"),
+}
+
+
+def _mid_pair(flags, seed=3):
+    """The JAX DCNN (its Pallas kernels in interpret mode) and the port
+    (plain versions on the CPU) with the same flags and weights."""
+    jmodel = JaxDCNN(**MID["kw"], **flags)
+    variables = jax_variables(jmodel, MID["shape"], seed=seed)
+    port = DCNN(**{k: v for k, v in MID["kw"].items() if k != "with_dilation"},
+                with_dilation=False, **flags)
+    port.load_state_dict(state_dict_from_jax(variables), strict=True)
+    x = np.random.RandomState(seed + 1).randn(*MID["shape"]).astype(np.float32)
+    return jmodel, variables, port, x
+
+
+@pytest.mark.parametrize("flags", sorted(MID_FLAGS))
+def test_fused_mid_blocks_eval_logits_match_jax(flags):
+    jmodel, variables, port, x = _mid_pair(MID_FLAGS[flags])
+    # the same layers in fp32 on both sides, sums in another order
+    np.testing.assert_allclose(
+        _port_logits(port, x), _jax_logits(jmodel, variables, x), rtol=0, atol=1e-5)
+
+
+# "layer2" alone differs from "both" by the third pool only, and tracing the
+# JAX model with its kernels in interpret mode takes ~20 s: not repeated here
+@pytest.mark.parametrize("flags", ["pool", "both"])
+def test_fused_mid_blocks_train_logits_buffers_and_gradients_match_jax(flags):
+    jmodel, variables, port, x = _mid_pair(MID_FLAGS[flags], seed=5)
+
+    def loss_fn(params):
+        out, updates = jmodel.apply(
+            {"params": params, "batch_stats": variables["batch_stats"]},
+            jnp.asarray(x), train=True, mutable=["batch_stats"])
+        return jnp.sum(out**2), (out, updates)
+
+    # traced once: the Pallas kernels in interpret mode are slow to trace
+    (_, (want, updates)), jgrads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
+        variables["params"])
+    port.train()
+    got = port(torch.from_numpy(x))
+    got.square().sum().backward()
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=0, atol=1e-5)
+    carried = state_dict_from_jax(
+        {"params": variables["params"],
+         "batch_stats": jax.tree.map(np.asarray, updates["batch_stats"])})
+    for key, val in port.state_dict().items():
+        if "running_" in key or "num_batches" in key:
+            np.testing.assert_allclose(
+                val.numpy(), carried[key].numpy(), rtol=0, atol=1e-5, err_msg=key)
+    assert int(port.cnn[6].num_batches_tracked) == int(port.cnn[10].num_batches_tracked) == 8
+    want_grads = state_dict_from_jax({"params": jax.tree.map(np.asarray, jgrads)})
+    for name, p in port.named_parameters():
+        np.testing.assert_allclose(
+            p.grad.numpy(), want_grads[name].numpy(), rtol=0, atol=1e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("flags", sorted(MID_FLAGS))
+def test_fused_mid_blocks_train_only_flag_is_unfused_in_eval(flags):
+    """``True`` runs the fused blocks in training only: in eval the model is
+    the plain ``nn.Sequential``, bit for bit."""
+    train_only = {k: True for k in MID_FLAGS[flags]}
+    _, variables, plain, x = _mid_pair({}, seed=7)
+    fused = DCNN(**{k: v for k, v in MID["kw"].items()}, **train_only)
+    fused.load_state_dict(plain.state_dict(), strict=True)
+    np.testing.assert_array_equal(_port_logits(fused, x), _port_logits(plain, x))
+    fused.train()
+    plain.train()
+    got, want = fused(torch.from_numpy(x)), plain(torch.from_numpy(x))
+    # in training the flagged model leaves the Sequential: close, not equal
+    assert not torch.equal(got, want)
+    np.testing.assert_allclose(got.detach().numpy(), want.detach().numpy(), rtol=0, atol=1e-5)
+
+
+def test_every_state_dict_loads_under_every_flag():
+    """The flags add no parameter and no buffer."""
+    kw = {k: v for k, v in MID["kw"].items()}
+    keys = set(DCNN(**kw).state_dict())
+    model = JaxDCNN(**MID["kw"], fused_layer2="always")
+    from_jax = state_dict_from_jax(jax_variables(model, MID["shape"]))
+    assert set(from_jax) == keys
+    for flags in ({}, *MID_FLAGS.values(), dict(fused_pool=True, fused_layer2=True)):
+        port = DCNN(**kw, **flags)
+        assert set(port.state_dict()) == keys
+        port.load_state_dict(from_jax, strict=True)
+        port.load_state_dict(import_dcnn({"module." + k: v for k, v in from_jax.items()}),
+                             strict=True)
+    with pytest.raises(ValueError, match="fused_pool must be False, True or 'always'"):
+        DCNN(**kw, fused_pool="sometimes")

@@ -46,7 +46,8 @@ def test_sources_found():
         "data/loader.py", "train/metrics.py", "train/results.py",
         "train/profiling.py", "train/trainer.py", "train/experiment.py",
         "ops/stft.py", "ops/lfcc.py", "models/lcnn.py", "models/regression.py",
-        "models/gridmodel.py",
+        "models/gridmodel.py", "ops/fused_pool.py", "ops/fused_pool_cuda.py",
+        "ops/fused_conv2.py", "ops/fused_conv2_cuda.py",
     ):
         assert f"audiodeepfake_detection_tpu_torch/{new}" in names
     assert "chip_smoke.py" in names
@@ -84,9 +85,17 @@ def test_importing_every_module_builds_no_kernel():
     assert len(names) >= 30
     for name in names:
         importlib.import_module(name)
-    from audiodeepfake_detection_tpu_torch.ops import fused_conv1_cuda, wpt_cuda
+    from audiodeepfake_detection_tpu_torch.ops import (
+        fused_conv1_cuda,
+        fused_conv2_cuda,
+        fused_pool_cuda,
+        wpt_cuda,
+    )
 
     assert wpt_cuda._LIB is None and fused_conv1_cuda._LIB is None
+    assert fused_pool_cuda._LIB is None and fused_conv2_cuda._LIB is None
+    assert fused_pool_cuda.POOL_FWD_LAUNCHES == fused_pool_cuda.POOL_BWD_LAUNCHES == 0
+    assert fused_conv2_cuda.CONV2_FWD_LAUNCHES == fused_conv2_cuda.CONV2_BWD_LAUNCHES == 0
     assert fused_conv1_cuda.FWD_LAUNCHES == fused_conv1_cuda.BWD_LAUNCHES == 0
     assert fused_conv1_cuda.MFM_FWD_LAUNCHES == fused_conv1_cuda.MFM_BWD_LAUNCHES == 0
 

@@ -230,13 +230,113 @@ def test_unsupported_trainer_flags_name_their_slice(tmp_path, flag, value, where
     "extra,where",
     [(dict(only_ig=True), "slice 9"), (dict(tensorboard=True), "slice 9"),
      (dict(frame_cache=True), "slice 8"), (dict(dtype="bfloat16"), "slice 5"),
-     (dict(fused_pool=True), "queue 2"), (dict(fused_layer2=True), "queue 2"),
      (dict(module="AST"), "slice 5"),
      (dict(block_norm=True, calc_normalization=True), "slice 9")],
 )
 def test_unsupported_experiment_flags_name_their_slice(corpus, tmp_path, extra, where):
     with pytest.raises(NotImplementedError, match=where):
         run_experiment(_args(corpus, tmp_path / "log", tmp_path / "meta", **extra))
+
+
+@pytest.mark.parametrize(
+    "flags",
+    [dict(fused_pool=True), dict(fused_layer2="train"),
+     dict(fused_layer1=True, fused_pool="always", fused_layer2=True)],
+    ids=["pool", "layer2", "all"],
+)
+def test_fused_mid_blocks_train_through_run_experiment(corpus, tmp_path, flags):
+    """One epoch (2 steps) of the full-width DCNN with the fused mid blocks
+    (their plain versions on the CPU), validation and test included; the
+    snapshot loads into an unflagged model and scores like the trainer."""
+    extra = dict(fused_layer1=False, epochs=1, dropout_cnn=0.0, dropout_lstm=0.0)
+    extra.update(flags)
+    trainer = run_experiment(_args(corpus, tmp_path / "log", tmp_path / "meta", **extra))
+    model = trainer.model
+    assert (bool(model.fused_pool), bool(model.fused_layer2)) == (
+        "fused_pool" in flags, "fused_layer2" in flags)
+    losses = [row[2] for row in trainer.loss_list]
+    assert len(losses) == 2 and np.isfinite(losses).all()
+    assert int(model.cnn[6].num_batches_tracked) == int(model.cnn[10].num_batches_tracked) == 2
+    plain = run_experiment(_args(corpus, tmp_path / "plain", tmp_path / "meta",
+                                 **{**extra, **{k: False for k in flags}}))
+    # the same seed, batches and layers: one-pass against centred BatchNorm
+    # moments and reordered fp32 sums, then Adam
+    np.testing.assert_allclose(losses, [row[2] for row in plain.loss_list], rtol=1e-4)
+    scorer, transform, _ = predict.build_scorer_from_snapshot(trainer.snapshot_path)
+    assert scorer.fused_pool is False and scorer.fused_layer2 is False
+    clip = (0.3 * np.tanh(np.random.RandomState(5).randn(2, 1, SR))).astype(np.float32)
+    got = predict.make_score_fn(scorer, transform, "cpu")(torch.from_numpy(clip)).numpy()
+    own = trainer.eval_step(
+        {"audio": torch.from_numpy(clip), "label": torch.zeros(2, dtype=torch.int32)}
+    )["scores"].numpy()
+    np.testing.assert_allclose(got, own, atol=1e-6)
+
+
+@pytest.mark.parametrize("flag", ["fused_pool", "fused_layer2"])
+def test_zero_alpha_trains_on_the_fused_mid_blocks(tmp_path, flag):
+    """PReLU slopes of exactly 0 behind the second and third pool keep the
+    fused blocks: their backward returns the true ``dalpha`` there, so one
+    train step moves each slope exactly as the unfused layers move it (the
+    JAX package's kernels return 0 and its Trainer falls back instead)."""
+    kw = dict(time_dim=1, ochannels1=8, ochannels2=8, ochannels3=12,
+              ochannels4=16, ochannels5=4, dropout_cnn=0.0, dropout_lstm=0.0)
+    args = _args("unused", tmp_path, tmp_path)
+    torch.manual_seed(3)
+    state = DCNN(**kw).state_dict()
+    state["cnn.8.weight"] = torch.zeros(1)
+    state["cnn.18.weight"] = torch.zeros(1)
+    rs = np.random.RandomState(4)
+    batch = {"audio": torch.from_numpy(rs.randn(8, 1, 256, 8).astype(np.float32)),
+             "label": torch.from_numpy(rs.randint(0, 3, 8).astype(np.int32))}
+    stepped = {}
+    for fused in (True, False):
+        trainer = Trainer(DCNN(**kw, **{flag: fused}), lambda a: a, args,
+                          str(tmp_path / f"snap{fused}"), device="cpu")
+        trainer.load_variables(state)
+        assert getattr(trainer.model, flag) is fused
+        loss = trainer.train_step(batch)["loss"].item()
+        slopes = [trainer.model.cnn[i].weight for i in (8, 18)]
+        stepped[fused] = (loss, [p.item() for p in slopes],
+                          [trainer.optimizer.state[p]["exp_avg"].item() for p in slopes])
+    # Adam's first step is lr * sign(gradient): a zero dalpha would leave a
+    # slope (and its first moment) at 0
+    for i in range(2):
+        assert abs(stepped[True][1][i]) == pytest.approx(args.learning_rate, rel=1e-3)
+        assert stepped[True][1][i] == pytest.approx(stepped[False][1][i], rel=1e-3)
+        assert stepped[True][2][i] == pytest.approx(stepped[False][2][i], rel=1e-4)
+    assert stepped[True][0] == pytest.approx(stepped[False][0], rel=1e-5)
+
+
+def test_cli_fused_pool_flag_and_config_fused_layer2(corpus, tmp_path, monkeypatch):
+    """``--fused-pool train`` comes from the command line, ``fused_layer2``
+    from the config file (as in the JAX package); both reach the model."""
+    from audiodeepfake_detection_tpu_torch.train import experiment
+
+    trainers = []
+    real = experiment.run_experiment
+    monkeypatch.setattr(
+        experiment, "run_experiment", lambda a: trainers.append(real(a)) or trainers[-1])
+    config = tmp_path / "grid.py"
+    config.write_text(
+        "def get_config():\n"
+        "    return {'fused_layer2': ['train'], 'ochannels1': [8], 'ochannels2': [8],\n"
+        "            'ochannels3': [12], 'ochannels4': [16], 'ochannels5': [4],\n"
+        "            'module': ['DCNN'], 'time_dim_add': [1], 'flattend_size': [320],\n"
+        f"            'data_path': [{str(corpus)!r}], 'save_path': [{str(tmp_path / 'meta')!r}],\n"
+        "            'only_use': [['real', 'fbmelgan']], 'limit_train': [(100, 100, 100)]}\n"
+    )
+    main([
+        "--enable-gs", "--config", str(config), "--init-seeds", "0", "--device", "cpu",
+        "--epochs", "1", "--batch-size", "8", "--model", "modules",
+        "--transform", "packets", "--wavelet", "haar", "--log-scale",
+        "--calc-normalization", "--fused-pool", "train",
+        "--log-dir", str(tmp_path / "log"),
+        "--data-prefix", str(corpus) + "/fake_22050_22050_0.7_fbmelgan",
+    ])
+    (trainer,) = trainers
+    model = trainer.model
+    assert (model.fused_layer1, model.fused_pool, model.fused_layer2) == (False, True, True)
+    assert len(trainer.loss_list) == 2 and all(np.isfinite(r[2]) for r in trainer.loss_list)
 
 
 def _lcnn_args(corpus, log_dir, meta, **extra):
@@ -392,6 +492,12 @@ def test_factory_builds_checks_and_counts():
     assert check_dimensions(model, (1, 256, 95), verbose=False)
     assert not check_dimensions(model, (1, 256, 40), verbose=False)
     assert model.training  # the check restores the mode
+    assert model.fused_pool is False and model.fused_layer2 is False  # off by default
+    flagged = get_model(DotDict(input_dim=[8, 1, 256, 95], module="DCNN", time_dim_add=1,
+                                flattend_size=320, fused_pool="train", fused_layer2="always"),
+                        "modules")
+    assert (flagged.fused_layer1, flagged.fused_pool, flagged.fused_layer2) == (
+        False, True, "always")
     with pytest.raises(RuntimeError, match="Model not valid"):
         get_model(DotDict(input_dim=[8, 1, 256, 95], module="DCNN", time_dim_add=1,
                           flattend_size=7), "modules")
