@@ -7,11 +7,12 @@ model-name vocabulary:
 * ``"lcnn"``      -- LCNN with ``lstm_channels`` derived from the feature mode
                     (doubledelta 60 / delta 40 / lfcc 20 / else num_of_scales);
 * ``"gridmodel"`` -- string-defined model from ``args.model_data``;
-* ``"modules"``   -- a DCNN-family class or ``Regression`` named by
-                    ``args.module`` (a string name or a callable).
+* ``"modules"``   -- a DCNN-family class, ``AST`` / ``ASTModel`` or
+                    ``Regression`` named by ``args.module`` (a string name
+                    or a callable).
 
-The AST raises ``NotImplementedError`` naming the ROADMAP slice that brings
-it.
+``dtype: bfloat16`` reaches the AST; the CNNs refuse it, naming the ROADMAP
+item that would bring it.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 from torch import nn
 
 from ..utils.config import DotDict
+from .ast import ASTModel
 from .dcnn import DCNN
 from .gridmodel import get_gridsearch_model
 from .lcnn import LCNN
@@ -53,9 +55,43 @@ def _tri_flag(value):
 def _require_float32(args: DotDict) -> None:
     if str(args.dtype or "float32") != "float32":
         raise NotImplementedError(
-            f"dtype={args.dtype!r} (the bf16 autocast mode) is not ported "
-            "yet (ROADMAP.md queue 1, slice 5: AST)"
+            f"dtype={args.dtype!r} is not ported for the CNNs (ROADMAP.md "
+            "queue 1, bf16 mode of the CNNs); the AST takes it"
         )
+
+
+def _build_ast(args: DotDict, nclasses: int) -> ASTModel:
+    """The AST through ``get_model``, with the JAX package's geometry rule
+    (its factory.py ``_build_ast``; reference models.py:497-536):
+    ``input_fdim`` is the probed ``input_dim[-2]`` (256 without one),
+    ``input_tdim`` is ``flattend_size`` (the reference repurposes that key),
+    else the probed ``input_dim[-1]``, else 101.  ``ast_model_size`` /
+    ``ast_drop_*`` / ``ast_fused_attention`` / ``ast_remat`` reach the
+    constructor; ``ast_remat_policy`` is refused there."""
+    dtypes = {"float32": None, "bfloat16": torch.bfloat16}
+    if str(args.dtype or "float32") not in dtypes:
+        raise ValueError(f"dtype must be float32 or bfloat16: {args.dtype!r}")
+    input_dim = args.input_dim
+    input_fdim = int(input_dim[-2]) if input_dim else 256
+    if args.flattend_size:
+        input_tdim = int(args.flattend_size)
+    elif input_dim:
+        input_tdim = int(input_dim[-1])
+    else:
+        input_tdim = 101
+    return ASTModel(
+        label_dim=nclasses,
+        input_fdim=input_fdim,
+        input_tdim=input_tdim,
+        model_size=str(args.ast_model_size or "base384"),
+        drop_rate=float(args.ast_drop_rate or 0.0),
+        attn_drop_rate=float(args.ast_attn_drop_rate or 0.0),
+        drop_path_rate=float(args.ast_drop_path_rate or 0.0),
+        fused_attention=bool(args.ast_fused_attention),
+        remat_blocks=bool(args.ast_remat),
+        remat_policy=args.ast_remat_policy or None,
+        dtype=dtypes[str(args.dtype or "float32")],
+    )
 
 
 def _build_dcnn(args: DotDict, variant: str, nclasses: int, in_channels: int) -> DCNN:
@@ -112,6 +148,7 @@ def get_model(
                 "Config dict does not contain the key model_data,"
                 "which should hold the list like model structure."
             )
+        _require_float32(args)
         return get_gridsearch_model(args.model_data)
     if model_name == "modules":
         module = args.module
@@ -122,9 +159,7 @@ def get_model(
         if name in _MODULE_REGISTRY:
             model = _build_dcnn(args, name, nclasses, in_channels)
         elif name in ("AST", "ASTModel"):
-            raise NotImplementedError(
-                "the AST is not ported yet (ROADMAP.md queue 1, slice 5: AST)"
-            )
+            model = _build_ast(args, nclasses)
         elif name == "Regression":
             model = Regression(nclasses=nclasses)
         elif callable(module):

@@ -1,5 +1,5 @@
-"""Carry DCNN and LCNN weights across: reference ``.pt`` snapshots and JAX
-variables.
+"""Carry DCNN, LCNN and AST weights across: reference ``.pt`` snapshots,
+timm DeiT state dicts and JAX variables.
 
 Counterpart of ``audiodeepfake_detection_tpu/models/torch_import.py``.  The
 port's modules use the reference ``nn.Sequential`` layout, so a snapshot in
@@ -21,18 +21,26 @@ translation step:
   carries optax's Adam state (``count / mu / nu``) into a
   ``torch.optim.Adam`` with the same key map, so both packages can continue
   from one mid-training state.
+* **AST.**  The port's ``ASTModel`` is built in the reference's trained-AST
+  layout (``v.``-prefixed DeiT + ``mlp_head``), so such a snapshot loads
+  directly; :func:`import_timm_deit` does the reference's surgery on a timm
+  DeiT state dict, and ``state_dict_from_jax(variables, "ast")`` carries the
+  JAX ``ASTModel`` params across.
 """
 
 from __future__ import annotations
 
+import math
 import re
 from collections import defaultdict
 from typing import Any, Dict, List, Tuple
 
-from torch import nn
-
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .ast import _SIZES, ast_patch_grid
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -229,14 +237,113 @@ def import_lcnn(state: StateDict) -> StateDict:
     return _import(state, "lcnn")
 
 
+def _ast_state_from_jax(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """The reference's trained-AST layout (the port's ``ASTModel``) from the
+    JAX ``ASTModel`` params: the JAX package's ``_export_ast``."""
+    out: Dict[str, np.ndarray] = {}
+    kern = np.asarray(params["patch_proj"]["kernel"])  # [16, 16, C, D]
+    out["v.patch_embed.proj.weight"] = np.transpose(kern, (3, 2, 0, 1))
+    out["v.patch_embed.proj.bias"] = np.asarray(params["patch_proj"]["bias"])
+    for name in ("cls_token", "dist_token", "pos_embed"):
+        out[f"v.{name}"] = np.asarray(params[name])
+    blocks = sorted(int(n.split("_")[1]) for n in params if n.startswith("block_"))
+    for i in blocks:
+        blk = params[f"block_{i}"]
+        pre = f"v.blocks.{i}."
+        for ln in ("norm1", "norm2"):
+            out[pre + ln + ".weight"] = np.asarray(blk[ln]["scale"])
+            out[pre + ln + ".bias"] = np.asarray(blk[ln]["bias"])
+        for flax_name, torch_name in _AST_DENSE:
+            out[pre + torch_name + ".weight"] = np.asarray(blk[flax_name]["kernel"]).T
+            out[pre + torch_name + ".bias"] = np.asarray(blk[flax_name]["bias"])
+    out["v.norm.weight"] = np.asarray(params["norm"]["scale"])
+    out["v.norm.bias"] = np.asarray(params["norm"]["bias"])
+    if "head_norm" in params:
+        out["mlp_head.0.weight"] = np.asarray(params["head_norm"]["scale"])
+        out["mlp_head.0.bias"] = np.asarray(params["head_norm"]["bias"])
+        out["mlp_head.1.weight"] = np.asarray(params["head"]["kernel"]).T
+        out["mlp_head.1.bias"] = np.asarray(params["head"]["bias"])
+    return out
+
+
+# (JAX _Block Dense, the reference's module) of every encoder block
+_AST_DENSE = (("qkv", "attn.qkv"), ("proj", "attn.proj"), ("fc1", "mlp.fc1"),
+              ("fc2", "mlp.fc2"))
+
+
+def import_timm_deit(
+    state,
+    fstride: int = 10,
+    tstride: int = 10,
+    input_fdim: int = 256,
+    input_tdim: int = 101,
+    model_size: str = "base384",
+) -> StateDict:
+    """A timm DeiT-distilled state dict (or a trained reference AST ``.pt``)
+    as the port's ``ASTModel`` state dict.
+
+    The reference's surgery (models.py:585-651), as the JAX package's
+    ``import_timm_deit`` does it: ``module.`` and ``v.`` prefixes go, the
+    patch conv is summed over its input channels to one, and the positional
+    embedding's square grid is cut from the middle or bilinearly
+    interpolated (``align_corners=False``) to the ``(f_dim, t_dim)`` patch
+    grid, time axis first, then re-joined with the class and distillation
+    embeddings.  ``mlp_head`` is kept when present (a trained AST; timm's
+    ImageNet heads are dropped).
+    """
+    depth = _SIZES[model_size]["depth"]
+    f_dim, t_dim = ast_patch_grid(fstride, tstride, input_fdim, input_tdim)
+    src = {}
+    for key, val in strip_module_prefix(state).items():
+        src[key[len("v."):] if key.startswith("v.") else key] = val.float()
+
+    out: StateDict = {
+        "v.patch_embed.proj.weight": src["patch_embed.proj.weight"].sum(1, keepdim=True),
+        "v.patch_embed.proj.bias": src["patch_embed.proj.bias"],
+        "v.cls_token": src["cls_token"],
+        "v.dist_token": src["dist_token"],
+    }
+    pos = src["pos_embed"]  # [1, 2 + P, D]
+    if pos.shape[1] - 2 != f_dim * t_dim:
+        hw = math.isqrt(pos.shape[1] - 2)
+        grid = pos[:, 2:].reshape(1, hw, hw, -1).permute(0, 3, 1, 2)  # [1, D, F, T]
+        if t_dim <= hw:
+            start = hw // 2 - t_dim // 2
+            grid = grid[..., start : start + t_dim]
+        else:
+            grid = F.interpolate(grid, size=(hw, t_dim), mode="bilinear", align_corners=False)
+        if f_dim <= hw:
+            start = hw // 2 - f_dim // 2
+            grid = grid[:, :, start : start + f_dim]
+        else:
+            grid = F.interpolate(grid, size=(f_dim, t_dim), mode="bilinear", align_corners=False)
+        pos = torch.cat([pos[:, :2], grid.flatten(2).transpose(1, 2)], dim=1)
+    out["v.pos_embed"] = pos
+    names = ["norm1", "norm2"] + [torch_name for _, torch_name in _AST_DENSE]
+    for i in range(depth):
+        for name in names:
+            for part in ("weight", "bias"):
+                key = f"blocks.{i}.{name}.{part}"
+                out[f"v.{key}"] = src[key]
+    for part in ("weight", "bias"):
+        out[f"v.norm.{part}"] = src[f"norm.{part}"]
+        for j in (0, 1):
+            if f"mlp_head.{j}.{part}" in src:
+                out[f"mlp_head.{j}.{part}"] = src[f"mlp_head.{j}.{part}"]
+    return {k: v.contiguous().clone() for k, v in out.items()}
+
+
 def state_dict_from_jax(variables: Dict[str, Any], layout: str = "dcnn") -> StateDict:
     """The port's ``state_dict`` from JAX ``{"params", "batch_stats"}``.
 
-    ``layout`` is ``"dcnn"`` or ``"lcnn"``.  Inverse of the JAX package's
-    ``import_dcnn`` / ``import_lcnn`` and equal, key by key and value by
-    value, to its ``export_state_dict(variables, layout)``.
+    ``layout`` is ``"dcnn"``, ``"lcnn"`` or ``"ast"``.  Inverse of the JAX
+    package's ``import_dcnn`` / ``import_lcnn`` / ``import_timm_deit`` and
+    equal, key by key and value by value, to its
+    ``export_state_dict(variables, layout)``.
     """
     params = variables["params"]
+    if layout == "ast":
+        return {k: _owned(v) for k, v in _ast_state_from_jax(params).items()}
     batch_stats = variables.get("batch_stats", {})
     out: StateDict = {}
     for block, slots in _LAYOUTS[layout]:
@@ -272,8 +379,16 @@ def state_dict_from_jax(variables: Dict[str, Any], layout: str = "dcnn") -> Stat
                 out[f"{prefix}.num_batches_tracked"] = np.asarray(
                     bs["num_batches_tracked"], dtype=np.int64
                 )
-    # copy: the tensors must own their memory, not view the caller's arrays
-    return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
+    return {k: _owned(v) for k, v in out.items()}
+
+
+def _owned(value) -> torch.Tensor:
+    """A tensor that owns its memory (not a view of the caller's array);
+    bfloat16 arrays (bf16 Adam moments) come across as exact float32."""
+    arr = np.asarray(value)
+    if arr.dtype.name == "bfloat16":
+        arr = arr.astype(np.float32)
+    return torch.from_numpy(np.array(arr))
 
 
 def adam_state_from_jax(
@@ -288,7 +403,9 @@ def adam_state_from_jax(
 
     ``mu`` / ``nu`` are numpy trees shaped like the JAX ``params`` of a
     model of ``layout``; they become ``exp_avg`` / ``exp_avg_sq`` of the
-    matching parameter of ``model`` and ``count`` its ``step``.
+    matching parameter of ``model`` and ``count`` its ``step``, stored in
+    the optimizer's ``moment_dtype`` where it has one (the bf16-moment Adam
+    of ``train/steps.py``; its ``scale_by_adam_lowp`` state).
     ``optimizer`` must hold exactly ``model``'s parameters.
     """
     exp_avg = state_dict_from_jax({"params": mu}, layout)
@@ -300,10 +417,11 @@ def adam_state_from_jax(
     for group in optimizer.param_groups:
         for p in group["params"]:
             name = names[id(p)]
+            moment = dict(device=p.device, dtype=getattr(optimizer, "moment_dtype", p.dtype))
             state[index] = {
                 "step": torch.tensor(float(count)),
-                "exp_avg": exp_avg[name].to(p).reshape(p.shape),
-                "exp_avg_sq": exp_avg_sq[name].to(p).reshape(p.shape),
+                "exp_avg": exp_avg[name].to(**moment).reshape(p.shape),
+                "exp_avg_sq": exp_avg_sq[name].to(**moment).reshape(p.shape),
             }
             index += 1
     blob["state"] = state

@@ -9,16 +9,18 @@ kernels and returns device tensors: nothing inside it waits for the device.
 Optimizer parity: ``torch.optim.Adam(lr, weight_decay=wd)`` adds the L2 term
 to the gradient of every parameter before the moment updates, which is the
 JAX package's ``add_decayed_weights -> scale_by_adam -> scale(-lr)`` chain.
+With ``adam_moments_dtype="bfloat16"`` the optimizer is
+:class:`AdamLowPrecisionMoments`, the JAX package's ``scale_by_adam_lowp``.
 
-Not ported yet: bf16 Adam moments (``adam_moments_dtype``, slice 5) and the
-chained / device-resident variants (``make_multi_*``, ``make_resident_*``,
-slice 8).
+Not ported yet: the chained / device-resident variants (``make_multi_*``,
+``make_resident_*``, slice 8).
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -41,19 +43,83 @@ def audio_to_float(audio: torch.Tensor) -> torch.Tensor:
     return audio
 
 
+class AdamLowPrecisionMoments(torch.optim.Optimizer):
+    """Adam with both moments *stored* in ``moment_dtype`` (bfloat16).
+
+    The JAX package's ``add_decayed_weights -> scale_by_adam_lowp ->
+    scale(-lr)`` (its steps.py): the L2 term is added to the gradient, and
+    every step computes in float32 from the stored, already rounded
+    moments::
+
+        m = round(b1 * m + (1 - b1) * g);  v = round(b2 * v + (1 - b2) * g * g)
+        p -= lr * (m / c1) / (sqrt(v / c2) + eps)
+
+    so the trajectory is a function of the stored state alone and a
+    ``--resume`` through ``state_dict()`` is bit-invisible.  The state keys
+    are ``torch.optim.Adam``'s (``step``, ``exp_avg``, ``exp_avg_sq``).
+    """
+
+    def __init__(self, params, lr: float, weight_decay: float = 0.0,
+                 betas=(0.9, 0.999), eps: float = 1e-8,
+                 moment_dtype: torch.dtype = torch.bfloat16) -> None:
+        super().__init__(params, dict(lr=lr, weight_decay=weight_decay, betas=betas, eps=eps))
+        self.moment_dtype = moment_dtype
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state["step"] = torch.tensor(0.0)
+                    state["exp_avg"] = torch.zeros_like(p, dtype=self.moment_dtype)
+                    state["exp_avg_sq"] = torch.zeros_like(p, dtype=self.moment_dtype)
+                state["step"] += 1  # a host tensor, as torch.optim.Adam keeps it
+                # the bias corrections in float32, as jnp.power(f32(b), count)
+                count = np.float32(state["step"].item())
+                c1 = float(np.float32(1) - np.float32(b1) ** count)
+                c2 = float(np.float32(1) - np.float32(b2) ** count)
+                g = p.grad.float() + group["weight_decay"] * p.float()
+                m = (b1 * state["exp_avg"].float() + (1.0 - b1) * g).to(self.moment_dtype)
+                v = (b2 * state["exp_avg_sq"].float() + (1.0 - b2) * g * g).to(
+                    self.moment_dtype)
+                state["exp_avg"], state["exp_avg_sq"] = m, v
+                update = (m.float() / c1) / ((v.float() / c2).sqrt() + group["eps"])
+                p.add_((update * -group["lr"]).to(p.dtype))
+        return loss
+
+    def load_state_dict(self, state_dict) -> None:
+        # torch casts loaded state to each parameter's type: store the
+        # moments in their own type again
+        super().load_state_dict(state_dict)
+        for state in self.state.values():
+            for key in ("exp_avg", "exp_avg_sq"):
+                if key in state:
+                    state[key] = state[key].to(self.moment_dtype)
+
+
 def make_optimizer(
     params,
     learning_rate: float,
     weight_decay: float,
     moment_dtype: Optional[str] = None,
-) -> torch.optim.Adam:
+) -> torch.optim.Optimizer:
     """The reference's ``torch.optim.Adam(lr, weight_decay)`` (L2 in the
-    gradient, on every parameter), fp32 moments."""
-    if moment_dtype is not None and str(moment_dtype) != "float32":
-        raise NotImplementedError(
-            f"adam_moments_dtype={moment_dtype!r} (low-precision Adam "
-            "moments) is not ported yet (ROADMAP.md queue 1, slice 5: AST)"
-        )
+    gradient, on every parameter) with float32 moments, or with
+    ``moment_dtype="bfloat16"`` the same update from bf16-stored moments
+    (:class:`AdamLowPrecisionMoments`)."""
+    kind = str(moment_dtype or "float32")
+    if kind == "bfloat16":
+        return AdamLowPrecisionMoments(params, learning_rate, weight_decay)
+    if kind != "float32":
+        raise ValueError(f"adam_moments_dtype must be float32 or bfloat16: {moment_dtype!r}")
     return torch.optim.Adam(
         params, lr=learning_rate, weight_decay=weight_decay,
         betas=(0.9, 0.999), eps=1e-8,

@@ -12,9 +12,11 @@ src/audiofakedetect/train_classifier.py:232-1065):
   device after every step;
 * a snapshot is the reference-layout ``.pt`` (``{"MODEL_STATE",
   "EPOCHS_RUN"}``, which the serving path and the JAX package's
-  ``import_dcnn`` / ``import_lcnn`` load) with its ``.norm.pkl`` sidecar, plus one
-  ``.state.pt`` holding model, optimizer, epoch, step and generator states
-  for ``--resume``;
+  ``import_dcnn`` / ``import_lcnn`` / ``import_timm_deit`` load) with its
+  ``.norm.pkl`` sidecar, plus one ``.state.pt`` holding model, optimizer
+  (bf16 Adam moments included), epoch, step and generator states for
+  ``--resume``; a weights-only AST ``.pt`` loads through
+  ``import_timm_deit`` with the model's geometry;
 * EER and the per-label accuracy tables are computed on the host from the
   gathered arrays, with the reference's argmax-EER definition
   (train_classifier.py:479-481).
@@ -360,6 +362,7 @@ class Trainer:
         from ..models.torch_import import (
             import_dcnn,
             import_lcnn,
+            import_timm_deit,
             load_epochs_run,
             load_torch_state_dict,
         )
@@ -380,7 +383,20 @@ class Trainer:
             self.epochs_run = int(blob["epoch"]) + 1
             self.step_total = int(blob["step"])
         else:
-            importer = import_lcnn if self.args.model == "lcnn" else import_dcnn
+            model = self.model
+            if self.args.model == "lcnn":
+                importer = import_lcnn
+            elif getattr(model, "get_name", lambda: "")() == "AST":
+                # the reference's surgery with this model's geometry (a
+                # trained AST's pos_embed is already adapted and passes)
+                def importer(state):
+                    return import_timm_deit(
+                        state, fstride=model.fstride, tstride=model.tstride,
+                        input_fdim=model.input_fdim, input_tdim=model.input_tdim,
+                        model_size=model.model_size,
+                    )
+            else:
+                importer = import_dcnn
             self.load_variables(importer(load_torch_state_dict(path)))
             # EPOCHS_RUN holds the completed epoch's index (-1 if absent)
             self.epochs_run = load_epochs_run(path) + 1

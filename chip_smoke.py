@@ -1,5 +1,5 @@
 """Drive the PyTorch/CUDA port's serving and training paths (DCNN, with and
-without its fused mid blocks, and LCNN) once on one NVIDIA GPU.
+without its fused mid blocks, LCNN and AST) once on one NVIDIA GPU.
 
 Run from the repository root, with no arguments:
 
@@ -10,8 +10,8 @@ Phases, in order; any failure propagates and the script exits non-zero
 
 1. device: require CUDA, print ``nvidia-smi``'s card name and power limit;
 2. build: compile ``csrc/wpt_cascade.cu``, ``csrc/fused_conv1.cu``,
-   ``csrc/fused_pool.cu`` and ``csrc/fused_conv2.cu`` for sm_90a from this
-   checkout, all at once;
+   ``csrc/fused_pool.cu``, ``csrc/fused_conv2.cu`` and ``csrc/flash_mha.cu``
+   for sm_90a from this checkout, all at once;
 3. kernel vs plain: the wavelet-packet kernel against the plain PyTorch
    cascade on the card, at the serving shapes and a few other geometries;
 4. serve: a seeded full-width DCNN snapshot behind ``service_from_snapshot``
@@ -67,7 +67,22 @@ Phases, in order; any failure propagates and the script exits non-zero
     over HTTP and its score held against the trainer's own;
 16. time: the mid-block kernels alone vs plain, the train step at batch 128
     unfused, with ``fused_layer1`` only, (a) and (b), the eval step; a
-    profile of step (b).
+    profile of step (b);
+17. fused attention vs plain: forward and ``dqkv`` of kernel 4 against the
+    plain PyTorch version at the AST's shape (B=32, N=227, 12 heads of 64;
+    fp32 and bf16), N=99 and N=18 with 3 heads, and B=1; two runs compared
+    bit for bit;
+18. train the AST: the corpus through ``run_experiment`` on ``cuda`` (stft,
+    hop 220, log scale, base384 AST with the fused attention, batch 32, 2
+    epochs with validation, test and snapshot), the kernel's launch counts
+    read over exactly this run; the same training unfused, loss by loss; an
+    epoch in bf16 with bf16 Adam moments; the trained AST behind
+    ``ScoringService`` (batch 64, auto chunk 32) over HTTP, scores against
+    the same model on the CPU;
+19. time: kernel 4 alone vs plain and vs ``scaled_dot_product_attention``
+    (the library yardstick, timed only), the AST train step fused, unfused
+    and bf16, the eval step, the scorer chunked vs whole-batch; profiles of
+    the fused fp32 and the bf16 steps.
 
 The last lines are the kernels' JSON record, the measurements with the
 card's name and power limit, and ``{"ok": true, "device": ...}``.
@@ -152,6 +167,25 @@ MID_SUM_RTOL = 1e-3
 # bf16 dalpha of the conv block: the kernel takes the conv value back from the
 # stored bf16 output (out / alpha: 2**-9 per term) and the terms cancel
 MID_BF16_DALPHA_RTOL = 3e-2
+# ---- the AST path (phases 17-19)
+AST_SHAPE = (32, 227, 12)  # B, N (25 x 9 patches + cls + dist), heads of 64 (base384)
+AST_BATCH = 32
+AST_STEPS_PER_EPOCH = 12  # 392 training frames // 32
+AST_BLOCKS = 12
+# kernel 4 forward, fp32: 64-term dot products and 227-term softmax sums in
+# another order than cuBLAS's; the outputs are O(1)
+MHA_FWD_ATOL = 1e-5
+# dqkv, fp32, relative to each tensor's largest entry: sums over 227 keys or
+# queries of products of such sums
+MHA_GRAD_RTOL = 1e-4
+# bf16: the output rounds to bf16 on both sides (2**-8 relative) and a
+# probability that rounds the other way moves it by about one more ulp; the
+# gradients come back in bf16 after fp32 sums in another order
+MHA_BF16_FWD_RTOL = 2.0 ** -7
+MHA_BF16_GRAD_RTOL = 1e-2
+# per-step loss, fused vs unfused base384 training from the same seed: the
+# attention's fp32 sums reordered in each of 12 blocks, then Adam
+AST_LOSS_RTOL = 5e-3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12
 BATCH = 128
@@ -268,6 +302,22 @@ def serve(wpt_cuda, snapshot: str, kernel_on_path: bool = True):
     ]
     pcms = [rng.randint(-12000, 12000, int(s * r)).astype(np.int16) for s, r in clips]
     svc = service_from_snapshot(snapshot, device="cuda", batch_size=64)
+    model, transform, _ = build_scorer_from_snapshot(snapshot)
+    cpu_score = make_score_fn(model, transform, "cpu")
+
+    def reset():
+        wpt_cuda.LAUNCHES = 0
+
+    def read():
+        return wpt_cuda.LAUNCHES
+
+    return serve_service(svc, cpu_score, clips, pcms, reset, read, kernel_on_path)
+
+
+def serve_service(svc, cpu_score, clips, pcms, reset, read, kernel_on_path: bool = True):
+    """Concurrent HTTP uploads (and one garbage body) scored by ``svc`` on the
+    card, held against ``cpu_score``; ``reset`` / ``read`` zero and read the
+    launch count of the kernel on the serving path."""
     server = svc.make_server("127.0.0.1", 0)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     url = f"http://127.0.0.1:{server.server_port}"
@@ -281,7 +331,7 @@ def serve(wpt_cuda, snapshot: str, kernel_on_path: bool = True):
         thread.start()
         try:
             d0 = svc.n_dispatches
-            wpt_cuda.LAUNCHES = 0
+            reset()
             t0 = time.perf_counter()
             workers = [threading.Thread(target=client, args=(i,)) for i in range(len(results))]
             for w in workers:
@@ -290,7 +340,7 @@ def serve(wpt_cuda, snapshot: str, kernel_on_path: bool = True):
                 w.join(timeout=300)
             health = http(url + "/healthz")
             torch.cuda.synchronize()
-            launches = wpt_cuda.LAUNCHES
+            launches = read()
             wall = time.perf_counter() - t0
             dispatches = svc.n_dispatches - d0
         finally:
@@ -308,8 +358,6 @@ def serve(wpt_cuda, snapshot: str, kernel_on_path: bool = True):
         raise AssertionError(f"/healthz: {code} {payload}")
     log(f"  /healthz: {payload}")
 
-    model, transform, _ = build_scorer_from_snapshot(snapshot)
-    cpu_score = make_score_fn(model, transform, "cpu")
     worst = 0.0
     for (sec, rate), pcm, (code, payload) in zip(clips, pcms, results):
         if code != 200:
@@ -690,7 +738,7 @@ KERNEL_GROUPS = (
 )
 
 
-def profile_train(train_step, n: int = 5):
+def profile_train(train_step, n: int = 5, kernel_groups=KERNEL_GROUPS):
     """Phases 9 and 13: device time by kernel over ``n`` fused train steps.
     (cuDNN's LSTM runs its matrix products through GEMM kernels that the
     names cannot tell from a convolution's: ``lstm_cell`` holds the cell
@@ -715,14 +763,15 @@ def profile_train(train_step, n: int = 5):
     device_ms = sum(r[1] for r in rows)
     log(f"  wall {wall_ms:.3f} ms/step (profiler on), device kernels {device_ms:.3f} ms/step "
         f"({100 * device_ms / wall_ms:.1f} % busy)")
-    groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
+    groups = {name: 0.0 for name, _ in kernel_groups}
     groups["other"] = 0.0
     for name, ms, _ in rows:
         low = name.lower()
-        hit = next((g for g, keys in KERNEL_GROUPS if any(k in low for k in keys)), "other")
+        hit = next((g for g, keys in kernel_groups if any(k in low for k in keys)), "other")
         groups[hit] += ms
     log("  by group (ms/step): " + ", ".join(f"{g} {ms:.3f}" for g, ms in groups.items()))
-    ours = [r for r in rows if any(k in r[0] for k in ("fused_conv", "fused_pool", "wpt_cascade"))]
+    ours = [r for r in rows if any(k in r[0] for k in (
+        "fused_conv", "fused_pool", "wpt_cascade", "flash_mha"))]
     for name, ms, count in ours + rows[:12]:
         log(f"    {ms:8.3f} ms  x{count:<3d} {name[:100]}")
     return {"wall_ms": wall_ms, "device_ms": device_ms, "groups": groups,
@@ -1324,12 +1373,299 @@ def mid_timing(fp, pool_cuda, f2, conv2_cuda, norm, card_line: str):
     return out, fns["b_layer1_pool_layer2"][0]
 
 
+# --------------------------------------------------- the AST path (17-19)
+
+
+def mha_bounds(b, n, heads, itemsize=4):
+    """Forward: qkv read, out and the row statistics written; q.k^T and p.v,
+    2 N^2 D flops each per head.  Backward: qkv, dout and the statistics
+    read, dqkv written; five such products (q.k^T, dO.v^T, p^T.dO, dS.k,
+    dS^T.q)."""
+    product = 2 * n * n * 64 * heads * b
+    qkv = itemsize * b * n * 3 * heads * 64
+    out = itemsize * b * n * heads * 64
+    stats = 4 * b * heads * n * 2
+    return (bound_ms(qkv + out + stats, 2 * product),
+            bound_ms(2 * qkv + out + stats, 5 * product))
+
+
+def mha_case(b, n, heads, dtype, seed):
+    gen = torch.Generator().manual_seed(seed)
+    qkv = torch.randn(b, n, 3 * heads * 64, generator=gen).cuda().to(dtype)
+    return qkv.requires_grad_(), torch.randn(b, n, heads * 64, generator=gen).cuda().to(dtype)
+
+
+def mha_vs_plain(fa):
+    """Phase 17: kernel 4 against its plain version under autograd, and
+    against itself."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(*AST_SHAPE, f32), (*AST_SHAPE, bf16), (2, 99, 3, f32), (2, 99, 3, bf16),
+             (2, 18, 3, f32), (3, 18, 3, bf16), (1, 227, 12, f32), (1, 227, 12, bf16)]
+    out = {}
+    for i, (b, n, heads, dtype) in enumerate(cases):
+        qkv, g = mha_case(b, n, heads, dtype, seed=100 + i)
+        runs = []
+        for _ in range(2):
+            y = fa.flash_mha_packed(qkv, heads, 0.125)
+            runs.append((y, *torch.autograd.grad(y, qkv, g)))
+        torch.cuda.synchronize()
+        want = fa.plain_mha_packed(qkv, heads, 0.125)
+        (wgrad,) = torch.autograd.grad(want, qkv, g)
+        torch.cuda.synchronize()
+        y, dqkv = runs[0]
+        bitwise = all(torch.equal(u, v) for u, v in zip(*runs))
+        fp32 = dtype == f32
+        fwd_err = (y.float() - want.float()).abs().max().item()
+        fwd_tol = MHA_FWD_ATOL if fp32 else want.float().abs().max().item() * MHA_BF16_FWD_RTOL
+        grad_rel = rel_err(dqkv, wgrad)
+        key = f"B{b}-N{n}-H{heads}-{str(dtype).split('.')[-1]}"
+        out[key] = {"fwd_max_abs_err": fwd_err, "dqkv_rel_err": grad_rel,
+                    "dqkv_max_abs_err": (dqkv.float() - wgrad.float()).abs().max().item(),
+                    "bitwise_repeat": bitwise}
+        log(f"  {key}: out max|err| {fwd_err:.3e} (tol {fwd_tol:.1e}), dqkv rel "
+            f"{grad_rel:.2e}, repeat bit-equal {bitwise}")
+        if not (fwd_err <= fwd_tol and grad_rel <= (MHA_GRAD_RTOL if fp32 else MHA_BF16_GRAD_RTOL)):
+            raise AssertionError(f"kernel 4 vs plain at {key}: {out[key]}")
+        if not bitwise:
+            raise AssertionError(f"kernel 4 at {key}: two runs differ")
+        del runs, y, dqkv, want, wgrad, qkv, g
+    return out
+
+
+def ast_args(root: str, data: str, log_dir: str, **extra):
+    """stft (n_fft 511, hop 220, log power) + the base384 AST with the fused
+    attention; ``flattend_size`` unset, so the time axis is the probed one."""
+    args = train_args(root, data, log_dir)
+    args.update(transform="stft", hop_length=220, module="AST", ast_model_size="base384",
+                ast_fused_attention=True, flattend_size=None, fused_layer1=False,
+                batch_size=AST_BATCH, learning_rate=1e-4, weight_decay=0.01)
+    args.update(extra)
+    return args
+
+
+def train_ast(fa_cuda, root: str, data: str):
+    """Phase 18: the AST path through ``run_experiment`` on the card."""
+    from audiodeepfake_detection_tpu_torch.train.experiment import run_experiment
+
+    def reset():
+        fa_cuda.MHA_FWD_LAUNCHES = fa_cuda.MHA_BWD_LAUNCHES = 0
+
+    def read():
+        torch.cuda.synchronize()
+        return {"fwd": fa_cuda.MHA_FWD_LAUNCHES, "bwd": fa_cuda.MHA_BWD_LAUNCHES}
+
+    steps = EPOCHS * AST_STEPS_PER_EPOCH
+    reset()
+    t0 = time.perf_counter()
+    trainer = run_experiment(ast_args(root, data, "log_ast"))
+    counts = read()
+    wall = time.perf_counter() - t0
+    losses = [row[2] for row in trainer.loss_list]
+    model = trainer.model
+    log(f"  main run: input {trainer.args.input_dim}, {steps} steps, losses "
+        f"{['%.4f' % v for v in losses]}, test {trainer.test_results}, launches {counts}, "
+        f"{wall:.1f} s wall")
+    if trainer.args.input_dim != [AST_BATCH, 1, 256, 101] or model.num_patches != 225:
+        raise AssertionError(f"AST input {trainer.args.input_dim}, {model.num_patches} patches")
+    if len(losses) != steps or not np.isfinite(losses).all():
+        raise AssertionError(f"AST main run losses: {losses}")
+    # every block launches once per train step each way, and forward only
+    # for each validation and test batch
+    if not (counts["bwd"] == AST_BLOCKS * steps and counts["fwd"] > counts["bwd"]
+            and counts["fwd"] % AST_BLOCKS == 0):
+        raise AssertionError(f"launch counts {counts} for {steps} AST train steps")
+    if (model.get_name() != "AST" or not model.fused_attention or model.dtype is not None
+            or trainer.device.type != "cuda"):
+        raise AssertionError("the AST main run left the fused path or the card")
+    acc, eer = trainer.test_results[:2]
+    if not (0.0 <= acc <= 1.0 and 0.0 <= eer <= 1.0):  # NaN fails too
+        raise AssertionError(f"AST test results {trainer.test_results}")
+
+    # the same training unfused (all drop rates are 0 by default)
+    unfused = [row[2] for row in run_experiment(
+        ast_args(root, data, "log_ast_unfused", ast_fused_attention=False)).loss_list]
+    worst = max(abs(a - b) / abs(b) for a, b in zip(losses, unfused))
+    log(f"  fused   losses {['%.6f' % v for v in losses]}")
+    log(f"  unfused losses {['%.6f' % v for v in unfused]} (worst rel diff {worst:.2e})")
+    if len(unfused) != steps or not worst <= AST_LOSS_RTOL:
+        raise AssertionError(f"AST fused vs unfused losses differ by {worst} > {AST_LOSS_RTOL}")
+
+    # one epoch in bf16 with bf16 Adam moments; the launcher records the
+    # types it was given
+    seen = set()
+    launch = fa_cuda.forward
+
+    def spy(qkv, *rest):
+        seen.add(str(qkv.dtype))
+        return launch(qkv, *rest)
+
+    reset()
+    fa_cuda.forward = spy
+    try:
+        bf = run_experiment(ast_args(root, data, "log_ast_bf16", epochs=1, dtype="bfloat16",
+                                     adam_moments_dtype="bfloat16"))
+    finally:
+        fa_cuda.forward = launch
+    bf_counts = read()
+    bf_losses = [row[2] for row in bf.loss_list]
+    moments = bf.optimizer.state[next(bf.model.parameters())]
+    log(f"  bf16 + bf16 moments: losses {['%.4f' % v for v in bf_losses]}, launches "
+        f"{bf_counts}, kernel given {sorted(seen)}, moments {moments['exp_avg'].dtype}")
+    if (len(bf_losses) != AST_STEPS_PER_EPOCH or not np.isfinite(bf_losses).all()
+            or seen != {"torch.bfloat16"} or bf_counts["bwd"] != AST_BLOCKS * AST_STEPS_PER_EPOCH
+            or moments["exp_avg"].dtype != torch.bfloat16):
+        raise AssertionError(f"the bf16 AST run: {bf_losses}, {bf_counts}, {seen}")
+    del bf
+    return trainer, {"launches": counts, "steps": steps, "losses": losses,
+                     "unfused_losses": unfused, "loss_rel_diff": worst, "wall_s": wall,
+                     "bf16_losses": bf_losses, "bf16_launches": bf_counts,
+                     "norm": [np.asarray(v).tolist() for v in trainer.norm_stats]}
+
+
+def serve_ast(fa_cuda, trainer):
+    """Phase 18, last: the trained AST as a model object behind
+    ``ScoringService`` (batch 64, auto chunk) over HTTP, scores against a
+    copy of the model on the CPU."""
+    import copy
+
+    from audiodeepfake_detection_tpu_torch.train.predict import make_score_fn
+    from audiodeepfake_detection_tpu_torch.train.serve import ScoringService
+
+    cpu_score = make_score_fn(copy.deepcopy(trainer.model).cpu(), trainer.transform, "cpu")
+    svc = ScoringService(trainer.model, trainer.transform, device="cuda", batch_size=64)
+    if svc.chunk != 32:
+        raise AssertionError(f"auto chunk at batch 64: {svc.chunk}")
+    rng = np.random.RandomState(8)
+    clips = [(1.0, SR), (2.5, SR), (5.0, SR), (2.0, 2 * SR)]
+    pcms = [rng.randint(-12000, 12000, int(s * r)).astype(np.int16) for s, r in clips]
+
+    def reset():
+        fa_cuda.MHA_FWD_LAUNCHES = 0
+
+    def read():
+        return fa_cuda.MHA_FWD_LAUNCHES
+
+    out = serve_service(svc, cpu_score, clips, pcms, reset, read)
+    out["chunk"] = svc.chunk
+    return out
+
+
+def ast_step_fns(norm, fused: bool = True, bf16: bool = False):
+    """An AST train step and eval step at base384 on a fixed batch of 32,
+    and the model and transform."""
+    from audiodeepfake_detection_tpu_torch.models.ast import ASTModel
+    from audiodeepfake_detection_tpu_torch.train.steps import (
+        make_eval_step, make_optimizer, make_train_step)
+    from audiodeepfake_detection_tpu_torch.train.transforms import (
+        make_transform, normalized_transform)
+
+    args = ast_args("", "", "")
+    transform = normalized_transform(make_transform(args), *[np.asarray(v) for v in norm])
+    torch.manual_seed(0)
+    model = ASTModel(fused_attention=fused, dtype=torch.bfloat16 if bf16 else None).cuda()
+    optimizer = make_optimizer(model.parameters(), args.learning_rate, args.weight_decay,
+                               moment_dtype="bfloat16" if bf16 else None)
+    gen = torch.Generator().manual_seed(6)
+    batch = {"audio": (0.3 * torch.randn(AST_BATCH, 1, SR, generator=gen)).cuda(),
+             "label": torch.randint(0, 2, (AST_BATCH,), generator=gen).cuda()}
+    train_step = make_train_step(model, transform, optimizer)
+    eval_step = make_eval_step(model, transform)
+    return (lambda: train_step(batch)), (lambda: eval_step(batch)), model, transform
+
+
+def sdpa_packed(qkv, heads: int, scale: float):
+    """The library yardstick for kernel 4 (timed only; the port never calls
+    it): ``scaled_dot_product_attention`` on the permuted q, k and v views
+    of the packed tensor, the result copied back to the packed layout."""
+    import torch.nn.functional as F
+
+    b, n, c = qkv.shape
+    q, k, v = qkv.view(b, n, 3, heads, c // 3 // heads).permute(2, 0, 3, 1, 4)
+    out = F.scaled_dot_product_attention(q, k, v, scale=scale)
+    return out.transpose(1, 2).reshape(b, n, c // 3)
+
+
+AST_KERNEL_GROUPS = (
+    ("flash_mha", ("flash_mha",)),
+    ("stft", ("fft",)),
+    ("matmul", ("gemm", "cutlass", "xmma", "sm90_", "sm80_", "nvjet")),
+    ("patch_conv", ("conv", "implicit")),
+    ("layer_norm", ("layer_norm",)),
+    ("softmax", ("softmax",)),
+    ("gelu", ("gelu",)),
+    ("optimizer", ("multi_tensor", "foreach")),
+    ("reduce", ("reduce_kernel",)),
+    ("elementwise", ("elementwise", "vectorized", "unrolled", "copy", "cat")),
+)
+
+
+def ast_timing(fa, fa_cuda, norm, card_line: str):
+    """Phase 19: kernel 4 alone (through its launchers) vs plain and vs
+    SDPA, fp32 and bf16; the AST train step fused, unfused and bf16 with bf16
+    moments, the eval step, and the scorer at batch 64 chunked vs whole."""
+    b, n, heads = AST_SHAPE
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        qkv, g = mha_case(b, n, heads, dtype, seed=120)
+        raw = qkv.detach()
+        y, stats = fa_cuda.forward(raw, heads, 0.125, True)
+        plain_graph = fa.plain_mha_packed(qkv, heads, 0.125)
+        lib_graph = sdpa_packed(qkv, heads, 0.125)
+        lib_err = (lib_graph.float() - y.float()).abs().max().item()
+        fwd = median_ms({
+            "plain": lambda: fa.plain_mha_packed(qkv, heads, 0.125),
+            "kernel": lambda: fa_cuda.forward(raw, heads, 0.125, True),
+            "library": lambda: sdpa_packed(qkv, heads, 0.125),
+        }, reps=10)
+        bwd = median_ms({
+            "plain": lambda: torch.autograd.grad(plain_graph, qkv, g, retain_graph=True),
+            "kernel": lambda: fa_cuda.backward(raw, g, stats, heads, 0.125),
+            "library": lambda: torch.autograd.grad(lib_graph, qkv, g, retain_graph=True),
+        }, reps=10)
+        name = str(dtype).split(".")[-1]
+        out[name] = {"fwd_kernel_ms": fwd["kernel"], "fwd_plain_ms": fwd["plain"],
+                     "fwd_library_ms": fwd["library"], "bwd_kernel_ms": bwd["kernel"],
+                     "bwd_plain_ms": bwd["plain"], "bwd_library_ms": bwd["library"],
+                     "library_vs_kernel_max_abs": lib_err}
+        log(f"  B={b} N={n} H={heads} {name} [{card_line}]: fwd kernel {fwd['kernel']:.4f} ms, "
+            f"plain {fwd['plain']:.4f} ms, SDPA {fwd['library']:.4f} ms; bwd kernel "
+            f"{bwd['kernel']:.4f} ms, plain {bwd['plain']:.4f} ms, SDPA {bwd['library']:.4f} ms "
+            f"(SDPA vs kernel max|diff| {lib_err:.2e})")
+        del plain_graph, lib_graph, y, stats, qkv, raw, g
+
+    variants = {"fused": dict(), "unfused": dict(fused=False), "bf16": dict(bf16=True)}
+    fns = {name: ast_step_fns(norm, **kw) for name, kw in variants.items()}
+    steps = median_ms({name: fn[0] for name, fn in fns.items()}, reps=3)
+    evals = median_ms({"eval": fns["fused"][1]}, reps=3)
+    _, _, model, transform = fns["fused"]
+    from audiodeepfake_detection_tpu_torch.train.predict import make_score_fn
+
+    gen = torch.Generator().manual_seed(7)
+    audio = (0.3 * torch.randn(64, 1, SR, generator=gen)).cuda()
+    chunked = make_score_fn(model, transform, "cuda")
+    whole = make_score_fn(model, transform, "cuda", chunk=0)
+    scorer = median_ms({"chunk32": lambda: chunked(audio), "whole": lambda: whole(audio)},
+                       reps=3)
+    out.update({
+        "train_step_ms": steps,
+        "train_frames_per_s": {k: AST_BATCH / v * 1e3 for k, v in steps.items()},
+        "eval_step_ms": evals["eval"], "scorer_b64_ms": scorer,
+    })
+    log("  AST train step at B=32: " + ", ".join(
+        f"{k} {v:.3f} ms ({AST_BATCH / v * 1e3:.1f} frames/s)" for k, v in steps.items())
+        + f"; eval step {evals['eval']:.3f} ms; scorer at B=64 chunk 32 "
+        f"{scorer['chunk32']:.3f} ms, whole batch {scorer['whole']:.3f} ms")
+    steps = {name: fns[name][0] for name in ("fused", "bf16")}
+    del fns, model, chunked, whole
+    return out, steps
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; needs a CUDA device")
     from audiodeepfake_detection_tpu_torch.ops import (
-        fused_conv1, fused_conv1_cuda, fused_conv2, fused_conv2_cuda, fused_pool,
-        fused_pool_cuda, wpt, wpt_cuda)
+        flash_attention, flash_attention_cuda, fused_conv1, fused_conv1_cuda, fused_conv2,
+        fused_conv2_cuda, fused_pool, fused_pool_cuda, wpt, wpt_cuda)
 
     # fp32 convolutions on both sides of every comparison (TF32 keeps ~3
     # digits); the JAX reference runs its convolutions at HIGHEST
@@ -1343,7 +1679,8 @@ def main() -> None:
         t0 = time.perf_counter()
         return mod.build(), time.perf_counter() - t0
 
-    kernel_mods = (wpt_cuda, fused_conv1_cuda, fused_pool_cuda, fused_conv2_cuda)
+    kernel_mods = (wpt_cuda, fused_conv1_cuda, fused_pool_cuda, fused_conv2_cuda,
+                   flash_attention_cuda)
     with concurrent.futures.ThreadPoolExecutor(len(kernel_mods)) as pool:  # one nvcc each
         builds = list(pool.map(timed_build, kernel_mods))
     build_s = {}
@@ -1394,10 +1731,27 @@ def main() -> None:
                         root, data, trained["unfused_losses"])
         log("  the snapshot of run (b) over HTTP")
         mid["serve"] = serve(wpt_cuda, mid.pop("snapshot"))
-    log("[16 time and profile, fused mid blocks]")
-    mid_times, mid_step = mid_timing(
-        fused_pool, fused_pool_cuda, fused_conv2, fused_conv2_cuda, trained["norm"], card_line)
-    mid_prof = profile_train(mid_step)
+        log("[16 time and profile, fused mid blocks]")
+        mid_times, mid_step = mid_timing(
+            fused_pool, fused_pool_cuda, fused_conv2, fused_conv2_cuda, trained["norm"],
+            card_line)
+        mid_prof = profile_train(mid_step)
+        del mid_step
+        log("[17 fused attention vs plain]")
+        mha_errs = mha_vs_plain(flash_attention)
+        log("[18 train the AST]")
+        ast_trainer, ast_run = train_ast(flash_attention_cuda, root, data)
+        log("  the trained AST over HTTP")
+        ast_run["serve"] = serve_ast(flash_attention_cuda, ast_trainer)
+        del ast_trainer
+    log("[19 time and profile, AST]")
+    ast_times, ast_steps = ast_timing(
+        flash_attention, flash_attention_cuda, ast_run["norm"], card_line)
+    ast_prof = {}
+    for name, step in ast_steps.items():
+        log(f"  profile of the {name} AST step")
+        ast_prof[name] = profile_train(step, kernel_groups=AST_KERNEL_GROUPS)
+    del ast_steps
 
     main_key = f"{MAIN[0]}-L{MAIN[1]}-B64-T{SR}"
     train_key = "B{}-H{}-W{}-C{}-float32".format(*TRAIN_SHAPE)
@@ -1415,10 +1769,13 @@ def main() -> None:
     (cfwd_b, cfwd_by), (cbwd_b, cbwd_by) = conv2_bounds(*CONV2_SHAPE)
     mid_launches = {k: mid["a"]["launches"][k] + mid["b"]["launches"][k]
                     for k in ("pool_fwd", "pool_bwd", "conv2_fwd", "conv2_bwd")}
-    # library_ms is null throughout: no single PyTorch call computes a
-    # wavelet-packet cascade, or conv + PReLU + pool with moments, or conv +
-    # MaxFeatureMap + pool with a code, or PReLU + pool with a code, or
-    # gradients from a code
+    mha_src = "audiodeepfake_detection_tpu_torch/csrc/flash_mha.cu"
+    mha_key = "B{}-N{}-H{}-float32".format(*AST_SHAPE)
+    (afwd_b, afwd_by), (abwd_b, abwd_by) = mha_bounds(*AST_SHAPE)
+    # library_ms is null for kernels 1-3, 5 and 6: no single PyTorch call
+    # computes a wavelet-packet cascade, or conv + PReLU + pool with moments,
+    # or conv + MaxFeatureMap + pool with a code, or PReLU + pool with a
+    # code, or gradients from a code; kernel 4's is scaled_dot_product_attention
     print(json.dumps({"kernels": [
         {
             "name": "wpt_cascade", "route": "cuda",
@@ -1499,9 +1856,31 @@ def main() -> None:
             "plain_ms": mid_times["conv2"]["bwd_plain_ms"],
             "bound_ms": cbwd_b, "bound_by": cbwd_by, "library_ms": None,
         },
+        {
+            "name": "flash_mha_fwd", "route": "cuda", "source": mha_src,
+            "replaces": "audiodeepfake_detection_tpu/ops/flash_attention.py:137",
+            "launches": ast_run["launches"]["fwd"],
+            "max_abs_err": mha_errs[mha_key]["fwd_max_abs_err"],
+            "ms": ast_times["float32"]["fwd_kernel_ms"],
+            "plain_ms": ast_times["float32"]["fwd_plain_ms"],
+            "bound_ms": afwd_b, "bound_by": afwd_by,
+            "library_ms": ast_times["float32"]["fwd_library_ms"],
+        },
+        {
+            # one launch counted per backward call: its dQ and dK/dV kernels
+            "name": "flash_mha_bwd", "route": "cuda", "source": mha_src,
+            "replaces": "audiodeepfake_detection_tpu/ops/flash_attention.py:156",
+            "launches": ast_run["launches"]["bwd"],
+            "max_abs_err": mha_errs[mha_key]["dqkv_max_abs_err"],
+            "ms": ast_times["float32"]["bwd_kernel_ms"],
+            "plain_ms": ast_times["float32"]["bwd_plain_ms"],
+            "bound_ms": abwd_b, "bound_by": abwd_by,
+            "library_ms": ast_times["float32"]["bwd_library_ms"],
+        },
     ]}))
     trained.pop("norm")
     lcnn.pop("norm")
+    ast_run.pop("norm")
     print(json.dumps({
         "card": card_line, "build_s": build_s, "max_abs_err": errs,
         "serve": served, "timing": times, "fused_vs_plain": fused_errs,
@@ -1509,7 +1888,8 @@ def main() -> None:
         "mfm_vs_plain": mfm_errs, "lcnn_train": lcnn, "lcnn_serve": lcnn_served,
         "lcnn_timing": lcnn_times, "lcnn_profile": lcnn_prof,
         "mid_vs_plain": mid_errs, "mid_train": mid, "mid_timing": mid_times,
-        "mid_profile": mid_prof,
+        "mid_profile": mid_prof, "mha_vs_plain": mha_errs, "ast_train": ast_run,
+        "ast_timing": ast_times, "ast_profile": ast_prof,
     }))
     print(card_line)
     print(json.dumps({"ok": True, "device": {

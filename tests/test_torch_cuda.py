@@ -13,6 +13,8 @@ import pytest
 import torch
 
 from audiodeepfake_detection_tpu_torch.ops import (
+    flash_attention,
+    flash_attention_cuda,
     fused_conv1,
     fused_conv1_cuda,
     fused_conv2,
@@ -568,3 +570,101 @@ def test_dcnn_fused_mid_blocks_train_step_matches_unfused_on_the_card(card, flag
         assert ((p.grad - f.grad).norm() / denom).item() <= (0.1 if p.numel() == 1 else 0.02), name
     for (name, p), (_, f) in zip(plain.named_buffers(), fused.named_buffers()):
         torch.testing.assert_close(f, p, rtol=1e-4, atol=1e-5, msg=name)
+
+
+# ------------------------------------------ fused attention (packed qkv)
+
+# forward, float32: 64-term fp32 dot products and softmax sums over N keys on
+# both sides, in another order than cuBLAS's (outputs are O(1))
+MHA_FWD_ATOL = 1e-5
+# dqkv, float32: sums over N keys or queries of products of those, relative
+# to the largest entry
+MHA_GRAD_RTOL = 1e-4
+
+
+def _mha_inputs(b, n, heads, dtype, device, seed=0):
+    rng = np.random.RandomState(seed)
+    qkv = torch.from_numpy(rng.randn(b, n, 3 * heads * 64).astype(np.float32))
+    g = torch.from_numpy(rng.randn(b, n, heads * 64).astype(np.float32))
+    return qkv.to(device).to(dtype).requires_grad_(), g.to(device).to(dtype)
+
+
+@pytest.mark.parametrize("b,n,heads", [(2, 227, 12), (1, 99, 3), (3, 18, 3), (1, 1, 1),
+                                       (2, 64, 2), (1, 130, 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_mha_matches_plain(card, b, n, heads, dtype):
+    qkv, g = _mha_inputs(b, n, heads, dtype, card, seed=n)
+    scale = 1.0 / 8.0
+    before = (flash_attention_cuda.MHA_FWD_LAUNCHES, flash_attention_cuda.MHA_BWD_LAUNCHES)
+    out = flash_attention.flash_mha_packed(qkv, heads, scale)
+    (dqkv,) = torch.autograd.grad(out, qkv, g)
+    torch.cuda.synchronize()
+    assert (flash_attention_cuda.MHA_FWD_LAUNCHES, flash_attention_cuda.MHA_BWD_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    want = flash_attention.plain_mha_packed(qkv, heads, scale)
+    (wgrad,) = torch.autograd.grad(want, qkv, g)
+    assert out.dtype == dtype and out.shape == (b, n, heads * 64) and dqkv.dtype == dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, want, rtol=0, atol=MHA_FWD_ATOL)
+        assert _rel(dqkv, wgrad) <= MHA_GRAD_RTOL
+    else:
+        # both round the output to bf16 (2**-8 relative); the probabilities
+        # rounded to bf16 on both sides may land one ulp apart
+        assert _rel(out, want) <= 2.0**-7
+        assert _rel(dqkv, wgrad) <= 1e-2
+
+
+def test_flash_mha_repeats_bit_for_bit_and_skips_statistics_without_grad(card):
+    qkv, g = _mha_inputs(2, 227, 12, torch.float32, card, seed=1)
+    runs = []
+    for _ in range(2):
+        out = flash_attention.flash_mha_packed(qkv, 12, 0.125)
+        runs.append((out, *torch.autograd.grad(out, qkv, g)))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)  # no atomics: one thread writes each element
+    before = flash_attention_cuda.MHA_BWD_LAUNCHES
+    with torch.no_grad():
+        out, stats = flash_attention_cuda.forward(qkv.detach(), 12, 0.125, False)
+        assert stats is None and torch.equal(out, runs[0][0])
+        assert torch.equal(flash_attention.flash_mha_packed(qkv, 12, 0.125), runs[0][0])
+    assert flash_attention_cuda.MHA_BWD_LAUNCHES == before
+
+
+def test_flash_mha_refuses_what_it_does_not_take(card):
+    qkv, _ = _mha_inputs(2, 20, 2, torch.float32, card)
+    qkv = qkv.detach()
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_attention.flash_mha_packed(qkv.half(), 2, 0.125)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention.flash_mha_packed(qkv.transpose(0, 1), 2, 0.125)
+    with pytest.raises(ValueError, match="heads of 64"):
+        flash_attention.flash_mha_packed(qkv, 4, 0.125)
+    with pytest.raises(ValueError, match="equal width"):
+        flash_attention.flash_mha_packed(qkv[..., :-1].contiguous(), 2, 0.125)
+    with pytest.raises(ValueError, match="dout must be"):
+        _, stats = flash_attention_cuda.forward(qkv, 2, 0.125, True)
+        flash_attention_cuda.backward(qkv, qkv[..., :128].contiguous().double(), stats, 2, 0.125)
+
+
+def test_ast_train_step_fused_matches_unfused_on_the_card(card, monkeypatch):
+    from audiodeepfake_detection_tpu_torch.models import ast
+
+    monkeypatch.setitem(ast._SIZES, "test128", dict(embed_dim=128, depth=2, num_heads=2))
+    torch.manual_seed(0)
+    kw = dict(input_fdim=64, input_tdim=48, model_size="test128")
+    plain, fused = ast.ASTModel(**kw).to(card), ast.ASTModel(**kw, fused_attention=True).to(card)
+    fused.load_state_dict(plain.state_dict())
+    x = torch.randn(8, 1, 64, 48, device=card)
+    y = torch.randint(0, 2, (8,), device=card)
+    before = (flash_attention_cuda.MHA_FWD_LAUNCHES, flash_attention_cuda.MHA_BWD_LAUNCHES)
+    losses = []
+    for model in (plain, fused):
+        model.train()
+        loss = torch.nn.functional.cross_entropy(model(x), y)
+        loss.backward()
+        losses.append(loss.item())
+    assert (flash_attention_cuda.MHA_FWD_LAUNCHES - before[0],
+            flash_attention_cuda.MHA_BWD_LAUNCHES - before[1]) == (2, 2)
+    assert abs(losses[0] - losses[1]) <= 1e-5
+    for (name, p), (_, f) in zip(plain.named_parameters(), fused.named_parameters()):
+        assert _rel(f.grad, p.grad) <= 1e-4, name

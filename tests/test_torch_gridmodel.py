@@ -165,9 +165,13 @@ def test_factory_gridmodel_regression_and_what_stays_unported():
     reg = factory.get_model(DotDict(module="Regression", input_dim=[4, 1, 16, 9]), "modules")
     assert reg.get_name() == "Regression" and reg.linear.weight.shape == (2, 144)
     assert factory.compute_parameter_total(reg) == 2 * 144 + 2
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        factory.get_model(DotDict(module="AST", input_dim=[4, 1, 256, 101]), "modules")
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    with pytest.raises(NotImplementedError, match="remat_policy"):
+        factory.get_model(DotDict(module="AST", input_dim=[4, 1, 256, 101],
+                                  ast_remat_policy="dots_saveable"), "modules")
+    with pytest.raises(NotImplementedError, match="bf16 mode of the CNNs"):
         factory.get_model(DotDict(features="none", num_of_scales=256, dtype="bfloat16"), "lcnn")
+    with pytest.raises(NotImplementedError, match="bf16 mode of the CNNs"):
+        factory.get_model(DotDict(model_data=MODELS["conv-pool-linear"][0], dtype="bfloat16"),
+                          "gridmodel")
     with pytest.raises(ValueError, match="in_channels == 1"):
         factory.get_model(DotDict(num_of_scales=256, fused_layer1=True), "lcnn", in_channels=2)

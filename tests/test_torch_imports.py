@@ -47,7 +47,8 @@ def test_sources_found():
         "train/profiling.py", "train/trainer.py", "train/experiment.py",
         "ops/stft.py", "ops/lfcc.py", "models/lcnn.py", "models/regression.py",
         "models/gridmodel.py", "ops/fused_pool.py", "ops/fused_pool_cuda.py",
-        "ops/fused_conv2.py", "ops/fused_conv2_cuda.py",
+        "ops/fused_conv2.py", "ops/fused_conv2_cuda.py", "ops/flash_attention.py",
+        "ops/flash_attention_cuda.py", "models/ast.py",
     ):
         assert f"audiodeepfake_detection_tpu_torch/{new}" in names
     assert "chip_smoke.py" in names
@@ -86,6 +87,7 @@ def test_importing_every_module_builds_no_kernel():
     for name in names:
         importlib.import_module(name)
     from audiodeepfake_detection_tpu_torch.ops import (
+        flash_attention_cuda,
         fused_conv1_cuda,
         fused_conv2_cuda,
         fused_pool_cuda,
@@ -98,6 +100,8 @@ def test_importing_every_module_builds_no_kernel():
     assert fused_conv2_cuda.CONV2_FWD_LAUNCHES == fused_conv2_cuda.CONV2_BWD_LAUNCHES == 0
     assert fused_conv1_cuda.FWD_LAUNCHES == fused_conv1_cuda.BWD_LAUNCHES == 0
     assert fused_conv1_cuda.MFM_FWD_LAUNCHES == fused_conv1_cuda.MFM_BWD_LAUNCHES == 0
+    assert flash_attention_cuda._LIB is None
+    assert flash_attention_cuda.MHA_FWD_LAUNCHES == flash_attention_cuda.MHA_BWD_LAUNCHES == 0
 
 
 def test_toolchain_is_touched_only_inside_functions():

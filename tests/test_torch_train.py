@@ -317,8 +317,11 @@ def test_augmented_train_step_runs_and_needs_a_generator():
 
 def test_low_precision_adam_moments_name_their_slice():
     _, _, port = _pair(False)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        tsteps.make_optimizer(port.parameters(), LR, WD, moment_dtype="bfloat16")
+    lowp = tsteps.make_optimizer(port.parameters(), LR, WD, moment_dtype="bfloat16")
+    assert isinstance(lowp, tsteps.AdamLowPrecisionMoments)
+    assert lowp.moment_dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tsteps.make_optimizer(port.parameters(), LR, WD, moment_dtype="float16")
     opt = tsteps.make_optimizer(port.parameters(), LR, WD, moment_dtype="float32")
     group = opt.param_groups[0]
     assert (group["lr"], group["weight_decay"], group["betas"], group["eps"]) == (

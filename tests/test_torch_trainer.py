@@ -215,8 +215,7 @@ def test_zero_alpha_trains_on_the_fused_path(tmp_path):
     "flag,value,where",
     [("fsdp", True, "slice 7"), ("pp_stages", 2, "slice 7"),
      ("device_data", True, "slice 8"), ("steps_per_call", 4, "slice 8"),
-     ("vmap_seeds", True, "slice 8"), ("vmap_hparams", True, "slice 8"),
-     ("adam_moments_dtype", "bfloat16", "slice 5")],
+     ("vmap_seeds", True, "slice 8"), ("vmap_hparams", True, "slice 8")],
 )
 def test_unsupported_trainer_flags_name_their_slice(tmp_path, flag, value, where):
     args = _args("unused", tmp_path, tmp_path, **{flag: value})
@@ -229,8 +228,8 @@ def test_unsupported_trainer_flags_name_their_slice(tmp_path, flag, value, where
 @pytest.mark.parametrize(
     "extra,where",
     [(dict(only_ig=True), "slice 9"), (dict(tensorboard=True), "slice 9"),
-     (dict(frame_cache=True), "slice 8"), (dict(dtype="bfloat16"), "slice 5"),
-     (dict(module="AST"), "slice 5"),
+     (dict(frame_cache=True), "slice 8"),
+     (dict(dtype="bfloat16"), "bf16 mode of the CNNs"),
      (dict(block_norm=True, calc_normalization=True), "slice 9")],
 )
 def test_unsupported_experiment_flags_name_their_slice(corpus, tmp_path, extra, where):
@@ -535,3 +534,92 @@ def test_cli_grid_search_runs_every_point(corpus, tmp_path, capsys):
     results = [f for f in os.listdir(tmp_path / "log") if f.endswith("_results.npy")]
     assert len(results) == 1
     assert np.load(tmp_path / "log" / results[0]).shape == (2, 2, 4)
+
+
+# ------------------------------------------------------------------ the AST
+
+
+@pytest.fixture
+def ast_test_size(monkeypatch):
+    from audiodeepfake_detection_tpu_torch.models import ast
+
+    monkeypatch.setitem(ast._SIZES, "test32", dict(embed_dim=32, depth=2, num_heads=2))
+
+
+def _ast_args(corpus, tmp_path, **extra):
+    """stft (n_fft 511, hop 220, log): the [B, 1, 256, 101] image of the
+    AST's cells, with a test-size encoder."""
+    args = dict(
+        module="AST", ast_model_size="test32", ast_fused_attention=True,
+        transform="stft", num_of_scales=256, hop_length=220, flattend_size=None,
+        fused_layer1=False, epochs=1)
+    args.update(extra)
+    return _args(corpus, tmp_path / "log", tmp_path / "meta", **args)
+
+
+def test_ast_trains_snapshots_and_reloads_from_the_pt(corpus, tmp_path, ast_test_size):
+    """As the JAX package's end-to-end AST test: one epoch through ``run_experiment``,
+    the snapshot in the trained-AST layout, and ``only_testing`` reloading
+    it from the ``.pt`` alone (through ``import_timm_deit``)."""
+    trainer = run_experiment(_ast_args(corpus, tmp_path))
+    model = trainer.model
+    assert model.get_name() == "AST" and model.fused_attention
+    assert (model.input_fdim, model.input_tdim, model.num_patches) == (256, 101, 225)
+    losses = [row[2] for row in trainer.loss_list]
+    assert len(losses) == 2 and np.isfinite(losses).all()
+    assert 0.0 <= trainer.test_results[0] <= 1.0
+    assert "_AST_" in os.path.basename(trainer.snapshot_path)
+    state = torch.load(trainer.snapshot_path, weights_only=True)["MODEL_STATE"]
+    assert "v.patch_embed.proj.weight" in state and "mlp_head.1.weight" in state
+    os.remove(trainer.state_path)
+    again = run_experiment(_ast_args(corpus, tmp_path, only_testing=True))
+    assert len(again.test_results) == 4
+    for key, val in again.model.state_dict().items():
+        assert torch.equal(val.cpu(), state[key]), key
+
+
+def test_ast_bf16_mode_with_bf16_moments_resumes_bit_for_bit(corpus, tmp_path, ast_test_size):
+    """``dtype: bfloat16`` and ``adam_moments_dtype: bfloat16``: the moments
+    are stored in bf16, go through ``.state.pt``, and a resumed second epoch
+    equals an uninterrupted one."""
+    extra = dict(dtype="bfloat16", adam_moments_dtype="bfloat16", epochs=2)
+    whole = run_experiment(_ast_args(corpus, tmp_path / "whole", **extra))
+    assert whole.model.dtype == torch.bfloat16
+    moments = whole.optimizer.state[next(whole.model.parameters())]
+    assert moments["exp_avg"].dtype == moments["exp_avg_sq"].dtype == torch.bfloat16
+    first = run_experiment(_ast_args(corpus, tmp_path / "parts", **dict(extra, epochs=1)))
+    assert [r[2] for r in first.loss_list] == [r[2] for r in whole.loss_list[:2]]
+    # the snapshot name encodes --epochs: continue under the two-epoch name
+    base = first.snapshot_path[: -len(".pt")]
+    for suffix in (".pt", ".state.pt", ".pt.norm.pkl"):
+        shutil.copy(base + suffix, base.replace("_1e_", "_2e_") + suffix)
+    resumed = run_experiment(_ast_args(corpus, tmp_path / "parts", resume=True, **extra))
+    assert [r[2] for r in resumed.loss_list] == [r[2] for r in whole.loss_list[2:]]
+    for (name, p), q in zip(resumed.model.named_parameters(), whole.model.parameters()):
+        assert torch.equal(p, q), name
+
+
+def test_auto_chunk_serves_the_ast_in_divisors_of_the_batch(ast_test_size):
+    from audiodeepfake_detection_tpu_torch.models.ast import ASTModel
+    from audiodeepfake_detection_tpu_torch.train.serve import ScoringService
+
+    torch.manual_seed(0)
+    model = ASTModel(input_fdim=64, input_tdim=48, model_size="test32")
+    assert [predict.auto_chunk(model, b) for b in (64, 48, 32, 8, 37)] == [32, 24, 32, 8, 1]
+    assert predict.auto_chunk(DCNN(time_dim=12), 64) == 0
+
+    def transform(audio):  # [B, 1, 3072] -> a [B, 1, 64, 48] image
+        return audio.reshape(audio.shape[0], 1, 64, 48)
+
+    svc = ScoringService(model, transform, device="cpu", sample_rate=3072, batch_size=48,
+                         warmup=False)
+    assert svc.chunk == 24
+    calls = []
+    model.register_forward_hook(lambda m, i, o: calls.append(i[0].shape[0]))
+    audio = torch.from_numpy(np.random.RandomState(1).randn(48, 1, 3072).astype(np.float32))
+    chunked = predict.make_score_fn(model, transform, "cpu")(audio)
+    assert calls == [24, 24]
+    whole = predict.make_score_fn(model, transform, "cpu", chunk=0)(audio)
+    torch.testing.assert_close(chunked, whole, rtol=1e-5, atol=1e-6)
+    with pytest.raises(ValueError, match="does not divide"):
+        ScoringService(model, transform, device="cpu", batch_size=48, chunk=32, warmup=False)
