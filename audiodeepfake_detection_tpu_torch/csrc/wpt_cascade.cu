@@ -32,6 +32,17 @@
 // cluster would fill the rest.  Stride-2 shared-memory reads cost 2-way
 // bank conflicts.
 //
+// Long frames: a frame whose level buffers exceed one block's shared memory
+// (sym5 level 8 above T = 28,232 samples, e.g. 2 s at 22050 Hz or 1 s at
+// 32 kHz) takes a second route, wpt_level_kernel: one launch per level,
+// one thread per output coefficient over (frame, node, index), the level
+// read from and written to device memory.  Same taps, the same reflection
+// and the same last-level store (frequency order, optional log) as the
+// one-block kernel, so both routes give the same sums in the same order.
+// It moves every level through device memory (B=128, T=44,100: ~23 MB a
+// level, ~0.1 ms for eight levels at 3.35 TB/s); the wrapper
+// (ops/wpt_cuda.py) chooses the route from the shared-memory plan.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC; bound from Python with ctypes (ops/wpt_cuda.py).
 
@@ -105,6 +116,44 @@ wpt_cascade_kernel(const float* __restrict__ x, float* __restrict__ out,
   }
 }
 
+// One level of the cascade through device memory: in [batch, nodes_in, n_in]
+// (natural node order) -> out [batch, 2 * nodes_in, n_out]; the last level
+// in frequency order with the optional log at the store.
+__global__ void __launch_bounds__(256)
+wpt_level_kernel(const float* __restrict__ in, float* __restrict__ out,
+                 const float* __restrict__ taps, long long total, int nodes_in,
+                 int n_in, int n_out, int filt_len, int last, int log_scale,
+                 float power) {
+  extern __shared__ float taps_s[];
+  for (int k = threadIdx.x; k < 2 * filt_len; k += blockDim.x) taps_s[k] = taps[k];
+  __syncthreads();
+  const int padl = (2 * filt_len - 3) / 2;
+  const long long per_frame = 2LL * nodes_in * n_out;
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+       i < total; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long frame = i / per_frame;
+    const int rem = static_cast<int>(i - frame * per_frame);
+    const int row = rem / n_out;
+    const int s = rem - row * n_out;
+    const int node = last ? (row ^ (row >> 1)) : row;
+    const float* f = taps_s + ((node & 1) ? filt_len : 0);
+    const float* src = in + (frame * nodes_in + (node >> 1)) * n_in;
+    const int base = 2 * s - padl;
+    float acc = 0.f;
+    if (base >= 0 && base + filt_len <= n_in) {
+      for (int k = 0; k < filt_len; ++k) acc = fmaf(f[k], src[base + k], acc);
+    } else {
+      for (int k = 0; k < filt_len; ++k)
+        acc = fmaf(f[k], src[reflect_index(base + k, n_in)], acc);
+    }
+    if (last && log_scale) {
+      const float a = fabsf(acc);
+      acc = logf((power == 2.0f ? a * a : powf(a, power)) + 1e-12f);
+    }
+    out[i] = acc;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -133,6 +182,22 @@ int wpt_cascade_launch(const float* x, float* out, const float* taps,
   wpt_cascade_kernel<<<batch, kThreads, smem_bytes,
                        static_cast<cudaStream_t>(stream)>>>(
       x, out, taps, t, level, filt_len, buf_a_off, buf_b_off, log_scale,
+      power);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One level of the long-frame route on ``stream``; returns cudaGetLastError().
+int wpt_level_launch(const float* in, float* out, const float* taps, int batch,
+                     int nodes_in, int n_in, int n_out, int filt_len, int last,
+                     int log_scale, float power, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long total = 2LL * batch * nodes_in * n_out;
+  const long long want = (total + 255) / 256;
+  const int blocks = static_cast<int>(want < (1 << 20) ? want : (1 << 20));
+  wpt_level_kernel<<<blocks, 256, 2 * filt_len * sizeof(float),
+                     static_cast<cudaStream_t>(stream)>>>(
+      in, out, taps, total, nodes_in, n_in, n_out, filt_len, last, log_scale,
       power);
   return static_cast<int>(cudaGetLastError());
 }

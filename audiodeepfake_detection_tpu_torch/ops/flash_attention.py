@@ -15,7 +15,8 @@ bfloat16 input rounds where the JAX kernel rounds: the probabilities before
 On a CUDA tensor :func:`flash_mha_packed` launches the hand-written kernels of
 ``csrc/flash_mha.cu`` (forward and backward, behind one
 ``torch.autograd.Function``; the ``[B, H, N, N]`` scores never reach device
-memory) or raises; nothing falls back.  The plain PyTorch version
+memory; the route, resident or streaming, follows from N) or raises;
+nothing falls back.  The plain PyTorch version
 :func:`plain_mha_packed` runs only for a CPU tensor, and is what the kernels
 are checked against.
 """

@@ -11,10 +11,15 @@ bound with ``ctypes``.  Nothing here imports or invokes the CUDA toolchain
 at import time.
 
 ``wpt_packets_cuda`` takes the plain PyTorch version (``wpt.wpt_analysis``)
-only for a CPU tensor.  A CUDA tensor gets the kernel or an exception.
-``LAUNCHES`` counts kernel launches, so a run can show that its path went
-through the kernel.  No gradient is defined: the transform sits in front of
-the model under stop-gradient.
+only for a CPU tensor.  A CUDA tensor gets one of two hand-written routes,
+chosen by geometry (:func:`wpt_route`), or an exception: the one-block
+kernel where a frame's level buffers fit one block's shared memory (1 s at
+22050 Hz), else the long-frame route, one ``wpt_level_kernel`` launch per
+level through device memory (2 s at 22050 Hz, 1 s at 32 kHz, level-14
+haar).  ``LAUNCHES`` counts calls that took the one-block kernel and
+``LONG_LAUNCHES`` calls that took the long-frame route (``level`` launches
+each), so a run can show which kernels its path went through.  No gradient
+is defined: the transform sits in front of the model under stop-gradient.
 """
 
 from __future__ import annotations
@@ -29,8 +34,10 @@ import torch
 from .cuda_build import CSRC_DIR, compile_library
 from .wpt import dec_kernel, log_power, wpt_analysis, wpt_output_length
 
-#: kernel launches made by :func:`wpt_packets_cuda` in this process
+#: calls of :func:`wpt_packets_cuda` that launched the one-block kernel
 LAUNCHES = 0
+#: calls that took the long-frame route (one launch per level each)
+LONG_LAUNCHES = 0
 
 SOURCE = CSRC_DIR / "wpt_cascade.cu"
 
@@ -55,6 +62,8 @@ def build() -> str:
             vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ctypes.c_float, ci, vp,
         ]
         lib.wpt_cascade_launch.restype = ci
+        lib.wpt_level_launch.argtypes = [vp, vp, vp] + [ci] * 7 + [ctypes.c_float, ci, vp]
+        lib.wpt_level_launch.restype = ci
         lib.wpt_cascade_smem_limit.argtypes = [ci, ctypes.POINTER(ci)]
         lib.wpt_cascade_smem_limit.restype = ci
         lib.wpt_cascade_error_string.argtypes = [ci]
@@ -101,6 +110,12 @@ def cascade_smem_plan(t: int, filt_len: int, level: int) -> Tuple[int, int, int]
     return buf_a_off, buf_b_off, 4 * (buf_b_off + sizes[1])
 
 
+def wpt_route(t: int, filt_len: int, level: int, smem_limit_bytes: int) -> str:
+    """``"block"`` where one frame's cascade fits one block's shared memory
+    (:func:`cascade_smem_plan`), else ``"long"``: one launch per level."""
+    return "block" if cascade_smem_plan(t, filt_len, level)[2] <= smem_limit_bytes else "long"
+
+
 def wpt_packets_cuda(
     x: torch.Tensor,
     wavelet_name: str,
@@ -111,12 +126,12 @@ def wpt_packets_cuda(
     """Fused WPT: ``[B, T] -> [B, 2**level, n_level]`` (frequency order).
 
     A CPU tensor runs the plain version (``wpt.wpt_analysis`` plus the same
-    log).  A CUDA tensor must be contiguous float32; it launches the kernel
-    on the current stream without synchronising, or raises.  A geometry
-    whose level buffers do not fit in one block's shared memory raises with
-    the numbers; there is no fallback.
+    log).  A CUDA tensor must be contiguous float32; it launches the
+    one-block kernel or, for frames too long for one block's shared memory,
+    the long-frame route, on the current stream without synchronising, or
+    raises.  There is no fallback to the plain version.
     """
-    global LAUNCHES
+    global LAUNCHES, LONG_LAUNCHES
     if x.device.type == "cpu":
         wp = wpt_analysis(x, wavelet_name, level)
         return log_power(wp, power) if log_scale else wp
@@ -138,24 +153,32 @@ def wpt_packets_cuda(
     n_out = wpt_output_length(t, filt_len, level)
     if (2**level) * n_out >= 2**31:
         raise ValueError(f"output rows of {2**level} x {n_out} overflow int32")
-    buf_a_off, buf_b_off, smem = cascade_smem_plan(t, filt_len, level)
-    device_index = x.device.index
-    limit = smem_limit(device_index)
-    if smem > limit:
-        raise ValueError(
-            f"wpt_packets_cuda: {wavelet_name} level {level} at T={t} needs "
-            f"{smem} bytes of shared memory per frame, the device allows "
-            f"{limit}"
-        )
     out = torch.empty((b, 2**level, n_out), dtype=torch.float32, device=x.device)
     if b == 0:
         return out
+    device_index = x.device.index
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _lib().wpt_cascade_launch(
-        x.data_ptr(), out.data_ptr(), taps.data_ptr(), b, t, level, filt_len,
-        buf_a_off, buf_b_off, smem, int(log_scale), float(power),
-        device_index, stream,
-    )
-    _check(err, "wpt_cascade launch")
-    LAUNCHES += 1
+    if wpt_route(t, filt_len, level, smem_limit(device_index)) == "block":
+        buf_a_off, buf_b_off, smem = cascade_smem_plan(t, filt_len, level)
+        err = _lib().wpt_cascade_launch(
+            x.data_ptr(), out.data_ptr(), taps.data_ptr(), b, t, level, filt_len,
+            buf_a_off, buf_b_off, smem, int(log_scale), float(power),
+            device_index, stream,
+        )
+        _check(err, "wpt_cascade launch")
+        LAUNCHES += 1
+        return out
+    src, n_in = x, t
+    for lvl in range(level):
+        last = lvl == level - 1
+        n = (n_in + filt_len - 1) // 2
+        dst = out if last else torch.empty(
+            (b, 2 << lvl, n), dtype=torch.float32, device=x.device)
+        err = _lib().wpt_level_launch(
+            src.data_ptr(), dst.data_ptr(), taps.data_ptr(), b, 1 << lvl, n_in, n,
+            filt_len, int(last), int(log_scale), float(power), device_index, stream,
+        )
+        _check(err, f"wpt_level launch (level {lvl + 1} of {level})")
+        src, n_in = dst, n
+    LONG_LAUNCHES += 1
     return out

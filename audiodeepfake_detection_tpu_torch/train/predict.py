@@ -12,7 +12,7 @@ from __future__ import annotations
 import os
 import pickle
 import warnings
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Sequence
 
 import numpy as np
 import torch
@@ -38,28 +38,12 @@ def resolve_device(device: torch.device | str) -> torch.device:
     return device
 
 
-#: the AST's auto chunk is the largest divisor of the batch up to this
-AST_MAX_CHUNK = 32
-
-
-def auto_chunk(model: nn.Module, batch: int) -> int:
-    """The microbatch that ``chunk=None`` picks: for the AST the largest
-    divisor of ``batch`` that is at most 32 (the JAX package picks 32 and
-    runs whole batches when 32 does not divide them), 0 (the whole batch)
-    for every other model."""
-    from ..models.ast import ASTModel
-
-    if not isinstance(model, ASTModel):
-        return 0
-    return max(c for c in range(1, min(AST_MAX_CHUNK, batch) + 1) if batch % c == 0)
-
-
 def make_score_fn(
     model: nn.Module,
     transform: Callable,
     device: torch.device | str,
     output: str = "prob",
-    chunk: Optional[int] = None,
+    chunk: int = 0,
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """``[B, 1, T] audio -> [B]`` scorer on ``device``.
 
@@ -72,9 +56,10 @@ def make_score_fn(
     fake-real logit margin — monotone in ``P(fake)`` but unsaturated.
 
     ``chunk``: run the model over microbatches of that size inside one
-    call.  It must divide the batch; a chunk of 0 or of at least the batch
-    runs the whole batch at once; ``None`` picks :func:`auto_chunk` for
-    each batch.
+    call.  It must divide the batch; a chunk of 0 (the default) or of at
+    least the batch runs the whole batch at once, which on the H100 beats
+    every chunk for the AST too (the JAX package's AST chunk of 32 avoids a
+    TPU memory knee; PERF.md).
     """
     from .steps import audio_to_float
 
@@ -88,13 +73,12 @@ def make_score_fn(
             audio = torch.as_tensor(audio).to(device, non_blocking=True)
             image = transform(audio_to_float(audio))
             b = image.shape[0]
-            size = auto_chunk(model, b) if chunk is None else chunk
-            if size and size < b:
-                if b % size:
+            if chunk and chunk < b:
+                if b % chunk:
                     raise ValueError(
-                        f"chunk={size} does not divide the batch of {b}"
+                        f"chunk={chunk} does not divide the batch of {b}"
                     )
-                logits = torch.cat([model(g) for g in image.split(size)])
+                logits = torch.cat([model(g) for g in image.split(chunk)])
             else:
                 logits = model(image)
             if output == "margin":
@@ -131,7 +115,7 @@ def score_files(
     aggregate: str = "mean",
     self_norm: bool = False,
     output: str = "prob",
-    chunk: Optional[int] = None,
+    chunk: int = 0,
 ) -> Dict[str, float]:
     """Per-file fake probability (or logit margin), aggregated over frames.
 
@@ -363,10 +347,9 @@ def main(argv=None) -> None:
         help="post-training int8 quantization (not ported yet)",
     )
     parser.add_argument(
-        "--chunk", type=int, default=None,
+        "--chunk", type=int, default=0,
         help="run the model over microbatches of this size inside each "
-        "dispatch (must divide --batch-size; 0 = whole batch; default auto: "
-        "the largest divisor up to 32 for the AST, the whole batch otherwise)",
+        "dispatch (must divide --batch-size; default 0: the whole batch)",
     )
     parser.add_argument(
         "--device", default="cuda",

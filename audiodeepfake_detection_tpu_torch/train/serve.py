@@ -74,9 +74,9 @@ class ScoringService:
         max_body_bytes: int = 64 << 20,
         request_timeout_s: float = 120.0,
         pcm16: bool = False,
-        chunk: Optional[int] = None,
+        chunk: int = 0,
     ) -> None:
-        from .predict import auto_chunk, make_score_fn
+        from .predict import make_score_fn
 
         self.device = resolve_device(device)
         self.sample_rate = int(sample_rate)
@@ -91,9 +91,8 @@ class ScoringService:
         # submissions quantize to 16 bits (~96 dB SNR).
         self.pcm16 = bool(pcm16)
         self._wire_dtype = torch.int16 if pcm16 else torch.float32
-        # None: the AST's auto chunk (the largest divisor of the batch up to
-        # 32), the whole batch for every other model
-        self.chunk = auto_chunk(model, self.batch_size) if chunk is None else int(chunk)
+        # 0: the whole batch, the fastest for every model on the H100
+        self.chunk = int(chunk)
         if self.chunk and self.chunk < self.batch_size and self.batch_size % self.chunk:
             # a chunk that silently fell back to whole batches would hide
             # the setting from the operator: refuse it up front
@@ -419,7 +418,7 @@ def service_from_snapshot(
     calibrate: Sequence[str] = (),
     output: str = "prob",
     pcm16: bool = False,
-    chunk: Optional[int] = None,
+    chunk: int = 0,
     device: torch.device | str = "cuda",
 ) -> ScoringService:
     """Build a ready-to-start service from a config-encoded ``.pt``.
@@ -485,10 +484,9 @@ def main(argv=None) -> None:
         "bytes; bit-exact for 16-bit wav uploads)",
     )
     parser.add_argument(
-        "--chunk", type=int, default=None,
+        "--chunk", type=int, default=0,
         help="run the model over microbatches of this size inside each "
-        "dispatch (must divide --batch-size; 0 = whole batch; default auto: "
-        "the largest divisor up to 32 for the AST, the whole batch otherwise)",
+        "dispatch (must divide --batch-size; default 0: the whole batch)",
     )
     parser.add_argument(
         "--device", default="cuda",

@@ -13,7 +13,10 @@ Phases, in order; any failure propagates and the script exits non-zero
    ``csrc/fused_pool.cu``, ``csrc/fused_conv2.cu`` and ``csrc/flash_mha.cu``
    for sm_90a from this checkout, all at once;
 3. kernel vs plain: the wavelet-packet kernel against the plain PyTorch
-   cascade on the card, at the serving shapes and a few other geometries;
+   cascade on the card, at the serving shapes and a few other geometries
+   (one-block route), and the long-frame route (one launch per level) at
+   2 s of sym5, coif4, haar and db8, 1 s at 32 kHz and level-14 haar at
+   T = 131,072, each route's launch count read;
 4. serve: a seeded full-width DCNN snapshot behind ``service_from_snapshot``
    on ``cuda``, answering concurrent HTTP uploads; scores checked against
    the same snapshot scored on the CPU, and the kernel's launch count read
@@ -68,21 +71,29 @@ Phases, in order; any failure propagates and the script exits non-zero
 16. time: the mid-block kernels alone vs plain, the train step at batch 128
     unfused, with ``fused_layer1`` only, (a) and (b), the eval step; a
     profile of step (b);
-17. fused attention vs plain: forward and ``dqkv`` of kernel 4 against the
-    plain PyTorch version at the AST's shape (B=32, N=227, 12 heads of 64;
-    fp32 and bf16), N=99 and N=18 with 3 heads, and B=1; two runs compared
-    bit for bit;
+17. fused attention vs plain: forward and ``dqkv`` of both kernel-4 routes
+    (resident, streaming) against the plain PyTorch version at the AST's
+    shape (B=32, N=227, 12 heads of 64; fp32 and bf16) and at N = 1, 18, 99
+    and 256, the streaming route also above the resident limit (N=300); two
+    runs compared bit for bit; the tensor-core (HMMA) instructions of each
+    resident kernel counted in the built library (``cuobjdump -sass``);
 18. train the AST: the corpus through ``run_experiment`` on ``cuda`` (stft,
     hop 220, log scale, base384 AST with the fused attention, batch 32, 2
     epochs with validation, test and snapshot), the kernel's launch counts
     read over exactly this run; the same training unfused, loss by loss; an
     epoch in bf16 with bf16 Adam moments; the trained AST behind
-    ``ScoringService`` (batch 64, auto chunk 32) over HTTP, scores against
-    the same model on the CPU;
-19. time: kernel 4 alone vs plain and vs ``scaled_dot_product_attention``
-    (the library yardstick, timed only), the AST train step fused, unfused
-    and bf16, the eval step, the scorer chunked vs whole-batch; profiles of
-    the fused fp32 and the bf16 steps.
+    ``ScoringService`` (batch 64, the whole batch at once) over HTTP, scores
+    against the same model on the CPU;
+19. time: both kernel-4 routes alone vs plain and vs
+    ``scaled_dot_product_attention`` (the library yardstick, timed only),
+    the AST train step fused, unfused and bf16, the eval step, the scorer
+    at batch 64, 128 and 512 with chunks of 0 (whole batch), 8, 16 and 32;
+    profiles of the fused fp32 and the bf16 steps;
+20. frames longer than one block's shared memory: the corpus cut into 2 s
+    frames and trained through ``run_experiment`` on ``cuda`` with packets
+    + DCNN (the WPT's long-frame route; its launch count read over exactly
+    this run) and with stft + AST (477 tokens: kernel 4's streaming route,
+    counted likewise); the long-frame route timed against plain at B=128.
 
 The last lines are the kernels' JSON record, the measurements with the
 card's name and power limit, and ``{"ok": true, "device": ...}``.
@@ -169,6 +180,7 @@ MID_SUM_RTOL = 1e-3
 MID_BF16_DALPHA_RTOL = 3e-2
 # ---- the AST path (phases 17-19)
 AST_SHAPE = (32, 227, 12)  # B, N (25 x 9 patches + cls + dist), heads of 64 (base384)
+STREAM_SHAPE = (32, 477, 12)  # the same AST on 2 s frames (25 x 19 patches + 2), phase 20
 AST_BATCH = 32
 AST_STEPS_PER_EPOCH = 12  # 392 training frames // 32
 AST_BLOCKS = 12
@@ -188,6 +200,7 @@ MHA_BF16_GRAD_RTOL = 1e-2
 AST_LOSS_RTOL = 5e-3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12  # dense tensor-core rate, H100 SXM data sheet
 BATCH = 128
 STEPS_PER_EPOCH = 3
 EPOCHS = 2
@@ -204,33 +217,46 @@ def card() -> str:
     ).stdout.strip().splitlines()[0]
 
 
+LONG_CASES = (  # B, T, wavelet, level: frames the one-block kernel cannot hold;
+    # the first is phase 20's DCNN batch of 2 s frames, the row of the long route
+    (64, 2 * SR, "sym5", 8), (2, 2 * SR, "coif4", 8), (2, 2 * SR, "haar", 8),
+    (2, 2 * SR, "db8", 8), (3, 32000, "sym5", 8), (2, 8 * 2 ** 14, "haar", 14),
+)
+
+
 def kernel_vs_plain(wpt_cuda, wpt):
-    """Phase 3: every listed geometry, raw and (main path) with the log."""
+    """Phase 3: every listed geometry, raw and with the log, on the route
+    its geometry picks (the one-block kernel, or one launch per level)."""
     gen = torch.Generator().manual_seed(0)
     cases = [
-        (*MAIN, 64, SR), (*MAIN, 128, SR), (*MAIN, 1, SR),
-        ("haar", 8, 3, 4096), ("db4", 5, 5, 2048), ("coif4", 4, 4, 2048),
-    ]
+        (*MAIN, 64, SR, "block"), (*MAIN, 128, SR, "block"), (*MAIN, 1, SR, "block"),
+        ("haar", 8, 3, 4096, "block"), ("db4", 5, 5, 2048, "block"),
+        ("coif4", 4, 4, 2048, "block"),
+    ] + [(name, level, b, t, "long") for b, t, name, level in LONG_CASES]
     errs = {}
-    for name, level, b, t in cases:
+    for name, level, b, t, route in cases:
         x = torch.randn(b, t, generator=gen).cuda()
+        before = (wpt_cuda.LAUNCHES, wpt_cuda.LONG_LAUNCHES)
         got = wpt_cuda.wpt_packets_cuda(x, name, level)
         want = wpt.wpt_analysis(x, name, level)
         torch.cuda.synchronize()
+        moved = (wpt_cuda.LAUNCHES - before[0], wpt_cuda.LONG_LAUNCHES - before[1])
+        if moved != ((1, 0) if route == "block" else (0, 1)):
+            raise AssertionError(f"{name} L={level} T={t}: launches {moved} off the {route} route")
         err = (got - want).abs().max().item()
         errs[f"{name}-L{level}-B{b}-T{t}"] = err
-        log(f"  raw {name} L={level} B={b} T={t}: max|err| {err:.3e} "
+        log(f"  raw {name} L={level} B={b} T={t} ({route}): max|err| {err:.3e} "
             f"(peak {want.abs().max().item():.3f})")
         if not err <= RAW_ATOL:
             raise AssertionError(f"kernel vs plain {name}: {err} > {RAW_ATOL}")
-        if (name, level) == MAIN:
+        if (name, level) == MAIN or route == "long":
             got = wpt_cuda.wpt_packets_cuda(x, name, level, log_scale=True)
             want = wpt.log_power(want, 2.0)
             torch.cuda.synchronize()
             torch.testing.assert_close(got, want, rtol=LOG_RTOL, atol=LOG_ATOL)
             lerr = (got - want).abs().max().item()
             errs[f"log-{name}-L{level}-B{b}-T{t}"] = lerr
-            log(f"  log {name} L={level} B={b} T={t}: max|err| {lerr:.3e}")
+            log(f"  log {name} L={level} B={b} T={t} ({route}): max|err| {lerr:.3e}")
     return errs
 
 
@@ -452,16 +478,17 @@ def timing(wpt_cuda, wpt, snapshot: str, card_line: str):
     return out
 
 
-def bound_ms(n_bytes: float, n_flops: float):
+def bound_ms(n_bytes: float, n_flops: float, flop_per_s: float = FP32_FLOP_PER_S):
     """Least time the card could take: (ms, "bytes" or "operations")."""
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    by_ops = n_flops / FP32_FLOP_PER_S * 1e3
+    by_ops = n_flops / flop_per_s * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
 def wpt_bound(wpt, b: int, t: int):
     """The frame read once and the last level written once; 2 flops per tap
-    per output of every level."""
+    per output of every level (either route: the long-frame route's level
+    round trips are its own cost, not the function's)."""
     filt_len = wpt.dec_kernel(MAIN[0], "cpu").shape[-1]
     flops, n = 0, t
     for lvl in range(MAIN[1]):
@@ -754,11 +781,12 @@ def profile_train(train_step, n: int = 5, kernel_groups=KERNEL_GROUPS):
             train_step()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    # kernel rows only: an operator's row repeats its kernels' device time
+    # kernel rows only: an operator's row repeats its kernels' device time,
+    # and a user range (``Optimizer.step#...``) spans kernels and host gaps
     rows = [(e.key, e.self_device_time_total / 1e3 / n, e.count // n)
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
+            and not e.is_user_annotation and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
     log(f"  wall {wall_ms:.3f} ms/step (profiler on), device kernels {device_ms:.3f} ms/step "
@@ -1376,7 +1404,7 @@ def mid_timing(fp, pool_cuda, f2, conv2_cuda, norm, card_line: str):
 # --------------------------------------------------- the AST path (17-19)
 
 
-def mha_bounds(b, n, heads, itemsize=4):
+def mha_bounds(b, n, heads, itemsize=4, flop_per_s=FP32_FLOP_PER_S):
     """Forward: qkv read, out and the row statistics written; q.k^T and p.v,
     2 N^2 D flops each per head.  Backward: qkv, dout and the statistics
     read, dqkv written; five such products (q.k^T, dO.v^T, p^T.dO, dS.k,
@@ -1385,8 +1413,8 @@ def mha_bounds(b, n, heads, itemsize=4):
     qkv = itemsize * b * n * 3 * heads * 64
     out = itemsize * b * n * heads * 64
     stats = 4 * b * heads * n * 2
-    return (bound_ms(qkv + out + stats, 2 * product),
-            bound_ms(2 * qkv + out + stats, 5 * product))
+    return (bound_ms(qkv + out + stats, 2 * product, flop_per_s),
+            bound_ms(2 * qkv + out + stats, 5 * product, flop_per_s))
 
 
 def mha_case(b, n, heads, dtype, seed):
@@ -1395,41 +1423,97 @@ def mha_case(b, n, heads, dtype, seed):
     return qkv.requires_grad_(), torch.randn(b, n, heads * 64, generator=gen).cuda().to(dtype)
 
 
-def mha_vs_plain(fa):
-    """Phase 17: kernel 4 against its plain version under autograd, and
-    against itself."""
+def mha_counts(fa_cuda) -> dict:
+    return {"resident": (fa_cuda.MHA_FWD_LAUNCHES, fa_cuda.MHA_BWD_LAUNCHES),
+            "stream": (fa_cuda.MHA_STREAM_FWD_LAUNCHES, fa_cuda.MHA_STREAM_BWD_LAUNCHES)}
+
+
+def mha_run(fa, fa_cuda, qkv, g, heads, route):
+    """Output and ``dqkv`` of one route: through the autograd Function where
+    the geometry picks that route, else through the launchers by name; fails
+    unless exactly that route's forward and backward launched once each."""
+    before = mha_counts(fa_cuda)
+    if route == fa_cuda.route_for(qkv.shape[1], qkv, g):
+        y = fa.flash_mha_packed(qkv, heads, 0.125)
+        result = y, torch.autograd.grad(y, qkv, g)[0]
+    else:
+        raw = qkv.detach()
+        y, stats = fa_cuda.forward(raw, heads, 0.125, True, route=route)
+        result = y, fa_cuda.backward(raw, g, stats, heads, 0.125, route=route)
+    after = mha_counts(fa_cuda)
+    moved = {r: (after[r][0] - before[r][0], after[r][1] - before[r][1]) for r in after}
+    if moved != {r: (1, 1) if r == route else (0, 0) for r in fa_cuda.ROUTES}:
+        raise AssertionError(f"kernel 4, {route} route at {tuple(qkv.shape)}: launches {moved}")
+    return result
+
+
+def mha_vs_plain(fa, fa_cuda):
+    """Phase 17: both routes of kernel 4 against the plain version under
+    autograd, and each against itself; the streaming route alone at
+    ``STREAM_SHAPE``, the geometry phase 20 sends it."""
     f32, bf16 = torch.float32, torch.bfloat16
-    cases = [(*AST_SHAPE, f32), (*AST_SHAPE, bf16), (2, 99, 3, f32), (2, 99, 3, bf16),
-             (2, 18, 3, f32), (3, 18, 3, bf16), (1, 227, 12, f32), (1, 227, 12, bf16)]
+    shapes = [AST_SHAPE, STREAM_SHAPE, (2, 99, 3), (3, 18, 3), (1, 1, 1), (1, 256, 2),
+              (1, 300, 2)]
     out = {}
-    for i, (b, n, heads, dtype) in enumerate(cases):
+    for i, ((b, n, heads), dtype) in enumerate((s, d) for s in shapes for d in (f32, bf16)):
         qkv, g = mha_case(b, n, heads, dtype, seed=100 + i)
-        runs = []
-        for _ in range(2):
-            y = fa.flash_mha_packed(qkv, heads, 0.125)
-            runs.append((y, *torch.autograd.grad(y, qkv, g)))
-        torch.cuda.synchronize()
         want = fa.plain_mha_packed(qkv, heads, 0.125)
         (wgrad,) = torch.autograd.grad(want, qkv, g)
-        torch.cuda.synchronize()
-        y, dqkv = runs[0]
-        bitwise = all(torch.equal(u, v) for u, v in zip(*runs))
-        fp32 = dtype == f32
-        fwd_err = (y.float() - want.float()).abs().max().item()
-        fwd_tol = MHA_FWD_ATOL if fp32 else want.float().abs().max().item() * MHA_BF16_FWD_RTOL
-        grad_rel = rel_err(dqkv, wgrad)
-        key = f"B{b}-N{n}-H{heads}-{str(dtype).split('.')[-1]}"
-        out[key] = {"fwd_max_abs_err": fwd_err, "dqkv_rel_err": grad_rel,
-                    "dqkv_max_abs_err": (dqkv.float() - wgrad.float()).abs().max().item(),
-                    "bitwise_repeat": bitwise}
-        log(f"  {key}: out max|err| {fwd_err:.3e} (tol {fwd_tol:.1e}), dqkv rel "
-            f"{grad_rel:.2e}, repeat bit-equal {bitwise}")
-        if not (fwd_err <= fwd_tol and grad_rel <= (MHA_GRAD_RTOL if fp32 else MHA_BF16_GRAD_RTOL)):
-            raise AssertionError(f"kernel 4 vs plain at {key}: {out[key]}")
-        if not bitwise:
-            raise AssertionError(f"kernel 4 at {key}: two runs differ")
-        del runs, y, dqkv, want, wgrad, qkv, g
+        for route in fa_cuda.ROUTES:
+            if route == "resident" and n > fa_cuda.RESIDENT_MAX_N:
+                continue
+            runs = [mha_run(fa, fa_cuda, qkv, g, heads, route) for _ in range(2)]
+            torch.cuda.synchronize()
+            y, dqkv = runs[0]
+            bitwise = all(torch.equal(u, v) for u, v in zip(*runs))
+            fp32 = dtype == f32
+            fwd_err = (y.float() - want.float()).abs().max().item()
+            fwd_tol = MHA_FWD_ATOL if fp32 else want.float().abs().max().item() * MHA_BF16_FWD_RTOL
+            grad_rel = rel_err(dqkv, wgrad)
+            key = f"{route}-B{b}-N{n}-H{heads}-{str(dtype).split('.')[-1]}"
+            out[key] = {"fwd_max_abs_err": fwd_err, "dqkv_rel_err": grad_rel,
+                        "dqkv_max_abs_err": (dqkv.float() - wgrad.float()).abs().max().item(),
+                        "bitwise_repeat": bitwise}
+            log(f"  {key}: out max|err| {fwd_err:.3e} (tol {fwd_tol:.1e}), dqkv rel "
+                f"{grad_rel:.2e}, repeat bit-equal {bitwise}")
+            if not (fwd_err <= fwd_tol
+                    and grad_rel <= (MHA_GRAD_RTOL if fp32 else MHA_BF16_GRAD_RTOL)):
+                raise AssertionError(f"kernel 4 vs plain at {key}: {out[key]}")
+            if not bitwise:
+                raise AssertionError(f"kernel 4 at {key}: two runs differ")
+            del runs, y, dqkv
+        del want, wgrad, qkv, g
     return out
+
+
+def mma_count(fa_cuda) -> dict:
+    """Phase 17, last: tensor-core instructions (HMMA) in each resident
+    kernel of the built library, from ``cuobjdump -sass``.  The bf16 kernels
+    must have them, the fp32 ones (parity mode, the FMA pipe) none."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", fa_cuda._LIB._name], check=True,
+                          capture_output=True, text=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        hit = re.search(r"Function : (\S+)", line)
+        if hit:
+            name = hit.group(1)
+            counts[name] = 0
+        elif name is not None and "HMMA" in line:
+            counts[name] += 1
+    resident = {}
+    for mangled, n_mma in counts.items():
+        kind = re.search(r"flash_mha_resident_(fwd|dq|dkv)_kernel", mangled)
+        if kind:
+            dtype = "bfloat16" if "bfloat16" in mangled else "float32"
+            resident[f"{kind.group(1)}-{dtype}"] = n_mma
+    log(f"  HMMA instructions per resident kernel: {resident}")
+    if len(resident) != 6 or any((v > 0) != k.endswith("bfloat16") for k, v in resident.items()):
+        raise AssertionError(f"tensor-core instructions: {resident}")
+    return resident
 
 
 def ast_args(root: str, data: str, log_dir: str, **extra):
@@ -1524,7 +1608,7 @@ def train_ast(fa_cuda, root: str, data: str):
 
 def serve_ast(fa_cuda, trainer):
     """Phase 18, last: the trained AST as a model object behind
-    ``ScoringService`` (batch 64, auto chunk) over HTTP, scores against a
+    ``ScoringService`` (batch 64, default chunk) over HTTP, scores against a
     copy of the model on the CPU."""
     import copy
 
@@ -1533,8 +1617,8 @@ def serve_ast(fa_cuda, trainer):
 
     cpu_score = make_score_fn(copy.deepcopy(trainer.model).cpu(), trainer.transform, "cpu")
     svc = ScoringService(trainer.model, trainer.transform, device="cuda", batch_size=64)
-    if svc.chunk != 32:
-        raise AssertionError(f"auto chunk at batch 64: {svc.chunk}")
+    if svc.chunk != 0:  # the whole batch: the fastest in phase 19's sweep
+        raise AssertionError(f"default chunk at batch 64: {svc.chunk}")
     rng = np.random.RandomState(8)
     clips = [(1.0, SR), (2.5, SR), (5.0, SR), (2.0, 2 * SR)]
     pcms = [rng.randint(-12000, 12000, int(s * r)).astype(np.int16) for s, r in clips]
@@ -1599,37 +1683,54 @@ AST_KERNEL_GROUPS = (
 )
 
 
+CHUNK_BATCHES = (64, 128, 512)
+CHUNKS = (0, 8, 16, 32)  # 0: the whole batch at once
+
+
 def ast_timing(fa, fa_cuda, norm, card_line: str):
-    """Phase 19: kernel 4 alone (through its launchers) vs plain and vs
-    SDPA, fp32 and bf16; the AST train step fused, unfused and bf16 with bf16
-    moments, the eval step, and the scorer at batch 64 chunked vs whole."""
-    b, n, heads = AST_SHAPE
+    """Phase 19: kernel 4 alone (through its launchers) vs plain and vs SDPA,
+    fp32 and bf16: both routes at ``AST_SHAPE`` (the streaming one by name),
+    the streaming route at ``STREAM_SHAPE``, its own path's geometry; the
+    AST train step fused, unfused and bf16 with bf16 moments, the eval step,
+    and the scorer at batch 64, 128 and 512 with each chunk."""
     out = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for (b, n, heads), dtype in ((s, d) for s in (AST_SHAPE, STREAM_SHAPE)
+                                 for d in (torch.float32, torch.bfloat16)):
         qkv, g = mha_case(b, n, heads, dtype, seed=120)
         raw = qkv.detach()
-        y, stats = fa_cuda.forward(raw, heads, 0.125, True)
+        routes = [r for r in fa_cuda.ROUTES if r == "stream" or n <= fa_cuda.RESIDENT_MAX_N]
+        stats = {r: fa_cuda.forward(raw, heads, 0.125, True, route=r)[1] for r in routes}
+        y = fa_cuda.forward(raw, heads, 0.125, False)[0]
         plain_graph = fa.plain_mha_packed(qkv, heads, 0.125)
         lib_graph = sdpa_packed(qkv, heads, 0.125)
         lib_err = (lib_graph.float() - y.float()).abs().max().item()
         fwd = median_ms({
             "plain": lambda: fa.plain_mha_packed(qkv, heads, 0.125),
-            "kernel": lambda: fa_cuda.forward(raw, heads, 0.125, True),
+            **{r: (lambda r=r: fa_cuda.forward(raw, heads, 0.125, True, route=r))
+               for r in routes},
             "library": lambda: sdpa_packed(qkv, heads, 0.125),
         }, reps=10)
         bwd = median_ms({
             "plain": lambda: torch.autograd.grad(plain_graph, qkv, g, retain_graph=True),
-            "kernel": lambda: fa_cuda.backward(raw, g, stats, heads, 0.125),
+            **{r: (lambda r=r: fa_cuda.backward(raw, g, stats[r], heads, 0.125, route=r))
+               for r in routes},
             "library": lambda: torch.autograd.grad(lib_graph, qkv, g, retain_graph=True),
         }, reps=10)
         name = str(dtype).split(".")[-1]
-        out[name] = {"fwd_kernel_ms": fwd["kernel"], "fwd_plain_ms": fwd["plain"],
-                     "fwd_library_ms": fwd["library"], "bwd_kernel_ms": bwd["kernel"],
-                     "bwd_plain_ms": bwd["plain"], "bwd_library_ms": bwd["library"],
-                     "library_vs_kernel_max_abs": lib_err}
-        log(f"  B={b} N={n} H={heads} {name} [{card_line}]: fwd kernel {fwd['kernel']:.4f} ms, "
-            f"plain {fwd['plain']:.4f} ms, SDPA {fwd['library']:.4f} ms; bwd kernel "
-            f"{bwd['kernel']:.4f} ms, plain {bwd['plain']:.4f} ms, SDPA {bwd['library']:.4f} ms "
+        itemsize = 2 if dtype == torch.bfloat16 else 4
+        (fb, fby), (bb, bby) = mha_bounds(
+            b, n, heads, itemsize, BF16_FLOP_PER_S if itemsize == 2 else FP32_FLOP_PER_S)
+        row = {"fwd_plain_ms": fwd["plain"], "fwd_library_ms": fwd["library"],
+               "bwd_plain_ms": bwd["plain"], "bwd_library_ms": bwd["library"],
+               "fwd_bound_ms": fb, "fwd_bound_by": fby,
+               "bwd_bound_ms": bb, "bwd_bound_by": bby,
+               "library_vs_kernel_max_abs": lib_err}
+        for r in routes:
+            row[f"fwd_{r}_ms"], row[f"bwd_{r}_ms"] = fwd[r], bwd[r]
+        out[f"B{b}-N{n}-H{heads}-{name}"] = row
+        log(f"  B={b} N={n} H={heads} {name} [{card_line}]: fwd " + ", ".join(
+            f"{k} {fwd[k]:.4f} ms" for k in fwd) + f" (bound {fb:.4f}, {fby}); bwd "
+            + ", ".join(f"{k} {bwd[k]:.4f} ms" for k in bwd) + f" (bound {bb:.4f}, {bby}) "
             f"(SDPA vs kernel max|diff| {lib_err:.2e})")
         del plain_graph, lib_graph, y, stats, qkv, raw, g
 
@@ -1641,23 +1742,81 @@ def ast_timing(fa, fa_cuda, norm, card_line: str):
     from audiodeepfake_detection_tpu_torch.train.predict import make_score_fn
 
     gen = torch.Generator().manual_seed(7)
-    audio = (0.3 * torch.randn(64, 1, SR, generator=gen)).cuda()
-    chunked = make_score_fn(model, transform, "cuda")
-    whole = make_score_fn(model, transform, "cuda", chunk=0)
-    scorer = median_ms({"chunk32": lambda: chunked(audio), "whole": lambda: whole(audio)},
-                       reps=3)
+    scorer = {}
+    for batch in CHUNK_BATCHES:
+        audio = (0.3 * torch.randn(batch, 1, SR, generator=gen)).cuda()
+        score = {c: make_score_fn(model, transform, "cuda", chunk=c) for c in CHUNKS}
+        with torch.no_grad():
+            ms = median_ms({f"chunk{c}": (lambda c=c: score[c](audio)) for c in CHUNKS},
+                           reps=1 if batch > 128 else 3)
+        scorer[batch] = ms
+        log(f"  AST scorer at B={batch} [{card_line}]: " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in ms.items()))
+        del audio, score
     out.update({
         "train_step_ms": steps,
         "train_frames_per_s": {k: AST_BATCH / v * 1e3 for k, v in steps.items()},
-        "eval_step_ms": evals["eval"], "scorer_b64_ms": scorer,
+        "eval_step_ms": evals["eval"], "scorer_ms": scorer,
     })
     log("  AST train step at B=32: " + ", ".join(
         f"{k} {v:.3f} ms ({AST_BATCH / v * 1e3:.1f} frames/s)" for k, v in steps.items())
-        + f"; eval step {evals['eval']:.3f} ms; scorer at B=64 chunk 32 "
-        f"{scorer['chunk32']:.3f} ms, whole batch {scorer['whole']:.3f} ms")
+        + f"; eval step {evals['eval']:.3f} ms")
     steps = {name: fns[name][0] for name in ("fused", "bf16")}
-    del fns, model, chunked, whole
+    del fns, model
     return out, steps
+
+
+def train_long(wpt, wpt_cuda, fa_cuda, root: str, data: str, card_line: str):
+    """Phase 20: the corpus cut into 2 s frames.  Packets + DCNN (the WPT's
+    long-frame route) and stft + AST (477 tokens, kernel 4's streaming
+    route), each through ``run_experiment`` with its launch counts read over
+    exactly that run; then the long-frame route timed against plain."""
+    from audiodeepfake_detection_tpu_torch.train.experiment import run_experiment
+
+    frame = 2 * SR
+    # 196 training frames of 2 s: 3 steps of 64 (DCNN), 6 of 32 (AST)
+    wpt_cuda.LAUNCHES = wpt_cuda.LONG_LAUNCHES = 0
+    dcnn = run_experiment(train_args(root, data, "log_long", seconds=2, batch_size=64,
+                                     epochs=1, time_dim_add=0))
+    torch.cuda.synchronize()
+    counts = {"block": wpt_cuda.LAUNCHES, "long": wpt_cuda.LONG_LAUNCHES}
+    losses = [row[2] for row in dcnn.loss_list]
+    log(f"  packets + DCNN, 2 s frames: input {dcnn.args.input_dim}, losses "
+        f"{['%.4f' % v for v in losses]}, test {dcnn.test_results}, WPT launches {counts}")
+    if (dcnn.args.input_dim[-1] != 181 or len(losses) != 3 or not np.isfinite(losses).all()
+            or counts["block"] != 0 or counts["long"] < len(losses)):
+        raise AssertionError(f"2 s DCNN run: {dcnn.args.input_dim}, {losses}, {counts}")
+    del dcnn
+
+    fa_cuda.MHA_FWD_LAUNCHES = fa_cuda.MHA_BWD_LAUNCHES = 0
+    fa_cuda.MHA_STREAM_FWD_LAUNCHES = fa_cuda.MHA_STREAM_BWD_LAUNCHES = 0
+    ast = run_experiment(ast_args(root, data, "log_ast_long", seconds=2, epochs=1))
+    torch.cuda.synchronize()
+    counted = mha_counts(fa_cuda)
+    mha = {"fwd": counted["resident"][0], "bwd": counted["resident"][1],
+           "stream_fwd": counted["stream"][0], "stream_bwd": counted["stream"][1]}
+    ast_losses = [row[2] for row in ast.loss_list]
+    tokens = ast.model.num_patches + 2
+    log(f"  stft + AST, 2 s frames: input {ast.args.input_dim}, {tokens} tokens, losses "
+        f"{['%.4f' % v for v in ast_losses]}, test {ast.test_results}, kernel-4 launches {mha}")
+    if (tokens != STREAM_SHAPE[1] or len(ast_losses) != 6
+            or not np.isfinite(ast_losses).all() or mha["fwd"] or mha["bwd"]
+            or mha["stream_bwd"] != AST_BLOCKS * len(ast_losses)
+            or mha["stream_fwd"] <= mha["stream_bwd"]):
+        raise AssertionError(f"2 s AST run: {tokens} tokens, {ast_losses}, {mha}")
+    del ast
+
+    b = LONG_CASES[0][0]  # the DCNN run's batch, held against plain in phase 3
+    x = torch.randn(b, frame, generator=torch.Generator().manual_seed(9)).cuda()
+    ms = median_ms({
+        "plain": lambda: wpt.log_power(wpt.wpt_analysis(x, *MAIN), 2.0),
+        "kernel": lambda: wpt_cuda.wpt_packets_cuda(x, *MAIN, log_scale=True),
+    }, reps=10)
+    log(f"  WPT long-frame route at B={b}, T={frame}, with the log [{card_line}]: kernel "
+        f"{ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms")
+    return {"dcnn_losses": losses, "wpt_launches": counts, "ast_tokens": tokens,
+            "ast_losses": ast_losses, "mha_launches": mha,
+            "wpt_long_kernel_ms": ms["kernel"], "wpt_long_plain_ms": ms["plain"]}
 
 
 def main() -> None:
@@ -1738,20 +1897,23 @@ def main() -> None:
         mid_prof = profile_train(mid_step)
         del mid_step
         log("[17 fused attention vs plain]")
-        mha_errs = mha_vs_plain(flash_attention)
+        mha_errs = mha_vs_plain(flash_attention, flash_attention_cuda)
+        mma = mma_count(flash_attention_cuda)
         log("[18 train the AST]")
         ast_trainer, ast_run = train_ast(flash_attention_cuda, root, data)
         log("  the trained AST over HTTP")
         ast_run["serve"] = serve_ast(flash_attention_cuda, ast_trainer)
         del ast_trainer
-    log("[19 time and profile, AST]")
-    ast_times, ast_steps = ast_timing(
-        flash_attention, flash_attention_cuda, ast_run["norm"], card_line)
-    ast_prof = {}
-    for name, step in ast_steps.items():
-        log(f"  profile of the {name} AST step")
-        ast_prof[name] = profile_train(step, kernel_groups=AST_KERNEL_GROUPS)
-    del ast_steps
+        log("[19 time and profile, AST]")
+        ast_times, ast_steps = ast_timing(
+            flash_attention, flash_attention_cuda, ast_run["norm"], card_line)
+        ast_prof = {}
+        for name, step in ast_steps.items():
+            log(f"  profile of the {name} AST step")
+            ast_prof[name] = profile_train(step, kernel_groups=AST_KERNEL_GROUPS)
+        del ast_steps
+        log("[20 train on 2 s frames]")
+        long_run = train_long(wpt, wpt_cuda, flash_attention_cuda, root, data, card_line)
 
     main_key = f"{MAIN[0]}-L{MAIN[1]}-B64-T{SR}"
     train_key = "B{}-H{}-W{}-C{}-float32".format(*TRAIN_SHAPE)
@@ -1772,6 +1934,13 @@ def main() -> None:
     mha_src = "audiodeepfake_detection_tpu_torch/csrc/flash_mha.cu"
     mha_key = "B{}-N{}-H{}-float32".format(*AST_SHAPE)
     (afwd_b, afwd_by), (abwd_b, abwd_by) = mha_bounds(*AST_SHAPE)
+    f32 = ast_times[mha_key]
+    # the streaming route's rows: checked, timed and bounded at phase 20's geometry
+    stream_key = "B{}-N{}-H{}-float32".format(*STREAM_SHAPE)
+    (sfwd_b, sfwd_by), (sbwd_b, sbwd_by) = mha_bounds(*STREAM_SHAPE)
+    s32 = ast_times[stream_key]
+    long_key = "log-{}-L{}-B{}-T{}".format(LONG_CASES[0][2], LONG_CASES[0][3], *LONG_CASES[0][:2])
+    long_b, long_by = wpt_bound(wpt, *LONG_CASES[0][:2])
     # library_ms is null for kernels 1-3, 5 and 6: no single PyTorch call
     # computes a wavelet-packet cascade, or conv + PReLU + pool with moments,
     # or conv + MaxFeatureMap + pool with a code, or PReLU + pool with a
@@ -1857,25 +2026,51 @@ def main() -> None:
             "bound_ms": cbwd_b, "bound_by": cbwd_by, "library_ms": None,
         },
         {
+            # the resident route, the one the AST's N = 227 takes
             "name": "flash_mha_fwd", "route": "cuda", "source": mha_src,
             "replaces": "audiodeepfake_detection_tpu/ops/flash_attention.py:137",
             "launches": ast_run["launches"]["fwd"],
-            "max_abs_err": mha_errs[mha_key]["fwd_max_abs_err"],
-            "ms": ast_times["float32"]["fwd_kernel_ms"],
-            "plain_ms": ast_times["float32"]["fwd_plain_ms"],
-            "bound_ms": afwd_b, "bound_by": afwd_by,
-            "library_ms": ast_times["float32"]["fwd_library_ms"],
+            "max_abs_err": mha_errs["resident-" + mha_key]["fwd_max_abs_err"],
+            "ms": f32["fwd_resident_ms"], "plain_ms": f32["fwd_plain_ms"],
+            "bound_ms": afwd_b, "bound_by": afwd_by, "library_ms": f32["fwd_library_ms"],
         },
         {
             # one launch counted per backward call: its dQ and dK/dV kernels
             "name": "flash_mha_bwd", "route": "cuda", "source": mha_src,
             "replaces": "audiodeepfake_detection_tpu/ops/flash_attention.py:156",
             "launches": ast_run["launches"]["bwd"],
-            "max_abs_err": mha_errs[mha_key]["dqkv_max_abs_err"],
-            "ms": ast_times["float32"]["bwd_kernel_ms"],
-            "plain_ms": ast_times["float32"]["bwd_plain_ms"],
-            "bound_ms": abwd_b, "bound_by": abwd_by,
-            "library_ms": ast_times["float32"]["bwd_library_ms"],
+            "max_abs_err": mha_errs["resident-" + mha_key]["dqkv_max_abs_err"],
+            "ms": f32["bwd_resident_ms"], "plain_ms": f32["bwd_plain_ms"],
+            "bound_ms": abwd_b, "bound_by": abwd_by, "library_ms": f32["bwd_library_ms"],
+        },
+        {
+            # the streaming route (N above the resident limit): phase 20's
+            # 477-token AST, checked in phase 17 and timed in phase 19 there
+            "name": "flash_mha_stream_fwd", "route": "cuda", "source": mha_src,
+            "replaces": "audiodeepfake_detection_tpu/ops/flash_attention.py:137",
+            "launches": long_run["mha_launches"]["stream_fwd"],
+            "max_abs_err": mha_errs["stream-" + stream_key]["fwd_max_abs_err"],
+            "ms": s32["fwd_stream_ms"], "plain_ms": s32["fwd_plain_ms"],
+            "bound_ms": sfwd_b, "bound_by": sfwd_by, "library_ms": s32["fwd_library_ms"],
+        },
+        {
+            "name": "flash_mha_stream_bwd", "route": "cuda", "source": mha_src,
+            "replaces": "audiodeepfake_detection_tpu/ops/flash_attention.py:156",
+            "launches": long_run["mha_launches"]["stream_bwd"],
+            "max_abs_err": mha_errs["stream-" + stream_key]["dqkv_max_abs_err"],
+            "ms": s32["bwd_stream_ms"], "plain_ms": s32["bwd_plain_ms"],
+            "bound_ms": sbwd_b, "bound_by": sbwd_by, "library_ms": s32["bwd_library_ms"],
+        },
+        {
+            # the WPT's long-frame route (one launch per level; one counted
+            # per call): phase 20's 2 s frames at its batch of 64, with the log
+            "name": "wpt_level", "route": "cuda",
+            "source": "audiodeepfake_detection_tpu_torch/csrc/wpt_cascade.cu",
+            "replaces": "audiodeepfake_detection_tpu/ops/wpt_pallas.py:287",
+            "launches": long_run["wpt_launches"]["long"],
+            "max_abs_err": errs[long_key],
+            "ms": long_run["wpt_long_kernel_ms"], "plain_ms": long_run["wpt_long_plain_ms"],
+            "bound_ms": long_b, "bound_by": long_by, "library_ms": None,
         },
     ]}))
     trained.pop("norm")
@@ -1888,8 +2083,9 @@ def main() -> None:
         "mfm_vs_plain": mfm_errs, "lcnn_train": lcnn, "lcnn_serve": lcnn_served,
         "lcnn_timing": lcnn_times, "lcnn_profile": lcnn_prof,
         "mid_vs_plain": mid_errs, "mid_train": mid, "mid_timing": mid_times,
-        "mid_profile": mid_prof, "mha_vs_plain": mha_errs, "ast_train": ast_run,
-        "ast_timing": ast_times, "ast_profile": ast_prof,
+        "mid_profile": mid_prof, "mha_vs_plain": mha_errs, "mha_hmma": mma,
+        "ast_train": ast_run, "ast_timing": ast_times, "ast_profile": ast_prof,
+        "long_frames": long_run,
     }))
     print(card_line)
     print(json.dumps({"ok": True, "device": {

@@ -53,11 +53,11 @@ def _audio(b, t, seed):
 )
 def test_kernel_matches_plain(card, wavelet, level, b, t):
     x = _audio(b, t, seed=level).to(card)
-    before = wpt_cuda.LAUNCHES
+    before = (wpt_cuda.LAUNCHES, wpt_cuda.LONG_LAUNCHES)
     got = wpt_cuda.wpt_packets_cuda(x, wavelet, level)
     want = wpt_analysis(x, wavelet, level)
     torch.cuda.synchronize()
-    assert wpt_cuda.LAUNCHES == before + 1
+    assert (wpt_cuda.LAUNCHES, wpt_cuda.LONG_LAUNCHES) == (before[0] + 1, before[1])
     torch.testing.assert_close(got, want, rtol=0, atol=RAW_ATOL)
     got = wpt_cuda.wpt_packets_cuda(x, wavelet, level, log_scale=True)
     torch.cuda.synchronize()
@@ -71,9 +71,30 @@ def test_kernel_refuses_what_it_does_not_take(card):
         wpt_cuda.wpt_packets_cuda(x.double(), "haar", 3)
     with pytest.raises(ValueError, match="contiguous"):
         wpt_cuda.wpt_packets_cuda(x.t().contiguous().t(), "haar", 3)
-    # two seconds of sym5 need more shared memory than a block may have
-    with pytest.raises(ValueError, match="shared memory"):
-        wpt_cuda.wpt_packets_cuda(_audio(1, 44100, seed=1).to(card), "sym5", 8)
+    # 2**31 rows of one coefficient do not fit the kernels' int32 indexing
+    with pytest.raises(ValueError, match="overflow int32"):
+        wpt_cuda.wpt_packets_cuda(x, "haar", 31)
+
+
+@pytest.mark.parametrize(
+    "wavelet,level,b,t",
+    [("sym5", 8, 4, 44100), ("coif4", 8, 2, 44100), ("haar", 8, 2, 44100),
+     ("db8", 8, 2, 44100), ("sym5", 8, 3, 32000), ("haar", 14, 2, 8 * 2**14)],
+)
+def test_long_frames_take_the_long_route_and_equal_plain(card, wavelet, level, b, t):
+    """Frames whose level buffers exceed one block's shared memory: one
+    launch per level through device memory, counted apart from the
+    one-block kernel."""
+    x = _audio(b, t, seed=t % 97).to(card)
+    before = (wpt_cuda.LAUNCHES, wpt_cuda.LONG_LAUNCHES)
+    got = wpt_cuda.wpt_packets_cuda(x, wavelet, level)
+    want = wpt_analysis(x, wavelet, level)
+    torch.cuda.synchronize()
+    assert (wpt_cuda.LAUNCHES, wpt_cuda.LONG_LAUNCHES) == (before[0], before[1] + 1)
+    torch.testing.assert_close(got, want, rtol=0, atol=RAW_ATOL)
+    got = wpt_cuda.wpt_packets_cuda(x, wavelet, level, log_scale=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, log_power(want, 2.0), rtol=1e-3, atol=5e-3)
 
 
 def test_empty_batch(card):
@@ -589,18 +610,32 @@ def _mha_inputs(b, n, heads, dtype, device, seed=0):
     return qkv.to(device).to(dtype).requires_grad_(), g.to(device).to(dtype)
 
 
-@pytest.mark.parametrize("b,n,heads", [(2, 227, 12), (1, 99, 3), (3, 18, 3), (1, 1, 1),
-                                       (2, 64, 2), (1, 130, 2)])
+_MHA_SHAPES = [(2, 227, 12), (1, 99, 3), (3, 18, 3), (1, 1, 1), (2, 64, 2), (1, 130, 2),
+               (1, 256, 2), (1, 300, 2)]
+
+
+@pytest.mark.parametrize(
+    "b,n,heads,route",
+    [(*shape, route) for shape in _MHA_SHAPES for route in ("resident", "stream")
+     if route == "stream" or shape[1] <= flash_attention_cuda.RESIDENT_MAX_N])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_mha_matches_plain(card, b, n, heads, dtype):
+def test_flash_mha_matches_plain(card, b, n, heads, dtype, route):
+    """Both routes against the plain version: the resident one as the
+    autograd Function takes it (N <= RESIDENT_MAX_N), the streaming one
+    through the launchers by name (and by geometry above the limit)."""
     qkv, g = _mha_inputs(b, n, heads, dtype, card, seed=n)
     scale = 1.0 / 8.0
-    before = (flash_attention_cuda.MHA_FWD_LAUNCHES, flash_attention_cuda.MHA_BWD_LAUNCHES)
-    out = flash_attention.flash_mha_packed(qkv, heads, scale)
-    (dqkv,) = torch.autograd.grad(out, qkv, g)
+    names = (("MHA_FWD_LAUNCHES", "MHA_BWD_LAUNCHES") if route == "resident"
+             else ("MHA_STREAM_FWD_LAUNCHES", "MHA_STREAM_BWD_LAUNCHES"))
+    before = [getattr(flash_attention_cuda, name) for name in names]
+    if route == "resident" or n > flash_attention_cuda.RESIDENT_MAX_N:
+        out = flash_attention.flash_mha_packed(qkv, heads, scale)
+        (dqkv,) = torch.autograd.grad(out, qkv, g)
+    else:
+        out, stats = flash_attention_cuda.forward(qkv.detach(), heads, scale, True, route=route)
+        dqkv = flash_attention_cuda.backward(qkv.detach(), g, stats, heads, scale, route=route)
     torch.cuda.synchronize()
-    assert (flash_attention_cuda.MHA_FWD_LAUNCHES, flash_attention_cuda.MHA_BWD_LAUNCHES) == (
-        before[0] + 1, before[1] + 1)
+    assert [getattr(flash_attention_cuda, name) for name in names] == [v + 1 for v in before]
     want = flash_attention.plain_mha_packed(qkv, heads, scale)
     (wgrad,) = torch.autograd.grad(want, qkv, g)
     assert out.dtype == dtype and out.shape == (b, n, heads * 64) and dqkv.dtype == dtype
@@ -622,6 +657,14 @@ def test_flash_mha_repeats_bit_for_bit_and_skips_statistics_without_grad(card):
         runs.append((out, *torch.autograd.grad(out, qkv, g)))
     for a, b in zip(*runs):
         assert torch.equal(a, b)  # no atomics: one thread writes each element
+    for dtype in (torch.float32, torch.bfloat16):  # and so does the streaming route
+        x, gx = qkv.detach().to(dtype), g.to(dtype)
+        outs = []
+        for _ in range(2):
+            out, stats = flash_attention_cuda.forward(x, 12, 0.125, True, route="stream")
+            outs.append((out, flash_attention_cuda.backward(x, gx, stats, 12, 0.125, route="stream")))
+        for a, b in zip(*outs):
+            assert torch.equal(a, b)
     before = flash_attention_cuda.MHA_BWD_LAUNCHES
     with torch.no_grad():
         out, stats = flash_attention_cuda.forward(qkv.detach(), 12, 0.125, False)
@@ -644,6 +687,9 @@ def test_flash_mha_refuses_what_it_does_not_take(card):
     with pytest.raises(ValueError, match="dout must be"):
         _, stats = flash_attention_cuda.forward(qkv, 2, 0.125, True)
         flash_attention_cuda.backward(qkv, qkv[..., :128].contiguous().double(), stats, 2, 0.125)
+    long_qkv, _ = _mha_inputs(1, flash_attention_cuda.RESIDENT_MAX_N + 1, 1, torch.float32, card)
+    with pytest.raises(ValueError, match="resident route takes"):
+        flash_attention_cuda.forward(long_qkv.detach(), 1, 0.125, False, route="resident")
 
 
 def test_ast_train_step_fused_matches_unfused_on_the_card(card, monkeypatch):

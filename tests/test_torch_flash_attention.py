@@ -86,28 +86,47 @@ def _emulated_forward(qkv, heads, scale, want_stats):
 
 
 def _emulated_backward(qkv, dout, stats, heads, scale):
-    """The backward kernels' algorithm in PyTorch: P recomputed from qkv and
-    the saved statistics, the row term rowsum(dP * P), dS rounded to the
-    input type before dQ and dK, P before dV."""
+    """The resident backward's algorithm in PyTorch.  Query side: P
+    recomputed from qkv and the saved statistics, dP, the row term
+    rowsum(dP * P) from those resident rows, dS rounded to the input type,
+    dQ = dS K summed over the 64-key tiles of each parity and the two halves
+    added.  Key side: per 64-query tile in order, P and dS again (dS from the
+    query side's row term), dV += P^T dO with P rounded, dK += dS^T Q."""
     b, n, c = qkv.shape
     dt = qkv.dtype
     q, k, v = qkv.float().view(b, n, 3, heads, c // 3 // heads).unbind(2)
     do = dout.float().view(b, n, heads, -1)
-    s = torch.einsum("bnhd,bmhd->bhnm", q, k) * scale
-    p = torch.exp(s - stats[..., :1]) / stats[..., 1:]
-    dp = torch.einsum("bnhd,bmhd->bhnm", do, v)
-    ds = (p * (dp - (dp * p).sum(-1, keepdim=True)) * scale).to(dt).float()
-    dq = torch.einsum("bhnm,bmhd->bnhd", ds, k)
-    dk = torch.einsum("bhnm,bnhd->bmhd", ds, q)
-    dv = torch.einsum("bhnm,bnhd->bmhd", p.to(dt).float(), do)
-    return torch.stack([dq, dk, dv], 2).reshape(b, n, c).to(dt)
+
+    def probs(rows):
+        s = torch.einsum("bnhd,bmhd->bhnm", q[:, rows], k) * scale
+        return torch.exp(s - stats[:, :, rows, :1]) / stats[:, :, rows, 1:]
+
+    def score_grad(rows, p, rowterm):
+        dp = torch.einsum("bnhd,bmhd->bhnm", do[:, rows], v)
+        if rowterm is None:
+            rowterm = (dp * p).sum(-1, keepdim=True)
+        return (p * (dp - rowterm) * scale).to(dt).float(), rowterm
+
+    ds, rowterm = score_grad(slice(None), probs(slice(None)), None)
+    dq = [torch.zeros_like(q), torch.zeros_like(q)]
+    for t in range(0, n, 64):
+        keys = slice(t, t + 64)
+        dq[(t // 64) % 2] += torch.einsum("bhnm,bmhd->bnhd", ds[..., keys], k[:, keys])
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for t in range(0, n, 64):
+        rows = slice(t, t + 64)
+        p = probs(rows)
+        ds_t, _ = score_grad(rows, p, rowterm[:, :, rows])
+        dv += torch.einsum("bhnm,bnhd->bmhd", p.to(dt).float(), do[:, rows])
+        dk += torch.einsum("bhnm,bnhd->bmhd", ds_t, q[:, rows])
+    return torch.stack([dq[0] + dq[1], dk, dv], 2).reshape(b, n, c).to(dt)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_autograd_function_with_the_kernels_algorithm_equals_plain(monkeypatch, dtype):
     monkeypatch.setattr(flash_attention_cuda, "forward", _emulated_forward)
     monkeypatch.setattr(flash_attention_cuda, "backward", _emulated_backward)
-    qkv, g = _inputs(2, 37, 2, seed=3)
+    qkv, g = _inputs(2, 150, 2, seed=3)  # three 64-row tiles, the last ragged
     apply = flash_attention._FlashMHA.apply
     got = _port(qkv, g, 2, 0.125, dtype, fn=apply)
     want = _port(qkv, g, 2, 0.125, dtype)
@@ -131,3 +150,23 @@ def test_cpu_tensors_take_the_plain_version_and_the_launcher_refuses_them():
     assert flash_attention_cuda.MHA_FWD_LAUNCHES == flash_attention_cuda.MHA_BWD_LAUNCHES == 0
     with pytest.raises(ValueError, match="need a CUDA tensor"):
         flash_attention_cuda.forward(torch.from_numpy(qkv), 1, 0.125, True)
+
+
+def test_route_follows_the_token_count_and_alignment():
+    """The resident route up to RESIDENT_MAX_N tokens on 16-byte aligned
+    tensors, the streaming route beyond; a route can be named, and the
+    resident one is refused where it does not apply."""
+    qkv = torch.zeros(2, 300, 3 * 64)
+    limit = flash_attention_cuda.RESIDENT_MAX_N
+    assert limit >= 227  # the AST's token count
+    assert flash_attention_cuda.route_for(227, qkv) == "resident"
+    assert flash_attention_cuda.route_for(limit, qkv) == "resident"
+    assert flash_attention_cuda.route_for(limit + 1, qkv) == "stream"
+    odd = qkv.view(-1)[1:].view(1, 1, -1)  # 4 bytes past an aligned start
+    assert flash_attention_cuda.route_for(18, odd) == "stream"
+    assert flash_attention_cuda._pick(None, 99, qkv) == "resident"
+    assert flash_attention_cuda._pick("stream", 99, qkv) == "stream"
+    with pytest.raises(ValueError, match="resident route takes"):
+        flash_attention_cuda._pick("resident", limit + 1, qkv)
+    with pytest.raises(ValueError, match="route must be one of"):
+        flash_attention_cuda._pick("tiled", 99, qkv)

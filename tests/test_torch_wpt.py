@@ -143,13 +143,19 @@ def test_graycode_permutation():
 
 def test_smem_plan_fits_main_path_and_refuses_two_seconds():
     """One frame's level buffers fit the H100's 232,448-byte opt-in shared
-    memory for 1 s of sym5 and coif4, and not for a 2 s clip (which the
-    wrapper then refuses instead of falling back)."""
+    memory for 1 s of sym5 and coif4, so those frames take the one-block
+    kernel; a 2 s clip at 22050 Hz and 1 s at 32 kHz do not, and take the
+    long-frame route (one launch per level) instead of a refusal."""
     limit = 232448
     _, _, sym5 = wpt_cuda.cascade_smem_plan(22050, 10, 8)
     _, _, coif4 = wpt_cuda.cascade_smem_plan(22050, 24, 8)
     _, _, two_s = wpt_cuda.cascade_smem_plan(44100, 10, 8)
     assert sym5 <= limit and coif4 <= limit < two_s
+    assert wpt_cuda.wpt_route(22050, 10, 8, limit) == "block"
+    assert wpt_cuda.wpt_route(22050, 24, 8, limit) == "block"
+    for t, filt_len, level in ((44100, 10, 8), (44100, 24, 8), (44100, 2, 8),
+                               (44100, 16, 8), (32000, 10, 8), (8 * 2**14, 2, 14)):
+        assert wpt_cuda.wpt_route(t, filt_len, level, limit) == "long", (t, filt_len, level)
     # buffer A holds the larger of levels 1, 3, 5, 7 (as 0-based outputs
     # 0, 2, 4, 6), buffer B of levels 2, 4, 6
     a_off, b_off, total = wpt_cuda.cascade_smem_plan(22050, 10, 8)
@@ -158,3 +164,23 @@ def test_smem_plan_fits_main_path_and_refuses_two_seconds():
     assert a_off == 20
     assert b_off - a_off == max(sizes[0::2])
     assert total == 4 * (b_off + max(sizes[1::2]))
+
+
+@pytest.mark.parametrize("log_scale", [False, True], ids=["raw", "log"])
+def test_two_second_frames_match_jax(log_scale):
+    """2 s at 22050 Hz, sym5 level 8 (what the long-frame route computes on
+    the card): the plain cascade and the packet image against the JAX
+    package's XLA cascade."""
+    x = _audio(2, 44100, seed=6)
+    if not log_scale:
+        want = np.asarray(jax_wpt_analysis(jnp.asarray(x), "sym5", 8))
+        got = wpt_analysis(torch.from_numpy(x), "sym5", 8).numpy()
+        assert got.shape == want.shape == (2, 256, wpt_output_length(44100, 10, 8))
+        np.testing.assert_allclose(got, want, atol=WPT_ATOL)
+        return
+    want = np.asarray(
+        jax_packet_image(jnp.asarray(x), "sym5", 8, log_scale=True, use_pallas=False)
+    )
+    got = packet_image(torch.from_numpy(x), "sym5", 8, log_scale=True).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=LOG_RTOL, atol=LOG_ATOL)
