@@ -2,8 +2,9 @@
 // pad 1) with BatchNorm-folded weights + an additive map -> PReLU (one slope)
 // -> floor-mode 2x2 max-pool, forward and backward, on NCHW memory.
 //
-//   x [B, Cin, H, W] (f32 or bf16), wk [Cin, 9, Cout], corr [Cout, H, W],
-//   alpha [1] (f32)  ->  out [B, Cout, H/2, W/2] (x's type)
+//   x [B, Cin, H, W] (f32 or bf16), weights (re-arranged on the host, see
+//   ops/fused_conv2_cuda.py), corr [Cout, H, W], alpha [1] (f32)
+//   ->  out [B, Cout, H/2, W/2] (x's type)
 //   training forward also: a selection code per output element (pool phase
 //     dh*2+dw of the FIRST maximum | "selected conv value < 0" << 2, one
 //     byte) and per-block partial per-channel (sum, sumsq) of the rounded
@@ -11,7 +12,8 @@
 //   backward, three kernels:
 //     dx    [B, Cin, H, W]: the transposed convolution of the conv-output
 //           cotangent d, rebuilt tile by tile from (g, code, out);
-//     dw    partials [splits, 9 * Cin, Cout]: x (*) d, split over B * H * W;
+//     dw    partials [splits, 9 * Cin, Cout]: im2col(x)^T . d, split over
+//           B * H * W;
 //     small dcorr [Cout, H, W] (the sum of d over the batch) and per-block
 //           partials of dalpha.
 //
@@ -19,40 +21,81 @@
 // _fwd_kernel and ::_bwd_kernel (reached through fused_conv2_prelu_pool and
 // fused_conv2_prelu_pool_stats).  Those hold a whole padded NHWC image per
 // grid cell, build an im2col patch [W, 9*Cin] per conv row for one matrix-
-// unit product, keep a whole-image dx accumulator that persists across the
-// sequential grid, and accumulate dw / dcorr / dalpha into whole-array output
-// blocks; none of that is carried over (blocks run in any order here, and a
-// block has 227 KB).  Kept: what is computed, the first-match tie-break, the
-// code, and what stays out of device memory -- the pre-pool conv output
-// [B, Cout, H, W] and its cotangent, in both directions.  The tensors stay in
-// the NCHW memory of the cuDNN layers around the block.
+// unit product (jax.lax.dot_general), keep a whole-image dx accumulator that
+// persists across the sequential grid, and accumulate dw / dcorr / dalpha
+// into whole-array output blocks; none of that is carried over (blocks run
+// in any order here, and a block has 227 KB).  Kept: what is computed, the
+// first-match tie-break, the code, and what stays out of device memory --
+// the pre-pool conv output [B, Cout, H, W] and its cotangent, in both
+// directions.  The tensors stay in the NCHW memory of the cuDNN layers
+// around the block.
 //
 // What bounds it on the H100: operations.  At B=128, 48x129, 64 -> 96 the
-// forward is 87.7 GFLOP (1.31 ms at 67 TFLOP/s of fp32 FMA) against 0.09 ms
-// of bytes, and dx and dw are another 87.7 GFLOP each.  So the contraction is
-// register-tiled on the CUDA cores and the inner loops hold little but FMAs:
+// forward is 87.7 GFLOP of fp32 FMA (1.31 ms at 67 TFLOP/s) against 0.09 ms
+// of bytes.  The backward needs 43.5 GFLOP (the cotangent is zero at three
+// of a window's four positions), but that zero moves per channel, so dx and
+// dw run dense products, 87.7 GFLOP each, on the tensor cores:
 //
-// * forward and dx share one tile routine.  A block owns 2 output rows by 64
-//   columns (32 pool windows, one per lane) and up to 96 output channels; a
-//   warp is a group of NC (8 or 12) channels, so a thread owns a 2x2 window
-//   x NC channels.  Per chunk of 8 input channels the block stages a
-//   zero-padded 4 x 66 halo tile per channel and the [8, 9, channels] weight
-//   slab in shared memory; per input channel a thread reads its 4x4 patch
-//   (8 conflict-free 8-byte loads) and 9 * NC weights (16-byte broadcast
-//   loads) for 36 * NC FMAs.
-// * dx is that routine run on d with flipped taps, so every block owns a
-//   tile of dx (a gather): no scatter, no atomics, and rows or columns past
-//   the pooled region (odd H or W) still receive their neighbours' share.
-//   The d halo tile is built in shared memory from (g, code, out).
-// * dw: a thread owns dw[9 taps, 1 input channel, 8 output channels] (72
-//   sums); a warp's lanes are 32 input channels, its warps 8-channel groups
-//   of Cout.  Per step the block stages 2 conv rows x 32 columns of x (with
-//   halo) and of d; a thread slides a 3x3 window of its channel's x along a
-//   row (3 new loads a pixel) against 8 broadcast d values: 72 FMAs for 5
-//   loads.  Each block takes a fixed share of the B * H/2 * W/32 steps and
-//   writes one row of partials; one torch.sum finishes it.
-// * bf16 inputs: x, wk and alpha hold bf16 values (products of two are exact
-//   in f32), sums are f32, corr and d stay f32.
+// * backward, dx and dw: implicit GEMMs on mma.sync m16n8k8 (TF32 in, fp32
+//   sums), the counterpart of the TPU kernel's matrix-unit dot_general.
+//   fp32 accuracy from split TF32: each fp32 operand a becomes big =
+//   cvt.rna.tf32(a) and small = cvt.rna.tf32(a - big), so a = big + small
+//   to 2^-22 relative, and a product is small*big + big*small + big*big
+//   (small terms first; small*small, 2^-22, is dropped).  Per product the
+//   error is ~2^-22 relative, 3-4 orders under the 1e-3 the gradients are
+//   held to; one TF32 pass would give ~2^-11, which parity mode refuses.
+//   bf16 inputs hold x and the weights as bf16 values, exact in TF32, so only
+//   the fp32 cotangent is split: two products.  Dense 3xTF32 is 526 GFLOP
+//   (1.06 ms at 495 TFLOP/s), beside the 43.5 GFLOP least-work bound.
+//   - dx: rows are a block's 8 x 32 pixels, columns 64 input channels, K is
+//     (8-channel chunk of Cout, tap); a warp owns 2 pixel rows x 32 channels
+//     (4 x 4 tiles).  A is d, rebuilt per chunk in shared memory from
+//     (g, code, out) as whole 2x2 windows over a 12 x 36 ring around the
+//     10 x 34 halo (so the conv-output cotangent never reaches device
+//     memory, and no window needs a mask), stored split; B the flipped
+//     weights [Cout, 9, Cin], split as read.  Every block owns a tile of dx:
+//     no scatter, no atomics, and rows or columns past the pooled region
+//     (odd H or W) still receive their neighbours' share.
+//   - dw: 12 warps, 3 tap rows x 4 quarters of 96 output channels; rows are
+//     (tap, 32 input channels), K is the 64 pixels of a step (one pooled
+//     row, 16 pooled columns).  A is the x halo tile shifted by the tap,
+//     split as read, B the d tile, stored split.  Each block takes a fixed
+//     share of the steps and writes one row of partials; one torch.sum
+//     finishes them.
+//   - Staging: a ring of two stages.  The weight slabs (16-byte cp.async;
+//     the host pads them to whole chunks) and x (4-byte cp.async: rows of an
+//     odd W are not 16-byte aligned; zero-filled past the image) of the next
+//     stage are in flight while the current one runs its MMAs.  d's raw
+//     (g, out, code) are loaded into registers before the MMAs, from valid
+//     addresses whatever their liveness (a select on a load would wait on
+//     it), and written as d after them (a one-byte code cannot be copied
+//     asynchronously); so are bf16 x values, which cp.async cannot widen.
+//   - Products go pass-major (all small*big of a group of tiles, then
+//     big*small, then big*big), so that consecutive MMAs feed different
+//     accumulators; each accumulator sees the same order.
+//   - Layout: every fragment load hits 32 distinct banks.  Channel planes
+//     and rows are padded so that the lanes' stride is 8 or 24 (mod 32)
+//     across the 4 k-lanes and 1 across the 8 row-lanes (dx's d ring, its
+//     weight slab), or 12 and 1 (dw's x tile), or 4 and 1 (dw's d tile).
+// * forward: on the FMA pipe, with the FMA sequence of every output that
+//   the kernel had before the tensor-core backward: k ascending, then taps
+//   0..8, then + corr in the epilogue -- the order cuDNN's implicit GEMM
+//   also takes, so the forward reads 0.0 against F.conv2d.  A reordered (or
+//   tensor-core) forward would differ by ~1e-7 and flip the max-pool's
+//   choice in the few windows whose two best values lie that close, each
+//   flip moving ~0.1 of gradient, far past what the gradients are held to.
+//   What changed is how data reaches the FMAs.  A block owns 2 output rows
+//   by 64 columns (32 pool windows, one per lane) and up to 96 output
+//   channels; a warp is a group of NC (8 or 12) channels, so a thread owns
+//   a 2x2 window x NC channels.  Per chunk of 8 input channels the x halo
+//   tile (4 x 66 per channel) and the [8, 9, channels] weight slab stream
+//   through the two-stage cp.async ring; per input channel a thread reads
+//   its 4x4 patch (8 conflict-free 8-byte loads) and 9 * NC weights (16-byte
+//   broadcast loads) for 36 * NC FMAs.  Staging is mapped row by row (warp
+//   -> row, lane -> column): no division per staged element.
+// * bf16 inputs: x, the weights and alpha hold bf16 values (products of two
+//   are exact in f32), sums are f32, corr and d stay f32.  bf16 x is staged
+//   by ordinary loads (cp.async cannot widen it).
 //
 // dalpha is the true sum of conv * g over negative selected elements.  With
 // alpha != 0 the conv value is out / alpha; at alpha == 0 exactly (out is 0
@@ -70,19 +113,38 @@
 
 namespace {
 
+constexpr int kChunk = 8;                       // channels of K per stage
+
+// forward
 constexpr int kTileWindows = 32;                // pool windows (lanes) per tile
 constexpr int kTileW = 2 * kTileWindows + 2;    // 66 columns with the halo
 constexpr int kTileH = 4;                       // 2 rows with the halo
 constexpr int kPlane = kTileH * kTileW;         // floats per staged channel
-constexpr int kChunk = 8;                       // input channels per stage
 constexpr int kMaxThreads = 256;
 
-constexpr int kDwLanes = 32;                    // input channels per dw block
-constexpr int kDwCo = 8;                        // output channels per thread
-constexpr int kDwCols = 32;                     // conv columns per step
-constexpr int kDwXW = kDwCols + 2;              // 34 with the halo
-constexpr int kDwXPlane = 4 * kDwXW + 1;        // 137: odd, lanes on 32 banks
-constexpr int kDwMaxThreads = 192;
+// dx
+constexpr int kDxRows = 8, kDxCols = 32;        // dx pixels per block
+constexpr int kDxRingW = kDxCols + 4;           // 36: d columns col0 - 2 ..
+constexpr int kDxPlane = 440;                   // >= 12 * 36; 24 mod 32
+constexpr int kDxCi = 64;                       // input channels per block
+constexpr int kDxWRow = 9 * kDxCi + 8;          // 584 floats; 8 mod 32
+constexpr int kDxStage = kChunk * (2 * kDxPlane + kDxWRow);
+constexpr int kDxThreads = 256;                 // 4 row pairs x 2 channel halves
+constexpr int kDxPooledW = kDxCols / 2 + 2;     // 18 pooled columns per row
+constexpr int kDxPooled = (kDxRows / 2 + 2) * kDxPooledW;  // 108 a channel
+constexpr int kDxSlots = (kDxPooled + 31) / 32;
+
+// dw
+constexpr int kDwCi = 32;                       // input channels per block
+constexpr int kDwCo = 96;                       // output channels per block
+constexpr int kDwWindows = 16;                  // pool windows per step
+constexpr int kDwPix = 4 * kDwWindows;          // 64 pixels (K) per step
+constexpr int kDwXW = 2 * kDwWindows + 2;       // 34 columns with the halo
+constexpr int kDwXPlane = 140;                  // >= 4 * 34; 12 mod 32
+constexpr int kDwDRow = kDwPix + 4;             // 68; 4 mod 32
+constexpr int kDwStage = kDwCi * kDwXPlane + 2 * kDwCo * kDwDRow;
+constexpr int kDwThreads = 12 * 32;             // 3 tap rows x 4 channel quarters
+constexpr int kDwSlots = (kDwCo * kDwWindows + kDwThreads - 1) / kDwThreads;
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
@@ -93,29 +155,118 @@ __device__ __forceinline__ void from_float(float v, __nv_bfloat16* dst) {
   *dst = __float2bfloat16_rn(v);
 }
 
-// The cotangent that reaches the selected conv value of pooled element o:
-// (g + gs + 2 * out * gq), and the PReLU factor of the selected element.
-template <typename T>
-__device__ __forceinline__ float cotangent(const T* __restrict__ g,
-                                           const T* __restrict__ out,
-                                           size_t o, float gsc, float gqc) {
-  return to_float(g[o]) + gsc + 2.f * to_float(out[o]) * gqc;
+// ---------------------------------------------------------------- cp.async
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
+               "l"(src));
+}
+// 4 bytes, or zeros when !pred (src-size 0: nothing is read)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(pred ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// Stage the weight slab ws[kChunk][9][nt] of input channels [k0, k0 + 8) and
-// output channels [n0, n0 + nt) from wk [kin, 9, nout]; zero past either end.
-__device__ __forceinline__ void load_slab(const float* __restrict__ wk,
-                                          float* ws, int k0, int kin, int n0,
-                                          int nout, int nt) {
-  for (int idx = threadIdx.x; idx < kChunk * 9 * nt; idx += blockDim.x) {
-    const int kt = idx / nt, n = idx - kt * nt;  // kt = k * 9 + tap
-    const int k = k0 + kt / 9;
-    float v = 0.f;
-    if (k < kin && n0 + n < nout)
-      v = wk[(static_cast<size_t>(k0) * 9 + kt) * nout + n0 + n];
-    ws[idx] = v;
+// One staged element of x: cp.async for f32, a widening load for bf16.
+__device__ __forceinline__ void stage_x(float* dst, const float* src, bool pred) {
+  cp_async4(dst, src, pred);
+}
+__device__ __forceinline__ void stage_x(float* dst, const __nv_bfloat16* src,
+                                        bool pred) {
+  *dst = pred ? __bfloat162float(*src) : 0.f;
+}
+
+// n floats (a multiple of 4, 16-byte aligned at both ends) as 16-byte copies.
+__device__ __forceinline__ void stage_flat(float* dst, const float* src, int n) {
+  for (int q = threadIdx.x; q < n / 4; q += blockDim.x)
+    cp_async16(dst + 4 * q, src + 4 * q);
+}
+
+// -------------------------------------------------------- split-TF32 MMA
+
+__device__ __forceinline__ unsigned tf32(float v) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+// v = big + small to ~2^-22 relative
+__device__ __forceinline__ void split(float v, unsigned& big, unsigned& small) {
+  big = tf32(v);
+  small = tf32(v - __uint_as_float(big));
+}
+// c += a . b, m16n8k8, TF32 in, fp32 sums
+__device__ __forceinline__ void mma_tf32(float (&c)[4], unsigned a0, unsigned a1,
+                                         unsigned a2, unsigned a3, unsigned b0,
+                                         unsigned b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// A fragment of N registers, split into big and small TF32 parts; an exact
+// operand (bf16 values, which TF32 holds exactly) keeps its bits as big.
+template <int N>
+struct Frag {
+  unsigned big[N], small[N];
+};
+template <bool kExact, int N>
+__device__ __forceinline__ void make_frag(Frag<N>& f, const float (&v)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    if (kExact)
+      f.big[i] = __float_as_uint(v[i]);
+    else
+      split(v[i], f.big[i], f.small[i]);
   }
 }
+
+// c[m][n] += a[m] . b[n] to fp32 accuracy for M x N tiles: small*big,
+// big*small, big*big, small terms first; an exact operand has no small part,
+// so its term is skipped.  Pass-major, so that consecutive MMAs go to
+// different accumulators; every accumulator sees the same three products in
+// the same order.
+template <bool kExactA, bool kExactB, int M, int N>
+__device__ __forceinline__ void mma3(float (&c)[M][N][4], const Frag<4> (&a)[M],
+                                     const Frag<2> (&b)[N]) {
+  if (!kExactA)
+#pragma unroll
+    for (int m = 0; m < M; ++m)
+#pragma unroll
+      for (int n = 0; n < N; ++n)
+        mma_tf32(c[m][n], a[m].small[0], a[m].small[1], a[m].small[2], a[m].small[3],
+                 b[n].big[0], b[n].big[1]);
+  if (!kExactB)
+#pragma unroll
+    for (int m = 0; m < M; ++m)
+#pragma unroll
+      for (int n = 0; n < N; ++n)
+        mma_tf32(c[m][n], a[m].big[0], a[m].big[1], a[m].big[2], a[m].big[3],
+                 b[n].small[0], b[n].small[1]);
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int n = 0; n < N; ++n)
+      mma_tf32(c[m][n], a[m].big[0], a[m].big[1], a[m].big[2], a[m].big[3],
+               b[n].big[0], b[n].big[1]);
+}
+
+// The cotangent that reaches the selected conv value of a pooled element
+// from its output's (g) and the moments' (gs, gq on the channel).
+__device__ __forceinline__ float cotangent(float g, float out, float gsc, float gqc) {
+  return g + gsc + 2.f * out * gqc;
+}
+
+// ------------------------------------------------------------------ forward
 
 // One staged chunk: acc[a * 2 + b][n] += tile[k][a + dh][2 * lane + b + dw]
 // * ws[k][dh * 3 + dw][cg * NC + n].
@@ -176,26 +327,53 @@ __device__ __forceinline__ TileOrigin tile_origin(int n_rows, int n_jt) {
   return t;
 }
 
+// Stage chunk k0 of the forward: x rows 2i - 1 .. 2i + 2, columns 2 * j0 - 1
+// .. 2 * j0 + 64 (zero padded), row rr = k * 4 + r of the tile to warp
+// rr mod warps, column c to lane c mod 32; and the chunk's weight slab,
+// contiguous in the host's [tiles][Cin_pad][9][nt] layout.
+template <typename T>
+__device__ __forceinline__ void fwd_stage(float* ts, float* ws,
+                                          const T* __restrict__ x,
+                                          const float* __restrict__ slab,
+                                          const TileOrigin& t, int k0, int cin,
+                                          int h, int w, int nt) {
+  const int lane = threadIdx.x & 31, warps = blockDim.x >> 5;
+  for (int rr = threadIdx.x >> 5; rr < kChunk * kTileH; rr += warps) {
+    const int k = rr >> 2, row = 2 * t.i - 1 + (rr & 3);
+    const bool row_ok = k0 + k < cin && row >= 0 && row < h;
+    const T* src = x + ((static_cast<size_t>(t.b) * cin + (row_ok ? k0 + k : 0)) * h +
+                        (row_ok ? row : 0)) * w;
+    float* dst = ts + k * kPlane + (rr & 3) * kTileW;
+    for (int c = lane; c < kTileW; c += 32) {
+      const int col = 2 * t.j0 - 1 + c;
+      const bool ok = row_ok && col >= 0 && col < w;
+      stage_x(dst + c, src + (ok ? col : 0), ok);
+    }
+  }
+  stage_flat(ws, slab + static_cast<size_t>(k0) * 9 * nt, kChunk * 9 * nt);
+}
+
 // Forward.  Grid: x = B * (H/2) * ceil((W/2) / 32) tiles, y = channel tiles
-// of nt = (blockDim.x / 32) * NC output channels.  Dynamic shared memory: the
-// x tile (kChunk * kPlane floats), then the weight slab (kChunk * 9 * nt).
+// of nt = (blockDim.x / 32) * NC output channels.  wk: [grid y][Cin_pad][9]
+// [nt], zero past Cin and Cout.  Dynamic shared memory: two stages of the x
+// tile (kChunk * kPlane floats) and the weight slab (kChunk * 9 * nt).
 template <typename T, int NC>
 __global__ void __launch_bounds__(kMaxThreads)
 fused_conv2_fwd_kernel(const T* __restrict__ x, const float* __restrict__ wk,
                        const float* __restrict__ corr,
                        const float* __restrict__ alpha_p, T* __restrict__ out,
                        unsigned char* __restrict__ code,
-                       float* __restrict__ stat_partials, int cin, int cout,
-                       int h, int w) {
+                       float* __restrict__ stat_partials, int cin, int cin_pad,
+                       int cout, int h, int w) {
   extern __shared__ __align__(16) float smem[];
-  float* ts = smem;
-  float* ws = smem + kChunk * kPlane;
   const int h2 = h / 2, w2 = w / 2;
   const int n_jt = (w2 + kTileWindows - 1) / kTileWindows;
   const TileOrigin t = tile_origin(h2, n_jt);
   const int lane = threadIdx.x & 31, cg = threadIdx.x >> 5;
   const int nt = (blockDim.x >> 5) * NC;
   const int n0 = blockIdx.y * nt;
+  const int stage = kChunk * (kPlane + 9 * nt);
+  const float* slab = wk + static_cast<size_t>(blockIdx.y) * cin_pad * 9 * nt;
   const float alpha = alpha_p[0];
 
   float acc[4][NC];
@@ -204,22 +382,20 @@ fused_conv2_fwd_kernel(const T* __restrict__ x, const float* __restrict__ wk,
 #pragma unroll
     for (int n = 0; n < NC; ++n) acc[ph][n] = 0.f;
 
-  for (int k0 = 0; k0 < cin; k0 += kChunk) {
-    __syncthreads();
-    // x rows 2i - 1 .. 2i + 2, columns 2 * j0 - 1 .. 2 * j0 + 64, zero padded
-    for (int idx = threadIdx.x; idx < kChunk * kPlane; idx += blockDim.x) {
-      const int k = idx / kPlane, rem = idx - k * kPlane;
-      const int r = rem / kTileW, c = rem - r * kTileW;
-      const int row = 2 * t.i - 1 + r, col = 2 * t.j0 - 1 + c;
-      float v = 0.f;
-      if (k0 + k < cin && row >= 0 && row < h && col >= 0 && col < w)
-        v = to_float(
-            x[((static_cast<size_t>(t.b) * cin + k0 + k) * h + row) * w + col]);
-      ts[idx] = v;
+  fwd_stage(smem, smem + kChunk * kPlane, x, slab, t, 0, cin, h, w, nt);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  for (int k0 = 0, s = 0; k0 < cin; k0 += kChunk, s ^= 1) {
+    float* cur = smem + s * stage;
+    if (k0 + kChunk < cin) {  // the next chunk lands in the other stage
+      float* nxt = smem + (s ^ 1) * stage;
+      fwd_stage(nxt, nxt + kChunk * kPlane, x, slab, t, k0 + kChunk, cin, h, w, nt);
+      cp_async_commit();
     }
-    load_slab(wk, ws, k0, cin, n0, cout, nt);
+    accumulate_chunk<NC>(cur, cur + kChunk * kPlane, nt, lane, cg, acc);
+    cp_async_wait_all();
     __syncthreads();
-    accumulate_chunk<NC>(ts, ws, nt, lane, cg, acc);
   }
 
   const int gj = t.j0 + lane;
@@ -270,87 +446,330 @@ fused_conv2_fwd_kernel(const T* __restrict__ x, const float* __restrict__ wk,
   }
 }
 
-// dx = transposed convolution of d.  Grid: x = B * ceil(H/2) * ceil(ceil(W/2)
-// / 32) tiles of dx, y = tiles of nt input channels.  wk is the flipped,
-// transposed kernel [Cout, 9, Cin].  Shared memory as in the forward, the
-// staged tile holding d instead of x.
-template <typename T, int NC>
-__global__ void __launch_bounds__(kMaxThreads)
-fused_conv2_dx_kernel(const float* __restrict__ wk,
+// ----------------------------------------------------------------------- dx
+
+// The pooled elements whose windows cover a dx block's d: 6 pooled rows by
+// 18 pooled columns a channel, whose 2x2 windows tile a 12 x 36 ring (d rows
+// row0 - 2 .. row0 + 9, columns col0 - 2 .. col0 + 33) around the 10 x 34
+// halo the GEMM reads; so every window is written whole, without a mask.  A
+// thread serves its warp's channel and kDxSlots of those elements: p = lane
+// + 32 q, past the 108th repeating the first ones (the same values to the
+// same places).  Recomputed where used, to spare registers.
+__device__ __forceinline__ int dx_pooled(int q) {
+  const int p = (threadIdx.x & 31) + 32 * q;
+  return p >= kDxPooled ? p - kDxPooled : p;
+}
+
+// The raw (code, g, out) of a thread's pooled elements of channel co, the
+// channel's moment cotangents, and which elements are live.  The loads are
+// unconditional (a dead element reads offset 0), so that nothing waits on
+// them before the MMAs that they overlap; liveness is applied at the store.
+static_assert(kDxSlots <= 4, "one code byte a slot");
+struct DxRaw {
+  unsigned cd, live;
+  float g[kDxSlots], out[kDxSlots];
+  float gs, gq;
+};
+
+template <typename T>
+__device__ __forceinline__ void dx_load(DxRaw& r, const T* __restrict__ g,
+                                        const T* __restrict__ out,
+                                        const unsigned char* __restrict__ code,
+                                        const float* __restrict__ gs,
+                                        const float* __restrict__ gq, int b, int co,
+                                        int cout, int row0, int col0, int h2, int w2) {
+  const size_t plane =
+      (static_cast<size_t>(b) * cout + min(co, cout - 1)) * h2 * w2;
+  r.cd = r.live = 0;
+#pragma unroll
+  for (int q = 0; q < kDxSlots; ++q) {
+    const int p = dx_pooled(q);
+    const int pr = p / kDxPooledW, pc = p - pr * kDxPooledW;
+    const int pi = row0 / 2 - 1 + pr, pj = col0 / 2 - 1 + pc;
+    const bool live = co < cout && pi >= 0 && pi < h2 && pj >= 0 && pj < w2;
+    const size_t o = live ? plane + pi * w2 + pj : 0;
+    r.cd |= static_cast<unsigned>(code[o]) << (8 * q);
+    r.g[q] = to_float(g[o]);
+    r.out[q] = to_float(out[o]);
+    r.live |= static_cast<unsigned>(live) << q;
+  }
+  r.gs = gs[min(co, cout - 1)];
+  r.gq = gq[min(co, cout - 1)];
+}
+
+// d as the GEMMs read it: the selected position of a window holds scale *
+// cotangent, the other three (and everything past the pooled region) zero.
+__device__ __forceinline__ float d_value(int cd, float g, float out, float gsc,
+                                         float gqc, float alpha) {
+  const float gt = cotangent(g, out, gsc, gqc);
+  return cd >= 4 ? alpha * gt : gt;
+}
+// v split: big at dst, small small_off floats further
+__device__ __forceinline__ void put_split(float* dst, int small_off, float v) {
+  unsigned big, small;
+  split(v, big, small);
+  dst[0] = __uint_as_float(big);
+  dst[small_off] = __uint_as_float(small);
+}
+
+// Write d of a thread's pooled elements into its channel's ring, split.
+__device__ __forceinline__ void dx_store(float* dplane, const DxRaw& r, float alpha) {
+#pragma unroll
+  for (int q = 0; q < kDxSlots; ++q) {
+    const int p = dx_pooled(q);
+    const int pr = p / kDxPooledW, pc = p - pr * kDxPooledW;
+    const int cd = (r.live >> q) & 1 ? static_cast<int>((r.cd >> (8 * q)) & 255) : -1;
+    const float v = d_value(cd, r.g[q], r.out[q], r.gs, r.gq, alpha);
+#pragma unroll
+    for (int ph = 0; ph < 4; ++ph)
+      put_split(dplane + 2 * pr * kDxRingW + 2 * pc + (ph >> 1) * kDxRingW + (ph & 1),
+                kChunk * kDxPlane, (cd >= 0 && (cd & 3) == ph) ? v : 0.f);
+  }
+}
+
+// dx = transposed convolution of d, as a GEMM: rows are the block's 8 x 32
+// pixels, columns its 64 input channels, K = (chunk of 8 output channels,
+// tap).  Grid: x = B * ceil(H/8) * ceil(W/32) tiles, y = ceil(Cin/64).
+// wdx: [grid y][Cout_pad][kDxWRow], row co = [9 flipped taps][64 channels]
+// + 8 zeros.  Warp w owns pixel rows 2 (w & 3), + 1 (four m16 tiles of 16
+// columns) and channels 32 * (w >> 2) .. + 32 (four n8 tiles).  Dynamic
+// shared memory: two stages of [d big rings kChunk x kDxPlane][d small
+// rings][weight slab kChunk x kDxWRow]; the weights are split as they are
+// read (four fragments a tap, against sixteen of d).
+template <typename T>
+__global__ void __launch_bounds__(kDxThreads, 2)
+fused_conv2_dx_kernel(const float* __restrict__ wdx,
                       const float* __restrict__ alpha_p,
                       const T* __restrict__ g, const T* __restrict__ out,
                       const unsigned char* __restrict__ code,
                       const float* __restrict__ gs,
                       const float* __restrict__ gq, T* __restrict__ dx,
-                      int cin, int cout, int h, int w) {
+                      int cin, int cout, int cout_pad, int h, int w) {
+  constexpr bool kExactW = sizeof(T) == 2;  // bf16 weights: exact in TF32
+  constexpr int kSlab = 2 * kChunk * kDxPlane;  // the weights' offset in a stage
   extern __shared__ __align__(16) float smem[];
-  float* ts = smem;
-  float* ws = smem + kChunk * kPlane;
   const int h2 = h / 2, w2 = w / 2;
-  const int hp = (h + 1) / 2, wp = (w + 1) / 2;  // row / column pairs of dx
-  const int n_jt = (wp + kTileWindows - 1) / kTileWindows;
-  const TileOrigin t = tile_origin(hp, n_jt);
-  const int lane = threadIdx.x & 31, cg = threadIdx.x >> 5;
-  const int nt = (blockDim.x >> 5) * NC;
-  const int n0 = blockIdx.y * nt;
+  const int n_ct = (w + kDxCols - 1) / kDxCols;
+  const int n_rt = (h + kDxRows - 1) / kDxRows;
+  int blk = blockIdx.x;
+  const int col0 = (blk % n_ct) * kDxCols;
+  blk /= n_ct;
+  const int row0 = (blk % n_rt) * kDxRows;
+  const int b = blk / n_rt;
+  const int ci0 = blockIdx.y * kDxCi;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gl = lane >> 2, tl = lane & 3;  // fragment row / k lane
+  const int wr = 2 * (warp & 3), wn = warp >> 2;
   const float alpha = alpha_p[0];
+  const float* slab = wdx + static_cast<size_t>(blockIdx.y) * cout_pad * kDxWRow;
 
-  float acc[4][NC];
+  float acc[2][2][4][4];  // [pixel row][16-column half][n tile][fragment]
 #pragma unroll
-  for (int ph = 0; ph < 4; ++ph)
+  for (int r = 0; r < 2; ++r)
 #pragma unroll
-    for (int n = 0; n < NC; ++n) acc[ph][n] = 0.f;
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[r][j][nt][i] = 0.f;
 
-  for (int k0 = 0; k0 < cout; k0 += kChunk) {
-    __syncthreads();
-    // d rows 2i - 1 .. 2i + 2, columns 2 * j0 - 1 .. 2 * j0 + 64: the
-    // selected position of each pool window holds scale * cotangent, every
-    // other position (and everything past the pooled region) is zero
-    for (int idx = threadIdx.x; idx < kChunk * kPlane; idx += blockDim.x) {
-      const int k = idx / kPlane, rem = idx - k * kPlane;
-      const int r = rem / kTileW, c = rem - r * kTileW;
-      const int row = 2 * t.i - 1 + r, col = 2 * t.j0 - 1 + c;
-      const int co = k0 + k;
-      float v = 0.f;
-      if (co < cout && row >= 0 && row < 2 * h2 && col >= 0 && col < 2 * w2) {
-        const size_t o =
-            ((static_cast<size_t>(t.b) * cout + co) * h2 + (row >> 1)) * w2 +
-            (col >> 1);
-        const int cd = code[o];
-        if ((cd & 3) == ((row & 1) * 2 + (col & 1))) {
-          const float gt = cotangent(g, out, o, gs != nullptr ? gs[co] : 0.f,
-                                     gq != nullptr ? gq[co] : 0.f);
-          v = cd >= 4 ? alpha * gt : gt;
-        }
-      }
-      ts[idx] = v;
+  DxRaw raw;
+  stage_flat(smem + kSlab, slab, kChunk * kDxWRow);
+  cp_async_commit();
+  dx_load(raw, g, out, code, gs, gq, b, warp, cout, row0, col0, h2, w2);
+  dx_store(smem + warp * kDxPlane, raw, alpha);
+  cp_async_wait_all();
+  __syncthreads();
+
+  for (int k0 = 0, s = 0; k0 < cout; k0 += kChunk, s ^= 1) {
+    const float* ds = smem + s * kDxStage;
+    const float* ws = ds + kSlab;
+    float* nxt = smem + (s ^ 1) * kDxStage;
+    const bool more = k0 + kChunk < cout;
+    if (more) {
+      stage_flat(nxt + kSlab, slab + static_cast<size_t>(k0 + kChunk) * kDxWRow,
+                 kChunk * kDxWRow);
+      cp_async_commit();
+      dx_load(raw, g, out, code, gs, gq, b, k0 + kChunk + warp, cout, row0, col0, h2,
+              w2);
     }
-    load_slab(wk, ws, k0, cout, n0, cin, nt);
+#pragma unroll 3
+    for (int tap = 0; tap < 9; ++tap) {
+      const int eh = tap / 3, ew = tap - 3 * eh;
+      const float* b_base = ws + tl * kDxWRow + tap * kDxCi + 32 * wn + gl;
+      Frag<2> bf[4];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const float v[2] = {b_base[8 * nt], b_base[4 * kDxWRow + 8 * nt]};
+        make_frag<kExactW>(bf[nt], v);
+      }
+      // pixel (wr + r, c) reads ring (wr + r + eh + 1, c + ew + 1)
+      const float* a_base = ds + tl * kDxPlane + (wr + eh + 1) * kDxRingW + gl + ew + 1;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        Frag<4> af[2];  // 16-column halves j
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float* ap = a_base + r * kDxRingW + 16 * j;
+          const int o[4] = {0, 8, 4 * kDxPlane, 4 * kDxPlane + 8};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            af[j].big[i] = __float_as_uint(ap[o[i]]);
+            af[j].small[i] = __float_as_uint(ap[o[i] + kChunk * kDxPlane]);
+          }
+        }
+        mma3<false, kExactW>(acc[r], af, bf);
+      }
+    }
+    if (more) dx_store(nxt + warp * kDxPlane, raw, alpha);
+    cp_async_wait_all();
     __syncthreads();
-    accumulate_chunk<NC>(ts, ws, nt, lane, cg, acc);
   }
 
-  const int gj = t.j0 + lane;
+  // C fragment: (pixel gl | gl + 8, channel 2 tl | 2 tl + 1)
 #pragma unroll
-  for (int n = 0; n < NC; ++n) {
-    const int ci = n0 + cg * NC + n;
-    if (ci >= cin) continue;
-    T* plane = dx + (static_cast<size_t>(t.b) * cin + ci) * h * w;
+  for (int r = 0; r < 2; ++r)
 #pragma unroll
-    for (int ph = 0; ph < 4; ++ph) {
-      const int row = 2 * t.i + (ph >> 1), col = 2 * gj + (ph & 1);
-      if (row < h && col < w)
-        from_float(acc[ph][n], plane + static_cast<size_t>(row) * w + col);
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int row = row0 + wr + r;
+          const int col = col0 + 16 * j + gl + 8 * (i >> 1);
+          const int ci = ci0 + 32 * wn + 8 * nt + 2 * tl + (i & 1);
+          if (row < h && col < w && ci < cin)
+            from_float(acc[r][j][nt][i],
+                       dx + ((static_cast<size_t>(b) * cin + ci) * h + row) * w + col);
+        }
+}
+
+// ----------------------------------------------------------------------- dw
+
+// The x tile of a dw step: row rr = ci * 4 + r of the tile to warp rr mod 12
+// (slot q: rr = warp + 12 q), column c to lane c mod 32 (slot c2: c = lane +
+// 32 c2).  Fixed trip counts, unrolled, so that a thread's copies, loads and
+// splits are independent and issue back to back.
+constexpr int kDwXRows = (kDwCi * 4 + kDwThreads / 32 - 1) / (kDwThreads / 32);  // 11
+constexpr int kDwXCols = (kDwXW + 31) / 32;                                      // 2
+
+// Stage step (b, i, j0): x rows 2i - 1 .. 2i + 2, columns 2 * j0 - 1 .. 2 * j0
+// + 32 of input channels ci0 .. ci0 + 31, zero padded.  f32 goes by
+// cp.async; bf16 (which cp.async cannot widen) is loaded into v here and
+// written by dw_put_x after the MMAs that the loads overlap.
+struct DwX {
+  float v[kDwXRows][kDwXCols];
+};
+
+template <typename T>
+__device__ __forceinline__ void dw_stage_x(float* xs, DwX& st, const T* __restrict__ x,
+                                           int b, int i, int j0, int ci0, int cin,
+                                           int h, int w) {
+  constexpr bool kAsync = sizeof(T) == 4;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int q = 0; q < kDwXRows; ++q) {
+    const int rr = warp + (kDwThreads / 32) * q;
+    const int ci = ci0 + (rr >> 2), row = 2 * i - 1 + (rr & 3);
+    const bool row_ok = rr < kDwCi * 4 && ci < cin && row >= 0 && row < h;
+    const T* src = x + ((static_cast<size_t>(b) * cin + (row_ok ? ci : 0)) * h +
+                        (row_ok ? row : 0)) * w;
+#pragma unroll
+    for (int c2 = 0; c2 < kDwXCols; ++c2) {
+      const int c = lane + 32 * c2, col = 2 * j0 - 1 + c;
+      const bool ok = row_ok && c < kDwXW && col >= 0 && col < w;
+      if (kAsync) {
+        if (rr < kDwCi * 4 && c < kDwXW)
+          cp_async4(xs + (rr >> 2) * kDwXPlane + (rr & 3) * kDwXW + c,
+                    src + (ok ? col : 0), ok);
+      } else {
+        st.v[q][c2] = to_float(src[ok ? col : 0]);
+        if (!ok) st.v[q][c2] = 0.f;
+      }
     }
   }
 }
 
-// dw.  Grid: x = ceil(Cin / 32) * ceil(Cout / nco) tiles of dw (nco =
-// (blockDim.x / 32) * 8), y = splits of the B * (H/2) * ceil((W/2) / 16)
-// steps.  Dynamic shared memory: the x tile (32 * kDwXPlane floats), then d
-// as [2 * 32 pixels][ds_stride], ds_stride = nco + 4.
 template <typename T>
-__global__ void __launch_bounds__(kDwMaxThreads)
+__device__ __forceinline__ void dw_put_x(float* xs, const DwX& st) {
+  if (sizeof(T) == 4) return;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int q = 0; q < kDwXRows; ++q) {
+    const int rr = warp + (kDwThreads / 32) * q;
+#pragma unroll
+    for (int c2 = 0; c2 < kDwXCols; ++c2) {
+      const int c = lane + 32 * c2;
+      if (rr < kDwCi * 4 && c < kDwXW)
+        xs[(rr >> 2) * kDwXPlane + (rr & 3) * kDwXW + c] = st.v[q][c2];
+    }
+  }
+}
+
+// The raw (code, g, out) of this thread's pooled elements of one step:
+// element q is idx = threadIdx.x + q * kDwThreads, channel co0 + idx / 16,
+// pooled column j0 + idx % 16.  The loads are unconditional (a dead element
+// reads offset 0, its code byte is then 0xff), so that nothing waits on them
+// before the MMAs that they overlap; the codes are packed a byte each.
+static_assert(kDwCo * kDwWindows == kDwSlots * kDwThreads, "dw slots");
+static_assert(kDwSlots <= 4, "one code byte a slot");
+struct DwRaw {
+  unsigned cd, live;
+  float g[kDwSlots], out[kDwSlots];
+};
+
+template <typename T>
+__device__ __forceinline__ void dw_load(DwRaw& r, const T* __restrict__ g,
+                                        const T* __restrict__ out,
+                                        const unsigned char* __restrict__ code,
+                                        int b, int i, int j0, int co0, int cout,
+                                        int h2, int w2) {
+  r.cd = r.live = 0;
+#pragma unroll
+  for (int q = 0; q < kDwSlots; ++q) {
+    const int idx = threadIdx.x + q * kDwThreads;
+    const int co = co0 + (idx >> 4), gj = j0 + (idx & 15);
+    const bool live = co < cout && gj < w2;
+    const size_t o =
+        live ? ((static_cast<size_t>(b) * cout + co) * h2 + i) * w2 + gj : 0;
+    r.cd |= static_cast<unsigned>(code[o]) << (8 * q);
+    r.g[q] = to_float(g[o]);
+    r.out[q] = to_float(out[o]);
+    r.live |= static_cast<unsigned>(live) << q;
+  }
+}
+
+// d of one step as [kDwCo channels][kDwDRow], big then small kDwCo *
+// kDwDRow floats further: pixel r * 32 + c of conv row 2i + r, column
+// 2 * j0 + c; the selected position of each window holds scale *
+// cotangent, the other three zero.  gsq: the block's (gs, gq) in shared
+// memory, [2][kDwCo].
+__device__ __forceinline__ void dw_store(float* ds, const DwRaw& r, const float* gsq,
+                                         float alpha) {
+#pragma unroll
+  for (int q = 0; q < kDwSlots; ++q) {
+    const int idx = threadIdx.x + q * kDwThreads;
+    const int cd = (r.live >> q) & 1 ? static_cast<int>((r.cd >> (8 * q)) & 255) : -1;
+    const float v =
+        d_value(cd, r.g[q], r.out[q], gsq[idx >> 4], gsq[kDwCo + (idx >> 4)], alpha);
+    float* dst = ds + (idx >> 4) * kDwDRow + 2 * (idx & 15);
+#pragma unroll
+    for (int ph = 0; ph < 4; ++ph)
+      put_split(dst + (ph >> 1) * 2 * kDwWindows + (ph & 1), kDwCo * kDwDRow,
+                (cd >= 0 && (cd & 3) == ph) ? v : 0.f);
+  }
+}
+
+// dw = im2col(x)^T . d as a GEMM: rows (tap, input channel), columns output
+// channels, K the pixels.  Grid: x = ceil(Cin / 32) * ceil(Cout / 96) tiles
+// of dw, y = splits of the B * (H/2) * ceil((W/2) / 16) steps of 64 pixels.
+// Warp w owns the three taps of row dh = w / 4 for the block's 32 input
+// channels (six m16 tiles) by output channels 24 (w % 4) .. + 24 (three n8
+// tiles).  Dynamic shared memory: two stages of [x kDwCi x kDwXPlane][d big
+// kDwCo x kDwDRow][d small], then the block's (gs, gq); x is split as it is
+// read, one tap (two fragments) at a time.
+template <typename T>
+__global__ void __launch_bounds__(kDwThreads)
 fused_conv2_dw_kernel(const T* __restrict__ x,
                       const float* __restrict__ alpha_p,
                       const T* __restrict__ g, const T* __restrict__ out,
@@ -359,112 +778,115 @@ fused_conv2_dw_kernel(const T* __restrict__ x,
                       const float* __restrict__ gq,
                       float* __restrict__ partials, int bsz, int cin, int cout,
                       int h, int w) {
+  constexpr bool kExactX = sizeof(T) == 2;  // bf16 x: exact in TF32
+  constexpr int kX = kDwCi * kDwXPlane, kD = kDwCo * kDwDRow;  // floats
   extern __shared__ __align__(16) float smem[];
-  float* xs = smem;
-  float* ds = smem + kDwLanes * kDwXPlane;
   const int h2 = h / 2, w2 = w / 2;
-  const int lane = threadIdx.x & 31, cog = threadIdx.x >> 5;
-  const int nco = (blockDim.x >> 5) * kDwCo;
-  const int ds_stride = nco + 4;
-  const int n_cot = (cout + nco - 1) / nco;
-  const int ci0 = (blockIdx.x / n_cot) * kDwLanes;
-  const int co0 = (blockIdx.x % n_cot) * nco;
-  const int n_jt = (w2 + kDwCols / 2 - 1) / (kDwCols / 2);
+  const int n_cot = (cout + kDwCo - 1) / kDwCo;
+  const int ci0 = (blockIdx.x / n_cot) * kDwCi;
+  const int co0 = (blockIdx.x % n_cot) * kDwCo;
+  const int n_jt = (w2 + kDwWindows - 1) / kDwWindows;
   const int steps = bsz * h2 * n_jt;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gl = lane >> 2, tl = lane & 3;
+  const int dh = warp >> 2, nq = warp & 3;
   const float alpha = alpha_p[0];
 
-  float acc[9][kDwCo];
+  float acc[3][2][3][4];  // [dw][m tile][n tile][fragment]
 #pragma unroll
-  for (int tap = 0; tap < 9; ++tap)
+  for (int dw = 0; dw < 3; ++dw)
 #pragma unroll
-    for (int n = 0; n < kDwCo; ++n) acc[tap][n] = 0.f;
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 3; ++nt)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) acc[dw][mt][nt][k] = 0.f;
 
-  for (int s = blockIdx.y; s < steps; s += gridDim.y) {
-    const int jt = s % n_jt;
-    const int i = (s / n_jt) % h2;
-    const int b = s / (n_jt * h2);
-    const int j0 = jt * (kDwCols / 2);
+  float* gsq = smem + 2 * kDwStage;
+  for (int k = threadIdx.x; k < 2 * kDwCo; k += kDwThreads) {
+    const int co = min(co0 + (k % kDwCo), cout - 1);
+    gsq[k] = k < kDwCo ? gs[co] : gq[co];
+  }
+  DwRaw raw;
+  DwX xst;
+  int s = blockIdx.y;
+  {
+    const int jt = s % n_jt, i = (s / n_jt) % h2, b = s / (n_jt * h2);
+    dw_stage_x(smem, xst, x, b, i, jt * kDwWindows, ci0, cin, h, w);
+    dw_put_x<T>(smem, xst);
+    cp_async_commit();
+    dw_load(raw, g, out, code, b, i, jt * kDwWindows, co0, cout, h2, w2);
+    __syncthreads();  // gsq
+    dw_store(smem + kX, raw, gsq, alpha);
+    cp_async_wait_all();
     __syncthreads();
-    // x rows 2i - 1 .. 2i + 2, columns 2 * j0 - 1 .. 2 * j0 + 32
-    for (int idx = threadIdx.x; idx < kDwLanes * 4 * kDwXW; idx += blockDim.x) {
-      const int cl = idx / (4 * kDwXW), rem = idx - cl * (4 * kDwXW);
-      const int r = rem / kDwXW, c = rem - r * kDwXW;
-      const int row = 2 * i - 1 + r, col = 2 * j0 - 1 + c;
-      float v = 0.f;
-      if (ci0 + cl < cin && row >= 0 && row < h && col >= 0 && col < w)
-        v = to_float(
-            x[((static_cast<size_t>(b) * cin + ci0 + cl) * h + row) * w + col]);
-      xs[cl * kDwXPlane + rem] = v;
+  }
+  for (int buf = 0; s < steps; s += gridDim.y, buf ^= 1) {
+    const float* xs = smem + buf * kDwStage;
+    const float* ds = xs + kX;
+    float* nxt = smem + (buf ^ 1) * kDwStage;
+    const int sn = s + gridDim.y;
+    const bool more = sn < steps;
+    if (more) {
+      const int jt = sn % n_jt, ni = (sn / n_jt) % h2, nb = sn / (n_jt * h2);
+      dw_stage_x(nxt, xst, x, nb, ni, jt * kDwWindows, ci0, cin, h, w);
+      cp_async_commit();
+      dw_load(raw, g, out, code, nb, ni, jt * kDwWindows, co0, cout, h2, w2);
     }
-    // d of conv rows 2i, 2i + 1 and columns 2 * j0 .. 2 * j0 + 31
-    for (int idx = threadIdx.x; idx < nco * (kDwCols / 2); idx += blockDim.x) {
-      const int cl = idx / (kDwCols / 2), jl = idx - cl * (kDwCols / 2);
-      const int co = co0 + cl, gj = j0 + jl;
-      int sel = -1;
-      float d = 0.f;
-      if (co < cout && gj < w2) {
-        const size_t o =
-            ((static_cast<size_t>(b) * cout + co) * h2 + i) * w2 + gj;
-        const int cd = code[o];
-        const float gt = cotangent(g, out, o, gs != nullptr ? gs[co] : 0.f,
-                                   gq != nullptr ? gq[co] : 0.f);
-        sel = cd & 3;
-        d = cd >= 4 ? alpha * gt : gt;
+#pragma unroll 2
+    for (int ks = 0; ks < kDwPix / 8; ++ks) {
+      // pixels ks * 8 .. + 7: conv row ks >> 2, columns (ks & 3) * 8 + k
+      const float* b_base = ds + (24 * nq + gl) * kDwDRow + ks * 8 + tl;
+      Frag<2> bf[3];
+#pragma unroll
+      for (int nt = 0; nt < 3; ++nt) {
+        const float* bp = b_base + 8 * nt * kDwDRow;
+        bf[nt].big[0] = __float_as_uint(bp[0]);
+        bf[nt].big[1] = __float_as_uint(bp[4]);
+        bf[nt].small[0] = __float_as_uint(bp[kD]);
+        bf[nt].small[1] = __float_as_uint(bp[kD + 4]);
       }
+      const float* a_base =
+          xs + gl * kDwXPlane + ((ks >> 2) + dh) * kDwXW + (ks & 3) * 8 + tl;
 #pragma unroll
-      for (int ph = 0; ph < 4; ++ph)
-        ds[((ph >> 1) * kDwCols + 2 * jl + (ph & 1)) * ds_stride + cl] =
-            ph == sel ? d : 0.f;
-    }
-    __syncthreads();
-
-    const float* xl = xs + lane * kDwXPlane;
-#pragma unroll 1
-    for (int r = 0; r < 2; ++r) {
-      float x0[3], x1[3], x2[3];
+      for (int dw = 0; dw < 3; ++dw) {
+        Frag<4> af[2];  // m tiles
 #pragma unroll
-      for (int dh = 0; dh < 3; ++dh) {
-        x0[dh] = xl[(r + dh) * kDwXW];
-        x1[dh] = xl[(r + dh) * kDwXW + 1];
-      }
-      const float* dr = ds + r * kDwCols * ds_stride + cog * kDwCo;
-#pragma unroll 8
-      for (int c = 0; c < kDwCols; ++c) {
-#pragma unroll
-        for (int dh = 0; dh < 3; ++dh) x2[dh] = xl[(r + dh) * kDwXW + c + 2];
-        const float4 lo = reinterpret_cast<const float4*>(dr + c * ds_stride)[0];
-        const float4 hi = reinterpret_cast<const float4*>(dr + c * ds_stride)[1];
-        const float dv[kDwCo] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-#pragma unroll
-        for (int dh = 0; dh < 3; ++dh)
-#pragma unroll
-          for (int n = 0; n < kDwCo; ++n) {
-            acc[dh * 3][n] = fmaf(x0[dh], dv[n], acc[dh * 3][n]);
-            acc[dh * 3 + 1][n] = fmaf(x1[dh], dv[n], acc[dh * 3 + 1][n]);
-            acc[dh * 3 + 2][n] = fmaf(x2[dh], dv[n], acc[dh * 3 + 2][n]);
-          }
-#pragma unroll
-        for (int dh = 0; dh < 3; ++dh) {
-          x0[dh] = x1[dh];
-          x1[dh] = x2[dh];
+        for (int mt = 0; mt < 2; ++mt) {
+          const float* ap = a_base + dw + 16 * mt * kDwXPlane;
+          const float v[4] = {ap[0], ap[8 * kDwXPlane], ap[4], ap[8 * kDwXPlane + 4]};
+          make_frag<kExactX>(af[mt], v);
         }
+        mma3<kExactX, false>(acc[dw], af, bf);
       }
     }
+    if (more) {
+      dw_put_x<T>(nxt, xst);
+      dw_store(nxt + kX, raw, gsq, alpha);
+    }
+    cp_async_wait_all();
+    __syncthreads();
   }
 
-  const int ci = ci0 + lane;
-  if (ci < cin) {
-    float* dst = partials + static_cast<size_t>(blockIdx.y) * 9 * cin * cout;
+  // C fragment: (channel gl | gl + 8, output channel 2 tl | 2 tl + 1)
+  float* dst = partials + static_cast<size_t>(blockIdx.y) * 9 * cin * cout;
 #pragma unroll
-    for (int tap = 0; tap < 9; ++tap)
+  for (int dw = 0; dw < 3; ++dw)
 #pragma unroll
-      for (int n = 0; n < kDwCo; ++n) {
-        const int co = co0 + cog * kDwCo + n;
-        if (co < cout)
-          dst[(static_cast<size_t>(tap) * cin + ci) * cout + co] = acc[tap][n];
-      }
-  }
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 3; ++nt)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int ci = ci0 + 16 * mt + gl + 8 * (k >> 1);
+          const int co = co0 + 24 * nq + 8 * nt + 2 * tl + (k & 1);
+          if (ci < cin && co < cout)
+            dst[(static_cast<size_t>(dh * 3 + dw) * cin + ci) * cout + co] =
+                acc[dw][mt][nt][k];
+        }
 }
+
+// -------------------------------------------------------- dcorr and dalpha
 
 // The conv value at (b, co, row, col), recomputed from x, wk [Cin, 9, Cout]
 // and corr: only for dalpha at alpha == 0.
@@ -518,7 +940,7 @@ fused_conv2_small_kernel(const T* __restrict__ x, const float* __restrict__ wk,
       const size_t o = ((static_cast<size_t>(b) * cout + co) * h2 + i) * w2 + j;
       const int cd = code[o];
       const int sel = cd & 3;
-      const float gt = cotangent(g, out, o, gsc, gqc);
+      const float gt = cotangent(to_float(g[o]), to_float(out[o]), gsc, gqc);
       const float d = cd >= 4 ? alpha * gt : gt;
 #pragma unroll
       for (int ph = 0; ph < 4; ++ph) acc[ph] += ph == sel ? d : 0.f;
@@ -551,44 +973,66 @@ fused_conv2_small_kernel(const T* __restrict__ x, const float* __restrict__ wk,
   }
 }
 
-template <typename T, int NC>
-cudaError_t launch_fwd(const void* x, const float* wk, const float* corr,
-                       const float* alpha, void* out, unsigned char* code,
-                       float* stat_partials, int cin, int cout, int h, int w,
-                       dim3 grid, int threads, int smem, cudaStream_t s) {
-  fused_conv2_fwd_kernel<T, NC><<<grid, threads, smem, s>>>(
-      static_cast<const T*>(x), wk, corr, alpha, static_cast<T*>(out), code,
-      stat_partials, cin, cout, h, w);
-  return cudaGetLastError();
+// ---------------------------------------------------------------- launches
+
+// Raise a kernel's dynamic shared memory cap to what this launch asks.
+template <typename K>
+cudaError_t allow_smem(K kernel, int smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              smem);
 }
 
 template <typename T, int NC>
-cudaError_t launch_dx(const float* wk, const float* alpha, const void* g,
-                      const void* out, const unsigned char* code,
-                      const float* gs, const float* gq, void* dx, int cin,
-                      int cout, int h, int w, dim3 grid, int threads, int smem,
-                      cudaStream_t s) {
-  fused_conv2_dx_kernel<T, NC><<<grid, threads, smem, s>>>(
-      wk, alpha, static_cast<const T*>(g), static_cast<const T*>(out), code, gs,
-      gq, static_cast<T*>(dx), cin, cout, h, w);
+cudaError_t launch_fwd(const void* x, const float* wk, const float* corr,
+                       const float* alpha, void* out, unsigned char* code,
+                       float* stat_partials, int cin, int cin_pad, int cout,
+                       int h, int w, dim3 grid, int threads, int smem,
+                       cudaStream_t s) {
+  cudaError_t err = allow_smem(fused_conv2_fwd_kernel<T, NC>, smem);
+  if (err != cudaSuccess) return err;
+  fused_conv2_fwd_kernel<T, NC><<<grid, threads, smem, s>>>(
+      static_cast<const T*>(x), wk, corr, alpha, static_cast<T*>(out), code,
+      stat_partials, cin, cin_pad, cout, h, w);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_dw_small(const void* x, const float* wk, const float* corr,
-                            const float* alpha, const void* g, const void* out,
-                            const unsigned char* code, const float* gs,
-                            const float* gq, float* dw_partials, float* dcorr,
-                            float* dalpha_partials, int bsz, int cin, int cout,
-                            int h, int w, dim3 dw_grid, int dw_threads,
-                            int dw_smem, int small_blocks, cudaStream_t s) {
-  fused_conv2_dw_kernel<T><<<dw_grid, dw_threads, dw_smem, s>>>(
-      static_cast<const T*>(x), alpha, static_cast<const T*>(g),
-      static_cast<const T*>(out), code, gs, gq, dw_partials, bsz, cin, cout, h,
-      w);
-  cudaError_t err = cudaGetLastError();
+cudaError_t launch_dx(const float* wdx, const float* alpha, const void* g,
+                      const void* out, const unsigned char* code,
+                      const float* gs, const float* gq, void* dx, int cin,
+                      int cout, int cout_pad, int h, int w, dim3 grid, int smem,
+                      cudaStream_t s) {
+  cudaError_t err = allow_smem(fused_conv2_dx_kernel<T>, smem);
   if (err != cudaSuccess) return err;
-  fused_conv2_small_kernel<T><<<small_blocks, kMaxThreads, 0, s>>>(
+  fused_conv2_dx_kernel<T><<<grid, kDxThreads, smem, s>>>(
+      wdx, alpha, static_cast<const T*>(g), static_cast<const T*>(out), code, gs,
+      gq, static_cast<T*>(dx), cin, cout, cout_pad, h, w);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_dw(const void* x, const float* alpha, const void* g,
+                      const void* out, const unsigned char* code,
+                      const float* gs, const float* gq, float* partials, int bsz,
+                      int cin, int cout, int h, int w, dim3 grid, int smem,
+                      cudaStream_t s) {
+  cudaError_t err = allow_smem(fused_conv2_dw_kernel<T>, smem);
+  if (err != cudaSuccess) return err;
+  fused_conv2_dw_kernel<T><<<grid, kDwThreads, smem, s>>>(
+      static_cast<const T*>(x), alpha, static_cast<const T*>(g),
+      static_cast<const T*>(out), code, gs, gq, partials, bsz, cin, cout, h, w);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_small(const void* x, const float* wk, const float* corr,
+                         const float* alpha, const void* g, const void* out,
+                         const unsigned char* code, const float* gs,
+                         const float* gq, float* dcorr, float* dalpha_partials,
+                         int bsz, int cin, int cout, int h, int w, int blocks,
+                         cudaStream_t s) {
+  fused_conv2_small_kernel<T><<<blocks, kMaxThreads, 0, s>>>(
       static_cast<const T*>(x), wk, corr, alpha, static_cast<const T*>(g),
       static_cast<const T*>(out), code, gs, gq, dcorr, dalpha_partials, bsz,
       cin, cout, h, w);
@@ -599,14 +1043,14 @@ cudaError_t launch_dw_small(const void* x, const float* wk, const float* corr,
 
 extern "C" {
 
-// Every launcher returns the cudaError_t of its launches (0 on success).
-// nc is the number of channels a thread owns in the tile routine: 8 or 12.
+// Every launcher returns the cudaError_t of its launch (0 on success).
+// nc is the number of channels a forward thread owns: 8 or 12.
 
 int fused_conv2_fwd_launch(const void* x, const void* wk, const void* corr,
                            const void* alpha, void* out, void* code,
-                           void* stat_partials, int cin, int cout, int h, int w,
-                           int is_bf16, int nc, int grid_x, int grid_y,
-                           int threads, int smem_bytes, int device,
+                           void* stat_partials, int cin, int cin_pad, int cout,
+                           int h, int w, int is_bf16, int nc, int grid_x,
+                           int grid_y, int threads, int smem_bytes, int device,
                            void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -618,88 +1062,84 @@ int fused_conv2_fwd_launch(const void* x, const void* wk, const void* corr,
   unsigned char* cd = static_cast<unsigned char*>(code);
   float* sp = static_cast<float*>(stat_partials);
   if (is_bf16) {
-    err = nc == 12 ? launch_fwd<__nv_bfloat16, 12>(x, wf, cf, af, out, cd, sp,
-                                                   cin, cout, h, w, grid,
+    err = nc == 12 ? launch_fwd<__nv_bfloat16, 12>(x, wf, cf, af, out, cd, sp, cin,
+                                                   cin_pad, cout, h, w, grid,
                                                    threads, smem_bytes, s)
-                   : launch_fwd<__nv_bfloat16, 8>(x, wf, cf, af, out, cd, sp,
-                                                  cin, cout, h, w, grid,
+                   : launch_fwd<__nv_bfloat16, 8>(x, wf, cf, af, out, cd, sp, cin,
+                                                  cin_pad, cout, h, w, grid,
                                                   threads, smem_bytes, s);
   } else {
-    err = nc == 12 ? launch_fwd<float, 12>(x, wf, cf, af, out, cd, sp, cin,
-                                           cout, h, w, grid, threads,
-                                           smem_bytes, s)
-                   : launch_fwd<float, 8>(x, wf, cf, af, out, cd, sp, cin, cout,
-                                          h, w, grid, threads, smem_bytes, s);
+    err = nc == 12 ? launch_fwd<float, 12>(x, wf, cf, af, out, cd, sp, cin, cin_pad,
+                                           cout, h, w, grid, threads, smem_bytes, s)
+                   : launch_fwd<float, 8>(x, wf, cf, af, out, cd, sp, cin, cin_pad,
+                                          cout, h, w, grid, threads, smem_bytes, s);
   }
   return static_cast<int>(err);
 }
 
-int fused_conv2_dx_launch(const void* wk_flipped, const void* alpha,
-                          const void* g, const void* out, const void* code,
-                          const void* gs, const void* gq, void* dx, int cin,
-                          int cout, int h, int w, int is_bf16, int nc,
-                          int grid_x, int grid_y, int threads, int smem_bytes,
-                          int device, void* stream) {
+int fused_conv2_dx_launch(const void* wdx, const void* alpha, const void* g,
+                          const void* out, const void* code, const void* gs,
+                          const void* gq, void* dx, int cin, int cout,
+                          int cout_pad, int h, int w, int is_bf16, int grid_x,
+                          int grid_y, int smem_bytes, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(grid_x, grid_y);
-  const float* wf = static_cast<const float*>(wk_flipped);
+  const float* wf = static_cast<const float*>(wdx);
   const float* af = static_cast<const float*>(alpha);
   const unsigned char* cd = static_cast<const unsigned char*>(code);
   const float* gsf = static_cast<const float*>(gs);
   const float* gqf = static_cast<const float*>(gq);
-  if (is_bf16) {
-    err = nc == 12 ? launch_dx<__nv_bfloat16, 12>(wf, af, g, out, cd, gsf, gqf,
-                                                  dx, cin, cout, h, w, grid,
-                                                  threads, smem_bytes, s)
-                   : launch_dx<__nv_bfloat16, 8>(wf, af, g, out, cd, gsf, gqf,
-                                                 dx, cin, cout, h, w, grid,
-                                                 threads, smem_bytes, s);
-  } else {
-    err = nc == 12 ? launch_dx<float, 12>(wf, af, g, out, cd, gsf, gqf, dx, cin,
-                                          cout, h, w, grid, threads,
-                                          smem_bytes, s)
-                   : launch_dx<float, 8>(wf, af, g, out, cd, gsf, gqf, dx, cin,
-                                         cout, h, w, grid, threads, smem_bytes,
-                                         s);
-  }
+  err = is_bf16 ? launch_dx<__nv_bfloat16>(wf, af, g, out, cd, gsf, gqf, dx, cin,
+                                           cout, cout_pad, h, w, grid, smem_bytes, s)
+                : launch_dx<float>(wf, af, g, out, cd, gsf, gqf, dx, cin, cout,
+                                   cout_pad, h, w, grid, smem_bytes, s);
   return static_cast<int>(err);
 }
 
-int fused_conv2_dw_small_launch(const void* x, const void* wk, const void* corr,
-                                const void* alpha, const void* g,
-                                const void* out, const void* code,
-                                const void* gs, const void* gq,
-                                void* dw_partials, void* dcorr,
-                                void* dalpha_partials, int bsz, int cin,
-                                int cout, int h, int w, int is_bf16,
-                                int dw_grid_x, int dw_grid_y, int dw_threads,
-                                int dw_smem_bytes, int small_blocks, int device,
-                                void* stream) {
+int fused_conv2_dw_launch(const void* x, const void* alpha, const void* g,
+                          const void* out, const void* code, const void* gs,
+                          const void* gq, void* partials, int bsz, int cin,
+                          int cout, int h, int w, int is_bf16, int tiles,
+                          int splits, int smem_bytes, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(dw_grid_x, dw_grid_y);
+  const dim3 grid(tiles, splits);
+  const float* af = static_cast<const float*>(alpha);
+  const unsigned char* cd = static_cast<const unsigned char*>(code);
+  const float* gsf = static_cast<const float*>(gs);
+  const float* gqf = static_cast<const float*>(gq);
+  float* pf = static_cast<float*>(partials);
+  err = is_bf16 ? launch_dw<__nv_bfloat16>(x, af, g, out, cd, gsf, gqf, pf, bsz, cin,
+                                           cout, h, w, grid, smem_bytes, s)
+                : launch_dw<float>(x, af, g, out, cd, gsf, gqf, pf, bsz, cin, cout,
+                                   h, w, grid, smem_bytes, s);
+  return static_cast<int>(err);
+}
+
+int fused_conv2_small_launch(const void* x, const void* wk, const void* corr,
+                             const void* alpha, const void* g, const void* out,
+                             const void* code, const void* gs, const void* gq,
+                             void* dcorr, void* dalpha_partials, int bsz,
+                             int cin, int cout, int h, int w, int is_bf16,
+                             int blocks, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* wf = static_cast<const float*>(wk);
   const float* cf = static_cast<const float*>(corr);
   const float* af = static_cast<const float*>(alpha);
   const unsigned char* cd = static_cast<const unsigned char*>(code);
   const float* gsf = static_cast<const float*>(gs);
   const float* gqf = static_cast<const float*>(gq);
-  float* dwp = static_cast<float*>(dw_partials);
   float* dc = static_cast<float*>(dcorr);
   float* dap = static_cast<float*>(dalpha_partials);
-  if (is_bf16) {
-    err = launch_dw_small<__nv_bfloat16>(x, wf, cf, af, g, out, cd, gsf, gqf,
-                                         dwp, dc, dap, bsz, cin, cout, h, w,
-                                         grid, dw_threads, dw_smem_bytes,
-                                         small_blocks, s);
-  } else {
-    err = launch_dw_small<float>(x, wf, cf, af, g, out, cd, gsf, gqf, dwp, dc,
-                                 dap, bsz, cin, cout, h, w, grid, dw_threads,
-                                 dw_smem_bytes, small_blocks, s);
-  }
+  err = is_bf16 ? launch_small<__nv_bfloat16>(x, wf, cf, af, g, out, cd, gsf, gqf,
+                                              dc, dap, bsz, cin, cout, h, w, blocks, s)
+                : launch_small<float>(x, wf, cf, af, g, out, cd, gsf, gqf, dc, dap,
+                                      bsz, cin, cout, h, w, blocks, s);
   return static_cast<int>(err);
 }
 

@@ -1,21 +1,27 @@
 """Launchers of the fused conv 3x3 + PReLU + max-pool CUDA kernels
 (``csrc/fused_conv2.cu``).
 
-``forward`` launches one kernel.  ``backward`` launches three (``dx``: the
-transposed convolution; ``dw``: split over ``B * H * W``; a small one for
-``dcorr`` and ``dalpha``) and finishes the cross-block sums with one
-``torch.sum`` each over per-block partials (fixed order: results are
-bit-for-bit reproducible).  Both check device, type, shape and contiguity,
+``forward`` launches one kernel (FMA pipe, a two-stage ``cp.async`` ring).
+``backward`` launches three: ``dx`` (the transposed convolution) and ``dw``
+(split over ``B * H * W``), both implicit GEMMs on the tensor cores with
+split-TF32 products, and a small one for ``dcorr`` and ``dalpha``; it
+finishes the cross-block sums with one ``torch.sum`` each over per-block
+partials (fixed order: results are bit-for-bit reproducible).
+``backward_dx``, ``backward_dw`` and ``backward_small`` launch one kernel
+each on arguments ``backward`` has checked (the timing in ``chip_smoke.py``
+calls them apart).  The launchers check device, type, shape and contiguity,
 allocate outputs and scratch with ``torch.empty`` / ``torch.zeros``, run on
 the current stream and do not synchronise.  ``CONV2_FWD_LAUNCHES`` counts
-forward kernel launches; ``CONV2_BWD_LAUNCHES`` grows by one per ``backward``
-call (its two or three kernels together).  The public functions and the
-plain PyTorch versions live in ``ops/fused_conv2.py``.
+forward kernel launches; ``CONV2_BWD_LAUNCHES`` grows by one per
+``backward`` call (its two or three kernels together).  The public functions
+and the plain PyTorch versions live in ``ops/fused_conv2.py``.
 
 The only tensor work outside the kernels is the re-arrangement of the
-``[9 * Cin, Cout]`` weights (a few hundred KB) into the two orders the
-kernels read: ``[Cin, 9, Cout]`` for the forward and, taps flipped,
-``[Cout, 9, Cin]`` for ``dx``.
+``[9 * Cin, Cout]`` weights (a few hundred KB) into the orders the kernels
+read, zero-padded to whole tiles so that every slab is one run of 16-byte
+copies: ``[channel tiles][Cin_pad][9][nt]`` for the forward, flipped
+``[Cin tiles][Cout_pad][9 * 64 + 8]`` for ``dx`` and ``[Cin, 9, Cout]`` for
+the small kernel.
 
 The library is compiled at first use (``cuda_build.compile_library``) and
 bound with ``ctypes``; nothing here touches the CUDA toolchain at import
@@ -29,6 +35,7 @@ import threading
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from .cuda_build import CSRC_DIR, compile_library
 from .fused_conv1_cuda import _require
@@ -40,18 +47,27 @@ CONV2_BWD_LAUNCHES = 0
 SOURCE = CSRC_DIR / "fused_conv2.cu"
 WHAT = "fused_conv2"
 
-TILE_WINDOWS = 32  # pool windows (lanes) per tile: kTileWindows in the source
-CHUNK = 8  # input channels staged at once: kChunk
+CHUNK = 8  # channels of K per ring stage: kChunk in the source
+STAGES = 2  # depth of every kernel's ring
+# forward
+TILE_WINDOWS = 32  # pool windows (lanes) per tile: kTileWindows
 PLANE = 4 * (2 * TILE_WINDOWS + 2)  # floats per staged channel: kPlane
-MAX_GROUPS = 8  # warps (channel groups) per block of the tile kernels
-DW_LANES = 32  # input channels per dw block: kDwLanes
-DW_CO = 8  # output channels per dw thread: kDwCo
-DW_MAX_GROUPS = 6  # warps per dw block
-DW_WINDOWS = 16  # pool windows per dw step (kDwCols / 2)
-DW_X_PLANE = 137  # kDwXPlane
-# dw blocks over the whole grid: two per SM of a 132-SM card.  Each writes a
-# [9, 32, <=48] tile of partials, so the buffer stays at a few MB
-DW_TARGET_BLOCKS = 264
+MAX_GROUPS = 8  # warps (channel groups) per forward block
+# dx: 8 x 32 pixels by 64 input channels a block, 8 warps
+DX_ROWS, DX_COLS, DX_CI = 8, 32, 64
+DX_PLANE = 440  # kDxPlane: a 12 x 36 ring of d around the 10 x 34 halo, padded
+DX_W_ROW = 9 * DX_CI + 8  # kDxWRow: one output channel's flipped taps, padded
+DX_THREADS = 256
+# dw: (9 taps x 32 input channels) by 96 output channels a block, 12 warps
+DW_CI, DW_CO = 32, 96
+DW_WINDOWS = 16  # pool windows per step (64 pixels of K)
+DW_X_PLANE = 140  # kDwXPlane
+DW_D_ROW = 4 * DW_WINDOWS + 4  # kDwDRow
+DW_THREADS = 12 * 32
+# dw blocks over the whole grid: one per SM of a 132-SM card (one fits an SM:
+# 384 threads, 140 KB of shared memory).  Each writes a [9, 32, 96] tile of
+# partials, so the buffer stays at a few MB
+DW_TARGET_BLOCKS = 132
 SMALL_THREADS = 256
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -68,12 +84,12 @@ def build() -> str:
         lib_path, report = compile_library(SOURCE)
         lib = ctypes.CDLL(str(lib_path))
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.fused_conv2_fwd_launch.argtypes = [vp] * 7 + [ci] * 11 + [vp]
-        lib.fused_conv2_fwd_launch.restype = ci
-        lib.fused_conv2_dx_launch.argtypes = [vp] * 8 + [ci] * 11 + [vp]
-        lib.fused_conv2_dx_launch.restype = ci
-        lib.fused_conv2_dw_small_launch.argtypes = [vp] * 12 + [ci] * 12 + [vp]
-        lib.fused_conv2_dw_small_launch.restype = ci
+        lib.fused_conv2_fwd_launch.argtypes = [vp] * 7 + [ci] * 12 + [vp]
+        lib.fused_conv2_dx_launch.argtypes = [vp] * 8 + [ci] * 10 + [vp]
+        lib.fused_conv2_dw_launch.argtypes = [vp] * 8 + [ci] * 10 + [vp]
+        lib.fused_conv2_small_launch.argtypes = [vp] * 11 + [ci] * 8 + [vp]
+        for fn in ("fwd", "dx", "dw", "small"):
+            getattr(lib, f"fused_conv2_{fn}_launch").restype = ci
         lib.fused_conv2_error_string.argtypes = [ci]
         lib.fused_conv2_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -93,54 +109,85 @@ def _check(err: int, what: str) -> None:
 
 
 class TilePlan(NamedTuple):
-    """How the forward or the ``dx`` kernel cuts its output."""
+    """How the forward kernel cuts its output."""
 
     nc: int  # channels a thread owns (8 or 12)
     threads: int  # 32 lanes (pool windows) * channel groups
     grid_x: int  # B * row pairs * column tiles
-    grid_y: int  # channel tiles
-    smem_bytes: int  # staged input tile + weight slab
+    grid_y: int  # channel tiles of nt = threads // 32 * nc
+    smem_bytes: int  # two stages of the x tile + weight slab
+
+
+class DxPlan(NamedTuple):
+    """How the ``dx`` kernel cuts ``dx``: 8 x 32 pixels by 64 channels a
+    block."""
+
+    threads: int
+    grid_x: int  # B * ceil(H / 8) * ceil(W / 32)
+    grid_y: int  # tiles of 64 input channels
+    cout_pad: int  # K channels rounded up to a whole chunk
+    smem_bytes: int  # two stages of the split d halo planes + weight slab
 
 
 class DwPlan(NamedTuple):
     """How the ``dw`` kernel cuts ``dw`` and the ``B * H * W`` sum."""
 
-    threads: int  # 32 lanes (input channels) * groups of 8 output channels
-    tiles: int  # grid x: tiles of dw
+    threads: int  # 12 warps: 3 tap rows x 4 quarters of 96 output channels
+    tiles: int  # grid x: tiles of 32 input by 96 output channels
     splits: int  # grid y: shares of the steps, one row of partials each
     steps: int  # B * H//2 * ceil(W//2 / 16)
-    smem_bytes: int
+    smem_bytes: int  # two stages of the x tile + split d tile, (gs, gq)
 
 
 def _ceil_div(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def tile_plan(b: int, rows: int, cols: int, n_out: int) -> TilePlan:
-    """Plan for ``rows`` x ``cols`` output pairs (pool windows in the
-    forward, 2x2 pixel blocks of ``dx`` in the backward) and ``n_out``
-    output channels."""
-    nc = min((12, 8), key=lambda c: (_ceil_div(n_out, c) * c, -c))
-    groups = min(MAX_GROUPS, _ceil_div(n_out, nc))
-    nt = groups * nc
-    grid_x = b * rows * _ceil_div(cols, TILE_WINDOWS)
-    if grid_x >= 2**31:
+def _geometry(b: int, h: int, w: int, *channels: int) -> None:
+    if min(b, h, w, *channels) < 1 or min(h, w) < 2:
         raise ValueError(
-            f"{WHAT}: B={b} with {rows} x {cols} output pairs needs {grid_x} "
-            "blocks, beyond one grid"
+            f"{WHAT}: geometry B={b}, H={h}, W={w}, channels {channels} is not "
+            "one the kernels take (needs B >= 1, H >= 2, W >= 2, channels >= 1)"
         )
-    return TilePlan(nc, 32 * groups, grid_x, _ceil_div(n_out, nt),
-                    4 * CHUNK * (PLANE + 9 * nt))
+
+
+def _grid(n: int, what: str) -> int:
+    if n >= 2**31:
+        raise ValueError(f"{WHAT}: {what} needs {n} blocks, beyond one grid")
+    return n
+
+
+def tile_plan(b: int, h: int, w: int, c_out: int) -> TilePlan:
+    """Forward plan for ``x [b, *, h, w]``: ``h // 2`` x ``w // 2`` pool
+    windows and ``c_out`` output channels."""
+    _geometry(b, h, w, c_out)
+    nc = min((12, 8), key=lambda c: (_ceil_div(c_out, c) * c, -c))
+    groups = min(MAX_GROUPS, _ceil_div(c_out, nc))
+    nt = groups * nc
+    grid_x = _grid(b * (h // 2) * _ceil_div(w // 2, TILE_WINDOWS),
+                   f"B={b} with {h // 2} x {w // 2} pool windows")
+    return TilePlan(nc, 32 * groups, grid_x, _ceil_div(c_out, nt),
+                    4 * STAGES * CHUNK * (PLANE + 9 * nt))
+
+
+def dx_plan(b: int, h: int, w: int, c_in: int, c_out: int) -> DxPlan:
+    _geometry(b, h, w, c_in, c_out)
+    grid_x = _grid(b * _ceil_div(h, DX_ROWS) * _ceil_div(w, DX_COLS),
+                   f"dx of B={b}, H={h}, W={w}")
+    return DxPlan(DX_THREADS, grid_x, _ceil_div(c_in, DX_CI),
+                  _ceil_div(c_out, CHUNK) * CHUNK,
+                  4 * STAGES * CHUNK * (2 * DX_PLANE + DX_W_ROW))
 
 
 def dw_plan(b: int, h: int, w: int, c_in: int, c_out: int) -> DwPlan:
-    groups = min(DW_MAX_GROUPS, _ceil_div(c_out, DW_CO))
-    nco = groups * DW_CO
-    tiles = _ceil_div(c_in, DW_LANES) * _ceil_div(c_out, nco)
+    _geometry(b, h, w, c_in, c_out)
+    tiles = _ceil_div(c_in, DW_CI) * _ceil_div(c_out, DW_CO)
     steps = b * (h // 2) * _ceil_div(w // 2, DW_WINDOWS)
     splits = max(1, min(steps, DW_TARGET_BLOCKS // tiles, 65535))
-    smem = 4 * (DW_LANES * DW_X_PLANE + 4 * DW_WINDOWS * (nco + 4))
-    return DwPlan(32 * groups, tiles, splits, steps, smem)
+    # d: big and small; then the block's moment cotangents
+    smem = 4 * (STAGES * (DW_CI * DW_X_PLANE + 2 * DW_CO * DW_D_ROW) + 2 * DW_CO)
+    return DwPlan(DW_THREADS, _grid(tiles, f"dw of Cin={c_in}, Cout={c_out}"), splits,
+                  steps, smem)
 
 
 def check_inputs(x, w, corr, alpha) -> Tuple[int, int, int, int, int]:
@@ -182,6 +229,25 @@ def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+def forward_weights(w: torch.Tensor, c_in: int, c_out: int, nt: int) -> torch.Tensor:
+    """``[9 * Cin, Cout]`` -> ``[Cout tiles][Cin_pad][9][nt]``, zero past
+    both ends: one chunk's slab is one contiguous run."""
+    tiles, cin_pad = _ceil_div(c_out, nt), _ceil_div(c_in, CHUNK) * CHUNK
+    wk = F.pad(w.view(9, c_in, c_out), (0, tiles * nt - c_out, 0, cin_pad - c_in))
+    return wk.view(9, cin_pad, tiles, nt).permute(2, 1, 0, 3).contiguous()
+
+
+def dx_weights(w: torch.Tensor, c_in: int, c_out: int, cout_pad: int) -> torch.Tensor:
+    """``[9 * Cin, Cout]`` -> flipped ``[Cin tiles][Cout_pad][9 * 64 + 8]``:
+    row ``co`` holds ``w`` at tap ``(2 - dh, 2 - dw)``, channels of the tile,
+    then 8 zeros (so the rows' stride is 8 banks)."""
+    tiles = _ceil_div(c_in, DX_CI)
+    wf = w.view(3, 3, c_in, c_out).flip(0, 1).reshape(9, c_in, c_out)
+    wf = F.pad(wf, (0, cout_pad - c_out, 0, tiles * DX_CI - c_in))
+    wf = wf.view(9, tiles, DX_CI, cout_pad).permute(1, 3, 0, 2)  # [t, co, 9, 64]
+    return F.pad(wf.reshape(tiles, cout_pad, 9 * DX_CI), (0, DX_W_ROW - 9 * DX_CI))
+
+
 def forward(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -201,10 +267,10 @@ def forward(
     """
     global CONV2_FWD_LAUNCHES
     b, c_in, c_out, h, win = check_inputs(x, w, corr, alpha)
-    h2, w2 = h // 2, win // 2
-    plan = tile_plan(b, h2, w2, c_out)
-    wk = w.view(9, c_in, c_out).permute(1, 0, 2).contiguous()
-    shape = (b, c_out, h2, w2)
+    plan = tile_plan(b, h, win, c_out)
+    nt = plan.threads // 32 * plan.nc
+    wk = forward_weights(w, c_in, c_out, nt)
+    shape = (b, c_out, h // 2, win // 2)
     out = torch.empty(shape, dtype=x.dtype, device=x.device)
     code = torch.empty(shape, dtype=torch.uint8, device=x.device) if want_code else None
     partials = (
@@ -217,7 +283,7 @@ def forward(
         out.data_ptr(),
         code.data_ptr() if want_code else None,
         partials.data_ptr() if want_stats else None,
-        c_in, c_out, h, win, int(x.dtype == torch.bfloat16), plan.nc,
+        c_in, wk.shape[1], c_out, h, win, int(x.dtype == torch.bfloat16), plan.nc,
         plan.grid_x, plan.grid_y, plan.threads, plan.smem_bytes,
         x.device.index, _stream(x),
     )
@@ -227,6 +293,61 @@ def forward(
         return out, code, None, None
     s, q = partials.sum(dim=0)
     return out, code, s, q
+
+
+def backward_dx(x, w, alpha, g, out, code, gs, gq) -> torch.Tensor:
+    """The ``dx`` kernel alone, on arguments ``backward`` has checked."""
+    b, c_in, h, win = x.shape
+    c_out = w.shape[1]
+    plan = dx_plan(b, h, win, c_in, c_out)
+    wdx = dx_weights(w, c_in, c_out, plan.cout_pad)
+    dx = torch.empty_like(x)
+    err = _lib().fused_conv2_dx_launch(
+        wdx.data_ptr(), alpha.data_ptr(), g.data_ptr(), out.data_ptr(),
+        code.data_ptr(), gs.data_ptr(), gq.data_ptr(), dx.data_ptr(),
+        c_in, c_out, plan.cout_pad, h, win, int(x.dtype == torch.bfloat16),
+        plan.grid_x, plan.grid_y, plan.smem_bytes, x.device.index, _stream(x),
+    )
+    _check(err, f"{WHAT} dx launch")
+    return dx
+
+
+def backward_dw(x, w, alpha, g, out, code, gs, gq) -> torch.Tensor:
+    """The ``dw`` kernel alone: ``[9 * Cin, Cout]`` float32."""
+    b, c_in, h, win = x.shape
+    c_out = w.shape[1]
+    plan = dw_plan(b, h, win, c_in, c_out)
+    partials = torch.empty(
+        (plan.splits, 9 * c_in, c_out), dtype=torch.float32, device=x.device
+    )
+    err = _lib().fused_conv2_dw_launch(
+        x.data_ptr(), alpha.data_ptr(), g.data_ptr(), out.data_ptr(), code.data_ptr(),
+        gs.data_ptr(), gq.data_ptr(), partials.data_ptr(), b, c_in, c_out, h, win,
+        int(x.dtype == torch.bfloat16), plan.tiles, plan.splits, plan.smem_bytes,
+        x.device.index, _stream(x),
+    )
+    _check(err, f"{WHAT} dw launch")
+    return partials.sum(dim=0)
+
+
+def backward_small(x, w, corr, alpha, g, out, code, gs, gq):
+    """The ``dcorr`` / ``dalpha`` kernel alone: ``(dcorr [Cout, H, W],
+    dalpha [1])`` float32."""
+    b, c_in, h, win = x.shape
+    c_out = w.shape[1]
+    wk = w.view(9, c_in, c_out).permute(1, 0, 2).contiguous()  # [Cin, 9, Cout]
+    # rows and columns past the pooled region keep their zeros
+    dcorr = torch.zeros((c_out, h, win), dtype=torch.float32, device=x.device)
+    blocks = _ceil_div(c_out * (h // 2) * (win // 2), SMALL_THREADS)
+    da_partials = torch.empty((blocks,), dtype=torch.float32, device=x.device)
+    err = _lib().fused_conv2_small_launch(
+        x.data_ptr(), wk.data_ptr(), corr.data_ptr(), alpha.data_ptr(),
+        g.data_ptr(), out.data_ptr(), code.data_ptr(), gs.data_ptr(), gq.data_ptr(),
+        dcorr.data_ptr(), da_partials.data_ptr(), b, c_in, c_out, h, win,
+        int(x.dtype == torch.bfloat16), blocks, x.device.index, _stream(x),
+    )
+    _check(err, f"{WHAT} dcorr / dalpha launch")
+    return dcorr, da_partials.sum().reshape(1)
 
 
 def backward(
@@ -255,44 +376,13 @@ def backward(
     for name, t in (("gs", gs), ("gq", gq)):
         if t is not None:
             _require(t, name, torch.float32, (c_out,), x.device, WHAT)
-    gs_ptr = gs.data_ptr() if gs is not None else None
-    gq_ptr = gq.data_ptr() if gq is not None else None
-    is_bf16 = int(x.dtype == torch.bfloat16)
-    lib = _lib()
-
-    dx = None
-    if need_dx:
-        plan = tile_plan(b, (h + 1) // 2, (win + 1) // 2, c_in)
-        w_flipped = (
-            w.view(3, 3, c_in, c_out).flip(0, 1).permute(3, 0, 1, 2).contiguous()
-        )  # [Cout, 9 (flipped taps), Cin]
-        dx = torch.empty_like(x)
-        err = lib.fused_conv2_dx_launch(
-            w_flipped.data_ptr(), alpha.data_ptr(), g.data_ptr(), out.data_ptr(),
-            code.data_ptr(), gs_ptr, gq_ptr, dx.data_ptr(),
-            c_in, c_out, h, win, is_bf16, plan.nc,
-            plan.grid_x, plan.grid_y, plan.threads, plan.smem_bytes,
-            x.device.index, _stream(x),
-        )
-        _check(err, f"{WHAT} dx launch")
-
-    plan = dw_plan(b, h, win, c_in, c_out)
-    wk = w.view(9, c_in, c_out).permute(1, 0, 2).contiguous()
-    dw_partials = torch.empty(
-        (plan.splits, 9 * c_in, c_out), dtype=torch.float32, device=x.device
-    )
-    # rows and columns past the pooled region keep their zeros
-    dcorr = torch.zeros((c_out, h, win), dtype=torch.float32, device=x.device)
-    small_blocks = _ceil_div(c_out * (h // 2) * (win // 2), SMALL_THREADS)
-    da_partials = torch.empty((small_blocks,), dtype=torch.float32, device=x.device)
-    err = lib.fused_conv2_dw_small_launch(
-        x.data_ptr(), wk.data_ptr(), corr.data_ptr(), alpha.data_ptr(),
-        g.data_ptr(), out.data_ptr(), code.data_ptr(), gs_ptr, gq_ptr,
-        dw_partials.data_ptr(), dcorr.data_ptr(), da_partials.data_ptr(),
-        b, c_in, c_out, h, win, is_bf16,
-        plan.tiles, plan.splits, plan.threads, plan.smem_bytes, small_blocks,
-        x.device.index, _stream(x),
-    )
-    _check(err, f"{WHAT} dw / dcorr / dalpha launch")
+    # the kernels read the moments' cotangents unconditionally: zeros when
+    # the forward returned no moments
+    zeros = None if gs is not None and gq is not None else torch.zeros(
+        (c_out,), dtype=torch.float32, device=x.device)
+    args = (alpha, g, out, code, zeros if gs is None else gs, zeros if gq is None else gq)
+    dx = backward_dx(x, w, *args) if need_dx else None
+    dw = backward_dw(x, w, *args)
+    dcorr, da = backward_small(x, w, corr, *args)
     CONV2_BWD_LAUNCHES += 1
-    return dx, dw_partials.sum(dim=0), dcorr, da_partials.sum().reshape(1)
+    return dx, dw, dcorr, da

@@ -61,16 +61,20 @@ Phases, in order; any failure propagates and the script exits non-zero
     the DCNN's shapes (B=128: [96, 48, 129] and [64, 24, 64] for the pool,
     64 -> 96 channels at 48x129 for the conv; fp32 and bf16), odd heights
     and widths, a negative and a zero slope and a case full of ties; two
-    runs compared bit for bit;
+    runs compared bit for bit; the conv's fp32 forward at its headline shape
+    must read 0.0 against plain (cuDNN's summation order), and the
+    tensor-core (HMMA) instructions of its dx / dw kernels are counted in
+    the built library (``cuobjdump -sass``: > 0; the forward's: 0);
 15. train with the fused mid blocks: the corpus through ``run_experiment``
     on ``cuda`` with (a) ``fused_layer1`` + ``fused_pool`` and (b) those +
     ``fused_layer2`` (2 epochs with validation, test and snapshot, dropout
     0), the kernels' launch counts read over exactly each run, each run
     against phase 7's unfused one loss by loss; the snapshot of (b) served
     over HTTP and its score held against the trainer's own;
-16. time: the mid-block kernels alone vs plain, the train step at batch 128
-    unfused, with ``fused_layer1`` only, (a) and (b), the eval step; a
-    profile of step (b);
+16. time: the mid-block kernels alone vs plain (kernel 6's backward also
+    as its dx, dw and dcorr / dalpha kernels apart), the train step at
+    batch 128 unfused, with ``fused_layer1`` only, (a) and (b), the eval
+    step; a profile of step (b);
 17. fused attention vs plain: forward and ``dqkv`` of both kernel-4 routes
     (resident, streaming) against the plain PyTorch version at the AST's
     shape (B=32, N=227, 12 heads of 64; fp32 and bf16) and at N = 1, 18, 99
@@ -201,6 +205,7 @@ AST_LOSS_RTOL = 5e-3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12  # dense tensor-core rate, H100 SXM data sheet
+TF32_FLOP_PER_S = 495e12  # the same, TF32
 BATCH = 128
 STEPS_PER_EPOCH = 3
 EPOCHS = 2
@@ -1151,15 +1156,18 @@ def conv2_bounds(b, c_in, c_out, h, w, itemsize=4):
     for each of the 4 * n_out conv values.  Backward: x, g, out, code and the
     weights read, dx, dw and dcorr written; the conv-output cotangent is zero
     at three of a window's four positions, so dx and dw need 2 * 9 * Cin
-    flops per pooled element each (the kernels run the dense products: four
-    times that)."""
+    flops per pooled element each.  Third: the backward's dense route, the
+    ms of the two dense products the kernels run (each 2 * B*H*W * 9 * Cin *
+    Cout flops) as split TF32, three tensor-core products each, at 495
+    TFLOP/s: beside the bound, not in its place."""
     n_out = b * c_out * (h // 2) * (w // 2)
     n_x = b * c_in * h * w
     small = 4 * (9 * c_in * c_out + c_out * h * w)
     fwd = bound_ms(itemsize * n_x + small + n_out * (itemsize + 1), 4 * n_out * 18 * c_in)
     bwd = bound_ms(2 * itemsize * n_x + n_out * (2 * itemsize + 1) + 2 * small,
                    2 * n_out * 18 * c_in)
-    return fwd, bwd
+    dense_3xtf32_ms = 3 * 2 * (2 * b * h * w * 9 * c_in * c_out) / TF32_FLOP_PER_S * 1e3
+    return fwd, bwd, dense_3xtf32_ms
 
 
 def _maker(seed):
@@ -1282,6 +1290,11 @@ def mid_vs_plain(fp, f2):
                         or tied[..., ::2, ::2].all() == ("zero-slope" in key)):
                     raise AssertionError(f"fused {block} at {key}: a tie left position (0, 0)")
             del runs, grads, pgrads, y, py, args, cot
+    # kernel 6's forward keeps cuDNN's summation order: bit-equal to plain
+    fwd_err = out[f"conv2-{conv2}-float32"]["fwd_max_abs_err"]
+    log(f"  kernel 6 forward at {conv2}, float32, against plain: max|err| {fwd_err!r}")
+    if fwd_err != 0.0:
+        raise AssertionError(f"kernel 6 forward left the plain summation order: {fwd_err}")
     return out
 
 
@@ -1370,21 +1383,30 @@ def mid_timing(fp, pool_cuda, f2, conv2_cuda, norm, card_line: str):
         "plain": lambda: f2.plain_conv2_prelu_pool_stats(x, w, corr, alpha),
         "kernel": lambda: conv2_cuda.forward(*raw, True, True),
     }, reps=5)
+    # the backward's three kernels apart, on the arguments backward checks
+    parts = (raw[0], raw[1], raw[3], cot[0], y, code, cot[1], cot[2])
     bwd = median_ms({
         "plain": lambda: torch.autograd.grad(graph, (x, w, corr, alpha), cot, retain_graph=True),
         "kernel": lambda: conv2_cuda.backward(*raw, cot[0], y, code, cot[1], cot[2]),
         "kernel_without_dx": lambda: conv2_cuda.backward(
             *raw, cot[0], y, code, cot[1], cot[2], need_dx=False),
+        "dx": lambda: conv2_cuda.backward_dx(*parts),
+        "dw": lambda: conv2_cuda.backward_dw(*parts),
+        "small": lambda: conv2_cuda.backward_small(*parts[:2], raw[2], *parts[2:]),
     }, reps=5)
     out["conv2"] = {"fwd_kernel_ms": fwd["kernel"], "fwd_plain_ms": fwd["plain"],
                     "bwd_kernel_ms": bwd["kernel"], "bwd_plain_ms": bwd["plain"],
-                    "bwd_kernel_without_dx_ms": bwd["kernel_without_dx"]}
-    del graph, y, code, x, raw
+                    "bwd_kernel_without_dx_ms": bwd["kernel_without_dx"],
+                    "bwd_dx_ms": bwd["dx"], "bwd_dw_ms": bwd["dw"],
+                    "bwd_small_ms": bwd["small"]}
+    del graph, y, code, x, raw, parts
+    c2 = out["conv2"]
     log(f"  B={BATCH} [{card_line}]: " + "; ".join(
         f"{k} fwd kernel {v['fwd_kernel_ms']:.4f} ms, plain {v['fwd_plain_ms']:.4f} ms, bwd "
         f"kernel {v['bwd_kernel_ms']:.4f} ms, plain {v['bwd_plain_ms']:.4f} ms"
-        for k, v in out.items()) + "; conv2 bwd without dx "
-        f"{out['conv2']['bwd_kernel_without_dx_ms']:.4f} ms")
+        for k, v in out.items()) + f"; conv2 bwd without dx {c2['bwd_kernel_without_dx_ms']:.4f}"
+        f" ms, dx {c2['bwd_dx_ms']:.4f}, dw {c2['bwd_dw_ms']:.4f}, small "
+        f"{c2['bwd_small_ms']:.4f} ms")
 
     variants = {"unfused": (False, {}), "layer1": (True, {}),
                 "a_layer1_pool": (True, dict(fused_pool=True)),
@@ -1486,15 +1508,14 @@ def mha_vs_plain(fa, fa_cuda):
     return out
 
 
-def mma_count(fa_cuda) -> dict:
-    """Phase 17, last: tensor-core instructions (HMMA) in each resident
-    kernel of the built library, from ``cuobjdump -sass``.  The bf16 kernels
-    must have them, the fp32 ones (parity mode, the FMA pipe) none."""
+def hmma_per_kernel(lib) -> dict:
+    """Tensor-core instructions (HMMA) in each kernel of a built library,
+    from ``cuobjdump -sass``: ``{mangled name: count}``."""
     import re
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([tool, "-sass", fa_cuda._LIB._name], check=True,
+    sass = subprocess.run([tool, "-sass", lib._name], check=True,
                           capture_output=True, text=True).stdout
     counts, name = {}, None
     for line in sass.splitlines():
@@ -1504,8 +1525,38 @@ def mma_count(fa_cuda) -> dict:
             counts[name] = 0
         elif name is not None and "HMMA" in line:
             counts[name] += 1
+    return counts
+
+
+def conv2_mma_count(conv2_cuda) -> dict:
+    """Phase 14, last: HMMA instructions in kernel 6.  The dx and dw kernels
+    (split TF32 on the tensor cores) must have them in both types, the
+    forward (the FMA pipe, in cuDNN's summation order) none."""
+    import re
+
+    found = {}
+    for mangled, n_mma in hmma_per_kernel(conv2_cuda._LIB).items():
+        kind = re.search(r"fused_conv2_(fwd|dx|dw|small)_kernel", mangled)
+        if kind:
+            dtype = "bfloat16" if "bfloat16" in mangled else "float32"
+            nc = re.search(r"Li(\d+)E", mangled)  # the forward's channels a thread
+            found[f"{kind.group(1)}-{dtype}" + (f"-nc{nc.group(1)}" if nc else "")] = n_mma
+    log(f"  HMMA instructions per kernel-6 kernel: {found}")
+    gemms = {k: v for k, v in found.items() if k.startswith(("dx-", "dw-"))}
+    fwd = {k: v for k, v in found.items() if k.startswith("fwd-")}
+    if len(gemms) != 4 or min(gemms.values()) <= 0 or len(fwd) != 4 or any(fwd.values()):
+        raise AssertionError(f"kernel 6 tensor-core instructions: {found}")
+    return found
+
+
+def mma_count(fa_cuda) -> dict:
+    """Phase 17, last: tensor-core instructions (HMMA) in each resident
+    kernel of the built library.  The bf16 kernels must have them, the fp32
+    ones (parity mode, the FMA pipe) none."""
+    import re
+
     resident = {}
-    for mangled, n_mma in counts.items():
+    for mangled, n_mma in hmma_per_kernel(fa_cuda._LIB).items():
         kind = re.search(r"flash_mha_resident_(fwd|dq|dkv)_kernel", mangled)
         if kind:
             dtype = "bfloat16" if "bfloat16" in mangled else "float32"
@@ -1820,6 +1871,7 @@ def train_long(wpt, wpt_cuda, fa_cuda, root: str, data: str, card_line: str):
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; needs a CUDA device")
     from audiodeepfake_detection_tpu_torch.ops import (
@@ -1885,6 +1937,7 @@ def main() -> None:
         del lcnn_step
         log("[14 fused mid blocks vs plain]")
         mid_errs = mid_vs_plain(fused_pool, fused_conv2)
+        mid_mma = conv2_mma_count(fused_conv2_cuda)
         log("[15 train with the fused mid blocks]")
         mid = train_mid(wpt_cuda, fused_conv1_cuda, fused_pool_cuda, fused_conv2_cuda,
                         root, data, trained["unfused_losses"])
@@ -1928,7 +1981,7 @@ def main() -> None:
     conv2_key = "conv2-B{}-Cin{}-Cout{}-H{}-W{}-float32".format(*CONV2_SHAPE)
     (pfwd_b, pfwd_by), (pbwd_b, pbwd_by) = pool_bounds(
         *POOL2_SHAPE, mid_times["pool2"]["n_negative"])
-    (cfwd_b, cfwd_by), (cbwd_b, cbwd_by) = conv2_bounds(*CONV2_SHAPE)
+    (cfwd_b, cfwd_by), (cbwd_b, cbwd_by), cbwd_dense = conv2_bounds(*CONV2_SHAPE)
     mid_launches = {k: mid["a"]["launches"][k] + mid["b"]["launches"][k]
                     for k in ("pool_fwd", "pool_bwd", "conv2_fwd", "conv2_bwd")}
     mha_src = "audiodeepfake_detection_tpu_torch/csrc/flash_mha.cu"
@@ -2007,6 +2060,7 @@ def main() -> None:
         },
         {
             "name": "fused_conv2_fwd", "route": "cuda", "source": conv2_src,
+            "design": "FMA pipe in cuDNN's summation order, two-stage cp.async ring",
             "replaces": "audiodeepfake_detection_tpu/ops/fused_conv2.py:323",
             "launches": mid_launches["conv2_fwd"],
             "max_abs_err": mid_errs[conv2_key]["fwd_max_abs_err"],
@@ -2018,12 +2072,18 @@ def main() -> None:
             # one launch counted per backward call: its dx, dw and dcorr /
             # dalpha kernels together
             "name": "fused_conv2_bwd", "route": "cuda", "source": conv2_src,
+            "design": "dx, dw: mma.sync m16n8k8 split-TF32 (3 products), two-stage "
+                      "ring; dcorr / dalpha: FMA",
             "replaces": "audiodeepfake_detection_tpu/ops/fused_conv2.py:383",
             "launches": mid_launches["conv2_bwd"],
             "max_abs_err": mid_errs[conv2_key]["dw_max_abs_err"],
             "ms": mid_times["conv2"]["bwd_kernel_ms"],
             "plain_ms": mid_times["conv2"]["bwd_plain_ms"],
             "bound_ms": cbwd_b, "bound_by": cbwd_by, "library_ms": None,
+            "dense_3xtf32_ms": cbwd_dense, "dx_ms": mid_times["conv2"]["bwd_dx_ms"],
+            "dw_ms": mid_times["conv2"]["bwd_dw_ms"],
+            "small_ms": mid_times["conv2"]["bwd_small_ms"],
+            "hmma": {k: v for k, v in mid_mma.items() if k.startswith(("dx-", "dw-"))},
         },
         {
             # the resident route, the one the AST's N = 227 takes
@@ -2076,13 +2136,14 @@ def main() -> None:
     trained.pop("norm")
     lcnn.pop("norm")
     ast_run.pop("norm")
+    wall_s = time.perf_counter() - t_start
     print(json.dumps({
-        "card": card_line, "build_s": build_s, "max_abs_err": errs,
+        "card": card_line, "wall_s": wall_s, "build_s": build_s, "max_abs_err": errs,
         "serve": served, "timing": times, "fused_vs_plain": fused_errs,
         "train": trained, "train_timing": train_times, "profile": prof,
         "mfm_vs_plain": mfm_errs, "lcnn_train": lcnn, "lcnn_serve": lcnn_served,
         "lcnn_timing": lcnn_times, "lcnn_profile": lcnn_prof,
-        "mid_vs_plain": mid_errs, "mid_train": mid, "mid_timing": mid_times,
+        "mid_vs_plain": mid_errs, "mid_hmma": mid_mma, "mid_train": mid, "mid_timing": mid_times,
         "mid_profile": mid_prof, "mha_vs_plain": mha_errs, "mha_hmma": mma,
         "ast_train": ast_run, "ast_timing": ast_times, "ast_profile": ast_prof,
         "long_frames": long_run,

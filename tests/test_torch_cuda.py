@@ -478,10 +478,26 @@ def _conv2_inputs(b, c_in, c_out, h, w, dtype, device, alpha=0.25, seed=0):
 @pytest.mark.parametrize(
     "c_in,c_out,h,w,alpha",
     [(64, 96, 48, 129, 0.25), (3, 5, 7, 9, -0.3), (8, 12, 25, 33, 0.25), (8, 160, 4, 70, -0.3),
-     (40, 12, 51, 8, 0.0), (2, 4, 2, 2, 0.25)])
+     (40, 12, 51, 8, 0.0), (2, 4, 2, 2, 0.25),
+     # neither width a multiple of the tensor-core tiles (16 rows, 8 columns, 64
+     # channels a dx block, 32 and 96 a dw block)
+     (72, 100, 48, 129, 0.25)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_conv2_matches_plain(card, c_in, c_out, h, w, alpha, dtype):
-    args, cot = _conv2_inputs(2, c_in, c_out, h, w, dtype, card, alpha=alpha)
+    _conv2_matches_plain(card, 2, c_in, c_out, h, w, alpha, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_conv2_matches_plain_with_dw_split_over_blocks(card, dtype):
+    """The headline widths at B=8: dw's B * H * W sum runs in many blocks,
+    each over several steps, and one torch.sum finishes it."""
+    plan = fused_conv2_cuda.dw_plan(8, 48, 129, 64, 96)
+    assert 1 < plan.splits < plan.steps
+    _conv2_matches_plain(card, 8, 64, 96, 48, 129, 0.25, dtype)
+
+
+def _conv2_matches_plain(card, b, c_in, c_out, h, w, alpha, dtype):
+    args, cot = _conv2_inputs(b, c_in, c_out, h, w, dtype, card, alpha=alpha)
     before = (fused_conv2_cuda.CONV2_FWD_LAUNCHES, fused_conv2_cuda.CONV2_BWD_LAUNCHES)
     out, s, q = fused_conv2.fused_conv2_prelu_pool_stats(*args)
     grads = torch.autograd.grad([out, s, q], args, cot)

@@ -263,29 +263,142 @@ def test_ties_and_zero_slope_match_the_jax_kernel_and_first_match(alpha):
 @pytest.mark.parametrize(
     "b,h,w,c_in,c_out,fwd,dx,dw",
     [
-        # the headline geometry: 12 channels a thread forward, 8 for dx
-        (128, 48, 129, 64, 96, (12, 256, 128 * 24 * 2, 1), (8, 256, 128 * 24 * 3, 1),
-         (192, 4, 66)),
-        # narrow widths: one warp each; dw takes all 3 steps' worth of splits
-        (2, 7, 9, 3, 5, (8, 32, 2 * 3 * 1, 1), (8, 32, 2 * 4 * 1, 1), (32, 1, 6)),
-        # wide Cout: two channel tiles of 96
-        (1, 4, 70, 8, 160, (8, 256, 1 * 2 * 2, 3), (8, 32, 1 * 2 * 2, 1), (192, 4, 6)),
+        # the headline geometry: 12 channels a thread forward; dx in 8 x 32
+        # pixel tiles; dw one block per SM (2 tiles x 66 splits)
+        (128, 48, 129, 64, 96, (12, 256, 128 * 24 * 2, 1), (256, 128 * 6 * 5, 1, 96),
+         (384, 2, 66)),
+        # narrow widths: one warp forward; dw takes all 6 steps as splits
+        (2, 7, 9, 3, 5, (8, 32, 2 * 3 * 1, 1), (256, 2 * 1 * 1, 1, 8), (384, 1, 6)),
+        # wide Cout: three forward channel tiles of 64, two dw tiles of 96
+        (1, 4, 70, 8, 160, (8, 256, 1 * 2 * 2, 3), (256, 1 * 1 * 3, 1, 160), (384, 2, 6)),
     ],
 )
 def test_launch_plans_cover_the_outputs(b, h, w, c_in, c_out, fwd, dx, dw):
     """The tilings the CUDA kernels are given (computed on the host)."""
-    plan = fused_conv2_cuda.tile_plan(b, h // 2, w // 2, c_out)
+    plan = fused_conv2_cuda.tile_plan(b, h, w, c_out)
     assert plan[:4] == fwd
     assert plan.grid_y * (plan.threads // 32) * plan.nc >= c_out
-    plan_dx = fused_conv2_cuda.tile_plan(b, (h + 1) // 2, (w + 1) // 2, c_in)
+    plan_dx = fused_conv2_cuda.dx_plan(b, h, w, c_in, c_out)
     assert plan_dx[:4] == dx
+    assert plan_dx.grid_x == b * -(-h // 8) * -(-w // 32) and plan_dx.grid_y * 64 >= c_in
+    assert plan_dx.cout_pad % 8 == 0 and plan_dx.cout_pad >= c_out
     plan_dw = fused_conv2_cuda.dw_plan(b, h, w, c_in, c_out)
     assert (plan_dw.threads, plan_dw.tiles, plan_dw.splits) == dw
+    assert plan_dw.tiles == -(-c_in // 32) * -(-c_out // 96)
     assert plan_dw.splits <= plan_dw.steps == b * (h // 2) * -(-(w // 2) // 16)
-    # no opt-in to large shared memory
-    assert max(plan.smem_bytes, plan_dx.smem_bytes, plan_dw.smem_bytes) <= 48 * 1024
+    # above 48 KB the kernels opt in (cudaFuncSetAttribute) up to the H100's 227 KB
+    smem = (plan.smem_bytes, plan_dx.smem_bytes, plan_dw.smem_bytes)
+    assert max(smem) <= 227 * 1024
+    assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in fused_conv2_cuda.SOURCE.read_text()
     # the dw partials stay at a few MB
     assert plan_dw.splits * 9 * c_in * c_out * 4 <= 16 * 2**20
+
+
+@pytest.mark.parametrize("plan", ["tile", "dx", "dw"])
+@pytest.mark.parametrize("h,w", [(1, 10), (8, 1), (0, 0)])
+def test_plans_refuse_geometries_the_kernels_do_not_take(plan, h, w):
+    """No silent fallback: a plan raises, with the numbers, for a geometry
+    that leaves no pooled output."""
+    fn = {"tile": lambda: fused_conv2_cuda.tile_plan(2, h, w, 5),
+          "dx": lambda: fused_conv2_cuda.dx_plan(2, h, w, 3, 5),
+          "dw": lambda: fused_conv2_cuda.dw_plan(2, h, w, 3, 5)}[plan]
+    with pytest.raises(ValueError, match=f"B=2, H={h}, W={w}"):
+        fn()
+
+
+@pytest.mark.parametrize("c_in,c_out,nt", [(64, 96, 96), (3, 5, 8), (70, 100, 96)])
+def test_host_weight_layouts_hold_each_weight_where_the_kernels_read_it(c_in, c_out, nt):
+    """The forward's ``[Cout tiles][Cin_pad][9][nt]`` and the flipped
+    ``[Cin tiles][Cout_pad][9 * 64 + 8]`` of ``dx``: every entry of ``w``
+    once at its place, zeros in the padding."""
+    w = torch.from_numpy(np.random.RandomState(4).randn(9 * c_in, c_out).astype(np.float32))
+    w9 = w.view(9, c_in, c_out)
+    wk = fused_conv2_cuda.forward_weights(w, c_in, c_out, nt)
+    tiles, cin_pad = -(-c_out // nt), -(-c_in // 8) * 8
+    assert wk.shape == (tiles, cin_pad, 9, nt) and wk.is_contiguous()
+    full = wk.permute(1, 2, 0, 3).reshape(cin_pad, 9, tiles * nt)
+    assert torch.equal(full[:c_in, :, :c_out], w9.permute(1, 0, 2))
+    assert not full[c_in:].any() and not full[:, :, c_out:].any()
+    cout_pad = -(-c_out // 8) * 8
+    wdx = fused_conv2_cuda.dx_weights(w, c_in, c_out, cout_pad)
+    ci_tiles = -(-c_in // 64)
+    assert wdx.shape == (ci_tiles, cout_pad, 9 * 64 + 8) and wdx.is_contiguous()
+    assert not wdx[..., 9 * 64:].any()
+    taps = wdx[..., : 9 * 64].reshape(ci_tiles, cout_pad, 9, 64)
+    taps = taps.permute(1, 2, 0, 3).reshape(cout_pad, 9, ci_tiles * 64)
+    flipped = w9.flip(0)  # tap (dh, dw) -> (2 - dh, 2 - dw): the flat tap order reversed
+    assert torch.equal(taps[:c_out, :, :c_in], flipped.permute(2, 0, 1))
+    assert not taps[c_out:].any() and not taps[:, :, c_in:].any()
+
+
+def _tf32(a):
+    """Round float32 to TF32 (10 explicit mantissa bits) to nearest, ties
+    away from zero, as ``cvt.rna.tf32.f32`` does: add half of the dropped
+    13 bits to the magnitude (the int32 view is sign-magnitude), then clear
+    them."""
+    bits = np.ascontiguousarray(a, np.float32).view(np.int32)
+    return ((bits + np.int32(0x1000)) & np.int32(-0x2000)).view(np.float32)
+
+
+def _split(a):
+    big = _tf32(a)
+    return big, _tf32(np.asarray(a, np.float32) - big)
+
+
+def test_split_tf32_backward_is_fp32_accurate_and_one_pass_is_not():
+    """The arithmetic of the ``dx`` / ``dw`` kernels: each operand split into
+    TF32 big + small parts, ``small * big + big * small + big * big`` summed
+    in float32, lies within 1e-5 of the largest entry of a float64
+    reference; one TF32 pass (``big * big``) is 100x worse.  The GEMM
+    formulations (``dx``: im2col of the padded cotangent with flipped taps
+    against ``w``; ``dw``: im2col(x)^T . d, rows (tap, ci)) are first held to
+    torch's float64 convolution gradients, and the conv-output cotangent is
+    built from a seeded selection code, as the kernels rebuild it."""
+    b, c_in, c_out, h, w = 2, 64, 96, 8, 10
+    rng = np.random.RandomState(5)
+    x = rng.randn(b, h, w, c_in).astype(np.float32)
+    wt = (rng.randn(9 * c_in, c_out) * 0.05).astype(np.float32)
+    code = rng.randint(0, 8, (b, h // 2, w // 2, c_out))  # phase | negative << 2
+    g = rng.randn(b, h // 2, w // 2, c_out).astype(np.float32)
+    sel = np.where(code >= 4, np.float32(0.25) * g, g)
+    d = np.zeros((b, h, w, c_out), np.float32)
+    for ph in range(4):
+        d[:, ph >> 1 :: 2, ph & 1 :: 2] = np.where((code & 3) == ph, sel, 0.0)
+    dp, xp = (np.pad(t, ((0, 0), (1, 1), (1, 1), (0, 0))) for t in (d, x))
+    taps = [(dh, dw) for dh in range(3) for dw in range(3)]
+    gemms = {
+        "dx": (np.concatenate([dp[:, 2 - dh : 2 - dh + h, 2 - dw : 2 - dw + w] for dh, dw in taps],
+                              -1).reshape(-1, 9 * c_out),
+               np.concatenate([wt[(3 * dh + dw) * c_in : (3 * dh + dw + 1) * c_in].T
+                               for dh, dw in taps])),
+        "dw": (np.concatenate([xp[:, dh : dh + h, dw : dw + w] for dh, dw in taps],
+                              -1).reshape(-1, 9 * c_in).T.copy(),
+               d.reshape(-1, c_out)),
+    }
+    # the formulations are the block's gradients
+    weight = torch.from_numpy(wt).double().reshape(3, 3, c_in, c_out).permute(3, 2, 0, 1)
+    d_t = torch.from_numpy(d).double().permute(0, 3, 1, 2)
+    x_t = torch.from_numpy(x).double().permute(0, 3, 1, 2)
+    want = {
+        "dx": torch.nn.grad.conv2d_input(x_t.shape, weight, d_t, padding=1)
+        .permute(0, 2, 3, 1).reshape(-1, c_in).numpy(),
+        "dw": torch.nn.grad.conv2d_weight(x_t, weight.shape, d_t, padding=1)
+        .permute(2, 3, 1, 0).reshape(9 * c_in, c_out).numpy(),
+    }
+    for name, (a, bm) in gemms.items():
+        ref = a.astype(np.float64) @ bm.astype(np.float64)
+        np.testing.assert_allclose(ref, want[name], rtol=0, atol=1e-12, err_msg=name)
+        scale = np.abs(ref).max()
+        (a_big, a_small), (b_big, b_small) = _split(a), _split(bm)
+        three = (a_small @ b_big) + (a_big @ b_small) + (a_big @ b_big)
+        one = a_big @ b_big
+        err3, err1 = (float(np.abs(t - ref).max() / scale) for t in (three, one))
+        assert err3 <= 1e-5, (name, err3)
+        assert err1 >= 100 * err3 and err1 >= 1e-4, (name, err1, err3)
+        # bf16 inputs: x and w are exact in TF32, only d is split (two products)
+        if name == "dx":
+            b16 = torch.from_numpy(bm).bfloat16().float().numpy()
+            assert np.array_equal(_tf32(b16), b16)
 
 
 def test_launcher_refuses_with_the_numbers():
