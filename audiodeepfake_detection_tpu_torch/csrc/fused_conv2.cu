@@ -44,6 +44,12 @@
 //   (small terms first; small*small, 2^-22, is dropped).  Per product the
 //   error is ~2^-22 relative, 3-4 orders under the 1e-3 the gradients are
 //   held to; one TF32 pass would give ~2^-11, which parity mode refuses.
+//   The tensor core's own sum truncates toward zero (see mma3_add), so a
+//   long chain of MMAs into one accumulator drifts: dw, ~4500 MMAs a block,
+//   sums each k-step from zero and adds it in fp32 (6.3e-7 of the largest
+//   entry against float64, chip_smoke.py phase 14, H100); dx keeps its chain
+//   of 324 (5.7e-6), as a sum from zero spills at its 128 registers.  One
+//   TF32 pass reads 3e-4 on the same inputs.
 //   bf16 inputs hold x and the weights as bf16 values, exact in TF32, so only
 //   the fp32 cotangent is split: two products.  Dense 3xTF32 is 526 GFLOP
 //   (1.06 ms at 495 TFLOP/s), beside the 43.5 GFLOP least-work bound.
@@ -258,6 +264,29 @@ __device__ __forceinline__ void mma3(float (&c)[M][N][4], const Frag<4> (&a)[M],
     for (int n = 0; n < N; ++n)
       mma_tf32(c[m][n], a[m].big[0], a[m].big[1], a[m].big[2], a[m].big[3],
                b[n].big[0], b[n].big[1]);
+}
+
+// The same product summed from zero, m tile by m tile, then added to c by an
+// ordinary fp32 add.  The tensor core's sum truncates (it aligns the addends
+// and drops the low bits of the smaller, toward zero), so an accumulator fed
+// by one long chain of MMAs drifts toward zero a little every step: over a
+// dw block's ~4500 MMAs (186 steps of 8 k-steps, three products each) dw
+// read 7.8e-5 of its largest entry where cuDNN's fp32 reads 4e-7.  From zero
+// the truncation is relative to one k-step's product, whose sign varies,
+// and the long sum rounds to nearest.
+template <bool kExactA, bool kExactB, int M, int N>
+__device__ __forceinline__ void mma3_add(float (&c)[M][N][4], const Frag<4> (&a)[M],
+                                         const Frag<2> (&b)[N]) {
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    float t[1][N][4] = {};
+    const Frag<4> am[1] = {a[m]};
+    mma3<kExactA, kExactB>(t, am, b);
+#pragma unroll
+    for (int n = 0; n < N; ++n)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) c[m][n][k] += t[0][n][k];
+  }
 }
 
 // The cotangent that reaches the selected conv value of a pooled element
@@ -857,7 +886,7 @@ fused_conv2_dw_kernel(const T* __restrict__ x,
           const float v[4] = {ap[0], ap[8 * kDwXPlane], ap[4], ap[8 * kDwXPlane + 4]};
           make_frag<kExactX>(af[mt], v);
         }
-        mma3<kExactX, false>(acc[dw], af, bf);
+        mma3_add<kExactX, false>(acc[dw], af, bf);
       }
     }
     if (more) {
@@ -932,8 +961,7 @@ fused_conv2_small_kernel(const T* __restrict__ x, const float* __restrict__ wk,
     const int j = static_cast<int>(tid % w2);
     const int i = static_cast<int>((tid / w2) % h2);
     const int co = static_cast<int>(tid / (static_cast<long long>(w2) * h2));
-    const float gsc = gs != nullptr ? gs[co] : 0.f;
-    const float gqc = gq != nullptr ? gq[co] : 0.f;
+    const float gsc = gs[co], gqc = gq[co];
     float acc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll 4
     for (int b = 0; b < bsz; ++b) {

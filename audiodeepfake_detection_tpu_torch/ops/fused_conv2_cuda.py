@@ -6,10 +6,8 @@
 (split over ``B * H * W``), both implicit GEMMs on the tensor cores with
 split-TF32 products, and a small one for ``dcorr`` and ``dalpha``; it
 finishes the cross-block sums with one ``torch.sum`` each over per-block
-partials (fixed order: results are bit-for-bit reproducible).
-``backward_dx``, ``backward_dw`` and ``backward_small`` launch one kernel
-each on arguments ``backward`` has checked (the timing in ``chip_smoke.py``
-calls them apart).  The launchers check device, type, shape and contiguity,
+partials (fixed order: results are bit-for-bit reproducible).  The
+launchers check device, type, shape and contiguity,
 allocate outputs and scratch with ``torch.empty`` / ``torch.zeros``, run on
 the current stream and do not synchronise.  ``CONV2_FWD_LAUNCHES`` counts
 forward kernel launches; ``CONV2_BWD_LAUNCHES`` grows by one per
@@ -295,8 +293,8 @@ def forward(
     return out, code, s, q
 
 
-def backward_dx(x, w, alpha, g, out, code, gs, gq) -> torch.Tensor:
-    """The ``dx`` kernel alone, on arguments ``backward`` has checked."""
+def _dx(x, w, alpha, g, out, code, gs, gq) -> torch.Tensor:
+    """The ``dx`` kernel, on arguments ``backward`` has checked."""
     b, c_in, h, win = x.shape
     c_out = w.shape[1]
     plan = dx_plan(b, h, win, c_in, c_out)
@@ -312,8 +310,8 @@ def backward_dx(x, w, alpha, g, out, code, gs, gq) -> torch.Tensor:
     return dx
 
 
-def backward_dw(x, w, alpha, g, out, code, gs, gq) -> torch.Tensor:
-    """The ``dw`` kernel alone: ``[9 * Cin, Cout]`` float32."""
+def _dw(x, w, alpha, g, out, code, gs, gq) -> torch.Tensor:
+    """The ``dw`` kernel: ``[9 * Cin, Cout]`` float32."""
     b, c_in, h, win = x.shape
     c_out = w.shape[1]
     plan = dw_plan(b, h, win, c_in, c_out)
@@ -330,8 +328,8 @@ def backward_dw(x, w, alpha, g, out, code, gs, gq) -> torch.Tensor:
     return partials.sum(dim=0)
 
 
-def backward_small(x, w, corr, alpha, g, out, code, gs, gq):
-    """The ``dcorr`` / ``dalpha`` kernel alone: ``(dcorr [Cout, H, W],
+def _small(x, w, corr, alpha, g, out, code, gs, gq):
+    """The ``dcorr`` / ``dalpha`` kernel: ``(dcorr [Cout, H, W],
     dalpha [1])`` float32."""
     b, c_in, h, win = x.shape
     c_out = w.shape[1]
@@ -381,8 +379,8 @@ def backward(
     zeros = None if gs is not None and gq is not None else torch.zeros(
         (c_out,), dtype=torch.float32, device=x.device)
     args = (alpha, g, out, code, zeros if gs is None else gs, zeros if gq is None else gq)
-    dx = backward_dx(x, w, *args) if need_dx else None
-    dw = backward_dw(x, w, *args)
-    dcorr, da = backward_small(x, w, corr, *args)
+    dx = _dx(x, w, *args) if need_dx else None
+    dw = _dw(x, w, *args)
+    dcorr, da = _small(x, w, corr, *args)
     CONV2_BWD_LAUNCHES += 1
     return dx, dw, dcorr, da

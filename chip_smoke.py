@@ -62,7 +62,9 @@ Phases, in order; any failure propagates and the script exits non-zero
     64 -> 96 channels at 48x129 for the conv; fp32 and bf16), odd heights
     and widths, a negative and a zero slope and a case full of ties; two
     runs compared bit for bit; the conv's fp32 forward at its headline shape
-    must read 0.0 against plain (cuDNN's summation order), and the
+    must read 0.0 against plain (cuDNN's summation order); its fp32 dx and
+    dw there are held against a float64 rebuild from its own code, under a
+    cap that one TF32 pass (modelled on the same inputs) must exceed; the
     tensor-core (HMMA) instructions of its dx / dw kernels are counted in
     the built library (``cuobjdump -sass``: > 0; the forward's: 0);
 15. train with the fused mid blocks: the corpus through ``run_experiment``
@@ -72,7 +74,8 @@ Phases, in order; any failure propagates and the script exits non-zero
     against phase 7's unfused one loss by loss; the snapshot of (b) served
     over HTTP and its score held against the trainer's own;
 16. time: the mid-block kernels alone vs plain (kernel 6's backward also
-    as its dx, dw and dcorr / dalpha kernels apart), the train step at
+    as its dx, dw and dcorr / dalpha kernels' device time in a profile),
+    the train step at
     batch 128 unfused, with ``fused_layer1`` only, (a) and (b), the eval
     step; a profile of step (b);
 17. fused attention vs plain: forward and ``dqkv`` of both kernel-4 routes
@@ -179,6 +182,12 @@ CONV2_FWD_ATOL = 2e-5
 # tensor's largest entry: fp32 sums in another order than the plain ops'
 # (read: at most 3e-5, dw at B=16; 7e-6 for the pool's dalpha over 75 M terms)
 MID_SUM_RTOL = 1e-3
+# kernel 6's fp32 dx and dw against a float64 rebuild from its own code, of
+# the largest entry: split TF32 is ~2**-22 a product, the rest the kernels'
+# fp32 sums (read: dx 5.7e-6, dw 6.3e-7; cuDNN's fp32 4e-7 to 7e-7); one
+# TF32 pass (~2**-11 a product; read: 3e-4) must read above this cap, and
+# the check asserts that it does on the same inputs
+SPLIT_TF32_RTOL = 5e-5
 # bf16 dalpha of the conv block: the kernel takes the conv value back from the
 # stored bf16 output (out / alpha: 2**-9 per term) and the terms cancel
 MID_BF16_DALPHA_RTOL = 3e-2
@@ -770,6 +779,27 @@ KERNEL_GROUPS = (
 )
 
 
+def kernel_device_ms(fn, keys: dict, n: int = 5) -> dict:
+    """Device ms per call of ``fn`` of the kernels whose names hold each of
+    ``keys``' values, from ``torch.profiler`` over ``n`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
+    out = {k: sum(e.self_device_time_total for e in rows if v in e.key) / 1e3 / n
+           for k, v in keys.items()}
+    if not all(v > 0 for v in out.values()):
+        raise AssertionError(f"the profile shows no device time for some of {keys}: {out}")
+    return out
+
+
 def profile_train(train_step, n: int = 5, kernel_groups=KERNEL_GROUPS):
     """Phases 9 and 13: device time by kernel over ``n`` fused train steps.
     (cuDNN's LSTM runs its matrix products through GEMM kernels that the
@@ -1298,6 +1328,84 @@ def mid_vs_plain(fp, f2):
     return out
 
 
+def tf32(t: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10 explicit mantissa bits), to nearest with
+    ties away from zero, as ``cvt.rna.tf32.f32`` does, via the int32 view."""
+    bits = t.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def conv2_dense_grads(x, w, d):
+    """float64 ``dx`` and ``dw`` of the conv 3x3 from its output's
+    cotangent ``d [B, Cout, H, W]``, tap by tap: the two products that
+    kernel 6's dx and dw kernels run."""
+    import torch.nn.functional as F
+
+    b, c_in, h, win = x.shape
+    c_out = w.shape[1]
+    w9 = w.double().view(9, c_in, c_out)
+    d = d.double()
+    xp, dp = F.pad(x.double(), (1, 1, 1, 1)), F.pad(d, (1, 1, 1, 1))
+    dx = torch.zeros(x.shape, dtype=torch.float64, device=x.device)
+    dw = torch.empty((9, c_in, c_out), dtype=torch.float64, device=x.device)
+    for tap in range(9):
+        dh, dc = divmod(tap, 3)
+        dx += torch.einsum("bkhw,ik->bihw", dp[:, :, 2 - dh:2 - dh + h, 2 - dc:2 - dc + win],
+                           w9[tap])
+        dw[tap] = torch.einsum("bihw,bkhw->ik", xp[:, :, dh:dh + h, dc:dc + win], d)
+    return dx, dw.view(9 * c_in, c_out)
+
+
+def conv2_cotangent(y, code, g, gs, gq, alpha, h, win):
+    """float64 cotangent of the conv output ``[B, Cout, H, W]`` from the
+    pooled output's (``g``) and the moments' (``gs``, ``gq``), scattered to
+    the positions ``code`` selects, as kernel 6's backward rebuilds it."""
+    b, c_out, h2, w2 = y.shape
+    gt = g.double() + gs.double()[:, None, None] + 2 * y.double() * gq.double()[:, None, None]
+    pooled = torch.where(code >= 4, alpha.double() * gt, gt)
+    d = torch.zeros((b, c_out, h, win), dtype=torch.float64, device=y.device)
+    for ph in range(4):
+        d[:, :, ph >> 1:2 * h2:2, ph & 1:2 * w2:2] = torch.where((code & 3) == ph, pooled, 0.0)
+    return d
+
+
+def conv2_split_tf32_check(conv2_cuda):
+    """Phase 14: kernel 6's fp32 ``dx`` and ``dw`` at ``CONV2_SHAPE``
+    against a float64 rebuild from its own code, and the same rebuild from
+    operands rounded to TF32 (one tensor-core pass, summed exactly) and
+    cuDNN's fp32 gradients beside it; all of the largest entry."""
+    (x, w, corr, alpha), (g, gs, gq) = conv2_case(*CONV2_SHAPE, torch.float32, 0.25, 80)
+    x, w, corr, alpha = (t.detach() for t in (x, w, corr, alpha))
+    y, code, _, _ = conv2_cuda.forward(x, w, corr, alpha, True, True)
+    dx, dw, _, _ = conv2_cuda.backward(x, w, corr, alpha, g, y, code, gs, gq)
+    d = conv2_cotangent(y, code, g, gs, gq, alpha, *x.shape[2:])
+    c_in, c_out = w.shape[0] // 9, w.shape[1]
+    want = conv2_dense_grads(x, w, d)
+    one_pass = conv2_dense_grads(tf32(x), tf32(w), tf32(d.float()))
+    weight = w.view(3, 3, c_in, c_out).permute(3, 2, 0, 1)
+    d32 = d.float()
+    cudnn = (torch.nn.grad.conv2d_input(x.shape, weight, d32, padding=1),
+             torch.nn.grad.conv2d_weight(x, weight.shape, d32, padding=1)
+             .permute(2, 3, 1, 0).reshape(9 * c_in, c_out))
+    del d, d32
+    torch.cuda.synchronize()
+
+    def of_largest(got, ref):
+        return ((got.double() - ref).abs().max() / ref.abs().max()).item()
+
+    out = {name: {"kernel": of_largest(k, ref), "one_tf32_pass": of_largest(o, ref),
+                  "cudnn_fp32": of_largest(c, ref)}
+           for name, k, o, c, ref in zip(("dx", "dw"), (dx, dw), one_pass, cudnn, want)}
+    log(f"  kernel 6 fp32 dx / dw at {CONV2_SHAPE} against float64 from its code, of the "
+        f"largest entry (cap {SPLIT_TF32_RTOL:.0e}): {out}")
+    for name, r in out.items():
+        if not r["kernel"] <= SPLIT_TF32_RTOL:
+            raise AssertionError(f"kernel 6 {name} is not fp32-accurate: {r}")
+        if not r["one_tf32_pass"] > SPLIT_TF32_RTOL:
+            raise AssertionError(f"the cap cannot tell one TF32 pass from split TF32: {r}")
+    return out
+
+
 def train_mid(wpt_cuda, fused_cuda, pool_cuda, conv2_cuda, root: str, data: str, unfused_losses):
     """Phase 15: the training path with the fused mid blocks, through
     ``run_experiment`` on the card; ``unfused_losses``: phase 7's unfused
@@ -1383,30 +1491,33 @@ def mid_timing(fp, pool_cuda, f2, conv2_cuda, norm, card_line: str):
         "plain": lambda: f2.plain_conv2_prelu_pool_stats(x, w, corr, alpha),
         "kernel": lambda: conv2_cuda.forward(*raw, True, True),
     }, reps=5)
-    # the backward's three kernels apart, on the arguments backward checks
-    parts = (raw[0], raw[1], raw[3], cot[0], y, code, cot[1], cot[2])
+    backward = lambda: conv2_cuda.backward(*raw, cot[0], y, code, cot[1], cot[2])  # noqa: E731
     bwd = median_ms({
         "plain": lambda: torch.autograd.grad(graph, (x, w, corr, alpha), cot, retain_graph=True),
-        "kernel": lambda: conv2_cuda.backward(*raw, cot[0], y, code, cot[1], cot[2]),
+        "kernel": backward,
         "kernel_without_dx": lambda: conv2_cuda.backward(
             *raw, cot[0], y, code, cot[1], cot[2], need_dx=False),
-        "dx": lambda: conv2_cuda.backward_dx(*parts),
-        "dw": lambda: conv2_cuda.backward_dw(*parts),
-        "small": lambda: conv2_cuda.backward_small(*parts[:2], raw[2], *parts[2:]),
     }, reps=5)
+    # the backward's three kernels apart: their device time in a profile
+    apart = kernel_device_ms(backward, {"dx": "fused_conv2_dx_kernel",
+                                        "dw": "fused_conv2_dw_kernel",
+                                        "small": "fused_conv2_small_kernel"})
     out["conv2"] = {"fwd_kernel_ms": fwd["kernel"], "fwd_plain_ms": fwd["plain"],
                     "bwd_kernel_ms": bwd["kernel"], "bwd_plain_ms": bwd["plain"],
                     "bwd_kernel_without_dx_ms": bwd["kernel_without_dx"],
-                    "bwd_dx_ms": bwd["dx"], "bwd_dw_ms": bwd["dw"],
-                    "bwd_small_ms": bwd["small"]}
-    del graph, y, code, x, raw, parts
+                    "bwd_dx_ms": apart["dx"], "bwd_dw_ms": apart["dw"],
+                    "bwd_small_ms": apart["small"],
+                    # computed, not measured: beside the bound, not in its place
+                    "dense_3xtf32_floor_ms_computed": conv2_bounds(*CONV2_SHAPE)[2]}
+    del graph, y, code, x, raw, backward
     c2 = out["conv2"]
     log(f"  B={BATCH} [{card_line}]: " + "; ".join(
         f"{k} fwd kernel {v['fwd_kernel_ms']:.4f} ms, plain {v['fwd_plain_ms']:.4f} ms, bwd "
         f"kernel {v['bwd_kernel_ms']:.4f} ms, plain {v['bwd_plain_ms']:.4f} ms"
         for k, v in out.items()) + f"; conv2 bwd without dx {c2['bwd_kernel_without_dx_ms']:.4f}"
-        f" ms, dx {c2['bwd_dx_ms']:.4f}, dw {c2['bwd_dw_ms']:.4f}, small "
-        f"{c2['bwd_small_ms']:.4f} ms")
+        f" ms; its kernels' device time (profiler): dx {c2['bwd_dx_ms']:.4f}, dw "
+        f"{c2['bwd_dw_ms']:.4f}, small {c2['bwd_small_ms']:.4f} ms; the dense split-TF32 "
+        f"floor, computed at 495 TFLOP/s: {c2['dense_3xtf32_floor_ms_computed']:.4f} ms")
 
     variants = {"unfused": (False, {}), "layer1": (True, {}),
                 "a_layer1_pool": (True, dict(fused_pool=True)),
@@ -1937,6 +2048,7 @@ def main() -> None:
         del lcnn_step
         log("[14 fused mid blocks vs plain]")
         mid_errs = mid_vs_plain(fused_pool, fused_conv2)
+        mid_errs["conv2-split-tf32"] = conv2_split_tf32_check(fused_conv2_cuda)
         mid_mma = conv2_mma_count(fused_conv2_cuda)
         log("[15 train with the fused mid blocks]")
         mid = train_mid(wpt_cuda, fused_conv1_cuda, fused_pool_cuda, fused_conv2_cuda,
@@ -1981,7 +2093,7 @@ def main() -> None:
     conv2_key = "conv2-B{}-Cin{}-Cout{}-H{}-W{}-float32".format(*CONV2_SHAPE)
     (pfwd_b, pfwd_by), (pbwd_b, pbwd_by) = pool_bounds(
         *POOL2_SHAPE, mid_times["pool2"]["n_negative"])
-    (cfwd_b, cfwd_by), (cbwd_b, cbwd_by), cbwd_dense = conv2_bounds(*CONV2_SHAPE)
+    (cfwd_b, cfwd_by), (cbwd_b, cbwd_by), _ = conv2_bounds(*CONV2_SHAPE)
     mid_launches = {k: mid["a"]["launches"][k] + mid["b"]["launches"][k]
                     for k in ("pool_fwd", "pool_bwd", "conv2_fwd", "conv2_bwd")}
     mha_src = "audiodeepfake_detection_tpu_torch/csrc/flash_mha.cu"
@@ -2080,7 +2192,7 @@ def main() -> None:
             "ms": mid_times["conv2"]["bwd_kernel_ms"],
             "plain_ms": mid_times["conv2"]["bwd_plain_ms"],
             "bound_ms": cbwd_b, "bound_by": cbwd_by, "library_ms": None,
-            "dense_3xtf32_ms": cbwd_dense, "dx_ms": mid_times["conv2"]["bwd_dx_ms"],
+            "dx_ms": mid_times["conv2"]["bwd_dx_ms"],
             "dw_ms": mid_times["conv2"]["bwd_dw_ms"],
             "small_ms": mid_times["conv2"]["bwd_small_ms"],
             "hmma": {k: v for k, v in mid_mma.items() if k.startswith(("dx-", "dw-"))},

@@ -401,6 +401,56 @@ def test_split_tf32_backward_is_fp32_accurate_and_one_pass_is_not():
             assert np.array_equal(_tf32(b16), b16)
 
 
+def _chip_smoke():
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("alpha", [0.25, -0.3])
+def test_chip_smokes_float64_rebuild_is_the_blocks_gradient(alpha):
+    """``chip_smoke.py`` holds the kernels' fp32 ``dx`` / ``dw`` against a
+    float64 rebuild from their own code (``conv2_cotangent`` then
+    ``conv2_dense_grads``) and a one-pass TF32 model (``tf32``).  Here, from
+    a float64 forward's own selection, that rebuild is float64 autograd's
+    gradient of the block with its moments, odd H and W included, and
+    ``tf32`` rounds as the numpy model above does."""
+    import torch.nn.functional as F
+
+    cs = _chip_smoke()
+    b, c_in, c_out, h, w = 2, 8, 12, 7, 9
+    gen = torch.Generator().manual_seed(11)
+    x = torch.randn(b, c_in, h, w, generator=gen)
+    wt = 0.1 * torch.randn(9 * c_in, c_out, generator=gen)
+    corr = 0.1 * torch.randn(c_out, h, w, generator=gen)
+    g = torch.randn(b, c_out, h // 2, w // 2, generator=gen)
+    gs, gq = 0.01 * torch.randn(c_out, generator=gen), 0.001 * torch.randn(c_out, generator=gen)
+    a = torch.tensor([alpha], dtype=torch.float64)
+    xd, wd = x.double().requires_grad_(), wt.double().requires_grad_()
+    conv = F.conv2d(xd, wd.view(3, 3, c_in, c_out).permute(3, 2, 0, 1), padding=1) + corr.double()
+    act = torch.where(conv >= 0, conv, a * conv)
+    y = F.max_pool2d(act, 2)
+    dx, dw = torch.autograd.grad([y, y.sum((0, 2, 3)), (y * y).sum((0, 2, 3))], [xd, wd],
+                                 [g.double(), gs.double(), gq.double()])
+    h2, w2 = h // 2, w // 2
+    phases = [(p >> 1, p & 1) for p in range(4)]
+    cands = torch.stack([act[:, :, r:2 * h2:2, c:2 * w2:2] for r, c in phases]).detach()
+    pre = torch.stack([conv[:, :, r:2 * h2:2, c:2 * w2:2] for r, c in phases]).detach()
+    first = cands.argmax(0)  # the first of several maxima, as the kernel keeps it
+    neg = pre.gather(0, first[None])[0] < 0
+    code = (first | neg.long() << 2).to(torch.uint8)
+    d = cs.conv2_cotangent(y.detach(), code, g, gs, gq, a, h, w)
+    got = cs.conv2_dense_grads(x, wt, d)
+    for name, want, have in zip(("dx", "dw"), (dx, dw), got):
+        torch.testing.assert_close(have, want, rtol=0, atol=1e-12, msg=name)
+    assert torch.equal(cs.tf32(x), torch.from_numpy(_tf32(x.numpy())))
+
+
 def test_launcher_refuses_with_the_numbers():
     """The CUDA launcher's host-side checks (no card needed to fail them)."""
     x, w, corr, a = [t.detach() for t in _port(_inputs(8, 10))]
