@@ -63,10 +63,6 @@ class LCNN(nn.Module):
                 f"fused block convolves one plane), got {in_channels}"
             )
         self.fused_layer1 = fused_layer1
-        # Behind the fused block the activation is copied into NCHW memory;
-        # False leaves it the channels-last view the kernel wrote.  Not a
-        # constructor argument: the faster one is the default (PERF.md).
-        self.nchw_copy = True
         self.lstm_channels = lstm_channels
         self.feat = (lstm_channels // 16) * 32
         # indices as in the reference Sequential: 1, 4, 7, ... are the
@@ -104,9 +100,7 @@ class LCNN(nn.Module):
             conv.weight.reshape(conv.out_channels, 25).t(),
             conv.bias,
         )
-        x = out.permute(0, 3, 1, 2)  # [B, T/2, F/2, 32] -> NCHW view
-        if self.nchw_copy:
-            x = x.contiguous()
+        x = out.permute(0, 3, 1, 2)  # the block stores NCHW: contiguous
         for layer in list(self.lcnn)[3:]:
             x = layer(x)
         return x

@@ -44,7 +44,9 @@ output is the maximum of eight conv values: the four pool phases of channel
 maximal candidate in the order phase-major, lower half first -- what the
 JAX kernel's selection code records, and what ``torch.where(a >= b, a, b)``
 followed by ``F.max_pool2d`` do in the plain version (``torch.maximum``
-would split a tie in halves).  Ties are real: a silent frame makes every
+would split a tie in halves).  Both versions return the output as a view of
+NCHW memory: ``out.permute(0, 3, 1, 2)`` is contiguous, the layout the
+convolutions behind the block read.  Ties are real: a silent frame makes every
 conv value of a channel equal to its bias.  Same rules as above for types,
 for ``x`` (no gradient, raises if asked) and for the device: a CUDA tensor
 launches the kernels of ``csrc/fused_conv1.cu`` or raises.
@@ -180,7 +182,7 @@ def plain_conv_mfm_pool(x, w, b) -> torch.Tensor:
     lo, hi = conv[:, : c // 2], conv[:, c // 2 :]
     act = torch.where(lo >= hi, lo, hi)  # a tie's gradient goes to the lower half
     pooled = F.max_pool2d(act, 2)  # floor mode; its backward takes the first max
-    return pooled.permute(0, 2, 3, 1).contiguous().to(dt)
+    return pooled.permute(0, 2, 3, 1).to(dt)  # NCHW memory, as the kernel's
 
 
 class _FusedConvMfm(torch.autograd.Function):
@@ -202,7 +204,11 @@ class _FusedConvMfm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, code = ctx.saved_tensors
-        dw, db = fused_conv1_cuda.mfm_backward(x, g.contiguous(), code, ctx.channels)
+        if not g.permute(0, 3, 1, 2).is_contiguous():
+            # the kernel reads NCHW memory, as cuDNN hands it back; a caller
+            # that gives another layout pays one copy
+            g = g.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+        dw, db = fused_conv1_cuda.mfm_backward(x, g, code, ctx.channels)
         wt, bt = ctx.param_dtypes
         return None, dw.to(wt), db.to(bt)
 

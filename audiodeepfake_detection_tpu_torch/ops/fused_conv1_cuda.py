@@ -3,13 +3,16 @@
 ``forward`` / ``backward`` (the DCNN's conv 3x3 + PReLU + pool) and
 ``mfm_forward`` / ``mfm_backward`` (the LCNN's conv 5x5 + MaxFeatureMap +
 pool) check device, type, shape and contiguity, allocate outputs and scratch
-with ``torch.empty``, launch one kernel each on the current stream without
-synchronising, and finish the cross-block reductions with one ``torch.sum``
-over the per-block partials (fixed order: results are bit-for-bit
-reproducible).  ``FWD_LAUNCHES`` / ``BWD_LAUNCHES`` and ``MFM_FWD_LAUNCHES``
-/ ``MFM_BWD_LAUNCHES`` count the kernel launches made in this process.  The
-public functions and the plain PyTorch versions live in
-``ops/fused_conv1.py``.
+with ``torch.empty``, launch on the current stream without synchronising,
+and finish the cross-block reductions over the per-block partials in a
+fixed order (one ``torch.sum``; ``mfm_backward``: a second small kernel in
+the same call), so results are bit-for-bit reproducible.  The
+MaxFeatureMap kernels store their output and code, and read the cotangent,
+as NCHW memory behind the ``[B, h2, w2, C/2]`` shape, the layout of the
+convolutions behind the block.  ``FWD_LAUNCHES`` / ``BWD_LAUNCHES`` and
+``MFM_FWD_LAUNCHES`` / ``MFM_BWD_LAUNCHES`` count the kernel launches made
+in this process.  The public functions and the plain PyTorch versions live
+in ``ops/fused_conv1.py``.
 
 The library is compiled at first use (``cuda_build.compile_library``) and
 bound with ``ctypes``; nothing here touches the CUDA toolchain at import
@@ -19,6 +22,7 @@ time.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from typing import NamedTuple, Optional, Tuple
 
@@ -44,6 +48,8 @@ MAX_TILE_COLS = 160
 BWD_ROWS = 11  # 9 dW taps, db, dalpha
 MFM_TAPS = 25  # 5x5
 MFM_BWD_ROWS = MFM_TAPS + 1  # 25 dW taps, db
+MFM_PAIR_FLOATS = 52  # a channel pair's two biases and 50 taps in shared memory
+MFM_RING_BYTES = 48 * 1024  # the backward's two stages of (g, code)
 
 _LIB: Optional[ctypes.CDLL] = None
 _BUILD_LOCK = threading.Lock()
@@ -66,7 +72,7 @@ def build() -> str:
         lib.fused_conv1_bwd_launch.restype = ci
         lib.fused_conv_mfm_fwd_launch.argtypes = [vp] * 5 + geometry
         lib.fused_conv_mfm_fwd_launch.restype = ci
-        lib.fused_conv_mfm_bwd_launch.argtypes = [vp] * 4 + geometry
+        lib.fused_conv_mfm_bwd_launch.argtypes = [vp] * 6 + [ci] + geometry
         lib.fused_conv_mfm_bwd_launch.restype = ci
         lib.fused_conv1_error_string.argtypes = [ci]
         lib.fused_conv1_error_string.restype = ctypes.c_char_p
@@ -131,12 +137,16 @@ def launch_plan(b: int, h: int, w: int, c: int) -> LaunchPlan:
     return LaunchPlan(h2, w2, rows, wt, stride, threads, blocks, smem)
 
 
-def _require(t: torch.Tensor, name: str, dtype, shape, device, what="fused_conv1") -> None:
+def _require_meta(t: torch.Tensor, name: str, dtype, shape, device, what) -> None:
     if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape):
         raise ValueError(
             f"{what}: {name} must be {dtype} {tuple(shape)} on {device}, "
             f"got {t.dtype} {tuple(t.shape)} on {t.device}"
         )
+
+
+def _require(t: torch.Tensor, name: str, dtype, shape, device, what="fused_conv1") -> None:
+    _require_meta(t, name, dtype, shape, device, what)
     if not t.is_contiguous():
         raise ValueError(f"{what}: {name} must be contiguous")
 
@@ -259,9 +269,43 @@ def backward(
 # ------------------------------------------ conv 5x5 + MaxFeatureMap + pool
 
 
-def mfm_launch_plan(b: int, h: int, w: int, c: int) -> LaunchPlan:
-    """Tiling of the MaxFeatureMap kernels (``C/2`` threads serve one
-    pixel); raises, with the numbers, on a geometry they do not take."""
+class MfmLaunchPlan(NamedTuple):
+    """How one ``[B, H, W] x C`` MaxFeatureMap problem is cut into blocks
+    (one plan for the forward and the backward)."""
+
+    h2: int  # pooled rows
+    w2: int  # pooled columns
+    rows: int  # pooled rows per block
+    wt: int  # pooled columns per block
+    stride: int  # floats between rows of the shared-memory x tile
+    threads: int  # groups * C/2 (the backward's lanes serve channel pairs)
+    blocks: int  # B * row strips * column strips
+    chunk_cols: int  # backward: pooled columns of one staged (g, code) chunk
+    fwd_smem: int  # taps and biases + x tile
+    bwd_smem: int  # x tile + two stages, or the reduction buffer
+
+    @property
+    def smem_bytes(self) -> int:
+        return max(self.fwd_smem, self.bwd_smem)
+
+
+def _pitch(n_bytes: int, unit: int) -> int:
+    """Bytes between staged rows (``mfm_pitch`` in the source): an odd
+    number of ``unit``-byte units."""
+    return unit * (-(-n_bytes // unit) | 1)
+
+
+def mfm_stage_bytes(c: int, chunk_cols: int) -> int:
+    """One stage of the backward's ring: C/2 rows of g (sized for f32) and
+    C/2 rows of codes, 16-byte aligned."""
+    rows = (c // 2) * (_pitch(4 * chunk_cols, 16) + _pitch(chunk_cols, 4))
+    return -(-rows // 16) * 16
+
+
+@functools.lru_cache(maxsize=64)
+def mfm_launch_plan(b: int, h: int, w: int, c: int) -> MfmLaunchPlan:
+    """Tiling of the MaxFeatureMap kernels; raises, with the numbers, on a
+    geometry they do not take."""
     if b < 1 or h < 2 or w < 2 or c < 2:
         raise ValueError(
             f"fused_conv_mfm: geometry B={b}, H={h}, W={w}, C={c} leaves no "
@@ -273,9 +317,17 @@ def mfm_launch_plan(b: int, h: int, w: int, c: int) -> LaunchPlan:
             f"{MAX_CHANNELS} (one thread per channel pair of a pixel)"
         )
     h2, w2 = h // 2, w // 2
-    rows = min(ROWS_PER_BLOCK, h2)
     n_ct = -(-w2 // MAX_TILE_COLS)
     wt = -(-w2 // n_ct)
+    # the forward gives each thread a window: narrow tiles (LFCC's 10
+    # columns) take more rows, so a block still holds MAX_THREADS windows.
+    # Otherwise 4 to 6 rows, whichever pads the last strip least: a padded
+    # row costs a block's worth of idle lanes (stft's 50 rows: 5, no pad)
+    if wt * ROWS_PER_BLOCK >= MAX_THREADS:
+        rows = min(range(ROWS_PER_BLOCK, ROWS_PER_BLOCK + 3), key=lambda r: -h2 % r)
+    else:
+        rows = -(-MAX_THREADS // wt)
+    rows = min(h2, rows)
     stride = 2 * wt + 4
     if stride % 32 in (0, 1, 31):  # as in launch_plan
         stride += 2
@@ -287,8 +339,22 @@ def mfm_launch_plan(b: int, h: int, w: int, c: int) -> LaunchPlan:
             f"fused_conv_mfm: B={b}, H={h}, W={w}, C={c} needs {blocks} "
             "blocks, beyond one grid"
         )
-    smem = 4 * ((2 * rows + 4) * stride + threads * MFM_BWD_ROWS)
-    return LaunchPlan(h2, w2, rows, wt, stride, threads, blocks, smem)
+    tile = 4 * (2 * rows + 4) * stride
+    # the backward's ring: two stages of one pooled row by chunk_cols
+    # columns (a multiple of 8, so that every chunk of an aligned row starts
+    # on 16 bytes); whole rows where they fit
+    pieces = 1
+    while True:
+        chunk_cols = min(wt, 8 * -(-wt // (8 * pieces)))
+        stage = mfm_stage_bytes(c, chunk_cols)
+        if 2 * stage <= MFM_RING_BYTES or chunk_cols <= 8:
+            break
+        pieces += 1
+    fwd_smem = 4 * c_half * MFM_PAIR_FLOATS + tile
+    bwd_smem = max(tile + 2 * stage, 4 * threads * MFM_BWD_ROWS)
+    return MfmLaunchPlan(
+        h2, w2, rows, wt, stride, threads, blocks, chunk_cols, fwd_smem, bwd_smem
+    )
 
 
 def _mfm_check_inputs(x, w, bias) -> Tuple[int, int, int, int]:
@@ -304,11 +370,37 @@ def _mfm_check_inputs(x, w, bias) -> Tuple[int, int, int, int]:
     return b, h, win, c
 
 
+def _require_nchw(t: torch.Tensor, name: str, dtype, shape, device) -> None:
+    """``t`` has the block's ``[B, h2, w2, C/2]`` shape over NCHW memory."""
+    _require_meta(t, name, dtype, shape, device, "fused_conv_mfm")
+    if not t.permute(0, 3, 1, 2).is_contiguous():
+        raise ValueError(
+            f"fused_conv_mfm: {name} must be a [B, h2, w2, C/2] view of NCHW "
+            f"memory (strides of a permuted contiguous [B, C/2, h2, w2]), got "
+            f"strides {t.stride()}"
+        )
+
+
+def _nchw_empty(shape, dtype, device) -> torch.Tensor:
+    """``[B, h2, w2, C/2]`` over freshly allocated NCHW memory."""
+    b, h2, w2, ch = shape
+    return torch.empty((b, ch, h2, w2), dtype=dtype, device=device).permute(0, 2, 3, 1)
+
+
+def _mfm_args(x, h, win, c, plan: MfmLaunchPlan, smem: int, *extra):
+    return (
+        h, win, c // 2, int(x.dtype == torch.bfloat16), plan.rows, plan.wt,
+        plan.stride, *extra, plan.threads, plan.blocks, smem,
+        x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
+    )
+
+
 def mfm_forward(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, want_code: bool):
     """Launch the MaxFeatureMap forward kernel.
 
     ``x [B, H, W]`` float32 or bfloat16; ``w [25, C]``, ``bias [C]``
-    float32.  Returns ``(out [B, H//2, W//2, C//2], code)``; ``code``
+    float32.  Returns ``(out [B, H//2, W//2, C//2], code)``, both views of
+    NCHW memory (``out.permute(0, 3, 1, 2)`` is contiguous); ``code``
     (uint8, ``phase * 2 + half`` of the first maximal candidate) is ``None``
     unless ``want_code``.
     """
@@ -316,12 +408,12 @@ def mfm_forward(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, want_code:
     b, h, win, c = _mfm_check_inputs(x, w, bias)
     plan = mfm_launch_plan(b, h, win, c)
     shape = (b, plan.h2, plan.w2, c // 2)
-    out = torch.empty(shape, dtype=x.dtype, device=x.device)
-    code = torch.empty(shape, dtype=torch.uint8, device=x.device) if want_code else None
+    out = _nchw_empty(shape, x.dtype, x.device)
+    code = _nchw_empty(shape, torch.uint8, x.device) if want_code else None
     err = _lib().fused_conv_mfm_fwd_launch(
         x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
         code.data_ptr() if want_code else None,
-        *_geometry_args(x, h, win, c // 2, plan),
+        *_mfm_args(x, h, win, c, plan, plan.fwd_smem),
     )
     _check(err, "fused_conv_mfm forward launch")
     MFM_FWD_LAUNCHES += 1
@@ -331,22 +423,25 @@ def mfm_forward(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, want_code:
 def mfm_backward(x: torch.Tensor, g: torch.Tensor, code: torch.Tensor, c: int):
     """Launch the MaxFeatureMap backward kernel: ``(dW [25, C], db [C])`` in
     float32 from the cotangent ``g`` of the output and the forward's
-    ``code``."""
+    ``code``, both ``[B, H//2, W//2, C//2]`` views of NCHW memory (raises,
+    with the strides, on another layout)."""
     global MFM_BWD_LAUNCHES
     _check_image(x, "fused_conv_mfm")
     b, h, win = x.shape
     plan = mfm_launch_plan(b, h, win, c)
     shape = (b, plan.h2, plan.w2, c // 2)
-    _require(g, "g", x.dtype, shape, x.device, "fused_conv_mfm")
-    _require(code, "code", torch.uint8, shape, x.device, "fused_conv_mfm")
+    _require_nchw(g, "g", x.dtype, shape, x.device)
+    _require_nchw(code, "code", torch.uint8, shape, x.device)
     partials = torch.empty(
         (plan.blocks, MFM_BWD_ROWS, c), dtype=torch.float32, device=x.device
     )
+    dw = torch.empty((MFM_TAPS, c), dtype=torch.float32, device=x.device)
+    db = torch.empty((c,), dtype=torch.float32, device=x.device)
     err = _lib().fused_conv_mfm_bwd_launch(
         x.data_ptr(), g.data_ptr(), code.data_ptr(), partials.data_ptr(),
-        *_geometry_args(x, h, win, c // 2, plan),
+        dw.data_ptr(), db.data_ptr(),
+        *_mfm_args(x, h, win, c, plan, plan.bwd_smem, plan.chunk_cols),
     )
     _check(err, "fused_conv_mfm backward launch")
     MFM_BWD_LAUNCHES += 1
-    total = partials.sum(dim=0)  # [26, C]
-    return total[:MFM_TAPS], total[MFM_TAPS]
+    return dw, db

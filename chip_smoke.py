@@ -862,7 +862,8 @@ def mfm_case(b, h, w, c, dtype, seed):
         scale * torch.randn(*shape, generator=gen)).cuda().to(dtype)
     x = make(b, h, w)
     params = [make(25, c, scale=0.1).requires_grad_(), make(c, scale=0.1).requires_grad_()]
-    return x, params, make(b, h // 2, w // 2, c // 2)
+    # the cotangent in NCHW memory, as cuDNN hands it back behind the block
+    return x, params, make(b, c // 2, h // 2, w // 2).permute(0, 2, 3, 1)
 
 
 def mfm_tie_case():
@@ -1079,7 +1080,7 @@ def train_lcnn(wpt_cuda, fused_cuda, root: str, data: str):
             "norm": [np.asarray(v).tolist() for v in trainer.norm_stats]}
 
 
-def lcnn_step_fns(norm, fused: bool, nchw_copy: bool = True):
+def lcnn_step_fns(norm, fused: bool):
     """An LCNN train step and eval step at full width on a fixed batch."""
     from audiodeepfake_detection_tpu_torch.models.lcnn import LCNN
     from audiodeepfake_detection_tpu_torch.train.steps import (
@@ -1091,7 +1092,6 @@ def lcnn_step_fns(norm, fused: bool, nchw_copy: bool = True):
     transform = normalized_transform(make_transform(args), *[np.asarray(v) for v in norm])
     torch.manual_seed(0)
     model = LCNN(fused_layer1=fused).cuda()
-    model.nchw_copy = nchw_copy
     optimizer = make_optimizer(model.parameters(), args.learning_rate, args.weight_decay)
     gen = torch.Generator().manual_seed(5)
     batch = {"audio": (0.3 * torch.randn(BATCH, 1, SR, generator=gen)).cuda(),
@@ -1101,10 +1101,55 @@ def lcnn_step_fns(norm, fused: bool, nchw_copy: bool = True):
     return (lambda: train_step(batch)), (lambda: eval_step(batch))
 
 
+def copy_profile(step, numel: int, n: int = 3) -> dict:
+    """Phase 13: the copies of ``n`` train steps, from ``torch.profiler``.
+    A copy of ``numel`` elements into new memory (``contiguous``, ``clone``,
+    ``to``) is a transposing copy of the block's output or of its cotangent;
+    a deliberate one is counted first, so a profiler that records no shapes
+    fails here instead of reading 0.  Also the device time of every copy
+    kernel (``direct_copy``) a step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def run(fn, reps):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        layout = [e for e in prof.events()
+                  if e.name == "aten::copy_" and e.input_shapes and e.input_shapes[0]
+                  and int(np.prod(e.input_shapes[0])) == numel and e.cpu_parent is not None
+                  and e.cpu_parent.name in ("aten::clone", "aten::_to_copy")]
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and "direct_copy" in e.key]
+        return layout, kernels
+
+    probe = torch.empty(numel, device="cuda")
+    if len(run(lambda: probe.reshape(-1, 32).t().contiguous(), 1)[0]) != 1:
+        raise AssertionError("the profiler did not show a deliberate copy of the block's size")
+    step()
+    torch.cuda.synchronize()
+    layout, kernels = run(step, n)
+    out = {
+        "transposing_copies_per_step": len(layout) / n,
+        "transposing_copy_ms_per_step": sum(e.device_time_total for e in layout) / 1e3 / n,
+        "copy_kernels_per_step": sum(e.count for e in kernels) / n,
+        "copy_kernels_ms_per_step": sum(e.self_device_time_total for e in kernels) / 1e3 / n,
+    }
+    log(f"  copies a fused step: {out['transposing_copies_per_step']:.0f} of the block's "
+        f"{numel} elements into another layout ({out['transposing_copy_ms_per_step']:.4f} ms); "
+        f"all copy kernels x{out['copy_kernels_per_step']:.0f}, "
+        f"{out['copy_kernels_ms_per_step']:.4f} ms")
+    if layout:
+        raise AssertionError(f"the fused LCNN step copies its block's output: {out}")
+    return out
+
+
 def lcnn_timing(fc, fused_cuda, norm, card_line: str):
     """Phase 13: kernel 3 alone vs plain (through its launchers, as phase 8
-    times kernel 2), the LCNN train step unfused and fused with either
-    layout behind the block, the eval step, and the two BLSTMs alone."""
+    times kernel 2), the LCNN train step unfused and fused, its copies, the
+    eval step, and the two BLSTMs alone."""
     from audiodeepfake_detection_tpu_torch.models.layers import BLSTMLayer
 
     x, params, g = mfm_case(*LCNN_SHAPE, torch.float32, seed=50)
@@ -1126,11 +1171,11 @@ def lcnn_timing(fc, fused_cuda, norm, card_line: str):
         }, reps=10)
     del plain_graph, code
     fused_train, fused_eval = lcnn_step_fns(norm, True)
-    cl_train, _ = lcnn_step_fns(norm, True, nchw_copy=False)
     plain_train, _ = lcnn_step_fns(norm, False)
-    steps = median_ms({"unfused": plain_train, "fused": fused_train,
-                       "fused_channels_last": cl_train}, reps=3)
+    steps = median_ms({"unfused": plain_train, "fused": fused_train}, reps=3)
     evals = median_ms({"eval": fused_eval}, reps=3)
+    b, h, w, c = LCNN_SHAPE
+    copies = copy_profile(fused_train, b * (c // 2) * (h // 2) * (w // 2))
 
     # the two BLSTMs alone, forward and backward, at the step's shape
     torch.manual_seed(1)
@@ -1146,7 +1191,7 @@ def lcnn_timing(fc, fused_cuda, norm, card_line: str):
         "bwd_kernel_ms": bwd["kernel"], "bwd_plain_ms": bwd["plain"],
         "infer_fwd_kernel_ms": infer["kernel"], "infer_fwd_plain_ms": infer["plain"],
         "train_step_fused_ms": steps["fused"], "train_step_unfused_ms": steps["unfused"],
-        "train_step_fused_channels_last_ms": steps["fused_channels_last"],
+        **copies,
         "train_fused_frames_per_s": BATCH / steps["fused"] * 1e3,
         "train_unfused_frames_per_s": BATCH / steps["unfused"] * 1e3,
         "eval_step_ms": evals["eval"], "eval_frames_per_s": BATCH / evals["eval"] * 1e3,
@@ -1157,8 +1202,7 @@ def lcnn_timing(fc, fused_cuda, norm, card_line: str):
         f"{bwd['plain']:.4f} ms; fwd (no grad) kernel {infer['kernel']:.4f} ms, plain "
         f"{infer['plain']:.4f} ms")
     log(f"  LCNN train step fused {steps['fused']:.3f} ms "
-        f"({out['train_fused_frames_per_s']:.1f} frames/s), fused left channels-last "
-        f"{steps['fused_channels_last']:.3f} ms, unfused {steps['unfused']:.3f} ms "
+        f"({out['train_fused_frames_per_s']:.1f} frames/s), unfused {steps['unfused']:.3f} ms "
         f"({out['train_unfused_frames_per_s']:.1f} frames/s); eval step "
         f"{evals['eval']:.3f} ms ({out['eval_frames_per_s']:.1f} frames/s); the two BLSTMs "
         f"alone, fwd + bwd, {blstm['blstm']:.3f} ms")

@@ -256,7 +256,7 @@ def test_fused_mfm_matches_plain(card, h, w, c, dtype):
     want = fused_conv1.plain_conv_mfm_pool(x, *params)
     wgrads = torch.autograd.grad(want, params, g)
     assert out.dtype == dtype and out.shape == want.shape == (2, h // 2, w // 2, c // 2)
-    assert out.is_contiguous()
+    assert out.permute(0, 3, 1, 2).is_contiguous()  # NCHW memory, as plain's
     # bf16: the same fp32 value rounded once on both sides (one bf16 ulp)
     atol = FUSED_FWD_ATOL if dtype == torch.float32 else want.float().abs().max().item() * 2.0**-7
     torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=atol)
@@ -264,6 +264,26 @@ def test_fused_mfm_matches_plain(card, h, w, c, dtype):
     for name, got, wg in zip(("dW", "db"), grads, wgrads):
         assert got.dtype == dtype and got.shape == wg.shape, name
         assert _rel(got, wg) <= tol, name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_mfm_stores_nchw_and_takes_either_cotangent_layout(card, dtype):
+    """out and code are views of NCHW memory; a cotangent in NHWC memory
+    (one copy in the autograd glue) and one in NCHW memory (none) give
+    bit-equal dW and db; the launcher itself takes NCHW alone."""
+    x, params, g = _mfm_inputs(2, 101, 256, 64, dtype, card, seed=3)
+    out, code = fused_conv1_cuda.mfm_forward(x, *[p.detach().float() for p in params], True)
+    for t in (out, code):
+        assert t.shape == (2, 50, 128, 32) and t.permute(0, 3, 1, 2).is_contiguous()
+        assert not t.is_contiguous()
+    g_nchw = g.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    assert g.is_contiguous() and torch.equal(g_nchw, g)
+    grads = [torch.autograd.grad(fused_conv1.fused_conv_mfm_pool(x, *params), params, gg)
+             for gg in (g, g_nchw)]
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="view of NCHW memory"):
+        fused_conv1_cuda.mfm_backward(x, g, code, 64)
 
 
 def test_fused_mfm_is_deterministic_and_skips_the_code_in_eval(card):
@@ -371,6 +391,47 @@ def test_lcnn_fused_train_step_matches_unfused_on_the_card(card):
     for (name, p), (_, f) in zip(plain.named_parameters(), fused.named_parameters()):
         denom = p.grad.norm().clamp(min=1e-30)
         assert ((p.grad - f.grad).norm() / denom).item() <= 0.02, name
+
+
+def _transposing_copies(fn, numel):
+    """Copies of ``numel`` elements into new memory (``contiguous``,
+    ``clone``, ``to``) that one call of ``fn`` makes, from the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = 0
+    for e in prof.events():
+        if e.name != "aten::copy_" or not e.input_shapes or not e.input_shapes[0]:
+            continue
+        parent = e.cpu_parent
+        if int(np.prod(e.input_shapes[0])) == numel and parent is not None and (
+                parent.name in ("aten::clone", "aten::_to_copy")):
+            n += 1
+    return n
+
+
+def test_lcnn_fused_train_step_makes_no_transposing_copy(card):
+    """At B=128 on the stft image the block's output is [128, 32, 50, 128]:
+    26,214,400 elements.  The fused train step copies neither it nor its
+    cotangent into another layout (a deliberate copy of that size counts)."""
+    from audiodeepfake_detection_tpu_torch.models.lcnn import LCNN
+
+    torch.manual_seed(0)
+    model = LCNN(fused_layer1=True).to(card).train()
+    x = torch.randn(128, 1, 256, 101, device=card)
+    y = torch.randint(0, 2, (128,), device=card)
+
+    def step():
+        torch.nn.functional.cross_entropy(model(x), y).backward()
+
+    numel = 128 * 32 * 50 * 128
+    step()
+    probe = torch.empty(128, 50, 128, 32, device=card)
+    assert _transposing_copies(lambda: probe.permute(0, 3, 1, 2).contiguous(), numel) == 1
+    assert _transposing_copies(step, numel) == 0
 
 
 # ------------------------------------------------------ fused PReLU + pool
