@@ -344,16 +344,15 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)),
                "l"(src));
 }
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
+               "l"(src));
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
-               "l"(src));
 }
 
 // Bytes between staged rows of `bytes` bytes, in units of `unit`: an odd
@@ -440,10 +439,10 @@ __device__ __forceinline__ void mfm_reduce_store(const float (&vals)[N], float* 
   }
 }
 
-// The zero-padded x tile of load_tile<4>, a warp a tile row (no division
-// per element): f32 by 4-byte cp.async (a padding element reads nothing
-// and lands as zero), bf16 by a widening load.  The caller commits the
-// copies to a group and waits for it.
+// The zero-padded x tile that load_tile<4> would load, a warp a tile row
+// (no division per element): f32 by 4-byte cp.async (a padding element
+// reads nothing and lands as zero), bf16 by a widening load.  The caller
+// commits the copies to a group and waits for it.
 __device__ __forceinline__ void stage_x(float* dst, const float* src, bool in) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(in ? 4 : 0));

@@ -284,10 +284,6 @@ class MfmLaunchPlan(NamedTuple):
     fwd_smem: int  # taps and biases + x tile
     bwd_smem: int  # x tile + two stages, or the reduction buffer
 
-    @property
-    def smem_bytes(self) -> int:
-        return max(self.fwd_smem, self.bwd_smem)
-
 
 def _pitch(n_bytes: int, unit: int) -> int:
     """Bytes between staged rows (``mfm_pitch`` in the source): an odd

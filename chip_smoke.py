@@ -2189,6 +2189,8 @@ def main() -> None:
             "bound_ms": mfwd_b, "bound_by": mfwd_by, "library_ms": None,
         },
         {
+            # one launch counted per backward call: the block kernel and the
+            # fixed-order sum of its per-block partials
             "name": "fused_conv_mfm_bwd", "route": "cuda", "source": fused_src,
             "replaces": "audiodeepfake_detection_tpu/ops/fused_conv1.py:806",
             "launches": lcnn["launches"]["mfm_bwd"],
