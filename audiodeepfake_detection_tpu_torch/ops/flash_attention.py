@@ -66,22 +66,23 @@ def plain_mha_packed(qkv: torch.Tensor, heads: int, scale: float) -> torch.Tenso
 
 class _FlashMHA(torch.autograd.Function):
     """The CUDA kernels: forward (with row statistics when a gradient is
-    needed) and backward (``dqkv``, recomputing P from qkv)."""
+    needed) and backward (``dqkv``, recomputing P from qkv; the output is
+    kept for the fp32 streaming route's row term)."""
 
     @staticmethod
     def forward(ctx, qkv, heads: int, scale: float):
         want_stats = ctx.needs_input_grad[0]
         out, stats = flash_attention_cuda.forward(qkv, heads, scale, want_stats)
         if want_stats:
-            ctx.save_for_backward(qkv, stats)
+            ctx.save_for_backward(qkv, stats, out)
             ctx.heads, ctx.scale = heads, scale
         return out
 
     @staticmethod
     def backward(ctx, g):
-        qkv, stats = ctx.saved_tensors
+        qkv, stats, out = ctx.saved_tensors
         dqkv = flash_attention_cuda.backward(
-            qkv, g.to(qkv.dtype).contiguous(), stats, ctx.heads, ctx.scale
+            qkv, g.to(qkv.dtype).contiguous(), stats, ctx.heads, ctx.scale, out=out
         )
         return dqkv, None, None
 

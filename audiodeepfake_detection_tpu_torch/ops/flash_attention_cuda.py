@@ -5,11 +5,15 @@ outputs and scratch with ``torch.empty``, and launch on the current stream
 without synchronising.  Two hand-written routes, chosen by geometry
 (:func:`route_for`): the resident route (``N <= RESIDENT_MAX_N``, scores of
 a query tile held for the whole key range: two products forward, seven
-backward, bf16 on the tensor cores) and the streaming route (any N, the
-first version: three and nine).  ``route=`` names one explicitly, so the
-card checks can run the streaming route at the AST's N; no model or CLI
-option exposes it.  ``MHA_FWD_LAUNCHES`` / ``MHA_BWD_LAUNCHES`` count the
-resident route's calls, ``MHA_STREAM_FWD_LAUNCHES`` /
+backward, bf16 on the tensor cores, fp32 on the FMA pipe) and the streaming
+route (any N, and tensors that do not start on a 16-byte boundary: S and P
+in registers, every product on the tensor cores, fp32 in split TF32; two
+products forward in fp32, three in bf16; seven backward in fp32, whose row
+term is ``rowsum(dout * out)`` from the forward's output, nine in bf16).
+``route=`` names one explicitly, so the card checks can run the streaming
+route at the AST's N; no model or CLI option exposes it.
+``MHA_FWD_LAUNCHES`` / ``MHA_BWD_LAUNCHES`` count the resident route's
+calls, ``MHA_STREAM_FWD_LAUNCHES`` /
 ``MHA_STREAM_BWD_LAUNCHES`` the streaming route's (a backward call launches
 two kernels, query side then key side, and counts once).  The public
 function and the plain PyTorch version live in ``ops/flash_attention.py``.
@@ -61,11 +65,11 @@ def build() -> str:
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.flash_mha_fwd_launch.argtypes = [vp] * 3 + [ci] * 3 + [cf, ci, ci, vp]
         lib.flash_mha_fwd_launch.restype = ci
-        lib.flash_mha_bwd_launch.argtypes = [vp] * 5 + [ci] * 3 + [cf, ci, ci, vp]
+        lib.flash_mha_bwd_launch.argtypes = [vp] * 6 + [ci] * 3 + [cf, ci, ci, vp]
         lib.flash_mha_bwd_launch.restype = ci
         lib.flash_mha_resident_fwd_launch.argtypes = lib.flash_mha_fwd_launch.argtypes
         lib.flash_mha_resident_fwd_launch.restype = ci
-        lib.flash_mha_resident_bwd_launch.argtypes = lib.flash_mha_bwd_launch.argtypes
+        lib.flash_mha_resident_bwd_launch.argtypes = [vp] * 5 + [ci] * 3 + [cf, ci, ci, vp]
         lib.flash_mha_resident_bwd_launch.restype = ci
         lib.flash_mha_resident_max_n.restype = ci
         lib.flash_mha_head_dim.restype = ci
@@ -171,11 +175,14 @@ def forward(qkv: torch.Tensor, heads: int, scale: float, want_stats: bool,
 
 def backward(
     qkv: torch.Tensor, dout: torch.Tensor, stats: torch.Tensor, heads: int, scale: float,
-    route: Optional[str] = None,
+    route: Optional[str] = None, out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Launch the backward kernels: ``dqkv [B, N, 3*H*D]`` in qkv's type.
-    ``dout`` is the cotangent of the forward's output, ``stats`` its row
-    statistics; ``route`` as for :func:`forward`."""
+    ``dout`` is the cotangent of the forward's output ``out``, ``stats`` its
+    row statistics; ``route`` as for :func:`forward`.  The fp32 streaming
+    route needs ``out`` (its row term is ``rowsum(dout * out)``); the other
+    routes and types form the row term from the recomputed probabilities and
+    ignore it."""
     global MHA_BWD_LAUNCHES, MHA_STREAM_BWD_LAUNCHES
     b, n = check_geometry(qkv, heads)
     _require(dout, "dout", qkv.dtype, (b, n, qkv.shape[2] // 3), qkv.device, WHAT)
@@ -183,10 +190,18 @@ def backward(
     route = _pick(route, n, qkv, dout)
     dqkv = torch.empty_like(qkv)
     delta = torch.empty((b, heads, n), dtype=torch.float32, device=qkv.device)
-    launch = (_lib().flash_mha_resident_bwd_launch if route == "resident"
-              else _lib().flash_mha_bwd_launch)
+    args = [qkv.data_ptr(), dout.data_ptr()]
+    if route == "resident":
+        launch = _lib().flash_mha_resident_bwd_launch
+    else:
+        launch = _lib().flash_mha_bwd_launch
+        if qkv.dtype == torch.float32:
+            if out is None:
+                raise ValueError(f"{WHAT}: the fp32 streaming backward takes the forward's out")
+            _require(out, "out", qkv.dtype, (b, n, qkv.shape[2] // 3), qkv.device, WHAT)
+        args.append(out.data_ptr() if qkv.dtype == torch.float32 else None)
     err = launch(
-        qkv.data_ptr(), dout.data_ptr(), stats.data_ptr(), delta.data_ptr(),
+        *args, stats.data_ptr(), delta.data_ptr(),
         dqkv.data_ptr(), b, n, heads, float(scale), int(qkv.dtype == torch.bfloat16),
         qkv.device.index, torch.cuda.current_stream(qkv.device).cuda_stream,
     )

@@ -1616,7 +1616,7 @@ def mha_run(fa, fa_cuda, qkv, g, heads, route):
     else:
         raw = qkv.detach()
         y, stats = fa_cuda.forward(raw, heads, 0.125, True, route=route)
-        result = y, fa_cuda.backward(raw, g, stats, heads, 0.125, route=route)
+        result = y, fa_cuda.backward(raw, g, stats, heads, 0.125, route=route, out=y)
     after = mha_counts(fa_cuda)
     moved = {r: (after[r][0] - before[r][0], after[r][1] - before[r][1]) for r in after}
     if moved != {r: (1, 1) if r == route else (0, 0) for r in fa_cuda.ROUTES}:
@@ -1663,9 +1663,11 @@ def mha_vs_plain(fa, fa_cuda):
     return out
 
 
-def hmma_per_kernel(lib) -> dict:
-    """Tensor-core instructions (HMMA) in each kernel of a built library,
-    from ``cuobjdump -sass``: ``{mangled name: count}``."""
+def sass_opcodes(lib) -> dict:
+    """The instructions of each kernel of a built library by opcode, from
+    ``cuobjdump -sass``: ``{mangled name: Counter(opcode: count)}`` (static
+    counts of the compiled code, not of a run)."""
+    import collections
     import re
     import shutil
 
@@ -1677,10 +1679,18 @@ def hmma_per_kernel(lib) -> dict:
         hit = re.search(r"Function : (\S+)", line)
         if hit:
             name = hit.group(1)
-            counts[name] = 0
-        elif name is not None and "HMMA" in line:
-            counts[name] += 1
+            counts[name] = collections.Counter()
+            continue
+        op = re.search(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if name is not None and op:
+            counts[name][op.group(1)] += 1
     return counts
+
+
+def hmma_per_kernel(lib) -> dict:
+    """Tensor-core instructions (HMMA) in each kernel of a built library:
+    ``{mangled name: count}``."""
+    return {name: ops["HMMA"] for name, ops in sass_opcodes(lib).items()}
 
 
 def conv2_mma_count(conv2_cuda) -> dict:
@@ -1705,21 +1715,33 @@ def conv2_mma_count(conv2_cuda) -> dict:
 
 
 def mma_count(fa_cuda) -> dict:
-    """Phase 17, last: tensor-core instructions (HMMA) in each resident
-    kernel of the built library.  The bf16 kernels must have them, the fp32
-    ones (parity mode, the FMA pipe) none."""
+    """Phase 17, last: tensor-core instructions (HMMA) in each kernel of the
+    built library.  The resident bf16 kernels must have them, the resident
+    fp32 ones (parity mode, the FMA pipe) none; every streaming kernel (bf16
+    m16n8k16, fp32 split TF32 m16n8k8), in its cp.async and its element-wise
+    variant, must have them."""
     import re
 
-    resident = {}
-    for mangled, n_mma in hmma_per_kernel(fa_cuda._LIB).items():
-        kind = re.search(r"flash_mha_resident_(fwd|dq|dkv)_kernel", mangled)
+    found, mix = {}, {}
+    for mangled, ops in sass_opcodes(fa_cuda._LIB).items():
+        kind = re.search(r"flash_mha_(resident|stream)_(fwd|dq|dkv)_kernel", mangled)
         if kind:
             dtype = "bfloat16" if "bfloat16" in mangled else "float32"
-            resident[f"{kind.group(1)}-{dtype}"] = n_mma
-    log(f"  HMMA instructions per resident kernel: {resident}")
-    if len(resident) != 6 or any((v > 0) != k.endswith("bfloat16") for k, v in resident.items()):
-        raise AssertionError(f"tensor-core instructions: {resident}")
-    return resident
+            key = f"{kind.group(1)}-{kind.group(2)}-{dtype}"
+            if kind.group(1) == "stream":  # template <T, bool kAligned>
+                key += "-aligned" if "Lb1E" in mangled else "-elementwise"
+                if key.endswith("-aligned"):  # what the streaming kernels issue
+                    mix[key] = dict(ops.most_common(10), total=sum(ops.values()))
+            found[key] = ops["HMMA"]
+    log(f"  HMMA instructions per kernel-4 kernel: {found}")
+    for key, ops in mix.items():
+        log(f"  {key} instructions (static): {ops}")
+    resident = {k: v for k, v in found.items() if k.startswith("resident-")}
+    stream = {k: v for k, v in found.items() if k.startswith("stream-")}
+    if (len(resident) != 6 or any((v > 0) != k.endswith("bfloat16") for k, v in resident.items())
+            or len(stream) != 12 or min(stream.values()) <= 0):
+        raise AssertionError(f"tensor-core instructions: {found}")
+    return {"hmma": found, "stream_sass": mix}
 
 
 def ast_args(root: str, data: str, log_dir: str, **extra):
@@ -1840,9 +1862,9 @@ def serve_ast(fa_cuda, trainer):
     return out
 
 
-def ast_step_fns(norm, fused: bool = True, bf16: bool = False):
-    """An AST train step and eval step at base384 on a fixed batch of 32,
-    and the model and transform."""
+def ast_step_fns(norm, fused: bool = True, bf16: bool = False, seconds: int = 1):
+    """An AST train step and eval step at base384 on a fixed batch of 32
+    frames of ``seconds`` s, and the model and transform."""
     from audiodeepfake_detection_tpu_torch.models.ast import ASTModel
     from audiodeepfake_detection_tpu_torch.train.steps import (
         make_eval_step, make_optimizer, make_train_step)
@@ -1851,13 +1873,16 @@ def ast_step_fns(norm, fused: bool = True, bf16: bool = False):
 
     args = ast_args("", "", "")
     transform = normalized_transform(make_transform(args), *[np.asarray(v) for v in norm])
+    gen = torch.Generator().manual_seed(6)
+    batch = {"audio": (0.3 * torch.randn(AST_BATCH, 1, seconds * SR, generator=gen)).cuda(),
+             "label": torch.randint(0, 2, (AST_BATCH,), generator=gen).cuda()}
+    with torch.no_grad():
+        tdim = transform(batch["audio"]).shape[-1]
     torch.manual_seed(0)
-    model = ASTModel(fused_attention=fused, dtype=torch.bfloat16 if bf16 else None).cuda()
+    model = ASTModel(input_tdim=tdim, fused_attention=fused,
+                     dtype=torch.bfloat16 if bf16 else None).cuda()
     optimizer = make_optimizer(model.parameters(), args.learning_rate, args.weight_decay,
                                moment_dtype="bfloat16" if bf16 else None)
-    gen = torch.Generator().manual_seed(6)
-    batch = {"audio": (0.3 * torch.randn(AST_BATCH, 1, SR, generator=gen)).cuda(),
-             "label": torch.randint(0, 2, (AST_BATCH,), generator=gen).cuda()}
     train_step = make_train_step(model, transform, optimizer)
     eval_step = make_eval_step(model, transform)
     return (lambda: train_step(batch)), (lambda: eval_step(batch)), model, transform
@@ -1905,7 +1930,7 @@ def ast_timing(fa, fa_cuda, norm, card_line: str):
         qkv, g = mha_case(b, n, heads, dtype, seed=120)
         raw = qkv.detach()
         routes = [r for r in fa_cuda.ROUTES if r == "stream" or n <= fa_cuda.RESIDENT_MAX_N]
-        stats = {r: fa_cuda.forward(raw, heads, 0.125, True, route=r)[1] for r in routes}
+        fwd_out = {r: fa_cuda.forward(raw, heads, 0.125, True, route=r) for r in routes}
         y = fa_cuda.forward(raw, heads, 0.125, False)[0]
         plain_graph = fa.plain_mha_packed(qkv, heads, 0.125)
         lib_graph = sdpa_packed(qkv, heads, 0.125)
@@ -1918,7 +1943,8 @@ def ast_timing(fa, fa_cuda, norm, card_line: str):
         }, reps=10)
         bwd = median_ms({
             "plain": lambda: torch.autograd.grad(plain_graph, qkv, g, retain_graph=True),
-            **{r: (lambda r=r: fa_cuda.backward(raw, g, stats[r], heads, 0.125, route=r))
+            **{r: (lambda r=r: fa_cuda.backward(raw, g, fwd_out[r][1], heads, 0.125, route=r,
+                                                out=fwd_out[r][0]))
                for r in routes},
             "library": lambda: torch.autograd.grad(lib_graph, qkv, g, retain_graph=True),
         }, reps=10)
@@ -1938,7 +1964,7 @@ def ast_timing(fa, fa_cuda, norm, card_line: str):
             f"{k} {fwd[k]:.4f} ms" for k in fwd) + f" (bound {fb:.4f}, {fby}); bwd "
             + ", ".join(f"{k} {bwd[k]:.4f} ms" for k in bwd) + f" (bound {bb:.4f}, {bby}) "
             f"(SDPA vs kernel max|diff| {lib_err:.2e})")
-        del plain_graph, lib_graph, y, stats, qkv, raw, g
+        del plain_graph, lib_graph, y, fwd_out, qkv, raw, g
 
     variants = {"fused": dict(), "unfused": dict(fused=False), "bf16": dict(bf16=True)}
     fns = {name: ast_step_fns(norm, **kw) for name, kw in variants.items()}
@@ -2010,7 +2036,30 @@ def train_long(wpt, wpt_cuda, fa_cuda, root: str, data: str, card_line: str):
             or mha["stream_bwd"] != AST_BLOCKS * len(ast_losses)
             or mha["stream_fwd"] <= mha["stream_bwd"]):
         raise AssertionError(f"2 s AST run: {tokens} tokens, {ast_losses}, {mha}")
+    norm = ast.norm_stats
     del ast
+
+    # the 2 s AST train step, fused fp32 and bf16 (bf16 moments), timed and
+    # profiled: kernel 4's share of the step's device time
+    fns = {name: ast_step_fns(norm, seconds=2, **kw)
+           for name, kw in (("fused", {}), ("bf16", dict(bf16=True)))}
+    if any(fn[2].num_patches + 2 != STREAM_SHAPE[1] for fn in fns.values()):
+        raise AssertionError("the 2 s AST step is not at the streaming route's token count")
+    before = mha_counts(fa_cuda)
+    step_ms = median_ms({name: fn[0] for name, fn in fns.items()}, reps=3)
+    torch.cuda.synchronize()
+    after = mha_counts(fa_cuda)
+    if after["resident"] != before["resident"] or after["stream"][1] == before["stream"][1]:
+        raise AssertionError(f"2 s AST steps left the streaming route: {before} -> {after}")
+    step_prof, share = {}, {}
+    for name, fn in fns.items():
+        log(f"  profile of the 2 s {name} AST step")
+        step_prof[name] = profile_train(fn[0], kernel_groups=AST_KERNEL_GROUPS)
+        share[name] = step_prof[name]["groups"]["flash_mha"] / step_prof[name]["device_ms"]
+    log(f"  2 s AST train step at B={AST_BATCH} [{card_line}]: " + ", ".join(
+        f"{k} {v:.3f} ms, kernel 4 {step_prof[k]['groups']['flash_mha']:.3f} ms "
+        f"({100 * share[k]:.1f} % of device time)" for k, v in step_ms.items()))
+    del fns
 
     b = LONG_CASES[0][0]  # the DCNN run's batch, held against plain in phase 3
     x = torch.randn(b, frame, generator=torch.Generator().manual_seed(9)).cuda()
@@ -2021,7 +2070,8 @@ def train_long(wpt, wpt_cuda, fa_cuda, root: str, data: str, card_line: str):
     log(f"  WPT long-frame route at B={b}, T={frame}, with the log [{card_line}]: kernel "
         f"{ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms")
     return {"dcnn_losses": losses, "wpt_launches": counts, "ast_tokens": tokens,
-            "ast_losses": ast_losses, "mha_launches": mha,
+            "ast_losses": ast_losses, "mha_launches": mha, "ast_step_ms": step_ms,
+            "ast_step_profile": step_prof, "kernel4_share_of_device": share,
             "wpt_long_kernel_ms": ms["kernel"], "wpt_long_plain_ms": ms["plain"]}
 
 
@@ -2265,19 +2315,28 @@ def main() -> None:
             # the streaming route (N above the resident limit): phase 20's
             # 477-token AST, checked in phase 17 and timed in phase 19 there
             "name": "flash_mha_stream_fwd", "route": "cuda", "source": mha_src,
+            "design": "mma.sync (bf16 m16n8k16; fp32 split TF32 m16n8k8, 3 products), "
+                      "S and P in registers, K/V through a cp.async ring; fp32 one "
+                      "online pass, bf16 two",
             "replaces": "audiodeepfake_detection_tpu/ops/flash_attention.py:137",
             "launches": long_run["mha_launches"]["stream_fwd"],
             "max_abs_err": mha_errs["stream-" + stream_key]["fwd_max_abs_err"],
             "ms": s32["fwd_stream_ms"], "plain_ms": s32["fwd_plain_ms"],
             "bound_ms": sfwd_b, "bound_by": sfwd_by, "library_ms": s32["fwd_library_ms"],
+            "hmma": {k: v for k, v in mma["hmma"].items() if k.startswith("stream-fwd")},
         },
         {
+            # one launch counted per backward call: its dQ and dK/dV kernels
             "name": "flash_mha_stream_bwd", "route": "cuda", "source": mha_src,
+            "design": "as the forward; dQ kernel (two walks over the keys) and dK/dV "
+                      "kernel (keys as rows), nine products",
             "replaces": "audiodeepfake_detection_tpu/ops/flash_attention.py:156",
             "launches": long_run["mha_launches"]["stream_bwd"],
             "max_abs_err": mha_errs["stream-" + stream_key]["dqkv_max_abs_err"],
             "ms": s32["bwd_stream_ms"], "plain_ms": s32["bwd_plain_ms"],
             "bound_ms": sbwd_b, "bound_by": sbwd_by, "library_ms": s32["bwd_library_ms"],
+            "hmma": {k: v for k, v in mma["hmma"].items()
+                     if k.startswith(("stream-dq", "stream-dkv"))},
         },
         {
             # the WPT's long-frame route (one launch per level; one counted

@@ -710,7 +710,8 @@ def test_flash_mha_matches_plain(card, b, n, heads, dtype, route):
         (dqkv,) = torch.autograd.grad(out, qkv, g)
     else:
         out, stats = flash_attention_cuda.forward(qkv.detach(), heads, scale, True, route=route)
-        dqkv = flash_attention_cuda.backward(qkv.detach(), g, stats, heads, scale, route=route)
+        dqkv = flash_attention_cuda.backward(qkv.detach(), g, stats, heads, scale, route=route,
+                                             out=out)
     torch.cuda.synchronize()
     assert [getattr(flash_attention_cuda, name) for name in names] == [v + 1 for v in before]
     want = flash_attention.plain_mha_packed(qkv, heads, scale)
@@ -739,7 +740,8 @@ def test_flash_mha_repeats_bit_for_bit_and_skips_statistics_without_grad(card):
         outs = []
         for _ in range(2):
             out, stats = flash_attention_cuda.forward(x, 12, 0.125, True, route="stream")
-            outs.append((out, flash_attention_cuda.backward(x, gx, stats, 12, 0.125, route="stream")))
+            outs.append((out, flash_attention_cuda.backward(x, gx, stats, 12, 0.125, route="stream",
+                                                            out=out)))
         for a, b in zip(*outs):
             assert torch.equal(a, b)
     before = flash_attention_cuda.MHA_BWD_LAUNCHES
@@ -748,6 +750,68 @@ def test_flash_mha_repeats_bit_for_bit_and_skips_statistics_without_grad(card):
         assert stats is None and torch.equal(out, runs[0][0])
         assert torch.equal(flash_attention.flash_mha_packed(qkv, 12, 0.125), runs[0][0])
     assert flash_attention_cuda.MHA_BWD_LAUNCHES == before
+
+
+def _misaligned(t):
+    """A copy of ``t`` whose data starts one element (4 bytes in fp32, 2 in
+    bf16) past a 16-byte boundary."""
+    flat = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    view = flat[1:1 + t.numel()].view_as(t)
+    view.copy_(t.detach())
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    return view
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_mha_streaming_route_takes_misaligned_tensors(card, dtype):
+    """cp.async moves 16 bytes: a qkv or dout that does not start on a
+    16-byte boundary takes the streaming kernels' element-wise variant, which
+    equals plain and counts one streaming launch each way."""
+    names = ("MHA_FWD_LAUNCHES", "MHA_BWD_LAUNCHES", "MHA_STREAM_FWD_LAUNCHES",
+             "MHA_STREAM_BWD_LAUNCHES")
+    for n, odd_dout in ((99, False), (300, True)):
+        qkv, g = _mha_inputs(1, n, 3, dtype, card, seed=n)
+        want = flash_attention.plain_mha_packed(qkv, 3, 0.125)
+        (wgrad,) = torch.autograd.grad(want, qkv, g)
+        before = [getattr(flash_attention_cuda, name) for name in names]
+        if odd_dout:  # aligned qkv, misaligned cotangent, through the launchers
+            raw = qkv.detach()
+            out, stats = flash_attention_cuda.forward(raw, 3, 0.125, True)
+            dqkv = flash_attention_cuda.backward(raw, _misaligned(g), stats, 3, 0.125, out=out)
+        else:
+            x = _misaligned(qkv).requires_grad_()
+            out = flash_attention.flash_mha_packed(x, 3, 0.125)
+            (dqkv,) = torch.autograd.grad(out, x, g)
+        torch.cuda.synchronize()
+        moved = [getattr(flash_attention_cuda, name) - v for name, v in zip(names, before)]
+        assert moved == [0, 0, 1, 1], (n, moved)
+        if dtype == torch.float32:
+            torch.testing.assert_close(out, want, rtol=0, atol=MHA_FWD_ATOL)
+            assert _rel(dqkv, wgrad) <= MHA_GRAD_RTOL
+        else:
+            assert _rel(out, want) <= 2.0**-7
+            assert _rel(dqkv, wgrad) <= 1e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_mha_streaming_equals_resident_at_the_ast_token_count(card, dtype):
+    """Both routes at N = 227 (the AST's 1 s frames), through the launchers
+    by name: the same function within the tolerances each is held to against
+    plain."""
+    qkv, g = _mha_inputs(2, 227, 12, dtype, card, seed=5)
+    raw = qkv.detach()
+    res = {}
+    for route in flash_attention_cuda.ROUTES:
+        out, stats = flash_attention_cuda.forward(raw, 12, 0.125, True, route=route)
+        res[route] = out, flash_attention_cuda.backward(raw, g, stats, 12, 0.125, route=route,
+                                                        out=out)
+    (out_s, d_s), (out_r, d_r) = res["stream"], res["resident"]
+    if dtype == torch.float32:
+        torch.testing.assert_close(out_s, out_r, rtol=0, atol=MHA_FWD_ATOL)
+        assert _rel(d_s, d_r) <= MHA_GRAD_RTOL
+    else:
+        assert _rel(out_s, out_r) <= 2.0**-7
+        assert _rel(d_s, d_r) <= 1e-2
 
 
 def test_flash_mha_refuses_what_it_does_not_take(card):
@@ -767,6 +831,10 @@ def test_flash_mha_refuses_what_it_does_not_take(card):
     long_qkv, _ = _mha_inputs(1, flash_attention_cuda.RESIDENT_MAX_N + 1, 1, torch.float32, card)
     with pytest.raises(ValueError, match="resident route takes"):
         flash_attention_cuda.forward(long_qkv.detach(), 1, 0.125, False, route="resident")
+    # the fp32 streaming backward's row term is rowsum(dout * out)
+    out, stats = flash_attention_cuda.forward(long_qkv.detach(), 1, 0.125, True)
+    with pytest.raises(ValueError, match="takes the forward's out"):
+        flash_attention_cuda.backward(long_qkv.detach(), out, stats, 1, 0.125)
 
 
 def test_ast_train_step_fused_matches_unfused_on_the_card(card, monkeypatch):

@@ -85,7 +85,7 @@ def _emulated_forward(qkv, heads, scale, want_stats):
     return out, stats if want_stats else None
 
 
-def _emulated_backward(qkv, dout, stats, heads, scale):
+def _emulated_backward(qkv, dout, stats, heads, scale, out=None):
     """The resident backward's algorithm in PyTorch.  Query side: P
     recomputed from qkv and the saved statistics, dP, the row term
     rowsum(dP * P) from those resident rows, dS rounded to the input type,
@@ -170,3 +170,138 @@ def test_route_follows_the_token_count_and_alignment():
         flash_attention_cuda._pick("resident", limit + 1, qkv)
     with pytest.raises(ValueError, match="route must be one of"):
         flash_attention_cuda._pick("tiled", 99, qkv)
+
+
+def _stream_forward(qkv, heads, scale, want_stats):
+    """The streaming forward kernel's algorithm in PyTorch, over 64-key
+    tiles in the kernel's order.  float32: one pass with the online softmax
+    (the row max grows tile by tile, O and the row sum are rescaled by
+    exp(m_old - m), O / l at the end).  bfloat16: pass 1 gives the row max
+    and sum, pass 2 rounds the exact p = exp(s - m) / l to bf16 before P.V."""
+    b, n, c = qkv.shape
+    dt = qkv.dtype
+    q, k, v = qkv.float().view(b, n, 3, heads, c // 3 // heads).unbind(2)
+    m = torch.full((b, heads, n), -torch.inf)
+    l = torch.zeros(b, heads, n)
+    acc = torch.zeros(b, heads, n, q.shape[-1])
+    for t in range(0, n, 64):
+        s = torch.einsum("bnhd,bmhd->bhnm", q, k[:, t:t + 64]) * scale
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        if dt == torch.float32:
+            acc = acc * alpha[..., None] + torch.einsum("bhnm,bmhd->bhnd", p, v[:, t:t + 64])
+        m = m_new
+    if dt == torch.float32:
+        acc = acc / l[..., None]
+    else:
+        for t in range(0, n, 64):
+            s = torch.einsum("bnhd,bmhd->bhnm", q, k[:, t:t + 64]) * scale
+            p = (torch.exp(s - m[..., None]) / l[..., None]).to(dt).float()
+            acc = acc + torch.einsum("bhnm,bmhd->bhnd", p, v[:, t:t + 64])
+    out = acc.permute(0, 2, 1, 3).reshape(b, n, c // 3).to(dt)
+    return out, torch.stack([m, l], -1) if want_stats else None
+
+
+def _stream_backward(qkv, dout, stats, heads, scale, out=None):
+    """The streaming backward kernels' algorithm in PyTorch.  Query side:
+    the row term, in float32 rowsum(dO * O) from the forward's output, in
+    bfloat16 rowsum(dP * P) from a walk over the 64-key tiles (P from the
+    saved statistics); then dS = P * (dP - rowterm) * scale rounded to the
+    input type and dQ += dS K tile by tile.  Key side,
+    per 64-query tile in order: S^T and dP^T with the keys as rows, P^T and
+    dS^T from the tile's statistics and row term, dV += P^T dO with P
+    rounded, dK += dS^T Q."""
+    b, n, c = qkv.shape
+    dt = qkv.dtype
+    q, k, v = qkv.float().view(b, n, 3, heads, c // 3 // heads).unbind(2)
+    do = dout.float().view(b, n, heads, -1)
+    m, l = stats[..., 0], stats[..., 1]
+    tiles = [slice(t, t + 64) for t in range(0, n, 64)]
+
+    def p_dp(rows, keys):
+        s = torch.einsum("bnhd,bmhd->bhnm", q[:, rows], k[:, keys]) * scale
+        p = torch.exp(s - m[:, :, rows, None]) / l[:, :, rows, None]
+        return p, torch.einsum("bnhd,bmhd->bhnm", do[:, rows], v[:, keys])
+
+    if dt == torch.float32:
+        rowterm = (do * out.view(b, n, heads, -1)).sum(-1).transpose(1, 2)
+    else:
+        rowterm = torch.zeros(b, heads, n)
+        for keys in tiles:
+            p, dp = p_dp(slice(None), keys)
+            rowterm = rowterm + (dp * p).sum(-1)
+    dq = torch.zeros_like(q)
+    for keys in tiles:
+        p, dp = p_dp(slice(None), keys)
+        ds = (p * (dp - rowterm[..., None]) * scale).to(dt).float()
+        dq = dq + torch.einsum("bhnm,bmhd->bnhd", ds, k[:, keys])
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for rows in tiles:
+        p, dp = p_dp(rows, slice(None))
+        ds = (p * (dp - rowterm[:, :, rows, None]) * scale).to(dt).float()
+        dv = dv + torch.einsum("bhnm,bnhd->bmhd", p.to(dt).float(), do[:, rows])
+        dk = dk + torch.einsum("bhnm,bnhd->bmhd", ds, q[:, rows])
+    return torch.stack([dq, dk, dv], 2).reshape(b, n, c).to(dt)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_autograd_function_with_the_streaming_algorithm_equals_plain(monkeypatch, dtype):
+    """N = 300: five 64-key tiles, the last ragged, through ``_FlashMHA``
+    with the streaming kernels' algorithm as its launchers."""
+    monkeypatch.setattr(flash_attention_cuda, "forward", _stream_forward)
+    monkeypatch.setattr(flash_attention_cuda, "backward", _stream_backward)
+    qkv, g = _inputs(2, 300, 2, seed=6)
+    got = _port(qkv, g, 2, 0.125, dtype, fn=flash_attention._FlashMHA.apply)
+    want = _port(qkv, g, 2, 0.125, dtype)
+    if dtype == torch.float32:
+        # the online rescale and the tile order change only fp32 rounding
+        np.testing.assert_allclose(got[0], want[0], rtol=0, atol=1e-6)
+        np.testing.assert_allclose(got[1], want[1], rtol=0, atol=2e-6)
+    else:
+        # P from exp(s - m) / l against torch's softmax: a probability that
+        # rounds to the other bf16 neighbour moves an output by about an ulp
+        # beside the output's own rounding (2**-8 relative each)
+        np.testing.assert_allclose(got[0], want[0], rtol=0,
+                                   atol=2.0**-7 * np.abs(want[0]).max())
+        np.testing.assert_allclose(got[1], want[1], rtol=0, atol=1e-2 * np.abs(want[1]).max())
+
+
+def _tf32(a):
+    """Round float32 to TF32 (10 explicit mantissa bits) to nearest, ties
+    away from zero, as ``cvt.rna.tf32.f32`` does: add half of the dropped
+    13 bits to the magnitude (the int32 view is sign-magnitude), then clear
+    them."""
+    bits = np.ascontiguousarray(a, np.float32).view(np.int32)
+    return ((bits + np.int32(0x1000)) & np.int32(-0x2000)).view(np.float32)
+
+
+def _split_product(a, b):
+    """``a @ b`` as the fp32 streaming kernels form it: each operand split
+    into TF32 big + small parts, ``small * big + big * small + big * big``
+    summed in float32 (``small * small`` dropped); and one TF32 pass."""
+    a_big, b_big = _tf32(a), _tf32(b)
+    a_small, b_small = _tf32(a - a_big), _tf32(b - b_big)
+    return (a_small @ b_big) + (a_big @ b_small) + (a_big @ b_big), a_big @ b_big
+
+
+def test_split_tf32_attention_products_are_fp32_accurate_and_one_pass_is_not():
+    """The fp32 streaming kernels' two kinds of product at the AST's head
+    width: S = Q K^T over 64 dims and P V over 300 keys (P the softmax of the
+    scaled S), summed as the kernels sum them.  Three TF32 products lie within 1e-6 of the largest entry of
+    a float64 reference; one TF32 pass does not (it is ~2**-11 a product)."""
+    rng = np.random.RandomState(7)
+    q, k, v = (rng.randn(300, 64).astype(np.float32) for _ in range(3))
+    s = q @ k.T
+    e = np.exp((s - s.max(1, keepdims=True)) * np.float32(0.125))
+    p = (e / e.sum(1, keepdims=True)).astype(np.float32)
+    for name, (a, bm) in {"QK^T": (q, k.T.copy()), "PV": (p, v)}.items():
+        ref = a.astype(np.float64) @ bm.astype(np.float64)
+        scale = np.abs(ref).max()
+        # a 64-deep tile product from zero, the tiles added in fp32 (nn_add)
+        three, one = (sum(parts) for parts in zip(*(
+            _split_product(a[:, t:t + 64], bm[t:t + 64]) for t in range(0, a.shape[1], 64))))
+        err3, err1 = (float(np.abs(t - ref).max() / scale) for t in (three, one))
+        assert err3 <= 1e-6, (name, err3)
+        assert err1 > 1e-6 and err1 >= 100 * err3, (name, err1, err3)
