@@ -194,6 +194,8 @@ MID_BF16_DALPHA_RTOL = 3e-2
 # ---- the AST path (phases 17-19)
 AST_SHAPE = (32, 227, 12)  # B, N (25 x 9 patches + cls + dist), heads of 64 (base384)
 STREAM_SHAPE = (32, 477, 12)  # the same AST on 2 s frames (25 x 19 patches + 2), phase 20
+# kernel 4 also timed at these token counts (B=32, 12 heads), phase 19
+MHA_SWEEP_SHAPES = ((32, 18, 12), (32, 99, 12), (32, 256, 12))
 AST_BATCH = 32
 AST_STEPS_PER_EPOCH = 12  # 392 training frames // 32
 AST_BLOCKS = 12
@@ -1510,9 +1512,11 @@ def mid_timing(fp, pool_cuda, f2, conv2_cuda, norm, card_line: str):
     phase 8 times kernel 2), the DCNN train step with each set of flags, and
     the eval step."""
     out = {}
-    for name, shape in (("pool2", POOL2_SHAPE), ("pool3", POOL3_SHAPE)):
-        (x, alpha), cot = pool_case(*shape, torch.float32, 0.25, seed=90)
-        raw = (x.detach(), alpha.detach())
+    for name, shape, dtype in (("pool2", POOL2_SHAPE, torch.float32),
+                               ("pool3", POOL3_SHAPE, torch.float32),
+                               ("pool2_bf16", POOL2_SHAPE, torch.bfloat16)):
+        (x, alpha), cot = pool_case(*shape, dtype, 0.25, seed=90)
+        raw = (x.detach(), alpha.detach().float())  # the slope as the autograd glue passes it
         y, code, _, _ = pool_cuda.forward(*raw, True, True)
         graph = fp.plain_prelu_pool_stats(x, alpha)
         fwd = median_ms({
@@ -1523,9 +1527,11 @@ def mid_timing(fp, pool_cuda, f2, conv2_cuda, norm, card_line: str):
             "plain": lambda: torch.autograd.grad(graph, (x, alpha), cot, retain_graph=True),
             "kernel": lambda: pool_cuda.backward(*raw, cot[0], y, code, cot[1], cot[2]),
         }, reps=10)
+        n_negative = int((code >= 4).sum())
+        (fb, _), (bb, _) = pool_bounds(*shape, n_negative, x.element_size())
         out[name] = {"fwd_kernel_ms": fwd["kernel"], "fwd_plain_ms": fwd["plain"],
                      "bwd_kernel_ms": bwd["kernel"], "bwd_plain_ms": bwd["plain"],
-                     "n_negative": int((code >= 4).sum())}
+                     "fwd_bound_ms": fb, "bwd_bound_ms": bb, "n_negative": n_negative}
         del graph, y, code, x, raw
     (x, w, corr, alpha), cot = conv2_case(*CONV2_SHAPE, torch.float32, 0.25, seed=91)
     raw = tuple(t.detach() for t in (x, w, corr, alpha))
@@ -1925,7 +1931,7 @@ def ast_timing(fa, fa_cuda, norm, card_line: str):
     AST train step fused, unfused and bf16 with bf16 moments, the eval step,
     and the scorer at batch 64, 128 and 512 with each chunk."""
     out = {}
-    for (b, n, heads), dtype in ((s, d) for s in (AST_SHAPE, STREAM_SHAPE)
+    for (b, n, heads), dtype in ((s, d) for s in (AST_SHAPE, STREAM_SHAPE) + MHA_SWEEP_SHAPES
                                  for d in (torch.float32, torch.bfloat16)):
         qkv, g = mha_case(b, n, heads, dtype, seed=120)
         raw = qkv.detach()
