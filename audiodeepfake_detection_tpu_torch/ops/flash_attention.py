@@ -15,8 +15,7 @@ bfloat16 input rounds where the JAX kernel rounds: the probabilities before
 On a CUDA tensor :func:`flash_mha_packed` launches the hand-written kernels of
 ``csrc/flash_mha.cu`` (forward and backward, behind one
 ``torch.autograd.Function``; the ``[B, H, N, N]`` scores never reach device
-memory; the route, resident or streaming, follows from N) or raises;
-nothing falls back.  The plain PyTorch version
+memory; one route for every N) or raises; nothing falls back.  The plain PyTorch version
 :func:`plain_mha_packed` runs only for a CPU tensor, and is what the kernels
 are checked against.
 """
@@ -67,7 +66,7 @@ def plain_mha_packed(qkv: torch.Tensor, heads: int, scale: float) -> torch.Tenso
 class _FlashMHA(torch.autograd.Function):
     """The CUDA kernels: forward (with row statistics when a gradient is
     needed) and backward (``dqkv``, recomputing P from qkv; the output is
-    kept for the fp32 streaming route's row term)."""
+    kept for the fp32 row term ``rowsum(dout * out)``)."""
 
     @staticmethod
     def forward(ctx, qkv, heads: int, scale: float):

@@ -2,21 +2,16 @@
 
 ``forward`` / ``backward`` check device, type, shape and contiguity, allocate
 outputs and scratch with ``torch.empty``, and launch on the current stream
-without synchronising.  Two hand-written routes, chosen by geometry
-(:func:`route_for`): the resident route (``N <= RESIDENT_MAX_N``, scores of
-a query tile held for the whole key range: two products forward, seven
-backward, bf16 on the tensor cores, fp32 on the FMA pipe) and the streaming
-route (any N, and tensors that do not start on a 16-byte boundary: S and P
-in registers, every product on the tensor cores, fp32 in split TF32; two
+without synchronising.  One hand-written route serves every N: S and P in
+registers, every product on the tensor cores, fp32 in split TF32; two
 products forward in fp32, three in bf16; seven backward in fp32, whose row
-term is ``rowsum(dout * out)`` from the forward's output, nine in bf16).
-``route=`` names one explicitly, so the card checks can run the streaming
-route at the AST's N; no model or CLI option exposes it.
-``MHA_FWD_LAUNCHES`` / ``MHA_BWD_LAUNCHES`` count the resident route's
-calls, ``MHA_STREAM_FWD_LAUNCHES`` /
-``MHA_STREAM_BWD_LAUNCHES`` the streaming route's (a backward call launches
-two kernels, query side then key side, and counts once).  The public
-function and the plain PyTorch version live in ``ops/flash_attention.py``.
+term is ``rowsum(dout * out)`` from the forward's output, nine in bf16.
+Tensors that do not start on a 16-byte boundary take each kernel's
+element-wise variant, chosen inside the C launcher.
+``MHA_FWD_LAUNCHES`` / ``MHA_BWD_LAUNCHES`` count the calls that launched
+the kernels (a backward call launches two kernels, query side then key
+side, and counts once).  The public function and the plain PyTorch version
+live in ``ops/flash_attention.py``.
 
 The library is compiled at first use (``cuda_build.compile_library``) and
 bound with ``ctypes``; nothing here touches the CUDA toolchain at import
@@ -34,20 +29,14 @@ import torch
 from .cuda_build import CSRC_DIR, compile_library
 from .fused_conv1_cuda import _require
 
-#: forward / backward calls that launched the resident route, in this process
+#: forward / backward calls that launched the kernels, in this process
 MHA_FWD_LAUNCHES = 0
 MHA_BWD_LAUNCHES = 0
-#: ... and the streaming route
-MHA_STREAM_FWD_LAUNCHES = 0
-MHA_STREAM_BWD_LAUNCHES = 0
 
 SOURCE = CSRC_DIR / "flash_mha.cu"
 WHAT = "flash_mha_packed"
 #: the head width the kernels are written for (``kD`` in the source)
 HEAD_DIM = 64
-#: the longest token count of the resident route (``kMaxResident``)
-RESIDENT_MAX_N = 256
-ROUTES = ("resident", "stream")
 
 _LIB: Optional[ctypes.CDLL] = None
 _BUILD_LOCK = threading.Lock()
@@ -67,18 +56,11 @@ def build() -> str:
         lib.flash_mha_fwd_launch.restype = ci
         lib.flash_mha_bwd_launch.argtypes = [vp] * 6 + [ci] * 3 + [cf, ci, ci, vp]
         lib.flash_mha_bwd_launch.restype = ci
-        lib.flash_mha_resident_fwd_launch.argtypes = lib.flash_mha_fwd_launch.argtypes
-        lib.flash_mha_resident_fwd_launch.restype = ci
-        lib.flash_mha_resident_bwd_launch.argtypes = [vp] * 5 + [ci] * 3 + [cf, ci, ci, vp]
-        lib.flash_mha_resident_bwd_launch.restype = ci
-        lib.flash_mha_resident_max_n.restype = ci
         lib.flash_mha_head_dim.restype = ci
         lib.flash_mha_error_string.argtypes = [ci]
         lib.flash_mha_error_string.restype = ctypes.c_char_p
         if lib.flash_mha_head_dim() != HEAD_DIM:
             raise RuntimeError(f"{SOURCE.name} is built for another head width")
-        if lib.flash_mha_resident_max_n() != RESIDENT_MAX_N:
-            raise RuntimeError(f"{SOURCE.name} is built for another resident limit")
         _LIB = lib
         return report
 
@@ -123,91 +105,52 @@ def check_geometry(qkv: torch.Tensor, heads: int) -> Tuple[int, int]:
     return b, n
 
 
-def route_for(n: int, *tensors: torch.Tensor) -> str:
-    """The route a geometry takes: ``"resident"`` for ``N <= RESIDENT_MAX_N``
-    when every tensor starts on a 16-byte boundary (its ``cp.async`` copies
-    move 16 bytes), else ``"stream"``."""
-    aligned = all(t.data_ptr() % 16 == 0 for t in tensors)
-    return "resident" if n <= RESIDENT_MAX_N and aligned else "stream"
-
-
-def _pick(route: Optional[str], n: int, *tensors: torch.Tensor) -> str:
-    if route is None:
-        return route_for(n, *tensors)
-    if route not in ROUTES:
-        raise ValueError(f"{WHAT}: route must be one of {ROUTES}, got {route!r}")
-    if route == "resident" and route_for(n, *tensors) != "resident":
-        raise ValueError(
-            f"{WHAT}: the resident route takes N <= {RESIDENT_MAX_N} and 16-byte "
-            f"aligned tensors, got N={n}"
-        )
-    return route
-
-
-def forward(qkv: torch.Tensor, heads: int, scale: float, want_stats: bool,
-            route: Optional[str] = None):
+def forward(qkv: torch.Tensor, heads: int, scale: float, want_stats: bool):
     """Launch the forward kernel: ``(out [B, N, H*D]`` in qkv's type, the
-    float32 ``[B, H, N, 2]`` row statistics ``(max, sum)`` or ``None``).
-    ``route``: ``None`` (by geometry), ``"resident"`` or ``"stream"``."""
-    global MHA_FWD_LAUNCHES, MHA_STREAM_FWD_LAUNCHES
+    float32 ``[B, H, N, 2]`` row statistics ``(max, sum)`` or ``None``)."""
+    global MHA_FWD_LAUNCHES
     b, n = check_geometry(qkv, heads)
-    route = _pick(route, n, qkv)
     out = torch.empty((b, n, qkv.shape[2] // 3), dtype=qkv.dtype, device=qkv.device)
     stats = (
         torch.empty((b, heads, n, 2), dtype=torch.float32, device=qkv.device)
         if want_stats
         else None
     )
-    launch = (_lib().flash_mha_resident_fwd_launch if route == "resident"
-              else _lib().flash_mha_fwd_launch)
-    err = launch(
+    err = _lib().flash_mha_fwd_launch(
         qkv.data_ptr(), out.data_ptr(), stats.data_ptr() if want_stats else None,
         b, n, heads, float(scale), int(qkv.dtype == torch.bfloat16),
         qkv.device.index, torch.cuda.current_stream(qkv.device).cuda_stream,
     )
-    _check(err, f"{WHAT} {route} forward launch")
-    if route == "resident":
-        MHA_FWD_LAUNCHES += 1
-    else:
-        MHA_STREAM_FWD_LAUNCHES += 1
+    _check(err, f"{WHAT} forward launch")
+    MHA_FWD_LAUNCHES += 1
     return out, stats
 
 
 def backward(
     qkv: torch.Tensor, dout: torch.Tensor, stats: torch.Tensor, heads: int, scale: float,
-    route: Optional[str] = None, out: Optional[torch.Tensor] = None,
+    out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Launch the backward kernels: ``dqkv [B, N, 3*H*D]`` in qkv's type.
     ``dout`` is the cotangent of the forward's output ``out``, ``stats`` its
-    row statistics; ``route`` as for :func:`forward`.  The fp32 streaming
-    route needs ``out`` (its row term is ``rowsum(dout * out)``); the other
-    routes and types form the row term from the recomputed probabilities and
-    ignore it."""
-    global MHA_BWD_LAUNCHES, MHA_STREAM_BWD_LAUNCHES
+    row statistics.  fp32 needs ``out`` (its row term is ``rowsum(dout *
+    out)``); bf16 forms the row term from the recomputed probabilities and
+    ignores it."""
+    global MHA_BWD_LAUNCHES
     b, n = check_geometry(qkv, heads)
     _require(dout, "dout", qkv.dtype, (b, n, qkv.shape[2] // 3), qkv.device, WHAT)
     _require(stats, "stats", torch.float32, (b, heads, n, 2), qkv.device, WHAT)
-    route = _pick(route, n, qkv, dout)
+    fp32 = qkv.dtype == torch.float32
+    if fp32:
+        if out is None:
+            raise ValueError(f"{WHAT}: the fp32 backward takes the forward's out")
+        _require(out, "out", qkv.dtype, (b, n, qkv.shape[2] // 3), qkv.device, WHAT)
     dqkv = torch.empty_like(qkv)
     delta = torch.empty((b, heads, n), dtype=torch.float32, device=qkv.device)
-    args = [qkv.data_ptr(), dout.data_ptr()]
-    if route == "resident":
-        launch = _lib().flash_mha_resident_bwd_launch
-    else:
-        launch = _lib().flash_mha_bwd_launch
-        if qkv.dtype == torch.float32:
-            if out is None:
-                raise ValueError(f"{WHAT}: the fp32 streaming backward takes the forward's out")
-            _require(out, "out", qkv.dtype, (b, n, qkv.shape[2] // 3), qkv.device, WHAT)
-        args.append(out.data_ptr() if qkv.dtype == torch.float32 else None)
-    err = launch(
-        *args, stats.data_ptr(), delta.data_ptr(),
-        dqkv.data_ptr(), b, n, heads, float(scale), int(qkv.dtype == torch.bfloat16),
-        qkv.device.index, torch.cuda.current_stream(qkv.device).cuda_stream,
+    err = _lib().flash_mha_bwd_launch(
+        qkv.data_ptr(), dout.data_ptr(), out.data_ptr() if fp32 else None,
+        stats.data_ptr(), delta.data_ptr(), dqkv.data_ptr(), b, n, heads, float(scale),
+        int(not fp32), qkv.device.index, torch.cuda.current_stream(qkv.device).cuda_stream,
     )
-    _check(err, f"{WHAT} {route} backward launch")
-    if route == "resident":
-        MHA_BWD_LAUNCHES += 1
-    else:
-        MHA_STREAM_BWD_LAUNCHES += 1
+    _check(err, f"{WHAT} backward launch")
+    MHA_BWD_LAUNCHES += 1
     return dqkv

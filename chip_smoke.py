@@ -78,12 +78,13 @@ Phases, in order; any failure propagates and the script exits non-zero
     the train step at
     batch 128 unfused, with ``fused_layer1`` only, (a) and (b), the eval
     step; a profile of step (b);
-17. fused attention vs plain: forward and ``dqkv`` of both kernel-4 routes
-    (resident, streaming) against the plain PyTorch version at the AST's
-    shape (B=32, N=227, 12 heads of 64; fp32 and bf16) and at N = 1, 18, 99
-    and 256, the streaming route also above the resident limit (N=300); two
-    runs compared bit for bit; the tensor-core (HMMA) instructions of each
-    resident kernel counted in the built library (``cuobjdump -sass``);
+17. fused attention vs plain: forward and ``dqkv`` of kernel 4 (one route
+    for every N) against the plain PyTorch version at the AST's shape
+    (B=32, N=227, 12 heads of 64; fp32 and bf16), at phase 20's N=477 and
+    at N = 1, 18, 99, 256 and 300, and on a qkv or a cotangent that does
+    not start on a 16-byte boundary; two runs compared bit for bit; the
+    tensor-core (HMMA) instructions of each of its 12 kernels counted in
+    the built library (``cuobjdump -sass``);
 18. train the AST: the corpus through ``run_experiment`` on ``cuda`` (stft,
     hop 220, log scale, base384 AST with the fused attention, batch 32, 2
     epochs with validation, test and snapshot), the kernel's launch counts
@@ -91,16 +92,17 @@ Phases, in order; any failure propagates and the script exits non-zero
     epoch in bf16 with bf16 Adam moments; the trained AST behind
     ``ScoringService`` (batch 64, the whole batch at once) over HTTP, scores
     against the same model on the CPU;
-19. time: both kernel-4 routes alone vs plain and vs
-    ``scaled_dot_product_attention`` (the library yardstick, timed only),
+19. time: kernel 4 alone vs plain and vs ``scaled_dot_product_attention``
+    (the library yardstick, timed only) at N = 18, 99, 227, 256 and 477
+    (B=32, 12 heads),
     the AST train step fused, unfused and bf16, the eval step, the scorer
     at batch 64, 128 and 512 with chunks of 0 (whole batch), 8, 16 and 32;
     profiles of the fused fp32 and the bf16 steps;
 20. frames longer than one block's shared memory: the corpus cut into 2 s
     frames and trained through ``run_experiment`` on ``cuda`` with packets
     + DCNN (the WPT's long-frame route; its launch count read over exactly
-    this run) and with stft + AST (477 tokens: kernel 4's streaming route,
-    counted likewise); the long-frame route timed against plain at B=128.
+    this run) and with stft + AST (477 tokens through kernel 4, counted
+    likewise); the long-frame route timed against plain at B=64.
 
 The last lines are the kernels' JSON record, the measurements with the
 card's name and power limit, and ``{"ok": true, "device": ...}``.
@@ -1606,66 +1608,72 @@ def mha_case(b, n, heads, dtype, seed):
     return qkv.requires_grad_(), torch.randn(b, n, heads * 64, generator=gen).cuda().to(dtype)
 
 
-def mha_counts(fa_cuda) -> dict:
-    return {"resident": (fa_cuda.MHA_FWD_LAUNCHES, fa_cuda.MHA_BWD_LAUNCHES),
-            "stream": (fa_cuda.MHA_STREAM_FWD_LAUNCHES, fa_cuda.MHA_STREAM_BWD_LAUNCHES)}
+def mha_counts(fa_cuda):
+    return fa_cuda.MHA_FWD_LAUNCHES, fa_cuda.MHA_BWD_LAUNCHES
 
 
-def mha_run(fa, fa_cuda, qkv, g, heads, route):
-    """Output and ``dqkv`` of one route: through the autograd Function where
-    the geometry picks that route, else through the launchers by name; fails
-    unless exactly that route's forward and backward launched once each."""
+def misaligned(t):
+    """A copy of ``t`` whose data starts one element (4 bytes in fp32, 2 in
+    bf16) past a 16-byte boundary: the kernels' element-wise variant."""
+    flat = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    view = flat[1:1 + t.numel()].view_as(t)
+    view.copy_(t.detach())
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    return view
+
+
+def mha_run(fa, fa_cuda, qkv, g, heads):
+    """Output and ``dqkv`` through the autograd Function; fails unless the
+    kernels launched once each way."""
     before = mha_counts(fa_cuda)
-    if route == fa_cuda.route_for(qkv.shape[1], qkv, g):
-        y = fa.flash_mha_packed(qkv, heads, 0.125)
-        result = y, torch.autograd.grad(y, qkv, g)[0]
-    else:
-        raw = qkv.detach()
-        y, stats = fa_cuda.forward(raw, heads, 0.125, True, route=route)
-        result = y, fa_cuda.backward(raw, g, stats, heads, 0.125, route=route, out=y)
+    y = fa.flash_mha_packed(qkv, heads, 0.125)
+    result = y, torch.autograd.grad(y, qkv, g)[0]
     after = mha_counts(fa_cuda)
-    moved = {r: (after[r][0] - before[r][0], after[r][1] - before[r][1]) for r in after}
-    if moved != {r: (1, 1) if r == route else (0, 0) for r in fa_cuda.ROUTES}:
-        raise AssertionError(f"kernel 4, {route} route at {tuple(qkv.shape)}: launches {moved}")
+    if (after[0] - before[0], after[1] - before[1]) != (1, 1):
+        raise AssertionError(f"kernel 4 at {tuple(qkv.shape)}: launches {before} -> {after}")
     return result
 
 
 def mha_vs_plain(fa, fa_cuda):
-    """Phase 17: both routes of kernel 4 against the plain version under
-    autograd, and each against itself; the streaming route alone at
-    ``STREAM_SHAPE``, the geometry phase 20 sends it."""
+    """Phase 17: kernel 4 against the plain version under autograd, and
+    against itself, at every token count a user reaches (1 s frames: 227;
+    2 s frames: ``STREAM_SHAPE``; short and ragged ones), and at views whose
+    qkv or cotangent does not start on a 16-byte boundary."""
     f32, bf16 = torch.float32, torch.bfloat16
-    shapes = [AST_SHAPE, STREAM_SHAPE, (2, 99, 3), (3, 18, 3), (1, 1, 1), (1, 256, 2),
-              (1, 300, 2)]
+    shapes = [(AST_SHAPE, ""), (STREAM_SHAPE, ""), ((2, 99, 3), ""), ((3, 18, 3), ""),
+              ((1, 1, 1), ""), ((1, 256, 2), ""), ((1, 300, 2), ""),
+              ((2, 99, 3), "misaligned-qkv-"), ((1, 300, 2), "misaligned-dout-")]
     out = {}
-    for i, ((b, n, heads), dtype) in enumerate((s, d) for s in shapes for d in (f32, bf16)):
+    cases = [(s, d) for s in shapes for d in (f32, bf16)]
+    for i, (((b, n, heads), view), dtype) in enumerate(cases):
         qkv, g = mha_case(b, n, heads, dtype, seed=100 + i)
         want = fa.plain_mha_packed(qkv, heads, 0.125)
         (wgrad,) = torch.autograd.grad(want, qkv, g)
-        for route in fa_cuda.ROUTES:
-            if route == "resident" and n > fa_cuda.RESIDENT_MAX_N:
-                continue
-            runs = [mha_run(fa, fa_cuda, qkv, g, heads, route) for _ in range(2)]
-            torch.cuda.synchronize()
-            y, dqkv = runs[0]
-            bitwise = all(torch.equal(u, v) for u, v in zip(*runs))
-            fp32 = dtype == f32
-            fwd_err = (y.float() - want.float()).abs().max().item()
-            fwd_tol = MHA_FWD_ATOL if fp32 else want.float().abs().max().item() * MHA_BF16_FWD_RTOL
-            grad_rel = rel_err(dqkv, wgrad)
-            key = f"{route}-B{b}-N{n}-H{heads}-{str(dtype).split('.')[-1]}"
-            out[key] = {"fwd_max_abs_err": fwd_err, "dqkv_rel_err": grad_rel,
-                        "dqkv_max_abs_err": (dqkv.float() - wgrad.float()).abs().max().item(),
-                        "bitwise_repeat": bitwise}
-            log(f"  {key}: out max|err| {fwd_err:.3e} (tol {fwd_tol:.1e}), dqkv rel "
-                f"{grad_rel:.2e}, repeat bit-equal {bitwise}")
-            if not (fwd_err <= fwd_tol
-                    and grad_rel <= (MHA_GRAD_RTOL if fp32 else MHA_BF16_GRAD_RTOL)):
-                raise AssertionError(f"kernel 4 vs plain at {key}: {out[key]}")
-            if not bitwise:
-                raise AssertionError(f"kernel 4 at {key}: two runs differ")
-            del runs, y, dqkv
-        del want, wgrad, qkv, g
+        x, gx = qkv, g
+        if view == "misaligned-qkv-":
+            x = misaligned(qkv).requires_grad_()
+        elif view == "misaligned-dout-":
+            gx = misaligned(g)
+        runs = [mha_run(fa, fa_cuda, x, gx, heads) for _ in range(2)]
+        torch.cuda.synchronize()
+        y, dqkv = runs[0]
+        bitwise = all(torch.equal(u, v) for u, v in zip(*runs))
+        fp32 = dtype == f32
+        fwd_err = (y.float() - want.float()).abs().max().item()
+        fwd_tol = MHA_FWD_ATOL if fp32 else want.float().abs().max().item() * MHA_BF16_FWD_RTOL
+        grad_rel = rel_err(dqkv, wgrad)
+        key = f"{view}B{b}-N{n}-H{heads}-{str(dtype).split('.')[-1]}"
+        out[key] = {"fwd_max_abs_err": fwd_err, "dqkv_rel_err": grad_rel,
+                    "dqkv_max_abs_err": (dqkv.float() - wgrad.float()).abs().max().item(),
+                    "bitwise_repeat": bitwise}
+        log(f"  {key}: out max|err| {fwd_err:.3e} (tol {fwd_tol:.1e}), dqkv rel "
+            f"{grad_rel:.2e}, repeat bit-equal {bitwise}")
+        if not (fwd_err <= fwd_tol
+                and grad_rel <= (MHA_GRAD_RTOL if fp32 else MHA_BF16_GRAD_RTOL)):
+            raise AssertionError(f"kernel 4 vs plain at {key}: {out[key]}")
+        if not bitwise:
+            raise AssertionError(f"kernel 4 at {key}: two runs differ")
+        del runs, y, dqkv, want, wgrad, qkv, g, x, gx
     return out
 
 
@@ -1722,30 +1730,25 @@ def conv2_mma_count(conv2_cuda) -> dict:
 
 def mma_count(fa_cuda) -> dict:
     """Phase 17, last: tensor-core instructions (HMMA) in each kernel of the
-    built library.  The resident bf16 kernels must have them, the resident
-    fp32 ones (parity mode, the FMA pipe) none; every streaming kernel (bf16
-    m16n8k16, fp32 split TF32 m16n8k8), in its cp.async and its element-wise
-    variant, must have them."""
+    built library.  Every kernel (bf16 m16n8k16, fp32 split TF32 m16n8k8),
+    in its cp.async and its element-wise variant, must have them: 12
+    kernels, forward, dQ and dK/dV in two types and two load variants."""
     import re
 
     found, mix = {}, {}
     for mangled, ops in sass_opcodes(fa_cuda._LIB).items():
-        kind = re.search(r"flash_mha_(resident|stream)_(fwd|dq|dkv)_kernel", mangled)
+        kind = re.search(r"flash_mha_stream_(fwd|dq|dkv)_kernel", mangled)
         if kind:
             dtype = "bfloat16" if "bfloat16" in mangled else "float32"
-            key = f"{kind.group(1)}-{kind.group(2)}-{dtype}"
-            if kind.group(1) == "stream":  # template <T, bool kAligned>
-                key += "-aligned" if "Lb1E" in mangled else "-elementwise"
-                if key.endswith("-aligned"):  # what the streaming kernels issue
-                    mix[key] = dict(ops.most_common(10), total=sum(ops.values()))
+            key = f"stream-{kind.group(1)}-{dtype}"  # template <T, bool kAligned>
+            key += "-aligned" if "Lb1E" in mangled else "-elementwise"
+            if key.endswith("-aligned"):  # what the kernels issue
+                mix[key] = dict(ops.most_common(10), total=sum(ops.values()))
             found[key] = ops["HMMA"]
     log(f"  HMMA instructions per kernel-4 kernel: {found}")
     for key, ops in mix.items():
         log(f"  {key} instructions (static): {ops}")
-    resident = {k: v for k, v in found.items() if k.startswith("resident-")}
-    stream = {k: v for k, v in found.items() if k.startswith("stream-")}
-    if (len(resident) != 6 or any((v > 0) != k.endswith("bfloat16") for k, v in resident.items())
-            or len(stream) != 12 or min(stream.values()) <= 0):
+    if len(found) != 12 or min(found.values()) <= 0:
         raise AssertionError(f"tensor-core instructions: {found}")
     return {"hmma": found, "stream_sass": mix}
 
@@ -1926,51 +1929,45 @@ CHUNKS = (0, 8, 16, 32)  # 0: the whole batch at once
 
 def ast_timing(fa, fa_cuda, norm, card_line: str):
     """Phase 19: kernel 4 alone (through its launchers) vs plain and vs SDPA,
-    fp32 and bf16: both routes at ``AST_SHAPE`` (the streaming one by name),
-    the streaming route at ``STREAM_SHAPE``, its own path's geometry; the
-    AST train step fused, unfused and bf16 with bf16 moments, the eval step,
-    and the scorer at batch 64, 128 and 512 with each chunk."""
+    fp32 and bf16, at ``AST_SHAPE``, ``STREAM_SHAPE`` (phase 20's geometry)
+    and ``MHA_SWEEP_SHAPES``; the AST train step fused, unfused and bf16
+    with bf16 moments, the eval step, and the scorer at batch 64, 128 and
+    512 with each chunk."""
     out = {}
     for (b, n, heads), dtype in ((s, d) for s in (AST_SHAPE, STREAM_SHAPE) + MHA_SWEEP_SHAPES
                                  for d in (torch.float32, torch.bfloat16)):
         qkv, g = mha_case(b, n, heads, dtype, seed=120)
         raw = qkv.detach()
-        routes = [r for r in fa_cuda.ROUTES if r == "stream" or n <= fa_cuda.RESIDENT_MAX_N]
-        fwd_out = {r: fa_cuda.forward(raw, heads, 0.125, True, route=r) for r in routes}
-        y = fa_cuda.forward(raw, heads, 0.125, False)[0]
+        y, stats = fa_cuda.forward(raw, heads, 0.125, True)
         plain_graph = fa.plain_mha_packed(qkv, heads, 0.125)
         lib_graph = sdpa_packed(qkv, heads, 0.125)
         lib_err = (lib_graph.float() - y.float()).abs().max().item()
         fwd = median_ms({
             "plain": lambda: fa.plain_mha_packed(qkv, heads, 0.125),
-            **{r: (lambda r=r: fa_cuda.forward(raw, heads, 0.125, True, route=r))
-               for r in routes},
+            "kernel": lambda: fa_cuda.forward(raw, heads, 0.125, True),
             "library": lambda: sdpa_packed(qkv, heads, 0.125),
         }, reps=10)
         bwd = median_ms({
             "plain": lambda: torch.autograd.grad(plain_graph, qkv, g, retain_graph=True),
-            **{r: (lambda r=r: fa_cuda.backward(raw, g, fwd_out[r][1], heads, 0.125, route=r,
-                                                out=fwd_out[r][0]))
-               for r in routes},
+            "kernel": lambda: fa_cuda.backward(raw, g, stats, heads, 0.125, out=y),
             "library": lambda: torch.autograd.grad(lib_graph, qkv, g, retain_graph=True),
         }, reps=10)
         name = str(dtype).split(".")[-1]
         itemsize = 2 if dtype == torch.bfloat16 else 4
         (fb, fby), (bb, bby) = mha_bounds(
             b, n, heads, itemsize, BF16_FLOP_PER_S if itemsize == 2 else FP32_FLOP_PER_S)
-        row = {"fwd_plain_ms": fwd["plain"], "fwd_library_ms": fwd["library"],
-               "bwd_plain_ms": bwd["plain"], "bwd_library_ms": bwd["library"],
-               "fwd_bound_ms": fb, "fwd_bound_by": fby,
-               "bwd_bound_ms": bb, "bwd_bound_by": bby,
-               "library_vs_kernel_max_abs": lib_err}
-        for r in routes:
-            row[f"fwd_{r}_ms"], row[f"bwd_{r}_ms"] = fwd[r], bwd[r]
-        out[f"B{b}-N{n}-H{heads}-{name}"] = row
+        out[f"B{b}-N{n}-H{heads}-{name}"] = {
+            "fwd_kernel_ms": fwd["kernel"], "bwd_kernel_ms": bwd["kernel"],
+            "fwd_plain_ms": fwd["plain"], "fwd_library_ms": fwd["library"],
+            "bwd_plain_ms": bwd["plain"], "bwd_library_ms": bwd["library"],
+            "fwd_bound_ms": fb, "fwd_bound_by": fby,
+            "bwd_bound_ms": bb, "bwd_bound_by": bby,
+            "library_vs_kernel_max_abs": lib_err}
         log(f"  B={b} N={n} H={heads} {name} [{card_line}]: fwd " + ", ".join(
             f"{k} {fwd[k]:.4f} ms" for k in fwd) + f" (bound {fb:.4f}, {fby}); bwd "
             + ", ".join(f"{k} {bwd[k]:.4f} ms" for k in bwd) + f" (bound {bb:.4f}, {bby}) "
             f"(SDPA vs kernel max|diff| {lib_err:.2e})")
-        del plain_graph, lib_graph, y, fwd_out, qkv, raw, g
+        del plain_graph, lib_graph, y, stats, qkv, raw, g
 
     variants = {"fused": dict(), "unfused": dict(fused=False), "bf16": dict(bf16=True)}
     fns = {name: ast_step_fns(norm, **kw) for name, kw in variants.items()}
@@ -2006,8 +2003,7 @@ def ast_timing(fa, fa_cuda, norm, card_line: str):
 
 def train_long(wpt, wpt_cuda, fa_cuda, root: str, data: str, card_line: str):
     """Phase 20: the corpus cut into 2 s frames.  Packets + DCNN (the WPT's
-    long-frame route) and stft + AST (477 tokens, kernel 4's streaming
-    route), each through ``run_experiment`` with its launch counts read over
+    long-frame route) and stft + AST (477 tokens through kernel 4), each through ``run_experiment`` with its launch counts read over
     exactly that run; then the long-frame route timed against plain."""
     from audiodeepfake_detection_tpu_torch.train.experiment import run_experiment
 
@@ -2027,20 +2023,16 @@ def train_long(wpt, wpt_cuda, fa_cuda, root: str, data: str, card_line: str):
     del dcnn
 
     fa_cuda.MHA_FWD_LAUNCHES = fa_cuda.MHA_BWD_LAUNCHES = 0
-    fa_cuda.MHA_STREAM_FWD_LAUNCHES = fa_cuda.MHA_STREAM_BWD_LAUNCHES = 0
     ast = run_experiment(ast_args(root, data, "log_ast_long", seconds=2, epochs=1))
     torch.cuda.synchronize()
-    counted = mha_counts(fa_cuda)
-    mha = {"fwd": counted["resident"][0], "bwd": counted["resident"][1],
-           "stream_fwd": counted["stream"][0], "stream_bwd": counted["stream"][1]}
+    mha = dict(zip(("fwd", "bwd"), mha_counts(fa_cuda)))
     ast_losses = [row[2] for row in ast.loss_list]
     tokens = ast.model.num_patches + 2
     log(f"  stft + AST, 2 s frames: input {ast.args.input_dim}, {tokens} tokens, losses "
         f"{['%.4f' % v for v in ast_losses]}, test {ast.test_results}, kernel-4 launches {mha}")
     if (tokens != STREAM_SHAPE[1] or len(ast_losses) != 6
-            or not np.isfinite(ast_losses).all() or mha["fwd"] or mha["bwd"]
-            or mha["stream_bwd"] != AST_BLOCKS * len(ast_losses)
-            or mha["stream_fwd"] <= mha["stream_bwd"]):
+            or not np.isfinite(ast_losses).all()
+            or mha["bwd"] != AST_BLOCKS * len(ast_losses) or mha["fwd"] <= mha["bwd"]):
         raise AssertionError(f"2 s AST run: {tokens} tokens, {ast_losses}, {mha}")
     norm = ast.norm_stats
     del ast
@@ -2050,13 +2042,13 @@ def train_long(wpt, wpt_cuda, fa_cuda, root: str, data: str, card_line: str):
     fns = {name: ast_step_fns(norm, seconds=2, **kw)
            for name, kw in (("fused", {}), ("bf16", dict(bf16=True)))}
     if any(fn[2].num_patches + 2 != STREAM_SHAPE[1] for fn in fns.values()):
-        raise AssertionError("the 2 s AST step is not at the streaming route's token count")
+        raise AssertionError("the 2 s AST step is not at phase 20's token count")
     before = mha_counts(fa_cuda)
     step_ms = median_ms({name: fn[0] for name, fn in fns.items()}, reps=3)
     torch.cuda.synchronize()
     after = mha_counts(fa_cuda)
-    if after["resident"] != before["resident"] or after["stream"][1] == before["stream"][1]:
-        raise AssertionError(f"2 s AST steps left the streaming route: {before} -> {after}")
+    if after[1] == before[1]:
+        raise AssertionError(f"2 s AST steps launched no kernel-4 backward: {before} -> {after}")
     step_prof, share = {}, {}
     for name, fn in fns.items():
         log(f"  profile of the 2 s {name} AST step")
@@ -2200,7 +2192,13 @@ def main() -> None:
     mha_key = "B{}-N{}-H{}-float32".format(*AST_SHAPE)
     (afwd_b, afwd_by), (abwd_b, abwd_by) = mha_bounds(*AST_SHAPE)
     f32 = ast_times[mha_key]
-    # the streaming route's rows: checked, timed and bounded at phase 20's geometry
+    mha_fwd_design = ("mma.sync (bf16 m16n8k16; fp32 split TF32 m16n8k8, 3 products), S and "
+                      "P in registers, K/V through a cp.async ring; fp32 one online pass, "
+                      "bf16 two; one route for every N")
+    mha_bwd_design = ("as the forward; dQ kernel (bf16: two walks over the keys; fp32: "
+                      "row term rowsum(dO * O)) and dK/dV kernel (keys as rows); nine "
+                      "products in bf16, seven in fp32")
+    # the rows of phase 20's geometry: checked, timed and bounded there
     stream_key = "B{}-N{}-H{}-float32".format(*STREAM_SHAPE)
     (sfwd_b, sfwd_by), (sbwd_b, sbwd_by) = mha_bounds(*STREAM_SHAPE)
     s32 = ast_times[stream_key]
@@ -2300,49 +2298,47 @@ def main() -> None:
             "hmma": {k: v for k, v in mid_mma.items() if k.startswith(("dx-", "dw-"))},
         },
         {
-            # the resident route, the one the AST's N = 227 takes
+            # kernel 4 at the AST's 1 s frames (N = 227): phase 18's launches,
+            # checked in phase 17 and timed in phase 19 there
             "name": "flash_mha_fwd", "route": "cuda", "source": mha_src,
+            "tokens": AST_SHAPE[1], "design": mha_fwd_design,
             "replaces": "audiodeepfake_detection_tpu/ops/flash_attention.py:137",
             "launches": ast_run["launches"]["fwd"],
-            "max_abs_err": mha_errs["resident-" + mha_key]["fwd_max_abs_err"],
-            "ms": f32["fwd_resident_ms"], "plain_ms": f32["fwd_plain_ms"],
+            "max_abs_err": mha_errs[mha_key]["fwd_max_abs_err"],
+            "ms": f32["fwd_kernel_ms"], "plain_ms": f32["fwd_plain_ms"],
             "bound_ms": afwd_b, "bound_by": afwd_by, "library_ms": f32["fwd_library_ms"],
-        },
-        {
-            # one launch counted per backward call: its dQ and dK/dV kernels
-            "name": "flash_mha_bwd", "route": "cuda", "source": mha_src,
-            "replaces": "audiodeepfake_detection_tpu/ops/flash_attention.py:156",
-            "launches": ast_run["launches"]["bwd"],
-            "max_abs_err": mha_errs["resident-" + mha_key]["dqkv_max_abs_err"],
-            "ms": f32["bwd_resident_ms"], "plain_ms": f32["bwd_plain_ms"],
-            "bound_ms": abwd_b, "bound_by": abwd_by, "library_ms": f32["bwd_library_ms"],
-        },
-        {
-            # the streaming route (N above the resident limit): phase 20's
-            # 477-token AST, checked in phase 17 and timed in phase 19 there
-            "name": "flash_mha_stream_fwd", "route": "cuda", "source": mha_src,
-            "design": "mma.sync (bf16 m16n8k16; fp32 split TF32 m16n8k8, 3 products), "
-                      "S and P in registers, K/V through a cp.async ring; fp32 one "
-                      "online pass, bf16 two",
-            "replaces": "audiodeepfake_detection_tpu/ops/flash_attention.py:137",
-            "launches": long_run["mha_launches"]["stream_fwd"],
-            "max_abs_err": mha_errs["stream-" + stream_key]["fwd_max_abs_err"],
-            "ms": s32["fwd_stream_ms"], "plain_ms": s32["fwd_plain_ms"],
-            "bound_ms": sfwd_b, "bound_by": sfwd_by, "library_ms": s32["fwd_library_ms"],
             "hmma": {k: v for k, v in mma["hmma"].items() if k.startswith("stream-fwd")},
         },
         {
             # one launch counted per backward call: its dQ and dK/dV kernels
-            "name": "flash_mha_stream_bwd", "route": "cuda", "source": mha_src,
-            "design": "as the forward; dQ kernel (two walks over the keys) and dK/dV "
-                      "kernel (keys as rows), nine products",
+            "name": "flash_mha_bwd", "route": "cuda", "source": mha_src,
+            "tokens": AST_SHAPE[1], "design": mha_bwd_design,
             "replaces": "audiodeepfake_detection_tpu/ops/flash_attention.py:156",
-            "launches": long_run["mha_launches"]["stream_bwd"],
-            "max_abs_err": mha_errs["stream-" + stream_key]["dqkv_max_abs_err"],
-            "ms": s32["bwd_stream_ms"], "plain_ms": s32["bwd_plain_ms"],
-            "bound_ms": sbwd_b, "bound_by": sbwd_by, "library_ms": s32["bwd_library_ms"],
+            "launches": ast_run["launches"]["bwd"],
+            "max_abs_err": mha_errs[mha_key]["dqkv_max_abs_err"],
+            "ms": f32["bwd_kernel_ms"], "plain_ms": f32["bwd_plain_ms"],
+            "bound_ms": abwd_b, "bound_by": abwd_by, "library_ms": f32["bwd_library_ms"],
             "hmma": {k: v for k, v in mma["hmma"].items()
                      if k.startswith(("stream-dq", "stream-dkv"))},
+        },
+        {
+            # the same kernels at 2 s frames (N = 477): phase 20's launches
+            "name": "flash_mha_stream_fwd", "route": "cuda", "source": mha_src,
+            "tokens": STREAM_SHAPE[1], "design": mha_fwd_design,
+            "replaces": "audiodeepfake_detection_tpu/ops/flash_attention.py:137",
+            "launches": long_run["mha_launches"]["fwd"],
+            "max_abs_err": mha_errs[stream_key]["fwd_max_abs_err"],
+            "ms": s32["fwd_kernel_ms"], "plain_ms": s32["fwd_plain_ms"],
+            "bound_ms": sfwd_b, "bound_by": sfwd_by, "library_ms": s32["fwd_library_ms"],
+        },
+        {
+            "name": "flash_mha_stream_bwd", "route": "cuda", "source": mha_src,
+            "tokens": STREAM_SHAPE[1], "design": mha_bwd_design,
+            "replaces": "audiodeepfake_detection_tpu/ops/flash_attention.py:156",
+            "launches": long_run["mha_launches"]["bwd"],
+            "max_abs_err": mha_errs[stream_key]["dqkv_max_abs_err"],
+            "ms": s32["bwd_kernel_ms"], "plain_ms": s32["bwd_plain_ms"],
+            "bound_ms": sbwd_b, "bound_by": sbwd_by, "library_ms": s32["bwd_library_ms"],
         },
         {
             # the WPT's long-frame route (one launch per level; one counted

@@ -691,29 +691,19 @@ _MHA_SHAPES = [(2, 227, 12), (1, 99, 3), (3, 18, 3), (1, 1, 1), (2, 64, 2), (1, 
                (1, 256, 2), (1, 300, 2)]
 
 
-@pytest.mark.parametrize(
-    "b,n,heads,route",
-    [(*shape, route) for shape in _MHA_SHAPES for route in ("resident", "stream")
-     if route == "stream" or shape[1] <= flash_attention_cuda.RESIDENT_MAX_N])
+@pytest.mark.parametrize("b,n,heads", _MHA_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_mha_matches_plain(card, b, n, heads, dtype, route):
-    """Both routes against the plain version: the resident one as the
-    autograd Function takes it (N <= RESIDENT_MAX_N), the streaming one
-    through the launchers by name (and by geometry above the limit)."""
+def test_flash_mha_matches_plain(card, b, n, heads, dtype):
+    """The kernels, as the autograd Function takes them, against the plain
+    version at every token count (one route serves them all)."""
     qkv, g = _mha_inputs(b, n, heads, dtype, card, seed=n)
     scale = 1.0 / 8.0
-    names = (("MHA_FWD_LAUNCHES", "MHA_BWD_LAUNCHES") if route == "resident"
-             else ("MHA_STREAM_FWD_LAUNCHES", "MHA_STREAM_BWD_LAUNCHES"))
-    before = [getattr(flash_attention_cuda, name) for name in names]
-    if route == "resident" or n > flash_attention_cuda.RESIDENT_MAX_N:
-        out = flash_attention.flash_mha_packed(qkv, heads, scale)
-        (dqkv,) = torch.autograd.grad(out, qkv, g)
-    else:
-        out, stats = flash_attention_cuda.forward(qkv.detach(), heads, scale, True, route=route)
-        dqkv = flash_attention_cuda.backward(qkv.detach(), g, stats, heads, scale, route=route,
-                                             out=out)
+    before = (flash_attention_cuda.MHA_FWD_LAUNCHES, flash_attention_cuda.MHA_BWD_LAUNCHES)
+    out = flash_attention.flash_mha_packed(qkv, heads, scale)
+    (dqkv,) = torch.autograd.grad(out, qkv, g)
     torch.cuda.synchronize()
-    assert [getattr(flash_attention_cuda, name) for name in names] == [v + 1 for v in before]
+    assert (flash_attention_cuda.MHA_FWD_LAUNCHES, flash_attention_cuda.MHA_BWD_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
     want = flash_attention.plain_mha_packed(qkv, heads, scale)
     (wgrad,) = torch.autograd.grad(want, qkv, g)
     assert out.dtype == dtype and out.shape == (b, n, heads * 64) and dqkv.dtype == dtype
@@ -735,13 +725,12 @@ def test_flash_mha_repeats_bit_for_bit_and_skips_statistics_without_grad(card):
         runs.append((out, *torch.autograd.grad(out, qkv, g)))
     for a, b in zip(*runs):
         assert torch.equal(a, b)  # no atomics: one thread writes each element
-    for dtype in (torch.float32, torch.bfloat16):  # and so does the streaming route
+    for dtype in (torch.float32, torch.bfloat16):  # and through the launchers
         x, gx = qkv.detach().to(dtype), g.to(dtype)
         outs = []
         for _ in range(2):
-            out, stats = flash_attention_cuda.forward(x, 12, 0.125, True, route="stream")
-            outs.append((out, flash_attention_cuda.backward(x, gx, stats, 12, 0.125, route="stream",
-                                                            out=out)))
+            out, stats = flash_attention_cuda.forward(x, 12, 0.125, True)
+            outs.append((out, flash_attention_cuda.backward(x, gx, stats, 12, 0.125, out=out)))
         for a, b in zip(*outs):
             assert torch.equal(a, b)
     before = flash_attention_cuda.MHA_BWD_LAUNCHES
@@ -765,10 +754,9 @@ def _misaligned(t):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_mha_streaming_route_takes_misaligned_tensors(card, dtype):
     """cp.async moves 16 bytes: a qkv or dout that does not start on a
-    16-byte boundary takes the streaming kernels' element-wise variant, which
-    equals plain and counts one streaming launch each way."""
-    names = ("MHA_FWD_LAUNCHES", "MHA_BWD_LAUNCHES", "MHA_STREAM_FWD_LAUNCHES",
-             "MHA_STREAM_BWD_LAUNCHES")
+    16-byte boundary takes the kernels' element-wise variant, which equals
+    plain and counts one launch each way."""
+    names = ("MHA_FWD_LAUNCHES", "MHA_BWD_LAUNCHES")
     for n, odd_dout in ((99, False), (300, True)):
         qkv, g = _mha_inputs(1, n, 3, dtype, card, seed=n)
         want = flash_attention.plain_mha_packed(qkv, 3, 0.125)
@@ -784,7 +772,7 @@ def test_flash_mha_streaming_route_takes_misaligned_tensors(card, dtype):
             (dqkv,) = torch.autograd.grad(out, x, g)
         torch.cuda.synchronize()
         moved = [getattr(flash_attention_cuda, name) - v for name, v in zip(names, before)]
-        assert moved == [0, 0, 1, 1], (n, moved)
+        assert moved == [1, 1], (n, moved)
         if dtype == torch.float32:
             torch.testing.assert_close(out, want, rtol=0, atol=MHA_FWD_ATOL)
             assert _rel(dqkv, wgrad) <= MHA_GRAD_RTOL
@@ -794,24 +782,26 @@ def test_flash_mha_streaming_route_takes_misaligned_tensors(card, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_mha_streaming_equals_resident_at_the_ast_token_count(card, dtype):
-    """Both routes at N = 227 (the AST's 1 s frames), through the launchers
-    by name: the same function within the tolerances each is held to against
-    plain."""
+def test_flash_mha_at_the_ast_token_count_repeats_and_equals_plain(card, dtype):
+    """N = 227 (the AST's 1 s frames) at B = 2, 12 heads, through
+    ``_FlashMHA``: two runs bit for bit, each within the tolerances the
+    kernels are held to against plain."""
     qkv, g = _mha_inputs(2, 227, 12, dtype, card, seed=5)
-    raw = qkv.detach()
-    res = {}
-    for route in flash_attention_cuda.ROUTES:
-        out, stats = flash_attention_cuda.forward(raw, 12, 0.125, True, route=route)
-        res[route] = out, flash_attention_cuda.backward(raw, g, stats, 12, 0.125, route=route,
-                                                        out=out)
-    (out_s, d_s), (out_r, d_r) = res["stream"], res["resident"]
+    runs = []
+    for _ in range(2):
+        out = flash_attention._FlashMHA.apply(qkv, 12, 0.125)
+        runs.append((out, *torch.autograd.grad(out, qkv, g)))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    out, dqkv = runs[0]
+    want = flash_attention.plain_mha_packed(qkv, 12, 0.125)
+    (wgrad,) = torch.autograd.grad(want, qkv, g)
     if dtype == torch.float32:
-        torch.testing.assert_close(out_s, out_r, rtol=0, atol=MHA_FWD_ATOL)
-        assert _rel(d_s, d_r) <= MHA_GRAD_RTOL
+        torch.testing.assert_close(out, want, rtol=0, atol=MHA_FWD_ATOL)
+        assert _rel(dqkv, wgrad) <= MHA_GRAD_RTOL
     else:
-        assert _rel(out_s, out_r) <= 2.0**-7
-        assert _rel(d_s, d_r) <= 1e-2
+        assert _rel(out, want) <= 2.0**-7
+        assert _rel(dqkv, wgrad) <= 1e-2
 
 
 def test_flash_mha_refuses_what_it_does_not_take(card):
@@ -828,13 +818,10 @@ def test_flash_mha_refuses_what_it_does_not_take(card):
     with pytest.raises(ValueError, match="dout must be"):
         _, stats = flash_attention_cuda.forward(qkv, 2, 0.125, True)
         flash_attention_cuda.backward(qkv, qkv[..., :128].contiguous().double(), stats, 2, 0.125)
-    long_qkv, _ = _mha_inputs(1, flash_attention_cuda.RESIDENT_MAX_N + 1, 1, torch.float32, card)
-    with pytest.raises(ValueError, match="resident route takes"):
-        flash_attention_cuda.forward(long_qkv.detach(), 1, 0.125, False, route="resident")
-    # the fp32 streaming backward's row term is rowsum(dout * out)
-    out, stats = flash_attention_cuda.forward(long_qkv.detach(), 1, 0.125, True)
+    # the fp32 backward's row term is rowsum(dout * out)
+    out, stats = flash_attention_cuda.forward(qkv, 2, 0.125, True)
     with pytest.raises(ValueError, match="takes the forward's out"):
-        flash_attention_cuda.backward(long_qkv.detach(), out, stats, 1, 0.125)
+        flash_attention_cuda.backward(qkv, out, stats, 2, 0.125)
 
 
 def test_ast_train_step_fused_matches_unfused_on_the_card(card, monkeypatch):

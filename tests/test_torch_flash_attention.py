@@ -9,6 +9,9 @@ run on the CPU through launchers that follow the kernels' algorithm in
 PyTorch.
 """
 
+import inspect
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -72,75 +75,6 @@ def test_bfloat16_rounds_where_the_jax_kernel_rounds():
     np.testing.assert_allclose(got[1], want[1], rtol=0, atol=1e-2 * np.abs(want[1]).max())
 
 
-def _emulated_forward(qkv, heads, scale, want_stats):
-    """The forward kernel's contract in PyTorch: the output and the float32
-    per-row (max, sum of exp(s - max)) statistics."""
-    b, n, c = qkv.shape
-    q, k, _ = qkv.float().view(b, n, 3, heads, c // 3 // heads).unbind(2)
-    s = torch.einsum("bnhd,bmhd->bhnm", q, k) * scale
-    m = s.amax(-1)
-    stats = torch.stack([m, torch.exp(s - m[..., None]).sum(-1)], -1)
-    with torch.no_grad():
-        out = flash_attention.plain_mha_packed(qkv, heads, scale)
-    return out, stats if want_stats else None
-
-
-def _emulated_backward(qkv, dout, stats, heads, scale, out=None):
-    """The resident backward's algorithm in PyTorch.  Query side: P
-    recomputed from qkv and the saved statistics, dP, the row term
-    rowsum(dP * P) from those resident rows, dS rounded to the input type,
-    dQ = dS K summed over the 64-key tiles of each parity and the two halves
-    added.  Key side: per 64-query tile in order, P and dS again (dS from the
-    query side's row term), dV += P^T dO with P rounded, dK += dS^T Q."""
-    b, n, c = qkv.shape
-    dt = qkv.dtype
-    q, k, v = qkv.float().view(b, n, 3, heads, c // 3 // heads).unbind(2)
-    do = dout.float().view(b, n, heads, -1)
-
-    def probs(rows):
-        s = torch.einsum("bnhd,bmhd->bhnm", q[:, rows], k) * scale
-        return torch.exp(s - stats[:, :, rows, :1]) / stats[:, :, rows, 1:]
-
-    def score_grad(rows, p, rowterm):
-        dp = torch.einsum("bnhd,bmhd->bhnm", do[:, rows], v)
-        if rowterm is None:
-            rowterm = (dp * p).sum(-1, keepdim=True)
-        return (p * (dp - rowterm) * scale).to(dt).float(), rowterm
-
-    ds, rowterm = score_grad(slice(None), probs(slice(None)), None)
-    dq = [torch.zeros_like(q), torch.zeros_like(q)]
-    for t in range(0, n, 64):
-        keys = slice(t, t + 64)
-        dq[(t // 64) % 2] += torch.einsum("bhnm,bmhd->bnhd", ds[..., keys], k[:, keys])
-    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
-    for t in range(0, n, 64):
-        rows = slice(t, t + 64)
-        p = probs(rows)
-        ds_t, _ = score_grad(rows, p, rowterm[:, :, rows])
-        dv += torch.einsum("bhnm,bnhd->bmhd", p.to(dt).float(), do[:, rows])
-        dk += torch.einsum("bhnm,bnhd->bmhd", ds_t, q[:, rows])
-    return torch.stack([dq[0] + dq[1], dk, dv], 2).reshape(b, n, c).to(dt)
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_autograd_function_with_the_kernels_algorithm_equals_plain(monkeypatch, dtype):
-    monkeypatch.setattr(flash_attention_cuda, "forward", _emulated_forward)
-    monkeypatch.setattr(flash_attention_cuda, "backward", _emulated_backward)
-    qkv, g = _inputs(2, 150, 2, seed=3)  # three 64-row tiles, the last ragged
-    apply = flash_attention._FlashMHA.apply
-    got = _port(qkv, g, 2, 0.125, dtype, fn=apply)
-    want = _port(qkv, g, 2, 0.125, dtype)
-    if dtype == torch.float32:
-        np.testing.assert_allclose(got[0], want[0], rtol=0, atol=1e-6)
-        np.testing.assert_allclose(got[1], want[1], rtol=0, atol=2e-6)
-    else:
-        np.testing.assert_array_equal(got[0], want[0])
-        np.testing.assert_allclose(got[1], want[1], rtol=0, atol=1e-2 * np.abs(want[1]).max())
-    with torch.no_grad():  # no statistics without a gradient
-        out = apply(torch.from_numpy(qkv), 2, 0.125)
-    np.testing.assert_array_equal(out.numpy(), _port(qkv, g, 2, 0.125)[0])
-
-
 def test_cpu_tensors_take_the_plain_version_and_the_launcher_refuses_them():
     qkv, g = _inputs(1, 9, 1, seed=4)
     got = _port(qkv, g, 1, 0.125, fn=flash_attention.flash_mha_packed)
@@ -152,28 +86,57 @@ def test_cpu_tensors_take_the_plain_version_and_the_launcher_refuses_them():
         flash_attention_cuda.forward(torch.from_numpy(qkv), 1, 0.125, True)
 
 
-def test_route_follows_the_token_count_and_alignment():
-    """The resident route up to RESIDENT_MAX_N tokens on 16-byte aligned
-    tensors, the streaming route beyond; a route can be named, and the
-    resident one is refused where it does not apply."""
-    qkv = torch.zeros(2, 300, 3 * 64)
-    limit = flash_attention_cuda.RESIDENT_MAX_N
-    assert limit >= 227  # the AST's token count
-    assert flash_attention_cuda.route_for(227, qkv) == "resident"
-    assert flash_attention_cuda.route_for(limit, qkv) == "resident"
-    assert flash_attention_cuda.route_for(limit + 1, qkv) == "stream"
-    odd = qkv.view(-1)[1:].view(1, 1, -1)  # 4 bytes past an aligned start
-    assert flash_attention_cuda.route_for(18, odd) == "stream"
-    assert flash_attention_cuda._pick(None, 99, qkv) == "resident"
-    assert flash_attention_cuda._pick("stream", 99, qkv) == "stream"
-    with pytest.raises(ValueError, match="resident route takes"):
-        flash_attention_cuda._pick("resident", limit + 1, qkv)
-    with pytest.raises(ValueError, match="route must be one of"):
-        flash_attention_cuda._pick("tiled", 99, qkv)
+def test_every_token_count_and_alignment_reaches_the_one_launcher(monkeypatch):
+    """No route to choose: the launchers take no ``route`` and know no
+    resident limit, and aligned and misaligned views at N = 18, 227 and 300
+    reach the one C entry point each way, which picks the element-wise
+    variant itself.  The ``ctypes`` entry points are replaced by recorders,
+    so this runs on the CPU; the fp32 backward passes the forward's output
+    for its row term, bf16 passes none."""
+    calls = []
+
+    def record(name):
+        return lambda *args: calls.append((name, args)) or 0
+
+    lib = types.SimpleNamespace(flash_mha_fwd_launch=record("fwd"),
+                                flash_mha_bwd_launch=record("bwd"))
+    monkeypatch.setattr(flash_attention_cuda, "_LIB", lib)
+    monkeypatch.setattr(flash_attention_cuda, "check_geometry",
+                        lambda qkv, heads: tuple(qkv.shape[:2]))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=0))
+    for name in ("RESIDENT_MAX_N", "ROUTES", "route_for", "_pick",
+                 "MHA_STREAM_FWD_LAUNCHES", "MHA_STREAM_BWD_LAUNCHES"):
+        assert not hasattr(flash_attention_cuda, name), name
+    for fn in (flash_attention_cuda.forward, flash_attention_cuda.backward):
+        assert "route" not in inspect.signature(fn).parameters
+    for name in ("MHA_FWD_LAUNCHES", "MHA_BWD_LAUNCHES"):  # restored after the test
+        monkeypatch.setattr(flash_attention_cuda, name, 0)
+    cases = [(n, dtype, offset) for n in (18, 227, 300)
+             for dtype in (torch.float32, torch.bfloat16) for offset in (0, 1)]
+    for n, dtype, offset in cases:
+        flat = torch.zeros(2 * n * 3 * 64 + 8, dtype=dtype)
+        qkv = flat[offset:offset + 2 * n * 3 * 64].view(2, n, 3 * 64)
+        dout = torch.zeros(2 * n * 64 + 8, dtype=dtype)[offset:offset + 2 * n * 64].view(2, n, 64)
+        assert (qkv.data_ptr() % 16 == 0) == (offset == 0)
+        calls.clear()
+        out, stats = flash_attention_cuda.forward(qkv, 1, 0.125, True)
+        assert stats.shape == (2, 1, n, 2) and out.shape == (2, n, 64) and out.dtype == dtype
+        flash_attention_cuda.backward(qkv, dout, stats, 1, 0.125, out=out)
+        (fwd, fargs), (bwd, bargs) = calls
+        assert (fwd, bwd) == ("fwd", "bwd")
+        assert fargs[0] == bargs[0] == qkv.data_ptr() and bargs[1] == dout.data_ptr()
+        assert fargs[3:8] == (2, n, 1, 0.125, int(dtype == torch.bfloat16))
+        assert bargs[2] == (out.data_ptr() if dtype == torch.float32 else None)
+        if dtype == torch.float32:
+            with pytest.raises(ValueError, match="takes the forward's out"):
+                flash_attention_cuda.backward(qkv, dout, stats, 1, 0.125)
+    assert (flash_attention_cuda.MHA_FWD_LAUNCHES,
+            flash_attention_cuda.MHA_BWD_LAUNCHES) == (len(cases), len(cases))
 
 
 def _stream_forward(qkv, heads, scale, want_stats):
-    """The streaming forward kernel's algorithm in PyTorch, over 64-key
+    """The forward kernel's algorithm in PyTorch, over 64-key
     tiles in the kernel's order.  float32: one pass with the online softmax
     (the row max grows tile by tile, O and the row sum are rescaled by
     exp(m_old - m), O / l at the end).  bfloat16: pass 1 gives the row max
@@ -205,7 +168,7 @@ def _stream_forward(qkv, heads, scale, want_stats):
 
 
 def _stream_backward(qkv, dout, stats, heads, scale, out=None):
-    """The streaming backward kernels' algorithm in PyTorch.  Query side:
+    """The backward kernels' algorithm in PyTorch.  Query side:
     the row term, in float32 rowsum(dO * O) from the forward's output, in
     bfloat16 rowsum(dP * P) from a walk over the 64-key tiles (P from the
     saved statistics); then dS = P * (dP - rowterm) * scale rounded to the
@@ -246,14 +209,18 @@ def _stream_backward(qkv, dout, stats, heads, scale, out=None):
     return torch.stack([dq, dk, dv], 2).reshape(b, n, c).to(dt)
 
 
+@pytest.mark.parametrize("n,seed", [(150, 3), (300, 6)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_autograd_function_with_the_streaming_algorithm_equals_plain(monkeypatch, dtype):
-    """N = 300: five 64-key tiles, the last ragged, through ``_FlashMHA``
-    with the streaming kernels' algorithm as its launchers."""
+def test_autograd_function_with_the_streaming_algorithm_equals_plain(monkeypatch, dtype, n,
+                                                                      seed):
+    """N = 150 (three 64-key tiles) and 300 (five), the last tile ragged,
+    through ``_FlashMHA`` with the kernels' algorithm as its launchers; no
+    statistics are made without a gradient."""
     monkeypatch.setattr(flash_attention_cuda, "forward", _stream_forward)
     monkeypatch.setattr(flash_attention_cuda, "backward", _stream_backward)
-    qkv, g = _inputs(2, 300, 2, seed=6)
-    got = _port(qkv, g, 2, 0.125, dtype, fn=flash_attention._FlashMHA.apply)
+    qkv, g = _inputs(2, n, 2, seed=seed)
+    apply = flash_attention._FlashMHA.apply
+    got = _port(qkv, g, 2, 0.125, dtype, fn=apply)
     want = _port(qkv, g, 2, 0.125, dtype)
     if dtype == torch.float32:
         # the online rescale and the tile order change only fp32 rounding
@@ -266,6 +233,13 @@ def test_autograd_function_with_the_streaming_algorithm_equals_plain(monkeypatch
         np.testing.assert_allclose(got[0], want[0], rtol=0,
                                    atol=2.0**-7 * np.abs(want[0]).max())
         np.testing.assert_allclose(got[1], want[1], rtol=0, atol=1e-2 * np.abs(want[1]).max())
+    seen = []
+    monkeypatch.setattr(flash_attention_cuda, "forward",
+                        lambda *args: seen.append(args[-1]) or _stream_forward(*args))
+    with torch.no_grad():
+        out = apply(torch.from_numpy(qkv).to(dtype), 2, 0.125)
+    assert seen == [False]
+    np.testing.assert_array_equal(out.float().numpy(), got[0])
 
 
 def _tf32(a):
