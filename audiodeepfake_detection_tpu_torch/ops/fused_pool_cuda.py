@@ -3,7 +3,8 @@
 ``forward`` / ``backward`` check device, type, shape and contiguity, allocate
 outputs and scratch with ``torch.empty``, launch one kernel each on the
 current stream without synchronising, and finish the cross-block reductions
-with one ``torch.sum`` over the per-plane partials (fixed order: results are
+with one ``torch.sum`` over the per-block partials (the forward's one per
+plane, the backward's one per strip of pooled rows; fixed order: results are
 bit-for-bit reproducible).  ``POOL_FWD_LAUNCHES`` / ``POOL_BWD_LAUNCHES``
 count the kernel launches made in this process.  The public functions and
 the plain PyTorch versions live in ``ops/fused_pool.py``.
@@ -49,6 +50,8 @@ def build() -> str:
         lib.fused_pool_fwd_launch.restype = ci
         lib.fused_pool_bwd_launch.argtypes = [vp] * 9 + [ci] * 6 + [vp]
         lib.fused_pool_bwd_launch.restype = ci
+        lib.fused_pool_bwd_strips.argtypes = [ci] * 3
+        lib.fused_pool_bwd_strips.restype = ci
         lib.fused_pool_error_string.argtypes = [ci]
         lib.fused_pool_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -148,8 +151,17 @@ def backward(
     for name, t in (("gs", gs), ("gq", gq)):
         if t is not None:
             _require(t, name, torch.float32, (c,), x.device, WHAT)
+    # backward blocks per plane: strips of pooled rows, staged in shared memory
+    strips = _lib().fused_pool_bwd_strips(h, w, int(x.dtype == torch.bfloat16))
+    if strips == 0:
+        raise ValueError(
+            f"{WHAT}: W={w} is too wide for the backward's staging of one pooled row "
+            "(two input rows) in a block's shared memory"
+        )
+    if b * c * strips >= 2**31:
+        raise ValueError(f"{WHAT}: B*C={b * c} planes of {strips} strips are beyond one grid")
     dx = torch.empty_like(x)
-    partials = torch.empty((b * c,), dtype=torch.float32, device=x.device)
+    partials = torch.empty((b * c * strips,), dtype=torch.float32, device=x.device)
     err = _lib().fused_pool_bwd_launch(
         x.data_ptr(), alpha.data_ptr(), g.data_ptr(), out.data_ptr(),
         code.data_ptr(),

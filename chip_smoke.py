@@ -61,7 +61,9 @@ Phases, in order; any failure propagates and the script exits non-zero
     the DCNN's shapes (B=128: [96, 48, 129] and [64, 24, 64] for the pool,
     64 -> 96 channels at 48x129 for the conv; fp32 and bf16), odd heights
     and widths, a negative and a zero slope and a case full of ties; two
-    runs compared bit for bit; the conv's fp32 forward at its headline shape
+    runs compared bit for bit; the pool's ``dx`` without moments bit-equal
+    to plain at both pool shapes, a zero slope and ties; the conv's fp32
+    forward at its headline shape
     must read 0.0 against plain (cuDNN's summation order); its fp32 dx and
     dw there are held against a float64 rebuild from its own code, under a
     cap that one TF32 pass (modelled on the same inputs) must exceed; the
@@ -224,7 +226,15 @@ STEPS_PER_EPOCH = 3
 EPOCHS = 2
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    """Print a line; a phase's header (``[n ...]``) also gets the seconds
+    since the script started."""
+    if msg[:1] == "[" and msg[1:2].isdigit():
+        head, sep, rest = msg.partition("\n")
+        msg = f"{head} (t = {time.perf_counter() - _T0:.1f} s){sep}{rest}"
     print(msg, flush=True)
 
 
@@ -1368,11 +1378,52 @@ def mid_vs_plain(fp, f2):
                         or tied[..., ::2, ::2].all() == ("zero-slope" in key)):
                     raise AssertionError(f"fused {block} at {key}: a tie left position (0, 0)")
             del runs, grads, pgrads, y, py, args, cot
+    out.update(pool_dx_bitwise(fp))
     # kernel 6's forward keeps cuDNN's summation order: bit-equal to plain
     fwd_err = out[f"conv2-{conv2}-float32"]["fwd_max_abs_err"]
     log(f"  kernel 6 forward at {conv2}, float32, against plain: max|err| {fwd_err!r}")
     if fwd_err != 0.0:
         raise AssertionError(f"kernel 6 forward left the plain summation order: {fwd_err}")
+    return out
+
+
+def pool_dx_bitwise(fp) -> dict:
+    """Phase 14: kernel 5 without moments (``fused_prelu_pool``, as the
+    DCNN's last pool runs it) at both pool shapes, a zero slope and ties.
+    A window's cotangent is then g itself on both sides, times alpha at a
+    negative selection, so ``dx`` must equal plain's bit for bit; ``dalpha``
+    within the tolerances above; two runs bit-equal.  (With moments the
+    kernel forms g + gs + 2 out gq in its own order and autograd sums the
+    three in another: those cases above hold ``dx`` to ``MID_SUM_RTOL``.)"""
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [
+        (lambda: pool_case(*POOL2_SHAPE, f32, 0.25, 66), "B{}-C{}-H{}-W{}".format(*POOL2_SHAPE)),
+        (lambda: pool_case(*POOL3_SHAPE, f32, 0.25, 67), "B{}-C{}-H{}-W{}".format(*POOL3_SHAPE)),
+        (lambda: pool_case(*POOL2_SHAPE, bf16, -0.5, 68), "B{}-C{}-H{}-W{}".format(*POOL2_SHAPE)),
+        (lambda: pool_case(2, 3, 7, 701, f32, 0.0, 69), "odd-B2-C3-H7-W701-zero-slope"),
+        (lambda: tie_cases(0.0)[0], "ties-zero-slope-B3-C4-H8-W10"),
+    ]
+    out = {}
+    for make_case, label in cases:
+        (x, alpha), cot = make_case()
+        key = f"pool-no-moments-{label}-{str(x.dtype).split('.')[-1]}"
+        runs = [torch.autograd.grad(fp.fused_prelu_pool(x, alpha), (x, alpha), cot[0])
+                for _ in range(2)]
+        want = torch.autograd.grad(fp.plain_prelu_pool(x, alpha), (x, alpha), cot[0])
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(u, v) for u, v in zip(*runs))
+        dx_equal = torch.equal(runs[0][0], want[0])
+        da_rel = rel_err(runs[0][1], want[1])
+        out[key] = {"dx_bit_equal_to_plain": dx_equal, "dalpha_rel_err": da_rel,
+                    "dalpha": runs[0][1].item(), "bitwise_repeat": bitwise}
+        log(f"  {key}: dx bit-equal to plain {dx_equal}, dalpha rel {da_rel:.2e}, repeat "
+            f"bit-equal {bitwise}")
+        tol = MID_SUM_RTOL if x.dtype == f32 else FUSED_BF16_RTOL
+        if not (dx_equal and bitwise and da_rel <= tol):
+            raise AssertionError(f"kernel 5 backward at {key}: {out[key]}")
+        if "zero-slope" in key and not abs(runs[0][1].item()) > 0:
+            raise AssertionError(f"kernel 5 at {key}: dalpha is 0 at a zero slope")
+        del runs, want, x, alpha, cot
     return out
 
 
@@ -1531,9 +1582,21 @@ def mid_timing(fp, pool_cuda, f2, conv2_cuda, norm, card_line: str):
         }, reps=10)
         n_negative = int((code >= 4).sum())
         (fb, _), (bb, _) = pool_bounds(*shape, n_negative, x.element_size())
+        # the kernels' own device time: at the small shape the launcher's
+        # host work (checks, allocations, the partials' sum) outlasts them
+        dev = kernel_device_ms(lambda: pool_cuda.forward(*raw, True, True),
+                               {"fwd": "fused_pool_fwd_kernel"})
+        dev.update(kernel_device_ms(
+            lambda: pool_cuda.backward(*raw, cot[0], y, code, cot[1], cot[2]),
+            {"bwd": "fused_pool_bwd_kernel"}))
         out[name] = {"fwd_kernel_ms": fwd["kernel"], "fwd_plain_ms": fwd["plain"],
                      "bwd_kernel_ms": bwd["kernel"], "bwd_plain_ms": bwd["plain"],
+                     "fwd_device_ms": dev["fwd"], "bwd_device_ms": dev["bwd"],
                      "fwd_bound_ms": fb, "bwd_bound_ms": bb, "n_negative": n_negative}
+        log(f"  kernel 5 at {name} [{card_line}]: bwd {bwd['kernel']:.4f} ms through the "
+            f"launcher, {dev['bwd']:.4f} ms of device time, against its byte bound {bb:.4f}"
+            f" ms ({100 * bb / bwd['kernel']:.1f} %, {100 * bb / dev['bwd']:.1f} %); fwd "
+            f"{fwd['kernel']:.4f} ms, {dev['fwd']:.4f} ms device, against {fb:.4f} ms")
         del graph, y, code, x, raw
     (x, w, corr, alpha), cot = conv2_case(*CONV2_SHAPE, torch.float32, 0.25, seed=91)
     raw = tuple(t.detach() for t in (x, w, corr, alpha))
@@ -2263,6 +2326,9 @@ def main() -> None:
         },
         {
             "name": "fused_pool_bwd", "route": "cuda", "source": pool_src,
+            "design": "a thread per window, two windows of a pooled row at once, code, g "
+                      "and out by independent coalesced loads, dx as a pair to each input "
+                      "row; blocks over strips of 8 pooled rows, one dalpha partial each",
             "replaces": "audiodeepfake_detection_tpu/ops/fused_pool.py:241",
             "launches": mid_launches["pool_bwd"],
             "max_abs_err": mid_errs[pool_key]["dx_max_abs_err"],

@@ -505,6 +505,32 @@ def test_fused_pool_ties_zero_slope_and_determinism(card):
         assert fused_pool_cuda.POOL_BWD_LAUNCHES == before
 
 
+@pytest.mark.parametrize("shape", [(128, 96, 48, 129), (128, 64, 24, 64)], ids=["pool2", "pool3"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_pool_dx_is_bit_equal_to_plain_without_moments(card, shape, dtype):
+    """The DCNN's two pool shapes (B=128; the second has an odd W): with no
+    moment cotangent the cotangent of a window is g itself on both sides,
+    times alpha at a negative selection, so the backward's ``dx`` equals
+    plain's bit for bit (with moments, autograd sums g + gs + 2 out gq in
+    another order: the tolerance above).  ``dalpha`` is an fp32 sum in
+    another order; two runs are bit-equal."""
+    b, c, h, w = shape
+    args, cot = _pool_inputs(b, c, h, w, dtype, card, alpha=0.25, seed=3)
+    runs = []
+    for _ in range(2):
+        before = fused_pool_cuda.POOL_BWD_LAUNCHES
+        runs.append(torch.autograd.grad(fused_pool.fused_prelu_pool(*args), args, cot[0]))
+        torch.cuda.synchronize()
+        assert fused_pool_cuda.POOL_BWD_LAUNCHES == before + 1
+    for a, b_ in zip(*runs):
+        assert torch.equal(a, b_)
+    want = torch.autograd.grad(fused_pool.plain_prelu_pool(*args), args, cot[0])
+    assert runs[0][0].dtype == dtype and torch.equal(runs[0][0], want[0])
+    assert _rel(runs[0][1], want[1]) <= (FUSED_SUM_RTOL if dtype == torch.float32 else 1e-2)
+    if w % 2:
+        assert not runs[0][0][..., -1].any()
+
+
 def test_fused_pool_refuses_what_it_does_not_take(card):
     (x, alpha), _ = _pool_inputs(2, 4, 8, 10, torch.float32, card)
     x = x.detach()

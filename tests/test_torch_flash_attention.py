@@ -86,11 +86,11 @@ def test_cpu_tensors_take_the_plain_version_and_the_launcher_refuses_them():
         flash_attention_cuda.forward(torch.from_numpy(qkv), 1, 0.125, True)
 
 
-def test_every_token_count_and_alignment_reaches_the_one_launcher(monkeypatch):
-    """No route to choose: the launchers take no ``route`` and know no
-    resident limit, and aligned and misaligned views at N = 18, 227 and 300
-    reach the one C entry point each way, which picks the element-wise
-    variant itself.  The ``ctypes`` entry points are replaced by recorders,
+def test_route_follows_the_token_count_and_alignment(monkeypatch):
+    """One route for every token count and alignment: the launchers take no
+    ``route`` and know no resident limit, and aligned and misaligned views
+    at N = 18, 227 and 300 reach the one C entry point each way, which picks
+    the element-wise variant itself.  The ``ctypes`` entry points are replaced by recorders,
     so this runs on the CPU; the fp32 backward passes the forward's output
     for its row term, bf16 passes none."""
     calls = []

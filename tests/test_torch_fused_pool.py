@@ -212,3 +212,109 @@ def test_launcher_refuses_with_the_numbers():
     with pytest.raises(ValueError, match="need a CUDA tensor, got cpu"):
         fused_pool_cuda.forward(torch.zeros(2, 3, 4, 4), a, False, False)
     assert fused_pool_cuda.POOL_FWD_LAUNCHES == fused_pool_cuda.POOL_BWD_LAUNCHES == 0
+
+
+# the CUDA backward's strips: pooled rows a block takes (kBwdRows in
+# csrc/fused_pool.cu, at widths as narrow as these); one dalpha partial per
+# (plane, strip)
+BWD_ROWS = 16
+
+
+def _emulated_forward(x, aq, want_code, want_stats):
+    """The forward kernel's contract: the first maximum of each PReLU'd
+    window (strict ``>`` in the order (0,0), (0,1), (1,0), (1,1)), its code
+    ``phase | negative << 2``, the stored output and its moments."""
+    b, c, h, w = x.shape
+    h2, w2 = h // 2, w // 2
+    x32 = x.float()
+    act = torch.where(x32 >= 0, x32, aq * x32)
+    pos = [(p >> 1, p & 1) for p in range(4)]
+    best, pre = act[:, :, 0:2 * h2:2, 0:2 * w2:2], x32[:, :, 0:2 * h2:2, 0:2 * w2:2]
+    sel = torch.zeros(b, c, h2, w2, dtype=torch.uint8)
+    for ph, (dh, dw) in enumerate(pos[1:], start=1):
+        cand = act[:, :, dh:2 * h2:2, dw:2 * w2:2]
+        upd = cand > best
+        best = torch.where(upd, cand, best)
+        pre = torch.where(upd, x32[:, :, dh:2 * h2:2, dw:2 * w2:2], pre)
+        sel = torch.where(upd, torch.tensor(ph, dtype=torch.uint8), sel)
+    out = best.to(x.dtype)
+    code = sel | ((pre < 0).to(torch.uint8) << 2)
+    o32 = out.float()
+    s, q = (o32.sum(dim=(0, 2, 3)), (o32 * o32).sum(dim=(0, 2, 3))) if want_stats else (None, None)
+    return out, code if want_code else None, s, q
+
+
+def _emulated_backward(x, aq, g, out, code, gs, gq):
+    """The backward kernel's algorithm, a window at a time in its order:
+    strips of ``BWD_ROWS`` pooled rows of each plane; per window gt = g +
+    gs[c] + 2 out gq[c] (the kernel's expression), times alpha where the
+    selected input was negative, written at the selected position of its
+    2x2 block, zeros elsewhere and in a dropped odd row or column; one dalpha
+    partial (x * gt over the strip's negative selections) per strip, summed
+    at the end."""
+    b, c, h, w = x.shape
+    h2, w2 = h // 2, w // 2
+    gsc = gs.view(1, c, 1, 1) if gs is not None else torch.zeros(1, c, 1, 1)
+    gqc = gq.view(1, c, 1, 1) if gq is not None else torch.zeros(1, c, 1, 1)
+    dx = torch.zeros(b, c, h, w)
+    partials = []
+    for i0 in range(0, h2, BWD_ROWS):
+        rows = slice(i0, min(i0 + BWD_ROWS, h2))
+        cd = code[:, :, rows].long()
+        ph, neg = cd & 3, cd >= 4
+        gt = (g[:, :, rows].float() + gsc) + (2.0 * out[:, :, rows].float()) * gqc
+        d = torch.where(neg, aq * gt, gt)
+        xs = torch.zeros_like(gt)
+        for p in range(4):
+            dh, dw = p >> 1, p & 1
+            block = dx[:, :, 2 * rows.start + dh:2 * rows.stop:2, dw:2 * w2:2]
+            block.copy_(torch.where(ph == p, d, torch.zeros_like(d)))
+            xs = torch.where(ph == p, x[:, :, 2 * rows.start + dh:2 * rows.stop:2,
+                                         dw:2 * w2:2].float(), xs)
+        partials.append(torch.where(neg, xs * gt, torch.zeros_like(gt)).sum(dim=(2, 3)))
+    return dx.to(x.dtype), torch.stack(partials, -1).sum().reshape(1)
+
+
+@pytest.mark.parametrize("h,w,c,alpha", [(7, 9, 5, -0.5), (35, 33, 6, 0.25), (18, 12, 4, 0.0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_autograd_function_with_the_kernels_algorithm_equals_plain(monkeypatch, h, w, c, alpha,
+                                                                   dtype):
+    """``_FusedPreluPool`` with the kernels' algorithm as its launchers
+    against the plain version, at odd H and W (one strip and several, the
+    last one short) and a zero slope.  Without moments, ``dx`` is bit-equal
+    (the cotangent is g itself, scaled by alpha at a negative selection, on
+    both sides); with them, the kernel forms g + gs + 2 out gq in its own
+    order where autograd sums the three in another, so ``dx`` is held to the
+    tolerances above.  ``dalpha`` is a sum in another order either way."""
+    monkeypatch.setattr(fused_pool_cuda, "forward", _emulated_forward)
+    monkeypatch.setattr(fused_pool_cuda, "backward", _emulated_backward)
+    x, a = _inputs(h, w, c, seed=12, b=3, alpha=alpha)
+    x[0, :4, :4] = -1.5  # tied all-negative windows: at a zero slope they tie at 0
+    rng = np.random.RandomState(13)
+    cot = [torch.from_numpy(rng.randn(3, c, h // 2, w // 2).astype(np.float32)).to(dtype),
+           torch.from_numpy((rng.randn(c) * 0.5).astype(np.float32)),
+           torch.from_numpy((rng.randn(c) * 0.05).astype(np.float32))]
+    tx, ta = _port(x, a, dtype)
+    fused = tfp._FusedPreluPool.apply
+    da_tol = GRAD_ATOL if dtype == torch.float32 else 2e-2
+    for stats in (False, True):
+        n = 3 if stats else 1
+        got = torch.autograd.grad(list(fused(tx, ta, stats)[:n]), (tx, ta), cot[:n])
+        want = torch.autograd.grad(
+            list(tfp.plain_prelu_pool_stats(tx, ta) if stats else [tfp.plain_prelu_pool(tx, ta)]),
+            (tx, ta), cot[:n])
+        assert got[0].dtype == want[0].dtype == dtype
+        if stats:
+            ref = want[0].float().abs().max().item()
+            np.testing.assert_allclose(got[0].float().numpy(), want[0].float().numpy(), rtol=0,
+                                       atol=(STATS_ATOL if dtype == torch.float32 else 1e-2) * ref)
+        else:
+            assert torch.equal(got[0], want[0])
+        np.testing.assert_allclose(got[1].float().numpy(), want[1].float().numpy(),
+                                   rtol=da_tol, atol=da_tol)
+        if alpha == 0.0:
+            assert abs(got[1].item()) > 0.1  # the true sum, not 0
+        if h % 2:
+            assert not got[0][:, :, -1].any()
+        if w % 2:
+            assert not got[0][..., -1].any()
