@@ -540,6 +540,11 @@ def test_fused_pool_refuses_what_it_does_not_take(card):
         fused_pool.fused_prelu_pool(x.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2), alpha)
     with pytest.raises(ValueError, match="H=1, W=10 leaves no output"):
         fused_pool.fused_prelu_pool(x[:, :, :1].contiguous(), alpha)
+    # the backward stages two input rows of a strip in shared memory
+    wide = torch.randn(1, 1, 2, 20000, device=card, requires_grad=True)
+    out = fused_pool.fused_prelu_pool(wide, alpha)
+    with pytest.raises(ValueError, match="W=20000 is too wide"):
+        out.backward(torch.ones_like(out))
 
 
 # ------------------------------------- fused conv 3x3 (Cin -> Cout) + PReLU + pool
