@@ -13,16 +13,21 @@ Phases, in order; any failure propagates and the script exits non-zero
    ``csrc/fused_pool.cu``, ``csrc/fused_conv2.cu`` and ``csrc/flash_mha.cu``
    for sm_90a from this checkout, all at once;
 3. kernel vs plain: the wavelet-packet kernel against the plain PyTorch
-   cascade on the card, at the serving shapes and a few other geometries
-   (one-block route), and the long-frame route (one launch per level) at
-   2 s of sym5, coif4, haar and db8, 1 s at 32 kHz and level-14 haar at
-   T = 131,072, each route's launch count read;
+   cascade on the card, at the serving shapes (B = 1, 8, 64, 128), a few
+   other geometries and frames longer than one CTA holds (2 s of sym5,
+   coif4, haar and db8, 1 s at 32 kHz, level-14 haar at T = 131,072), each
+   on the plan its geometry picks (split depth, top route; logged), its
+   launches counted, raw packets 0.0 from plain, a repeat the same bits;
+   then every split depth and top route forced on one geometry, each the
+   same bits as the automatic plan;
 4. serve: a seeded full-width DCNN snapshot behind ``service_from_snapshot``
    on ``cuda``, answering concurrent HTTP uploads; scores checked against
    the same snapshot scored on the CPU, and the kernel's launch count read
    over exactly this run;
-5. time: CUDA-event medians of the kernel vs the plain cascade, and of the
-   whole scorer (device audio -> P(fake)) with each, at batch 64 and 128;
+5. time: the wavelet-packet kernel through its launcher (CUDA-event
+   medians) and on the device (profile) against the plain cascade at batch
+   1, 8, 64 and 128, and the whole scorer (device audio -> P(fake)) with
+   each at batch 64 and 128;
 6. fused first block vs plain: forward, moments and ``dW/db/dalpha`` of
    the conv+PReLU+pool kernels against the plain PyTorch version, at the
    training shape (B=128, 95x256, C=64; fp32 and bf16) and smaller
@@ -100,11 +105,11 @@ Phases, in order; any failure propagates and the script exits non-zero
     the AST train step fused, unfused and bf16, the eval step, the scorer
     at batch 64, 128 and 512 with chunks of 0 (whole batch), 8, 16 and 32;
     profiles of the fused fp32 and the bf16 steps;
-20. frames longer than one block's shared memory: the corpus cut into 2 s
-    frames and trained through ``run_experiment`` on ``cuda`` with packets
-    + DCNN (the WPT's long-frame route; its launch count read over exactly
-    this run) and with stft + AST (477 tokens through kernel 4, counted
-    likewise); the long-frame route timed against plain at B=64.
+20. 2 s frames: the corpus cut into 2 s frames and trained through
+    ``run_experiment`` on ``cuda`` with packets + DCNN (the WPT's subtrees
+    on chip, no level through device memory: its launch counts read over
+    exactly this run) and with stft + AST (477 tokens through kernel 4,
+    counted likewise); the WPT on 2 s frames timed against plain at B=64.
 
 The last lines are the kernels' JSON record, the measurements with the
 card's name and power limit, and ``{"ok": true, "device": ...}``.
@@ -245,46 +250,86 @@ def card() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-LONG_CASES = (  # B, T, wavelet, level: frames the one-block kernel cannot hold;
+LONG_CASES = (  # B, T, wavelet, level: frames longer than one CTA holds;
     # the first is phase 20's DCNN batch of 2 s frames, the row of the long route
     (64, 2 * SR, "sym5", 8), (2, 2 * SR, "coif4", 8), (2, 2 * SR, "haar", 8),
     (2, 2 * SR, "db8", 8), (3, 32000, "sym5", 8), (2, 8 * 2 ** 14, "haar", 14),
 )
 
 
+def wpt_counts(wpt_cuda):
+    """(subtree kernel calls, top-level kernel launches) so far."""
+    return wpt_cuda.LAUNCHES, wpt_cuda.LEVEL_LAUNCHES
+
+
 def kernel_vs_plain(wpt_cuda, wpt):
-    """Phase 3: every listed geometry, raw and with the log, on the route
-    its geometry picks (the one-block kernel, or one launch per level)."""
+    """Phase 3: every listed geometry, raw and with the log, on the plan its
+    geometry picks (split depth k, top route); each launch counted; raw
+    packets 0.0 from plain (the same fmaf chains), a repeat the same bits;
+    then every split depth and top route forced on one geometry, each the
+    same bits as the automatic plan."""
     gen = torch.Generator().manual_seed(0)
+    # (wavelet, level, B, T, exact): exact where the first kernel's run read
+    # 0.0 against plain (every geometry it had), RAW_ATOL for the others
     cases = [
-        (*MAIN, 64, SR, "block"), (*MAIN, 128, SR, "block"), (*MAIN, 1, SR, "block"),
-        ("haar", 8, 3, 4096, "block"), ("db4", 5, 5, 2048, "block"),
-        ("coif4", 4, 4, 2048, "block"),
-    ] + [(name, level, b, t, "long") for b, t, name, level in LONG_CASES]
-    errs = {}
-    for name, level, b, t, route in cases:
+        (*MAIN, 64, SR, True), (*MAIN, 128, SR, True), (*MAIN, 1, SR, True),
+        (*MAIN, 8, SR, False), ("haar", 8, 3, 4096, True), ("db4", 5, 5, 2048, True),
+        ("coif4", 4, 4, 2048, True), ("db2", 6, 300, 4096, False),
+    ] + [(name, level, b, t, True) for b, t, name, level in LONG_CASES]
+    errs, splits = {}, set()
+    for name, level, b, t, exact in cases:
         x = torch.randn(b, t, generator=gen).cuda()
-        before = (wpt_cuda.LAUNCHES, wpt_cuda.LONG_LAUNCHES)
+        plan = wpt_cuda.launch_args(name, b, t, level, False, 2.0, x.device.index)[1]
+        before = wpt_counts(wpt_cuda)
         got = wpt_cuda.wpt_packets_cuda(x, name, level)
         want = wpt.wpt_analysis(x, name, level)
+        again = wpt_cuda.wpt_packets_cuda(x, name, level)
         torch.cuda.synchronize()
-        moved = (wpt_cuda.LAUNCHES - before[0], wpt_cuda.LONG_LAUNCHES - before[1])
-        if moved != ((1, 0) if route == "block" else (0, 1)):
-            raise AssertionError(f"{name} L={level} T={t}: launches {moved} off the {route} route")
+        moved = tuple(v - w for v, w in zip(wpt_counts(wpt_cuda), before))
+        if moved != (2, 2 * plan.in_level):
+            raise AssertionError(f"{name} L={level} B={b} T={t}: launches {moved} for {plan}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name} L={level} B={b} T={t}: a repeat differs")
+        splits.add(plan.split)
         err = (got - want).abs().max().item()
         errs[f"{name}-L{level}-B{b}-T{t}"] = err
-        log(f"  raw {name} L={level} B={b} T={t} ({route}): max|err| {err:.3e} "
+        log(f"  raw {name} L={level} B={b} T={t} (k={plan.split}, top {plan.top}, "
+            f"{plan.threads} threads, {plan.smem_bytes} B): max|err| {err:.3e} "
             f"(peak {want.abs().max().item():.3f})")
-        if not err <= RAW_ATOL:
-            raise AssertionError(f"kernel vs plain {name}: {err} > {RAW_ATOL}")
-        if (name, level) == MAIN or route == "long":
+        if not (err == 0.0 if exact else err <= RAW_ATOL):
+            raise AssertionError(f"kernel vs plain {name} L={level} B={b} T={t}: {err}")
+        if (name, level) == MAIN or t > SR:
             got = wpt_cuda.wpt_packets_cuda(x, name, level, log_scale=True)
             want = wpt.log_power(want, 2.0)
             torch.cuda.synchronize()
             torch.testing.assert_close(got, want, rtol=LOG_RTOL, atol=LOG_ATOL)
             lerr = (got - want).abs().max().item()
             errs[f"log-{name}-L{level}-B{b}-T{t}"] = lerr
-            log(f"  log {name} L={level} B={b} T={t} ({route}): max|err| {lerr:.3e}")
+            log(f"  log {name} L={level} B={b} T={t}: max|err| {lerr:.3e}")
+    # every split depth and top route on one geometry: the same bits
+    x = torch.randn(3, SR, generator=gen).cuda()
+    ref = wpt_cuda.wpt_packets_cuda(x, *MAIN, log_scale=True)
+    lengths = wpt_cuda.level_lengths(SR, 10, MAIN[1])
+    limit = wpt_cuda.device_limits(x.device.index)[1]
+    forced = []
+    for k in range(MAIN[1]):
+        for top in ("frame", "path", "levels", "levels-all"):
+            plan = wpt_cuda.make_plan(lengths, 10, k, top, 3, smem_limit=limit)
+            if plan in forced or plan.smem_bytes > limit:
+                continue
+            forced.append(plan)
+            before = wpt_counts(wpt_cuda)
+            got = wpt_cuda.wpt_packets_cuda(x, *MAIN, log_scale=True, plan=plan)
+            torch.cuda.synchronize()
+            moved = tuple(v - w for v, w in zip(wpt_counts(wpt_cuda), before))
+            if moved != (1, plan.in_level) or not torch.equal(got, ref):
+                raise AssertionError(f"forced {plan}: launches {moved}, "
+                                     f"max|diff| {(got - ref).abs().max().item()}")
+    splits |= {p.split for p in forced}
+    log(f"  {len(forced)} forced plans (k = 0 .. {MAIN[1] - 1}, each top route) at B=3: "
+        f"the same bits as the automatic plan; split depths reached {sorted(splits)}")
+    if splits != set(range(MAIN[1])):
+        raise AssertionError(f"split depths reached: {sorted(splits)}")
     return errs
 
 
@@ -463,8 +508,53 @@ def median_ms(fns: dict, reps: int) -> dict:
     return {name: statistics.median(v) for name, v in times.items()}
 
 
+def wpt_device_ms(wpt_cuda, fn, n: int = 20) -> float:
+    """Device ms per call of ``fn`` in the WPT kernels: their mean duration
+    in a profile of ``n`` calls times the launches one call makes (read
+    from the launch counters), so a profile that lost a few records still
+    reads right."""
+    from torch.profiler import ProfilerActivity, profile
+
+    before = wpt_counts(wpt_cuda)
+    fn()
+    torch.cuda.synchronize()
+    launches = sum(wpt_counts(wpt_cuda)) - sum(before)
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a profile that lost every record is taken again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and "wpt_" in e.key]
+        count = sum(e.count for e in rows)
+        if count:
+            break
+    else:
+        raise AssertionError("three profiles show no WPT kernel")
+    return sum(e.self_device_time_total for e in rows) / count / 1e3 * launches
+
+
+def wpt_times(wpt_cuda, wpt, x, reps: int = 20) -> dict:
+    """The cascade with the log on ``x``: through the launcher against the
+    plain version (CUDA events), and the kernels' device time from a
+    profile (the launcher's host work is not in it)."""
+    def kernel():
+        return wpt_cuda.wpt_packets_cuda(x, *MAIN, log_scale=True)
+
+    ms = median_ms({"plain": lambda: wpt.log_power(wpt.wpt_analysis(x, *MAIN), 2.0),
+                    "kernel": kernel}, reps=reps)
+    device = wpt_device_ms(wpt_cuda, kernel)
+    plan = wpt_cuda.launch_args(MAIN[0], *x.shape, MAIN[1], True, 2.0, x.device.index)[1]
+    return {"wpt_kernel_ms": ms["kernel"], "wpt_plain_ms": ms["plain"],
+            "wpt_device_ms": device, "split": plan.split, "top": plan.top,
+            "threads": plan.threads, "smem_bytes": plan.smem_bytes}
+
+
 def timing(wpt_cuda, wpt, snapshot: str, card_line: str):
-    """Phase 5: kernel vs plain cascade, and the whole scorer with each."""
+    """Phase 5: the cascade (launcher, device time) against plain at B = 1,
+    8, 64 and 128, and the whole scorer with each at B = 64 and 128."""
     from audiodeepfake_detection_tpu_torch.train.predict import (
         build_scorer_from_snapshot,
         make_score_fn,
@@ -476,15 +566,17 @@ def timing(wpt_cuda, wpt, snapshot: str, card_line: str):
         scorers[use_kernel] = make_score_fn(model, transform, "cuda")
     out = {}
     gen = torch.Generator().manual_seed(3)
-    for b in (64, 128):
+    for b in (1, 8, 64, 128):
         x = torch.randn(b, SR, generator=gen).cuda()
-        ms = median_ms(
-            {
-                "plain": lambda: wpt.log_power(wpt.wpt_analysis(x, *MAIN), 2.0),
-                "kernel": lambda: wpt_cuda.wpt_packets_cuda(x, *MAIN, log_scale=True),
-            },
-            reps=20,
-        )
+        out[b] = wpt_times(wpt_cuda, wpt, x)
+        bound, _ = wpt_bound(wpt, b, SR)
+        log(f"  B={b} [{card_line}]: WPT kernel {out[b]['wpt_kernel_ms']:.4f} ms through "
+            f"the launcher, {out[b]['wpt_device_ms']:.4f} ms on the device (k="
+            f"{out[b]['split']}, top {out[b]['top']}, {out[b]['threads']} threads, "
+            f"{out[b]['smem_bytes']} B), plain {out[b]['wpt_plain_ms']:.4f} ms, "
+            f"bound {bound:.5f} ms")
+        if b < 64:
+            continue
         audio = (0.3 * x)[:, None, :].contiguous()
         sms = median_ms(
             {
@@ -493,14 +585,12 @@ def timing(wpt_cuda, wpt, snapshot: str, card_line: str):
             },
             reps=5,
         )
-        out[b] = {
-            "wpt_kernel_ms": ms["kernel"], "wpt_plain_ms": ms["plain"],
+        out[b].update({
             "scorer_kernel_ms": sms["kernel"], "scorer_plain_ms": sms["plain"],
             "scorer_kernel_frames_per_s": b / sms["kernel"] * 1e3,
             "scorer_plain_frames_per_s": b / sms["plain"] * 1e3,
-        }
-        log(f"  B={b} [{card_line}]: WPT kernel {ms['kernel']:.4f} ms, plain "
-            f"{ms['plain']:.4f} ms; scorer kernel {sms['kernel']:.3f} ms "
+        })
+        log(f"  B={b}: scorer kernel {sms['kernel']:.3f} ms "
             f"({out[b]['scorer_kernel_frames_per_s']:.1f} frames/s), plain "
             f"{sms['plain']:.3f} ms ({out[b]['scorer_plain_frames_per_s']:.1f} frames/s)")
     return out
@@ -2066,22 +2156,25 @@ def ast_timing(fa, fa_cuda, norm, card_line: str):
 
 def train_long(wpt, wpt_cuda, fa_cuda, root: str, data: str, card_line: str):
     """Phase 20: the corpus cut into 2 s frames.  Packets + DCNN (the WPT's
-    long-frame route) and stft + AST (477 tokens through kernel 4), each through ``run_experiment`` with its launch counts read over
-    exactly that run; then the long-frame route timed against plain."""
+    subtrees on chip) and stft + AST (477 tokens through kernel 4), each
+    through ``run_experiment`` with its launch counts read over exactly
+    that run; then the WPT on 2 s frames timed against plain."""
     from audiodeepfake_detection_tpu_torch.train.experiment import run_experiment
 
     frame = 2 * SR
     # 196 training frames of 2 s: 3 steps of 64 (DCNN), 6 of 32 (AST)
-    wpt_cuda.LAUNCHES = wpt_cuda.LONG_LAUNCHES = 0
+    wpt_cuda.LAUNCHES = wpt_cuda.LEVEL_LAUNCHES = 0
     dcnn = run_experiment(train_args(root, data, "log_long", seconds=2, batch_size=64,
                                      epochs=1, time_dim_add=0))
     torch.cuda.synchronize()
-    counts = {"block": wpt_cuda.LAUNCHES, "long": wpt_cuda.LONG_LAUNCHES}
+    counts = dict(zip(("subtree", "level"), wpt_counts(wpt_cuda)))
     losses = [row[2] for row in dcnn.loss_list]
     log(f"  packets + DCNN, 2 s frames: input {dcnn.args.input_dim}, losses "
         f"{['%.4f' % v for v in losses]}, test {dcnn.test_results}, WPT launches {counts}")
+    # every 2 s batch runs its subtrees on chip from the frame: no level
+    # goes through device memory
     if (dcnn.args.input_dim[-1] != 181 or len(losses) != 3 or not np.isfinite(losses).all()
-            or counts["block"] != 0 or counts["long"] < len(losses)):
+            or counts["subtree"] < len(losses) or counts["level"] != 0):
         raise AssertionError(f"2 s DCNN run: {dcnn.args.input_dim}, {losses}, {counts}")
     del dcnn
 
@@ -2124,16 +2217,14 @@ def train_long(wpt, wpt_cuda, fa_cuda, root: str, data: str, card_line: str):
 
     b = LONG_CASES[0][0]  # the DCNN run's batch, held against plain in phase 3
     x = torch.randn(b, frame, generator=torch.Generator().manual_seed(9)).cuda()
-    ms = median_ms({
-        "plain": lambda: wpt.log_power(wpt.wpt_analysis(x, *MAIN), 2.0),
-        "kernel": lambda: wpt_cuda.wpt_packets_cuda(x, *MAIN, log_scale=True),
-    }, reps=10)
-    log(f"  WPT long-frame route at B={b}, T={frame}, with the log [{card_line}]: kernel "
-        f"{ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms")
+    ms = wpt_times(wpt_cuda, wpt, x, reps=10)
+    log(f"  WPT on 2 s frames at B={b}, T={frame}, with the log [{card_line}]: kernel "
+        f"{ms['wpt_kernel_ms']:.4f} ms through the launcher, {ms['wpt_device_ms']:.4f} ms "
+        f"on the device (k={ms['split']}, top {ms['top']}), plain {ms['wpt_plain_ms']:.4f} ms")
     return {"dcnn_losses": losses, "wpt_launches": counts, "ast_tokens": tokens,
             "ast_losses": ast_losses, "mha_launches": mha, "ast_step_ms": step_ms,
             "ast_step_profile": step_prof, "kernel4_share_of_device": share,
-            "wpt_long_kernel_ms": ms["kernel"], "wpt_long_plain_ms": ms["plain"]}
+            "wpt_long": ms}
 
 
 def main() -> None:
@@ -2276,9 +2367,13 @@ def main() -> None:
             "name": "wpt_cascade", "route": "cuda",
             "source": "audiodeepfake_detection_tpu_torch/csrc/wpt_cascade.cu",
             "replaces": "audiodeepfake_detection_tpu/ops/wpt_pallas.py:287",
+            "design": "a CTA per (frame, node at split depth k), subtree in shared memory "
+                      "as padded rows; first level staged by coalesced loads; R outputs of "
+                      "both children from one float4 window, taps from the constant bank",
             "launches": served["launches"], "train_launches": trained["launches"]["wpt"],
             "max_abs_err": errs[main_key],
             "ms": times[64]["wpt_kernel_ms"], "plain_ms": times[64]["wpt_plain_ms"],
+            "device_ms": times[64]["wpt_device_ms"], "split": times[64]["split"],
             "bound_ms": wpt_b, "bound_by": wpt_by, "library_ms": None,
         },
         {
@@ -2407,14 +2502,18 @@ def main() -> None:
             "bound_ms": sbwd_b, "bound_by": sbwd_by, "library_ms": s32["bwd_library_ms"],
         },
         {
-            # the WPT's long-frame route (one launch per level; one counted
-            # per call): phase 20's 2 s frames at its batch of 64, with the log
-            "name": "wpt_level", "route": "cuda",
+            # the same kernel on phase 20's 2 s frames at its batch of 64, with
+            # the log: subtrees on chip, no level through device memory
+            "name": "wpt_cascade_long", "route": "cuda",
             "source": "audiodeepfake_detection_tpu_torch/csrc/wpt_cascade.cu",
             "replaces": "audiodeepfake_detection_tpu/ops/wpt_pallas.py:287",
-            "launches": long_run["wpt_launches"]["long"],
+            "launches": long_run["wpt_launches"]["subtree"],
+            "level_launches": long_run["wpt_launches"]["level"],
             "max_abs_err": errs[long_key],
-            "ms": long_run["wpt_long_kernel_ms"], "plain_ms": long_run["wpt_long_plain_ms"],
+            "ms": long_run["wpt_long"]["wpt_kernel_ms"],
+            "plain_ms": long_run["wpt_long"]["wpt_plain_ms"],
+            "device_ms": long_run["wpt_long"]["wpt_device_ms"],
+            "split": long_run["wpt_long"]["split"],
             "bound_ms": long_b, "bound_by": long_by, "library_ms": None,
         },
     ]}))

@@ -8,6 +8,8 @@ machine without JAX, from the repository root:
 Without a CUDA device every test skips.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -46,23 +48,69 @@ def _audio(b, t, seed):
     return torch.from_numpy(np.random.RandomState(seed).randn(b, t).astype(np.float32))
 
 
+def _run_counted(x, wavelet, level, **kw):
+    """One call; returns (out, subtree launches, level launches) it made."""
+    before = (wpt_cuda.LAUNCHES, wpt_cuda.LEVEL_LAUNCHES)
+    got = wpt_cuda.wpt_packets_cuda(x, wavelet, level, **kw)
+    torch.cuda.synchronize()
+    return got, wpt_cuda.LAUNCHES - before[0], wpt_cuda.LEVEL_LAUNCHES - before[1]
+
+
+def _auto_plan(x, wavelet, level):
+    filt_len = wpt_cuda.filter_length(wavelet)
+    return wpt_cuda.wpt_plan(*x.shape, filt_len, level, *wpt_cuda.device_limits(x.device.index))
+
+
 @pytest.mark.parametrize(
     "wavelet,level,b,t",
     [("sym5", 8, 64, 22050), ("haar", 8, 3, 4096), ("db4", 5, 5, 2048),
-     ("coif4", 4, 4, 2048), ("coif4", 2, 2, 16), ("sym5", 8, 1, 22050)],
+     ("coif4", 4, 4, 2048), ("coif4", 2, 2, 16), ("sym5", 8, 1, 22050),
+     ("sym5", 8, 3, 22050), ("sym5", 8, 133, 22050), ("db8", 6, 300, 4096),
+     ("db2", 6, 3, 3001)],
 )
 def test_kernel_matches_plain(card, wavelet, level, b, t):
+    """The automatic plan: one subtree launch and as many top-level launches
+    as the plan reads levels from device memory; the raw packets equal the
+    plain cascade (the same fmaf chain over the same samples); a repeat
+    gives the same bits."""
     x = _audio(b, t, seed=level).to(card)
-    before = (wpt_cuda.LAUNCHES, wpt_cuda.LONG_LAUNCHES)
-    got = wpt_cuda.wpt_packets_cuda(x, wavelet, level)
+    plan = _auto_plan(x, wavelet, level)
+    got, subtree, levels = _run_counted(x, wavelet, level)
+    assert (subtree, levels) == (1, plan.in_level)
     want = wpt_analysis(x, wavelet, level)
-    torch.cuda.synchronize()
-    assert (wpt_cuda.LAUNCHES, wpt_cuda.LONG_LAUNCHES) == (before[0] + 1, before[1])
     torch.testing.assert_close(got, want, rtol=0, atol=RAW_ATOL)
+    assert torch.equal(got, wpt_cuda.wpt_packets_cuda(x, wavelet, level))
     got = wpt_cuda.wpt_packets_cuda(x, wavelet, level, log_scale=True)
     torch.cuda.synchronize()
     # log(|x|^2 + 1e-12) amplifies roundoff near zero coefficients
     torch.testing.assert_close(got, log_power(want, 2.0), rtol=1e-3, atol=5e-3)
+
+
+@pytest.mark.parametrize(
+    "wavelet,level,b,t",
+    [("sym5", 8, 3, 22050), ("coif4", 5, 2, 2048), ("haar", 6, 2, 999),
+     ("coif2", 4, 1, 301)],
+)
+def test_every_split_depth_gives_the_same_bits(card, wavelet, level, b, t):
+    """Every split depth k and top route that fits, forced: the same bits
+    as the automatic plan (every output is the same fmaf chain), and the
+    counters move by one subtree launch and the plan's top levels."""
+    x = _audio(b, t, seed=t).to(card)
+    ref = wpt_cuda.wpt_packets_cuda(x, wavelet, level, log_scale=True)
+    filt_len = wpt_cuda.filter_length(wavelet)
+    lengths = wpt_cuda.level_lengths(t, filt_len, level)
+    seen = set()
+    for k in range(level):
+        for top in ("frame", "path", "levels", "levels-all"):
+            plan = wpt_cuda.make_plan(lengths, filt_len, k, top)
+            if plan in seen or plan.smem_bytes > wpt_cuda.device_limits(0)[1]:
+                continue
+            seen.add(plan)
+            got, subtree, levels = _run_counted(
+                x, wavelet, level, log_scale=True, plan=plan)
+            assert (subtree, levels) == (1, plan.in_level), plan
+            assert torch.equal(got, ref), plan
+    assert {p.split for p in seen} == set(range(level))
 
 
 def test_kernel_refuses_what_it_does_not_take(card):
@@ -74,23 +122,32 @@ def test_kernel_refuses_what_it_does_not_take(card):
     # 2**31 rows of one coefficient do not fit the kernels' int32 indexing
     with pytest.raises(ValueError, match="overflow int32"):
         wpt_cuda.wpt_packets_cuda(x, "haar", 31)
+    # a plan whose buffers exceed the card's shared memory raises with them
+    lengths = wpt_cuda.level_lengths(4096, 2, 3)
+    big = dataclasses.replace(wpt_cuda.make_plan(lengths, 2, 0, "frame"),
+                              smem_bytes=10**6)
+    with pytest.raises(ValueError, match="shared memory"):
+        wpt_cuda.wpt_packets_cuda(x, "haar", 3, plan=big)
 
 
 @pytest.mark.parametrize(
     "wavelet,level,b,t",
-    [("sym5", 8, 4, 44100), ("coif4", 8, 2, 44100), ("haar", 8, 2, 44100),
-     ("db8", 8, 2, 44100), ("sym5", 8, 3, 32000), ("haar", 14, 2, 8 * 2**14)],
+    [("sym5", 8, 64, 44100), ("sym5", 8, 4, 44100), ("coif4", 8, 2, 44100),
+     ("haar", 8, 2, 44100), ("db8", 8, 2, 44100), ("sym5", 8, 3, 32000),
+     ("haar", 14, 2, 8 * 2**14)],
 )
 def test_long_frames_take_the_long_route_and_equal_plain(card, wavelet, level, b, t):
-    """Frames whose level buffers exceed one block's shared memory: one
-    launch per level through device memory, counted apart from the
-    one-block kernel."""
+    """Frames longer than one CTA's shared memory: subtrees on chip below
+    the split depth, so only the top levels (level 1 alone for 2 s at
+    B=64, the DCNN's batch) cross device memory."""
     x = _audio(b, t, seed=t % 97).to(card)
-    before = (wpt_cuda.LAUNCHES, wpt_cuda.LONG_LAUNCHES)
-    got = wpt_cuda.wpt_packets_cuda(x, wavelet, level)
+    plan = _auto_plan(x, wavelet, level)
+    got, subtree, levels = _run_counted(x, wavelet, level)
+    assert (subtree, levels) == (1, plan.in_level)
+    assert plan.in_level < level - 1
+    if (b, t) == (64, 44100):
+        assert plan.in_level <= 1
     want = wpt_analysis(x, wavelet, level)
-    torch.cuda.synchronize()
-    assert (wpt_cuda.LAUNCHES, wpt_cuda.LONG_LAUNCHES) == (before[0], before[1] + 1)
     torch.testing.assert_close(got, want, rtol=0, atol=RAW_ATOL)
     got = wpt_cuda.wpt_packets_cuda(x, wavelet, level, log_scale=True)
     torch.cuda.synchronize()
