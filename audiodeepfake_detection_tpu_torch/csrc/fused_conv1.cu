@@ -2,11 +2,13 @@
 // PReLU (one slope) -> floor-mode 2x2 max-pool, forward and backward.
 //
 //   x [B, H, W] (f32 or bf16), w [9, C], b [C], alpha [1] (f32)
-//     -> out [B, h2, w2, C] (x's type), h2 = (H + 2) / 2, w2 = (W + 2) / 2
-//   training forward also: a selection code per output element
-//     (pool phase | negative << 2, one byte) and per-block partial
+//     -> out, stored [B, C, h2, w2] (NCHW; x's type), h2 = (H + 2) / 2,
+//        w2 = (W + 2) / 2
+//   training forward also: a selection code per output element, stored like
+//     out (pool phase | negative << 2, one byte), and per-block partial
 //     per-channel (sum, sumsq) of the rounded stored output;
-//   backward: per-block partials of dW [9, C], db [C] and dalpha.
+//   backward: per-block partials of dW [9, C], db [C] and dalpha from g
+//     (stored like out), the code and x.
 //
 // Replaces the TPU kernels audiodeepfake_detection_tpu/ops/fused_conv1.py::
 // _fwd_master and ::_bwd_kernel (reached through fused_conv1_prelu_pool and
@@ -16,39 +18,63 @@
 // a later transpose; all of that served the TPU's matrix unit and lane
 // layout and is not carried over.  Kept: what is computed, and what stays
 // out of device memory -- the pre-pool activation [B, H+2, W+2, C] (four
-// times the output) in the forward, and its gradient in the backward.
+// times the output) in the forward, and its gradient in the backward.  The
+// output is stored NCHW because the convolutions behind the block (cuDNN)
+// read NCHW: the wrapper hands it out as a [B, h2, w2, C] view, so no
+// transposing copy follows the block in either direction.
 //
-// What bounds it on the H100: bytes.  At B=128, H=95, W=256, C=64 in f32 the
+// What bounds it on the H100.  At B=128, H=95, W=256, C=64 in f32 the
 // training forward reads 12.5 MB and writes 203 MB of output plus 51 MB of
-// codes, and does 36 FMAs per output element (3.7 GFLOP): ~79 us of memory
-// traffic at 3.35 TB/s against ~55 us of FMA at 67 TFLOP/s -- close to the
-// f32 ridge, so the design keeps both small: every input byte is read once
-// from device memory (a halo tile of x in shared memory), the output is
-// written once, NHWC with channels across neighbouring threads so each
-// pixel's C values are one coalesced store, and the 9 taps of a thread's
-// channel stay in registers.  The backward reads g, out and the code once
-// and re-reads the same x tile; it saves the code so that no pooling
-// decision is ever recomputed.
+// codes (~79 us at 3.35 TB/s) and does 36 FMAs per output (3.7 GFLOP, ~55 us
+// at 67 TFLOP/s).  But a stored value also costs four PReLUs, a four-way
+// first maximum and its moments: some 70 instructions, so the forward is
+// bound by issue, and its design keeps the issue for arithmetic.  A thread
+// owns four pool windows, holds the 4x4 patch of x under each in registers
+// (read once from a halo tile staged by cp.async), and walks the channels:
+// a channel's bias and 9 taps are three float4 reads of a shared copy of w
+// and b that every lane reads at once (broadcasts), 3 loads for 144 FMAs.
+// A block owns a contiguous range of a frame's flattened [h2, w2] plane (of
+// a column tile's rows, for planes wider than one tile); neighbouring lanes
+// own neighbouring windows, so every per-channel store of out and of the
+// code is contiguous across the warp, across row ends too.  Each conv value
+// is the bias, then fmaf over the taps with dh ascending and dw ascending
+// inside it; phases are compared in the order (0,0), (0,1), (1,0), (1,1)
+// with a strict >, so out and code do not depend on the tiling.  Moments: a
+// warp shuffle sum per channel (after the first step lanes 0-15 carry the
+// sum and lanes 16-31 the sum of squares, so both take five steps), one
+// slot per warp, the slots summed in a fixed order.
+//
+// The backward reads g, the code and x once (~79 us at this shape) and does
+// not read out: it rebuilds the selected phase's conv value from the same
+// nine taps in the same fmaf order (dalpha needs that value anyway), then
+// PReLU and the rounding to the stored type as the forward did, so the
+// sumsq cotangent's 2 * out * gq sees the stored value bit for bit.  A lane
+// owns one channel and walks a contiguous run of windows of a strip of four
+// pooled rows, so its 9 dW sums stay in registers and every lane of a warp
+// reads x under the same window (from the halo tile: at most four
+// addresses, in distinct banks).  g and the code are NCHW, so a warp's 32
+// channels are 32 rows of memory: the warp copies 16 windows of them at a
+// time with coalesced loads (where the plane holds a multiple of four
+// windows, as the DCNN's 48 x 129 does, four windows a load: 16 bytes of g,
+// a word of codes), the next 16 in flight while these are summed, into a
+// buffer of its own in shared memory from which each lane reads its row.
+// (Lanes on windows instead, as in the forward, pay 21 selects a window
+// for the phase's 3x3 of a patch held in registers and a reduction across
+// lanes a channel: measured slower, PERF.md.)
+//
+// dalpha is the true sum of conv * g over negative selected elements, so an
+// exactly-zero slope still receives its gradient (the TPU kernel divides by
+// alpha and returns 0 there).
 //
 // Cross-block reductions: Hopper's blocks run in any order, so nothing is
 // accumulated across blocks here, and no atomics are used.  Each block
-// reduces its own threads in a fixed order in shared memory and writes one
-// row of partials; the wrapper sums the rows with one torch.sum, which is
-// deterministic.  BatchNorm moments and gradients are therefore bit-for-bit
-// reproducible from run to run.
-//
-// Thread layout: a block owns one frame's strip of `rows` pooled rows by
-// `wt` pooled columns.  threads = groups * C; thread t serves channel
-// t % C for the pixels t / C, t / C + groups, ...  A warp thus holds one
-// pixel (C >= 32) and its reads of the x tile are broadcasts.
-//
-// dalpha is the true sum of conv * g over negative selected elements: the
-// backward rebuilds the selected conv value from the 9 tile reads it makes
-// for dW anyway, so an exactly-zero slope still receives its gradient (the
-// TPU kernel divides by alpha and returns 0 there).
+// reduces its own threads in a fixed order and writes one row of partials;
+// the wrapper sums the rows with one torch.sum, which is deterministic.
+// BatchNorm moments and gradients are therefore bit-for-bit reproducible
+// from run to run.
 //
 // The second kernel pair of this file, fused_conv_mfm_{fwd,bwd}_kernel, is
-// the LCNN's first block on the same tiles; its note stands above it.
+// the LCNN's first block; its note stands above it.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC; bound from Python with ctypes (ops/fused_conv1_cuda.py).
@@ -61,7 +87,10 @@
 namespace {
 
 constexpr int kMaxThreads = 256;
-constexpr int kBwdRows = 11;  // 9 dW taps, db, dalpha
+constexpr int kBwdRows = 11;     // 9 dW taps, db, dalpha
+constexpr int kFwdThreads = 128;  // forward block
+constexpr int kFwdWindows = 4;    // pool windows a forward thread owns
+constexpr int kTapFloats = 12;    // a channel's bias, 9 taps, 2 zeros (3 float4s)
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
@@ -89,187 +118,394 @@ __device__ __forceinline__ Tile tile_of_block(int h2, int w2, int rows, int wt) 
   return t;
 }
 
-// Zero-padded tile of one frame in shared memory: padded rows
-// [2*i0, 2*i0 + 2*rows + HALO) and padded columns [2*j0, 2*j0 + 2*wt + HALO),
-// where padded (r, c) is x[r - 2][c - 2] (both blocks pad by 2) and HALO is
-// the kernel size minus one: 2 for the 3x3 block, 4 for the 5x5 one.
-template <int HALO, typename T>
-__device__ __forceinline__ void load_tile(const T* __restrict__ x, float* xs,
-                                          Tile t, int h, int w, int rows,
-                                          int wt, int stride) {
-  const T* frame = x + static_cast<size_t>(t.b) * h * w;
-  const int tile_h = 2 * rows + HALO, tile_w = 2 * wt + HALO;
-  for (int k = threadIdx.x; k < tile_h * tile_w; k += blockDim.x) {
-    const int lr = k / tile_w, lc = k - lr * tile_w;
-    const int r = 2 * t.i0 + lr - 2, c = 2 * t.j0 + lc - 2;
-    float v = 0.f;
-    if (r >= 0 && r < h && c >= 0 && c < w)
-      v = to_float(frame[static_cast<size_t>(r) * w + c]);
-    xs[lr * stride + lc] = v;
-  }
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// Sum each of a thread's N values over the block's pixel groups in a fixed
-// order and write them as partials[blockIdx.x][k][col0 + channel], rows of
-// `row_len` floats (c_total threads serve one pixel).
-template <int N>
-__device__ __forceinline__ void block_reduce_store(const float (&vals)[N],
-                                                   float* red,
-                                                   float* __restrict__ partials,
-                                                   int c_total, int row_len,
-                                                   int col0) {
-  const int groups = blockDim.x / c_total;
-  const int c = threadIdx.x % c_total, pg = threadIdx.x / c_total;
-#pragma unroll
-  for (int k = 0; k < N; ++k) red[(pg * N + k) * c_total + c] = vals[k];
-  __syncthreads();
-  if (pg == 0) {
-    float* dst =
-        partials + static_cast<size_t>(blockIdx.x) * N * row_len + col0;
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-      float acc = 0.f;
-      for (int g = 0; g < groups; ++g) acc += red[(g * N + k) * c_total + c];
-      dst[k * row_len + c] = acc;
+// One element of a zero-padded x tile: f32 by 4-byte cp.async (a padding
+// element reads nothing and lands as zero), bf16 by a widening load.  The
+// caller commits the copies to a group and waits for it.
+__device__ __forceinline__ void stage_x(float* dst, const float* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(in ? 4 : 0));
+}
+__device__ __forceinline__ void stage_x(float* dst, const __nv_bfloat16* src, bool in) {
+  *dst = in ? __bfloat162float(*src) : 0.f;
+}
+
+// Four consecutive elements as floats (16 bytes of f32, 8 of bf16).
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(v.x << 16), __uint_as_float(v.x & 0xffff0000u),
+                     __uint_as_float(v.y << 16), __uint_as_float(v.y & 0xffff0000u));
+}
+
+// Padded rows [pr0, pr0 + n_rows) by padded columns [pc0, pc0 + n_cols) of
+// frame b, where padded (r, c) is x[r - 2][c - 2] (zero outside x; both
+// blocks pad by 2), to xs rows of `stride` floats: a warp a row, lanes
+// along it (no division per element).  Threads of a last, partial warp
+// copy nothing.
+template <typename T>
+__device__ __forceinline__ void stage_halo(const T* __restrict__ x, float* xs, int b,
+                                           int pr0, int n_rows, int pc0, int n_cols,
+                                           int h, int w, int stride) {
+  const T* frame = x + static_cast<size_t>(b) * h * w;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n_warps = blockDim.x >> 5;
+  if (warp >= n_warps) return;
+  for (int lr = warp; lr < n_rows; lr += n_warps) {
+    const int r = pr0 + lr - 2;
+    const bool row_in = r >= 0 && r < h;
+    const T* src = frame + static_cast<size_t>(row_in ? r : 0) * w;
+    for (int lc = lane; lc < n_cols; lc += 32) {
+      const int c = pc0 + lc - 2;
+      const bool in = row_in && c >= 0 && c < w;
+      stage_x(xs + lr * stride + lc, src + (in ? c : 0), in);
     }
   }
 }
 
-// Dynamic shared memory: the x tile ((2*rows + 2) * stride floats), then the
-// reduction buffer (groups * N * C floats, N = 2 or 11).
-template <typename T>
-__global__ void __launch_bounds__(kMaxThreads)
+// Forward.  Blocks are numbered frame-major, then column tile, then range:
+// block k of a (frame, column tile) owns windows [k * n_w, (k + 1) * n_w) of
+// the tile's rows flattened (window (i, j) at i * wt + j; columns past the
+// plane's edge own nothing); thread t the windows t, t + kFwdThreads, ... of
+// it.  kFlat: one column tile, so a thread's windows lie kFwdThreads apart
+// in the plane too and its stores take immediate offsets.
+// Dynamic shared memory: the channels' biases and taps (C rows of 12 floats),
+// a (sum, sumsq) slot per warp and channel, then the x tile (rows of
+// `stride` floats).
+template <typename T, bool kFlat>
+__global__ void __launch_bounds__(kFwdThreads)
 fused_conv1_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
                        const float* __restrict__ bias,
                        const float* __restrict__ alpha_p, T* __restrict__ out,
                        unsigned char* __restrict__ code,
                        float* __restrict__ stat_partials, int h, int win,
-                       int c_total, int rows, int wt, int stride) {
-  extern __shared__ float smem[];
-  float* xs = smem;
-  float* red = smem + (2 * rows + 2) * stride;
+                       int c_total, int wt, int n_ct, int n_w, int stride) {
+  extern __shared__ float4 conv1_smem[];
+  float* ws = reinterpret_cast<float*>(conv1_smem);
+  constexpr int n_warps = kFwdThreads / 32;
+  float* red = ws + c_total * kTapFloats;
+  float* xs = red + n_warps * c_total * 2;
   const int h2 = (h + 2) / 2, w2 = (win + 2) / 2;
-  const Tile t = tile_of_block(h2, w2, rows, wt);
-  load_tile<2>(x, xs, t, h, win, rows, wt, stride);
-
-  const int c = threadIdx.x % c_total, pg = threadIdx.x / c_total;
-  const int groups = blockDim.x / c_total;
-  float wk[9];
-#pragma unroll
-  for (int k = 0; k < 9; ++k) wk[k] = w[k * c_total + c];
-  const float bc = bias[c];
+  const int per_tile = (h2 * wt + n_w - 1) / n_w;
+  const int k = blockIdx.x % per_tile;
+  const int ct = (blockIdx.x / per_tile) % n_ct;
+  const int b = blockIdx.x / per_tile / n_ct;
+  const int j0 = ct * wt;
+  const int q0 = k * n_w, q1 = min(q0 + n_w, h2 * wt);
+  const int r0 = q0 / wt, r1 = (q1 - 1) / wt;  // the pooled rows it spans
+  for (int i = threadIdx.x; i < c_total * kTapFloats; i += kFwdThreads) {
+    const int c = i / kTapFloats, r = i - c * kTapFloats;
+    ws[i] = r == 0 ? bias[c] : (r <= 9 ? w[(r - 1) * c_total + c] : 0.f);
+  }
+  stage_halo(x, xs, b, 2 * r0, 2 * (r1 - r0) + 4, 2 * j0, 2 * wt + 2, h, win, stride);
+  cp_async_commit();
   const float alpha = alpha_p[0];
+  const size_t plane = static_cast<size_t>(h2) * w2;
+  cp_async_wait_all();
   __syncthreads();
 
-  float stats[2] = {0.f, 0.f};
-  for (int p = pg; p < rows * wt; p += groups) {
-    const int li = p / wt, lj = p - li * wt;
-    const int gi = t.i0 + li, gj = t.j0 + lj;
-    if (gi >= h2 || gj >= w2) continue;
-    // the 4x4 patch under this pool window: conv (2gi+a, 2gj+b), tap
-    // (dh, dw) reads patch[a + dh][b + dw]
-    const float* base = xs + (2 * li) * stride + 2 * lj;
-    float patch[4][4];
+  // the 4x4 patch under each window: conv (2i+a, 2j+b), tap (dh, dw) reads
+  // patch[a + dh][b + dw]; stride and 2j are even, so float2 reads
+  float patch[kFwdWindows][4][4];
+  int off[kFwdWindows];  // the window's element in the plane, i * w2 + j
+  bool valid[kFwdWindows];
+  bool any = false;
+#pragma unroll
+  for (int kw = 0; kw < kFwdWindows; ++kw) {
+    const int p = q0 + threadIdx.x + kw * kFwdThreads;
+    int li = p / wt, lj = p - li * wt;
+    valid[kw] = p < q1 && j0 + lj < w2;
+    any |= valid[kw];
+    if (!valid[kw]) li = r0, lj = 0;  // a window inside the tile; nothing stored
+    off[kw] = li * w2 + j0 + lj;
+    const float* base = xs + 2 * (li - r0) * stride + 2 * lj;
 #pragma unroll
     for (int r = 0; r < 4; ++r)
 #pragma unroll
-      for (int q = 0; q < 4; ++q) patch[r][q] = base[r * stride + q];
-    float best = 0.f, best_pre = 0.f;
-    int best_ph = 0;
+      for (int q = 0; q < 2; ++q) {
+        const float2 v = reinterpret_cast<const float2*>(base + r * stride)[q];
+        patch[kw][r][2 * q] = v.x;
+        patch[kw][r][2 * q + 1] = v.y;
+      }
+  }
+  const int off0 = q0 + threadIdx.x;  // kFlat: window kw at off0 + kw * kFwdThreads
+  // a warp none of whose lanes owns a window skips the channels
+  const bool warp_idle = !__any_sync(0xffffffffu, any);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float4* taps4 = reinterpret_cast<const float4*>(ws);
+  T* out_c = out + static_cast<size_t>(b) * c_total * plane;  // channel c's plane
+  unsigned char* code_c =
+      code != nullptr ? code + static_cast<size_t>(b) * c_total * plane : nullptr;
+#pragma unroll 1
+  for (int c = 0; c < c_total; ++c) {
+    float s = 0.f, q = 0.f;
+    if (!warp_idle) {
+      // the same address in every lane: broadcasts
+      const float4 t0 = taps4[3 * c], t1 = taps4[3 * c + 1], t2 = taps4[3 * c + 2];
+      const float tap[9] = {t0.y, t0.z, t0.w, t1.x, t1.y, t1.z, t1.w, t2.x, t2.y};
+      // every window computed, invalid ones too (their patch is a real one):
+      // no branch between the windows' chains
 #pragma unroll
-    for (int ph = 0; ph < 4; ++ph) {
-      const int a = ph >> 1, b = ph & 1;
-      float conv = bc;
+      for (int kw = 0; kw < kFwdWindows; ++kw) {
+        float best = 0.f;
+        unsigned best_code = 0;
 #pragma unroll
-      for (int dh = 0; dh < 3; ++dh)
+        for (int ph = 0; ph < 4; ++ph) {
+          const int a = ph >> 1, bb = ph & 1;
+          float conv = t0.x;
 #pragma unroll
-        for (int dw = 0; dw < 3; ++dw)
-          conv = fmaf(wk[dh * 3 + dw], patch[a + dh][b + dw], conv);
-      const float act = conv >= 0.f ? conv : alpha * conv;
-      // strict >: ties keep the first phase of (0,0),(0,1),(1,0),(1,1)
-      if (ph == 0 || act > best) {
-        best = act;
-        best_pre = conv;
-        best_ph = ph;
+          for (int dh = 0; dh < 3; ++dh)
+#pragma unroll
+            for (int dw = 0; dw < 3; ++dw)
+              conv = fmaf(tap[dh * 3 + dw], patch[kw][a + dh][bb + dw], conv);
+          const bool neg = conv < 0.f;
+          const float act = neg ? alpha * conv : conv;
+          // strict >: ties keep the first phase of (0,0),(0,1),(1,0),(1,1)
+          if (ph == 0 || act > best) {
+            best = act;
+            best_code = neg ? ph | 4 : ph;
+          }
+        }
+        T stored;
+        from_float(best, &stored);
+        const float rounded = valid[kw] ? to_float(stored) : 0.f;  // what a later pass reads
+        s += rounded;
+        q = fmaf(rounded, rounded, q);
+        const int o = kFlat ? off0 + kw * kFwdThreads : off[kw];
+        if (valid[kw]) {
+          out_c[o] = stored;
+          if (code_c != nullptr) code_c[o] = static_cast<unsigned char>(best_code);
+        }
       }
     }
-    const size_t o =
-        ((static_cast<size_t>(t.b) * h2 + gi) * w2 + gj) * c_total + c;
-    T stored;
-    from_float(best, &stored);
-    out[o] = stored;
-    if (code != nullptr)
-      code[o] = static_cast<unsigned char>(best_ph | ((best_pre < 0.f) << 2));
     if (stat_partials != nullptr) {
-      const float rounded = to_float(stored);  // what a later pass would read
-      stats[0] += rounded;
-      stats[1] = fmaf(rounded, rounded, stats[1]);
+      // lanes 0-15 go on with the sum, 16-31 with the sum of squares
+      const bool lo = lane < 16;
+      float keep = lo ? s : q;
+      keep += __shfl_xor_sync(0xffffffffu, lo ? q : s, 16);
+#pragma unroll
+      for (int sh = 8; sh > 0; sh >>= 1) keep += __shfl_xor_sync(0xffffffffu, keep, sh);
+      if ((lane & 15) == 0) red[(warp * c_total + c) * 2 + (lo ? 0 : 1)] = keep;
+    }
+    out_c += plane;
+    if (code_c != nullptr) code_c += plane;
+  }
+  if (stat_partials != nullptr) {
+    __syncthreads();
+    float* dst = stat_partials + static_cast<size_t>(blockIdx.x) * 2 * c_total;
+    for (int i = threadIdx.x; i < 2 * c_total; i += kFwdThreads) {
+      const int c = i % c_total, m = i / c_total;
+      float acc = 0.f;
+      for (int wp = 0; wp < n_warps; ++wp) acc += red[(wp * c_total + c) * 2 + m];
+      dst[m * c_total + c] = acc;
     }
   }
-  if (stat_partials != nullptr)
-    block_reduce_store(stats, red, stat_partials, c_total, c_total, 0);
 }
 
-template <typename T>
+// Backward.  Blocks as tile_of_block numbers them: a strip of `rows` pooled
+// rows by a column tile of one frame, its n_win windows taken row-major.  A
+// lane serves one channel: warp w serves the 32 channels of slab w % slabs
+// over the windows of group w / slabs, a contiguous run of whole fours of
+// the strip's windows.  g and the codes are NCHW, so a lane's windows lie
+// along one row of memory and a warp's 32 lanes would read 32 rows: the
+// warp therefore copies each 16 windows' g and codes of its 32 channels
+// with coalesced loads (the next 16's in flight while these are summed)
+// into a buffer of its own in shared memory, and each lane reads its row
+// back.  kAligned: one column tile, a plane of a multiple of four windows
+// and strips of four rows, so every four windows start on 16 bytes of g:
+// four windows a load, 16 bytes of g and one word of codes; otherwise
+// element by element, through each window's offset in the plane.  Per
+// window a lane reads the 9 x values under the selected phase from the
+// halo tile (the 32 lanes are channels of one window: at most four
+// addresses, in distinct banks), rebuilds the conv value and the stored
+// output, and adds d * x to its 9 dW sums.
+// Dynamic shared memory: the x tile ((2*rows + 2) * stride floats), each
+// window's element in the plane and its offset in the tile, then per warp a
+// buffer of 32 rows of 16 windows' g (20 floats a row) and codes (5 words a
+// row); the reduction (groups * 11 * slabs * 32 floats) reuses it all.
+constexpr int kChunk = 16;    // windows a warp stages at a time
+constexpr int kGPitch = 20;   // floats between staged rows of g: 5 x 16 bytes, odd
+constexpr int kCPitch = 5;    // words between staged rows of codes: odd
+
+template <typename T, bool kAligned>
 __global__ void __launch_bounds__(kMaxThreads)
 fused_conv1_bwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
                        const float* __restrict__ bias,
                        const float* __restrict__ alpha_p,
-                       const T* __restrict__ g, const T* __restrict__ out,
+                       const T* __restrict__ g,
                        const unsigned char* __restrict__ code,
                        const float* __restrict__ gs,
                        const float* __restrict__ gq,
                        float* __restrict__ partials, int h, int win,
                        int c_total, int rows, int wt, int stride) {
-  extern __shared__ float smem[];
-  float* xs = smem;
-  float* red = smem + (2 * rows + 2) * stride;
+  extern __shared__ float4 conv1_smem[];
+  float* xs = reinterpret_cast<float*>(conv1_smem);
+  int* offs = reinterpret_cast<int*>(xs + (2 * rows + 2) * stride);
+  int* toffs = offs + rows * wt;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* gbuf = reinterpret_cast<float*>(toffs + rows * wt) + warp * 32 * (kGPitch + kCPitch);
+  unsigned* cbuf = reinterpret_cast<unsigned*>(gbuf + 32 * kGPitch);
   const int h2 = (h + 2) / 2, w2 = (win + 2) / 2;
   const Tile t = tile_of_block(h2, w2, rows, wt);
-  load_tile<2>(x, xs, t, h, win, rows, wt, stride);
+  const int wc = min(wt, w2 - t.j0), nr = min(rows, h2 - t.i0);
+  const int n_win = nr * wc;
+  stage_halo(x, xs, t.b, 2 * t.i0, 2 * nr + 2, 2 * t.j0, 2 * wc + 2, h, win, stride);
+  // window v: its element in the plane, and (2i, 2j) in the tile
+  for (int v = threadIdx.x; v < n_win; v += blockDim.x) {
+    const int li = v / wc, lj = v - li * wc;
+    offs[v] = (t.i0 + li) * w2 + t.j0 + lj;
+    toffs[v] = 2 * li * stride + 2 * lj;
+  }
+  cp_async_commit();
 
-  const int c = threadIdx.x % c_total, pg = threadIdx.x / c_total;
-  const int groups = blockDim.x / c_total;
+  const int slabs = (c_total + 31) / 32, groups = (blockDim.x >> 5) / slabs;
+  const int slab = warp % slabs, grp = warp / slabs;
+  const int c = slab * 32 + lane;
+  const bool live = c < c_total;
   float wk[9];
 #pragma unroll
-  for (int k = 0; k < 9; ++k) wk[k] = w[k * c_total + c];
-  const float bc = bias[c];
+  for (int k = 0; k < 9; ++k) wk[k] = live ? w[k * c_total + c] : 0.f;
+  const float bc = live ? bias[c] : 0.f;
   const float alpha = alpha_p[0];
   // cotangents of the per-channel (sum, sumsq) outputs fold into g
-  const float gsc = gs != nullptr ? gs[c] : 0.f;
-  const float gqc = gq != nullptr ? gq[c] : 0.f;
+  const float gsc = live && gs != nullptr ? gs[c] : 0.f;
+  const float gqc = live && gq != nullptr ? gq[c] : 0.f;
+  // this group's windows [wa, wb)
+  const int nq = (n_win + 3) / 4;
+  const int wa = min(4 * (grp * nq / groups), n_win);
+  const int wb = min(4 * ((grp + 1) * nq / groups), n_win);
+  const size_t plane = static_cast<size_t>(h2) * w2;
+  // channel slab * 32's plane; lane k of a copy reads channel slab * 32 + k
+  const size_t slab0 = (static_cast<size_t>(t.b) * c_total + slab * 32) * plane;
+  const int n_live = min(32, c_total - slab * 32);
+  cp_async_wait_all();
   __syncthreads();
 
   float acc[kBwdRows];
 #pragma unroll
   for (int k = 0; k < kBwdRows; ++k) acc[k] = 0.f;
-  for (int p = pg; p < rows * wt; p += groups) {
-    const int li = p / wt, lj = p - li * wt;
-    const int gi = t.i0 + li, gj = t.j0 + lj;
-    if (gi >= h2 || gj >= w2) continue;
-    const size_t o =
-        ((static_cast<size_t>(t.b) * h2 + gi) * w2 + gj) * c_total + c;
-    const int cd = code[o];
-    const int ph = cd & 3;
-    const bool neg = cd >= 4;
-    const float gt =
-        to_float(g[o]) + gsc + 2.f * to_float(out[o]) * gqc;
-    const float d = neg ? alpha * gt : gt;  // through PReLU, selected phase
-    const float* base =
-        xs + (2 * li + (ph >> 1)) * stride + 2 * lj + (ph & 1);
+  auto step = [&](float gv, unsigned cd, int v) {
+    // the selected phase (a, b): tile rows 2i + a .., columns 2j + b ..
+    const float* base = xs + toffs[v] + ((cd >> 1) & 1) * stride + (cd & 1);
+    const bool neg = cd & 4;
+    float xv[9];
     float conv = bc;
 #pragma unroll
     for (int dh = 0; dh < 3; ++dh)
 #pragma unroll
       for (int dw = 0; dw < 3; ++dw) {
-        const float xv = base[dh * stride + dw];
-        acc[dh * 3 + dw] = fmaf(d, xv, acc[dh * 3 + dw]);
-        conv = fmaf(wk[dh * 3 + dw], xv, conv);
+        xv[dh * 3 + dw] = base[dh * stride + dw];
+        conv = fmaf(wk[dh * 3 + dw], xv[dh * 3 + dw], conv);
       }
+    // the forward's stored value, bit for bit (the code's sign is conv's)
+    T stored;
+    from_float(neg ? alpha * conv : conv, &stored);
+    const float gt = gv + gsc + 2.f * to_float(stored) * gqc;
+    const float d = neg ? alpha * gt : gt;  // through PReLU, selected phase
+#pragma unroll
+    for (int k = 0; k < 9; ++k) acc[k] = fmaf(d, xv[k], acc[k]);
     acc[9] += d;
     if (neg) acc[10] = fmaf(conv, gt, acc[10]);
+  };
+  // kAligned: lane l copies four windows (l & 3) of channel 8 * i + (l >> 2),
+  // a chunk ahead: its loads fly while the chunk before is summed
+  float4 g_next[4];
+  unsigned c_next[4];
+  auto fetch = [&](int v0, int n) {
+    const size_t e0 = slab0 + offs[v0] + 4 * (lane & 3);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int k = 8 * i + (lane >> 2);
+      if (k < n_live && 4 * (lane & 3) < n) {
+        const size_t e = e0 + k * plane;
+        g_next[i] = load4(g + e);
+        c_next[i] = *reinterpret_cast<const unsigned*>(code + e);
+      }
+    }
+  };
+  if (kAligned && wa < wb) fetch(wa, min(kChunk, wb - wa));
+  for (int w0 = wa; w0 < wb; w0 += kChunk) {
+    const int n = min(kChunk, wb - w0);
+    if (kAligned) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int k = 8 * i + (lane >> 2);
+        if (k < n_live && 4 * (lane & 3) < n) {
+          reinterpret_cast<float4*>(gbuf + k * kGPitch)[lane & 3] = g_next[i];
+          cbuf[k * kCPitch + (lane & 3)] = c_next[i];
+        }
+      }
+      if (w0 + kChunk < wb) fetch(w0 + kChunk, min(kChunk, wb - w0 - kChunk));
+    } else {
+      // lane l copies window l & 15 of channels 2 * i + (l >> 4)
+      const int j = lane & 15;
+      const size_t e0 = slab0 + (j < n ? offs[w0 + j] : 0);
+      unsigned char* cbytes = reinterpret_cast<unsigned char*>(cbuf);
+#pragma unroll 4
+      for (int i = 0; i < 16; ++i) {
+        const int k = 2 * i + (lane >> 4);
+        if (k < n_live && j < n) {
+          const size_t e = e0 + k * plane;
+          gbuf[k * kGPitch + j] = to_float(g[e]);
+          cbytes[k * 4 * kCPitch + j] = code[e];
+        }
+      }
+    }
+    __syncwarp();
+    if (live) {
+      const int pw = w0;  // the chunk's first window
+      const float* grow = gbuf + lane * kGPitch;
+      const unsigned* crow = cbuf + lane * kCPitch;
+      if (kAligned) {
+        for (int j = 0; j < n; j += 4) {
+          const float4 g4 = reinterpret_cast<const float4*>(grow)[j / 4];
+          const unsigned c4 = crow[j / 4];
+          step(g4.x, c4 & 0xffu, pw + j);
+          step(g4.y, (c4 >> 8) & 0xffu, pw + j + 1);
+          step(g4.z, (c4 >> 16) & 0xffu, pw + j + 2);
+          step(g4.w, c4 >> 24, pw + j + 3);
+        }
+      } else {
+        const unsigned char* cb = reinterpret_cast<const unsigned char*>(crow);
+        for (int j = 0; j < n; ++j) step(grow[j], cb[j], pw + j);
+      }
+    }
+    __syncwarp();  // the buffer is read before the next copy overwrites it
   }
-  block_reduce_store(acc, red, partials, c_total, c_total, 0);
+  __syncthreads();  // every window is summed: the tile becomes the reduction buffer
+  float* red = xs;
+  const int width = slabs * 32;
+#pragma unroll
+  for (int k = 0; k < kBwdRows; ++k) red[(grp * kBwdRows + k) * width + c] = acc[k];
+  __syncthreads();
+  if (grp == 0 && live) {
+    float* dst = partials + static_cast<size_t>(blockIdx.x) * kBwdRows * c_total;
+#pragma unroll
+    for (int k = 0; k < kBwdRows; ++k) {
+      float sum = 0.f;
+      for (int q = 0; q < groups; ++q) sum += red[(q * kBwdRows + k) * width + c];
+      dst[k * c_total + c] = sum;
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -337,24 +573,6 @@ constexpr int kMfmTaps = 25;
 constexpr int kMfmRows = 26;        // 25 dW taps, db
 constexpr int kMfmPairFloats = 52;  // per channel pair: ba, bb, (wa_i, wb_i)
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
 // Bytes between staged rows of `bytes` bytes, in units of `unit`: an odd
 // number of units, so that the lanes of a warp reading the same unit of
 // consecutive rows hit distinct banks (16-byte units: per quarter warp).
@@ -406,21 +624,9 @@ __device__ __forceinline__ void stage_rows(const E* src0, size_t row_step,
   }
 }
 
-// Four consecutive staged elements of g as floats (16 bytes of f32, 8 of
-// bf16).
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
-  return make_float4(__uint_as_float(v.x << 16), __uint_as_float(v.x & 0xffff0000u),
-                     __uint_as_float(v.y << 16), __uint_as_float(v.y & 0xffff0000u));
-}
-
-// As block_reduce_store, with C/2 threads a group: each thread's N values
-// summed over the block's groups in a fixed order, the N * C/2 sums spread
-// over all threads; partials[blockIdx.x][k][col0 + channel], rows of
-// `row_len` floats.
+// Each thread's N values summed over the block's groups of C/2 threads in
+// a fixed order, the N * C/2 sums spread over all threads;
+// partials[blockIdx.x][k][col0 + channel], rows of `row_len` floats.
 template <int N>
 __device__ __forceinline__ void mfm_reduce_store(const float (&vals)[N], float* red,
                                                  float* __restrict__ partials,
@@ -439,35 +645,13 @@ __device__ __forceinline__ void mfm_reduce_store(const float (&vals)[N], float* 
   }
 }
 
-// The zero-padded x tile that load_tile<4> would load, a warp a tile row
-// (no division per element): f32 by 4-byte cp.async (a padding element
-// reads nothing and lands as zero), bf16 by a widening load.  The caller
-// commits the copies to a group and waits for it.
-__device__ __forceinline__ void stage_x(float* dst, const float* src, bool in) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(in ? 4 : 0));
-}
-__device__ __forceinline__ void stage_x(float* dst, const __nv_bfloat16* src, bool in) {
-  *dst = in ? __bfloat162float(*src) : 0.f;
-}
+// The zero-padded x tile of padded rows [2*i0, 2*i0 + 2*rows + 4) and
+// columns [2*j0, 2*j0 + 2*wt + 4).  The caller commits the copies to a
+// group and waits for it.
 template <typename T>
 __device__ __forceinline__ void stage_tile(const T* __restrict__ x, float* xs, Tile t,
                                            int h, int w, int rows, int wt, int stride) {
-  const T* frame = x + static_cast<size_t>(t.b) * h * w;
-  const int tile_h = 2 * rows + 4, tile_w = 2 * wt + 4;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int n_warps = blockDim.x >> 5;
-  if (warp >= n_warps) return;
-  for (int lr = warp; lr < tile_h; lr += n_warps) {
-    const int r = 2 * t.i0 + lr - 2;
-    const bool row_in = r >= 0 && r < h;
-    const T* src = frame + static_cast<size_t>(row_in ? r : 0) * w;
-    for (int lc = lane; lc < tile_w; lc += 32) {
-      const int c = 2 * t.j0 + lc - 2;
-      const bool in = row_in && c >= 0 && c < w;
-      stage_x(xs + lr * stride + lc, src + (in ? c : 0), in);
-    }
-  }
+  stage_halo(x, xs, t.b, 2 * t.i0, 2 * rows + 4, 2 * t.j0, 2 * wt + 4, h, w, stride);
 }
 
 // Dynamic shared memory: the channel pairs' biases and taps (C/2 * 52
@@ -704,53 +888,77 @@ const char* fused_conv1_error_string(int err) {
 
 // Forward on `stream`, no synchronisation; returns cudaGetLastError().
 // `code` and `stat_partials` may be null (inference: neither is produced).
-// Grid: batch * ceil(h2 / rows) * ceil(w2 / wt) blocks of `threads`.
+// out and code are stored [B, C, h2, w2].  Grid: batch * n_ct * ceil(h2 *
+// wt / n_w) blocks of kFwdThreads; stat_partials [blocks, 2, C].
 int fused_conv1_fwd_launch(const void* x, const float* w, const float* bias,
                            const float* alpha, void* out, unsigned char* code,
                            float* stat_partials, int h, int win, int c_total,
-                           int is_bf16, int rows, int wt, int stride,
+                           int is_bf16, int wt, int n_ct, int n_w, int stride,
                            int threads, int blocks, int smem_bytes, int device,
                            void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (threads != kFwdThreads || n_w != kFwdThreads * kFwdWindows)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define CONV1_FWD(T, F)                                                          \
+  fused_conv1_fwd_kernel<T, F><<<blocks, threads, smem_bytes, s>>>(             \
+      static_cast<const T*>(x), w, bias, alpha, static_cast<T*>(out), code,      \
+      stat_partials, h, win, c_total, wt, n_ct, n_w, stride)
   if (is_bf16) {
-    fused_conv1_fwd_kernel<__nv_bfloat16><<<blocks, threads, smem_bytes, s>>>(
-        static_cast<const __nv_bfloat16*>(x), w, bias, alpha,
-        static_cast<__nv_bfloat16*>(out), code, stat_partials, h, win, c_total,
-        rows, wt, stride);
+    if (n_ct == 1)
+      CONV1_FWD(__nv_bfloat16, true);
+    else
+      CONV1_FWD(__nv_bfloat16, false);
   } else {
-    fused_conv1_fwd_kernel<float><<<blocks, threads, smem_bytes, s>>>(
-        static_cast<const float*>(x), w, bias, alpha, static_cast<float*>(out),
-        code, stat_partials, h, win, c_total, rows, wt, stride);
+    if (n_ct == 1)
+      CONV1_FWD(float, true);
+    else
+      CONV1_FWD(float, false);
   }
+#undef CONV1_FWD
   return static_cast<int>(cudaGetLastError());
 }
 
-// Backward on `stream`; `gs` / `gq` may be null (no moment cotangents).
+// Backward on `stream`; `gs` / `gq` may be null (no moment cotangents).  g
+// and code are stored [B, C, h2, w2]; `aligned`: see fused_conv1_bwd_kernel.
+// Grid: batch * ceil(h2 / rows) * ceil(w2 / wt) blocks of `threads` (32 *
+// slabs * groups), with more than 48 KB of shared memory by opting in.
 // Writes partials [blocks, 11, C]: rows 0-8 dW taps, 9 db, 10 dalpha.
 int fused_conv1_bwd_launch(const void* x, const float* w, const float* bias,
-                           const float* alpha, const void* g, const void* out,
+                           const float* alpha, const void* g,
                            const unsigned char* code, const float* gs,
                            const float* gq, float* partials, int h, int win,
                            int c_total, int is_bf16, int rows, int wt,
-                           int stride, int threads, int blocks, int smem_bytes,
-                           int device, void* stream) {
+                           int stride, int aligned, int threads, int blocks,
+                           int smem_bytes, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define CONV1_BWD(T, A)                                                          \
+  do {                                                                           \
+    if (smem_bytes > 48 * 1024) {                                                \
+      err = cudaFuncSetAttribute(fused_conv1_bwd_kernel<T, A>,                   \
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,    \
+                                 smem_bytes);                                    \
+      if (err != cudaSuccess) return static_cast<int>(err);                      \
+    }                                                                            \
+    fused_conv1_bwd_kernel<T, A><<<blocks, threads, smem_bytes, s>>>(           \
+        static_cast<const T*>(x), w, bias, alpha, static_cast<const T*>(g), code, \
+        gs, gq, partials, h, win, c_total, rows, wt, stride);                    \
+  } while (0)
   if (is_bf16) {
-    fused_conv1_bwd_kernel<__nv_bfloat16><<<blocks, threads, smem_bytes, s>>>(
-        static_cast<const __nv_bfloat16*>(x), w, bias, alpha,
-        static_cast<const __nv_bfloat16*>(g),
-        static_cast<const __nv_bfloat16*>(out), code, gs, gq, partials, h, win,
-        c_total, rows, wt, stride);
+    if (aligned)
+      CONV1_BWD(__nv_bfloat16, true);
+    else
+      CONV1_BWD(__nv_bfloat16, false);
   } else {
-    fused_conv1_bwd_kernel<float><<<blocks, threads, smem_bytes, s>>>(
-        static_cast<const float*>(x), w, bias, alpha,
-        static_cast<const float*>(g), static_cast<const float*>(out), code, gs,
-        gq, partials, h, win, c_total, rows, wt, stride);
+    if (aligned)
+      CONV1_BWD(float, true);
+    else
+      CONV1_BWD(float, false);
   }
+#undef CONV1_BWD
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -138,14 +138,15 @@ class DCNN(nn.Module):
             conv.bias,
             prelu.weight,
         )
-        # [B, h2, w2, C] -> NCHW, copied into NCHW memory: left channels-last
-        # (the permuted view as it is), cuDNN's fp32 convolutions behind it
-        # run slower by more than the fused block saves (PERF.md, Findings)
+        # the block's [B, h2, w2, C] is a view of NCHW memory, so its permute
+        # is the contiguous NCHW tensor cuDNN reads, and the cotangent cuDNN
+        # hands back is NCHW memory too: no copy in either direction (left
+        # channels-last, cuDNN's fp32 convolutions would run slower by more
+        # than the fused block saves; PERF.md, Findings)
         if self.training:
             out, s, q = fused_conv1_prelu_pool_stats(*args)
-            x = out.permute(0, 3, 1, 2).contiguous()
-            return batch_norm_from_moments(self.cnn[3], x, s, q), 4
-        return fused_conv1_prelu_pool(*args).permute(0, 3, 1, 2).contiguous(), 3
+            return batch_norm_from_moments(self.cnn[3], out.permute(0, 3, 1, 2), s, q), 4
+        return fused_conv1_prelu_pool(*args).permute(0, 3, 1, 2), 3
 
     def _fused_second_block(self, x: torch.Tensor):
         """``cnn[6:10]`` (and ``cnn[10]`` in training) through the fused

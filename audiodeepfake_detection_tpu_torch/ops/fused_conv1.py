@@ -11,8 +11,9 @@ JAX package's signature and layout::
 Tap ``w[dh * 3 + dw, c]`` is torch's ``conv.weight[c, 0, dh, dw]``.  The
 PReLU runs before the pool (a negative slope makes pool-then-PReLU wrong);
 the pool is floor mode and ties pick the first of the window's phases
-``(0,0), (0,1), (1,0), (1,1)``.  ``out.permute(0, 3, 1, 2)`` is a
-channels-last NCHW tensor.
+``(0,0), (0,1), (1,0), (1,1)``.  Both versions return the output as a view
+of NCHW memory: ``out.permute(0, 3, 1, 2)`` is contiguous, the layout the
+convolutions behind the block read, so nothing is copied between them.
 The ``_stats`` variant also returns the float32 per-channel ``(sum,
 sumsq)`` of the stored (rounded) output, the moments the next BatchNorm
 needs, so the activation is not read again for statistics; gradients flow
@@ -78,8 +79,8 @@ def _rounded_params(x, w, b, alpha):
 
 
 def _plain_pooled(x, w, b, alpha) -> torch.Tensor:
-    """Float32 ``[B, h2, w2, C]`` holding the values the block stores
-    (rounded to ``x``'s type).  The rounding is straight-through, so
+    """Float32 ``[B, h2, w2, C]`` view of NCHW memory holding the values the
+    block stores (rounded to ``x``'s type).  The rounding is straight-through, so
     cotangents stay float32 all the way, as in the kernel: autograd through
     a bfloat16 tensor would round ``g + gs + 2 * out * gq`` to bfloat16 and
     drop every moment cotangent below half an ulp of ``g``."""
@@ -90,7 +91,7 @@ def _plain_pooled(x, w, b, alpha) -> torch.Tensor:
     )
     act = torch.where(conv >= 0, conv, aq * conv)
     pooled = F.max_pool2d(act, 2)  # floor mode; its backward takes the first max
-    pooled = pooled.permute(0, 2, 3, 1).contiguous()
+    pooled = pooled.permute(0, 2, 3, 1)  # NCHW memory, as the kernel's
     if x.dtype != torch.float32:
         pooled = pooled + (pooled.to(x.dtype).float() - pooled).detach()
     return pooled
@@ -120,21 +121,24 @@ class _FusedConv1(torch.autograd.Function):
             x, wq, bq, aq, want_code, want_stats
         )
         if want_code:
-            ctx.save_for_backward(x, wq, bq, aq, out, code)
+            # not the output: the backward rebuilds it from x and the code
+            ctx.save_for_backward(x, wq, bq, aq, code)
             ctx.param_dtypes = (w.dtype, b.dtype, alpha.dtype)
             ctx.want_stats = want_stats
         return out, s, q
 
     @staticmethod
     def backward(ctx, g, gs, gq):
-        x, wq, bq, aq, out, code = ctx.saved_tensors
+        x, wq, bq, aq, code = ctx.saved_tensors
         if ctx.want_stats:
             gs, gq = gs.float().contiguous(), gq.float().contiguous()
         else:
             gs = gq = None
-        dw, db, da = fused_conv1_cuda.backward(
-            x, wq, bq, aq, g.contiguous(), out, code, gs, gq
-        )
+        if not g.permute(0, 3, 1, 2).is_contiguous():
+            # the kernel reads NCHW memory, as cuDNN hands it back; a caller
+            # that gives another layout pays one copy
+            g = g.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+        dw, db, da = fused_conv1_cuda.backward(x, wq, bq, aq, g, code, gs, gq)
         wt, bt, at = ctx.param_dtypes
         return None, dw.to(wt), db.to(bt), da.to(at), None
 

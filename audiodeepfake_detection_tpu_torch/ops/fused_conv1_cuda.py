@@ -6,9 +6,9 @@ pool) check device, type, shape and contiguity, allocate outputs and scratch
 with ``torch.empty``, launch on the current stream without synchronising,
 and finish the cross-block reductions over the per-block partials in a
 fixed order (one ``torch.sum``; ``mfm_backward``: a second small kernel in
-the same call), so results are bit-for-bit reproducible.  The
-MaxFeatureMap kernels store their output and code, and read the cotangent,
-as NCHW memory behind the ``[B, h2, w2, C/2]`` shape, the layout of the
+the same call), so results are bit-for-bit reproducible.  Both kernel pairs
+store their output and code, and read the cotangent, as NCHW memory behind
+the ``[B, h2, w2, C]`` (MaxFeatureMap: ``C/2``) shape, the layout of the
 convolutions behind the block.  ``FWD_LAUNCHES`` / ``BWD_LAUNCHES`` and
 ``MFM_FWD_LAUNCHES`` / ``MFM_BWD_LAUNCHES`` count the kernel launches made
 in this process.  The public functions and the plain PyTorch versions live
@@ -39,13 +39,22 @@ MFM_BWD_LAUNCHES = 0
 
 SOURCE = CSRC_DIR / "fused_conv1.cu"
 MAX_THREADS = 256  # kMaxThreads in the source
-MAX_CHANNELS = MAX_THREADS  # one thread per channel of a pixel
+MAX_CHANNELS = MAX_THREADS  # the most output channels the kernels take
 ROWS_PER_BLOCK = 4  # pooled rows per block
-# Pooled columns per block.  The default 256 packets (level 8) give 129
-# columns, one tile; ``--num-of-scales 512`` (level 9) gives 257 and takes
-# two, so an image wider than 318 is split into column tiles.
+# Pooled columns per block of the MaxFeatureMap kernels; an image wider than
+# 318 is split into column tiles.
 MAX_TILE_COLS = 160
+# The same for the conv 3x3 block.  The default 256 packets (level 8) give
+# 129 columns, ``--num-of-scales 512`` (level 9) 257: one tile each, so its
+# kernels walk a frame's whole flattened plane; an image wider than 638 is
+# split into column tiles.
+CONV1_TILE_COLS = 320
 BWD_ROWS = 11  # 9 dW taps, db, dalpha
+FWD_THREADS = 128  # kFwdThreads: a forward block of the conv 3x3 block
+FWD_WINDOWS = 4  # kFwdWindows: pool windows a forward thread owns
+TAP_FLOATS = 12  # kTapFloats: a channel's bias and 9 taps in shared memory
+BWD_G_PITCH = 20  # kGPitch: floats of a backward warp's staged row of g
+BWD_C_PITCH = 5  # kCPitch: words of its staged row of codes
 MFM_TAPS = 25  # 5x5
 MFM_BWD_ROWS = MFM_TAPS + 1  # 25 dW taps, db
 MFM_PAIR_FLOATS = 52  # a channel pair's two biases and 50 taps in shared memory
@@ -66,9 +75,9 @@ def build() -> str:
         lib = ctypes.CDLL(str(lib_path))
         vp, ci = ctypes.c_void_p, ctypes.c_int
         geometry = [ci] * 11 + [vp]  # h .. device, then the stream
-        lib.fused_conv1_fwd_launch.argtypes = [vp] * 7 + geometry
+        lib.fused_conv1_fwd_launch.argtypes = [vp] * 7 + [ci] * 12 + [vp]
         lib.fused_conv1_fwd_launch.restype = ci
-        lib.fused_conv1_bwd_launch.argtypes = [vp] * 10 + geometry
+        lib.fused_conv1_bwd_launch.argtypes = [vp] * 9 + [ci] * 12 + [vp]
         lib.fused_conv1_bwd_launch.restype = ci
         lib.fused_conv_mfm_fwd_launch.argtypes = [vp] * 5 + geometry
         lib.fused_conv_mfm_fwd_launch.restype = ci
@@ -97,14 +106,20 @@ class LaunchPlan(NamedTuple):
 
     h2: int  # pooled rows
     w2: int  # pooled columns
-    rows: int  # pooled rows per block
-    wt: int  # pooled columns per block
+    wt: int  # pooled columns per column tile
+    n_ct: int  # column tiles
     stride: int  # floats between rows of the shared-memory x tile
-    threads: int  # groups * (threads that serve one pixel)
-    blocks: int  # B * row strips * column strips
-    smem_bytes: int  # x tile + reduction buffer
+    windows: int  # forward: windows of a column tile's flattened rows per block
+    fwd_blocks: int  # B * column tiles * ceil(h2 * wt / windows)
+    fwd_smem_bytes: int  # taps and biases + (sum, sumsq) per warp + x tile
+    rows: int  # backward: pooled rows per block
+    bwd_threads: int  # 32 * slabs of 32 channels * groups of windows
+    bwd_blocks: int  # B * row strips * column tiles
+    bwd_smem_bytes: int  # x tile, window offsets, per-warp buffers; or the reduction
+    aligned: bool  # backward: g and codes copied four windows at a time
 
 
+@functools.lru_cache(maxsize=64)
 def launch_plan(b: int, h: int, w: int, c: int) -> LaunchPlan:
     """Tiling of the kernels; raises, with the numbers, on a geometry they
     do not take."""
@@ -115,26 +130,40 @@ def launch_plan(b: int, h: int, w: int, c: int) -> LaunchPlan:
     if c > MAX_CHANNELS:
         raise ValueError(
             f"fused_conv1: C={c} output channels exceed the kernel's "
-            f"{MAX_CHANNELS} (one thread per channel of a pixel)"
+            f"{MAX_CHANNELS} (a lane per channel of a block's eight warps)"
         )
     h2, w2 = (h + 2) // 2, (w + 2) // 2
-    rows = min(ROWS_PER_BLOCK, h2)
-    n_ct = -(-w2 // MAX_TILE_COLS)
+    n_ct = -(-w2 // CONV1_TILE_COLS)
     wt = -(-w2 // n_ct)
+    # even (the forward's float2 reads), and the backward's lanes read rows
+    # one stride apart and columns one apart: keep those in different banks
     stride = 2 * wt + 2
-    # the backward's lanes read rows one stride apart and columns one
-    # apart: keep those four addresses in different banks
-    if stride % 32 in (0, 1, 31):
+    if stride % 32 == 0:
         stride += 2
-    threads = (MAX_THREADS // c) * c
-    blocks = b * (-(-h2 // rows)) * n_ct
-    if blocks >= 2**31:
+    n_w = FWD_THREADS * FWD_WINDOWS
+    fwd_blocks = b * n_ct * -(-(h2 * wt) // n_w)
+    span = min(h2, (n_w - 1) // wt + 2)  # most pooled rows a block's range spans
+    fwd_smem = 4 * (TAP_FLOATS * c + (FWD_THREADS // 32) * 2 * c + (2 * span + 2) * stride)
+    rows = min(ROWS_PER_BLOCK, h2)
+    slabs = -(-c // 32)
+    groups = max(1, MAX_THREADS // 32 // slabs)
+    bwd_threads = 32 * slabs * groups
+    bwd_blocks = b * (-(-h2 // rows)) * n_ct
+    if max(fwd_blocks, bwd_blocks) >= 2**31:
         raise ValueError(
-            f"fused_conv1: B={b}, H={h}, W={w}, C={c} needs {blocks} blocks, "
-            "beyond one grid"
+            f"fused_conv1: B={b}, H={h}, W={w}, C={c} needs "
+            f"{max(fwd_blocks, bwd_blocks)} blocks, beyond one grid"
         )
-    smem = 4 * ((2 * rows + 2) * stride + threads * BWD_ROWS)
-    return LaunchPlan(h2, w2, rows, wt, stride, threads, blocks, smem)
+    # the x tile, a window's two offsets, each warp's buffer of 32 rows of g
+    # and codes (above 48 KB, for tiles wider than 176 columns, by opting in)
+    bwd_smem = max(4 * ((2 * rows + 2) * stride + 2 * rows * wt)
+                   + bwd_threads * (BWD_G_PITCH + BWD_C_PITCH) * 4,
+                   4 * groups * BWD_ROWS * slabs * 32)
+    # one column tile and a plane of a multiple of four windows: every strip
+    # of four rows starts on a multiple of four, and holds one
+    aligned = n_ct == 1 and (h2 * w2) % 4 == 0
+    return LaunchPlan(h2, w2, wt, n_ct, stride, n_w, fwd_blocks, fwd_smem, rows,
+                      bwd_threads, bwd_blocks, bwd_smem, aligned)
 
 
 def _require_meta(t: torch.Tensor, name: str, dtype, shape, device, what) -> None:
@@ -175,12 +204,8 @@ def _check_inputs(x, w, bias, alpha) -> Tuple[int, int, int, int]:
     return b, h, win, c
 
 
-def _geometry_args(x, h, win, c, plan: LaunchPlan):
-    return (
-        h, win, c, int(x.dtype == torch.bfloat16), plan.rows, plan.wt,
-        plan.stride, plan.threads, plan.blocks, plan.smem_bytes,
-        x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
-    )
+def _stream(x):
+    return x.device.index, torch.cuda.current_stream(x.device).cuda_stream
 
 
 def forward(
@@ -195,18 +220,19 @@ def forward(
 
     ``x [B, H, W]`` float32 or bfloat16; ``w [9, C]``, ``bias [C]``,
     ``alpha [1]`` float32.  Returns ``(out [B, h2, w2, C], code, sum,
-    sumsq)``; ``code`` (uint8, ``phase | negative << 2``) is ``None``
-    unless ``want_code``, the float32 ``[C]`` moments of the stored output
-    are ``None`` unless ``want_stats``.
+    sumsq)``, ``out`` and ``code`` views of NCHW memory
+    (``out.permute(0, 3, 1, 2)`` is contiguous); ``code`` (uint8, ``phase |
+    negative << 2``) is ``None`` unless ``want_code``, the float32 ``[C]``
+    moments of the stored output are ``None`` unless ``want_stats``.
     """
     global FWD_LAUNCHES
     b, h, win, c = _check_inputs(x, w, bias, alpha)
     plan = launch_plan(b, h, win, c)
     shape = (b, plan.h2, plan.w2, c)
-    out = torch.empty(shape, dtype=x.dtype, device=x.device)
-    code = torch.empty(shape, dtype=torch.uint8, device=x.device) if want_code else None
+    out = _nchw_empty(shape, x.dtype, x.device)
+    code = _nchw_empty(shape, torch.uint8, x.device) if want_code else None
     partials = (
-        torch.empty((plan.blocks, 2, c), dtype=torch.float32, device=x.device)
+        torch.empty((plan.fwd_blocks, 2, c), dtype=torch.float32, device=x.device)
         if want_stats
         else None
     )
@@ -215,7 +241,9 @@ def forward(
         out.data_ptr(),
         code.data_ptr() if want_code else None,
         partials.data_ptr() if want_stats else None,
-        *_geometry_args(x, h, win, c, plan),
+        h, win, c, int(x.dtype == torch.bfloat16), plan.wt, plan.n_ct,
+        plan.windows, plan.stride, FWD_THREADS, plan.fwd_blocks, plan.fwd_smem_bytes,
+        *_stream(x),
     )
     _check(err, "fused_conv1 forward launch")
     FWD_LAUNCHES += 1
@@ -231,34 +259,39 @@ def backward(
     bias: torch.Tensor,
     alpha: torch.Tensor,
     g: torch.Tensor,
-    out: torch.Tensor,
     code: torch.Tensor,
     gs: Optional[torch.Tensor],
     gq: Optional[torch.Tensor],
 ):
     """Launch the backward kernel: ``(dW [9, C], db [C], dalpha [1])`` in
-    float32.  ``g`` is the cotangent of ``out``; ``gs`` / ``gq`` (float32
-    ``[C]`` or ``None``) are those of the moments."""
+    float32.  ``g`` is the cotangent of the output, ``code`` the forward's;
+    both ``[B, h2, w2, C]`` views of NCHW memory (raises, with the strides,
+    on another layout).  ``gs`` / ``gq`` (float32 ``[C]`` or ``None``) are
+    the cotangents of the moments.  The output itself is not read: the
+    kernel rebuilds it from ``x`` and the code."""
     global BWD_LAUNCHES
     b, h, win, c = _check_inputs(x, w, bias, alpha)
     plan = launch_plan(b, h, win, c)
     shape = (b, plan.h2, plan.w2, c)
-    _require(g, "g", x.dtype, shape, x.device)
-    _require(out, "out", x.dtype, shape, x.device)
-    _require(code, "code", torch.uint8, shape, x.device)
+    _require_nchw(g, "g", x.dtype, shape, x.device, "fused_conv1")
+    _require_nchw(code, "code", torch.uint8, shape, x.device, "fused_conv1")
     for name, t in (("gs", gs), ("gq", gq)):
         if t is not None:
             _require(t, name, torch.float32, (c,), x.device)
     partials = torch.empty(
-        (plan.blocks, BWD_ROWS, c), dtype=torch.float32, device=x.device
+        (plan.bwd_blocks, BWD_ROWS, c), dtype=torch.float32, device=x.device
     )
+    # a view at an odd offset is copied element by element
+    aligned = plan.aligned and g.data_ptr() % 16 == 0 and code.data_ptr() % 4 == 0
     err = _lib().fused_conv1_bwd_launch(
         x.data_ptr(), w.data_ptr(), bias.data_ptr(), alpha.data_ptr(),
-        g.data_ptr(), out.data_ptr(), code.data_ptr(),
+        g.data_ptr(), code.data_ptr(),
         gs.data_ptr() if gs is not None else None,
         gq.data_ptr() if gq is not None else None,
         partials.data_ptr(),
-        *_geometry_args(x, h, win, c, plan),
+        h, win, c, int(x.dtype == torch.bfloat16), plan.rows, plan.wt, plan.stride,
+        int(aligned), plan.bwd_threads, plan.bwd_blocks, plan.bwd_smem_bytes,
+        *_stream(x),
     )
     _check(err, "fused_conv1 backward launch")
     BWD_LAUNCHES += 1
@@ -366,19 +399,21 @@ def _mfm_check_inputs(x, w, bias) -> Tuple[int, int, int, int]:
     return b, h, win, c
 
 
-def _require_nchw(t: torch.Tensor, name: str, dtype, shape, device) -> None:
-    """``t`` has the block's ``[B, h2, w2, C/2]`` shape over NCHW memory."""
-    _require_meta(t, name, dtype, shape, device, "fused_conv_mfm")
+def _require_nchw(t: torch.Tensor, name: str, dtype, shape, device,
+                  what: str = "fused_conv_mfm") -> None:
+    """``t`` has the block's ``[B, h2, w2, channels]`` shape over NCHW
+    memory."""
+    _require_meta(t, name, dtype, shape, device, what)
     if not t.permute(0, 3, 1, 2).is_contiguous():
         raise ValueError(
-            f"fused_conv_mfm: {name} must be a [B, h2, w2, C/2] view of NCHW "
-            f"memory (strides of a permuted contiguous [B, C/2, h2, w2]), got "
-            f"strides {t.stride()}"
+            f"{what}: {name} must be a [B, h2, w2, channels] view of NCHW "
+            f"memory (strides of a permuted contiguous [B, channels, h2, w2]), "
+            f"got strides {t.stride()}"
         )
 
 
 def _nchw_empty(shape, dtype, device) -> torch.Tensor:
-    """``[B, h2, w2, C/2]`` over freshly allocated NCHW memory."""
+    """``[B, h2, w2, channels]`` over freshly allocated NCHW memory."""
     b, h2, w2, ch = shape
     return torch.empty((b, ch, h2, w2), dtype=dtype, device=device).permute(0, 2, 3, 1)
 

@@ -30,18 +30,21 @@ Phases, in order; any failure propagates and the script exits non-zero
    each at batch 64 and 128;
 6. fused first block vs plain: forward, moments and ``dW/db/dalpha`` of
    the conv+PReLU+pool kernels against the plain PyTorch version, at the
-   training shape (B=128, 95x256, C=64; fp32 and bf16) and smaller
-   geometries; two runs compared bit for bit;
+   training shape (B=128, 95x256, C=64; fp32 and bf16), smaller geometries
+   and a plane of an odd number of windows at C = 256; out and code NCHW
+   memory; two runs compared bit for bit;
 7. train: a seeded wav corpus through ``run_experiment`` on ``cuda``
    (packets-sym5 level 8, full-width DCNN with the fused first block, batch
    128, 2 epochs with validation, test and snapshot), the kernels' launch
    counts read over exactly this run; the same training with and without
    the fused block compared loss by loss; the snapshot served and its
    score held against the trainer's own;
-8. time: the fused kernels alone vs plain, the whole train step fused vs
+8. time: the fused kernels alone vs plain (through the launchers, and
+   their device time from a profile), the whole train step fused vs
    unfused, and the eval step, at batch 128;
 9. profile: ``torch.profiler`` over a few fused train steps, device time
-   by kernel;
+   by kernel; the copies of the step: none of the block's
+   [128, 64, 48, 129] output or its cotangent into another layout;
 10. fused LCNN block vs plain: forward, ``dW`` and ``db`` of the conv 5x5 +
     MaxFeatureMap + pool kernels against the plain PyTorch version at the
     LCNN's shape (B=128, 101x256, C=64; fp32 and bf16), the packet and LFCC
@@ -617,14 +620,15 @@ def wpt_bound(wpt, b: int, t: int):
 
 def fused_bounds(b, h, w, c, itemsize=4):
     """Training forward: x and the parameters read, out, code and moments
-    written; 36 FMAs per output.  Backward: g, out, code, x and the
-    parameters read, dW/db/dalpha written; 9 FMAs per output for dW, one
-    add for db."""
+    written; 36 FMAs per output.  Backward: g, code, x, the parameters and
+    the moments' cotangents read (not out: the kernel rebuilds it from x
+    and the code), dW/db/dalpha written; 9 FMAs per output for dW, one add
+    for db."""
     n_out = b * ((h + 2) // 2) * ((w + 2) // 2) * c
     params = 4 * (9 * c + c + 1)
     fwd = bound_ms(itemsize * b * h * w + params + n_out * (itemsize + 1) + 8 * c,
                    n_out * 72)
-    bwd = bound_ms(itemsize * b * h * w + params + n_out * (2 * itemsize + 1) + 8 * c
+    bwd = bound_ms(itemsize * b * h * w + params + n_out * (itemsize + 1) + 8 * c
                    + params, n_out * 20)
     return fwd, bwd
 
@@ -638,7 +642,9 @@ def fused_case(fc, b, h, w, c, dtype, seed):
               torch.tensor([0.25]).cuda().to(dtype)]
     params = [p.requires_grad_() for p in params]
     h2, w2 = fc.pad_geometry(h, w)
-    cot = [make(b, h2, w2, c), make(c, scale=0.01).float(), make(c, scale=0.001).float()]
+    # the output's cotangent as cuDNN hands it back: NCHW memory
+    cot = [make(b, c, h2, w2).permute(0, 2, 3, 1), make(c, scale=0.01).float(),
+           make(c, scale=0.001).float()]
     return x, params, cot
 
 
@@ -650,9 +656,13 @@ def rel_err(got, want) -> float:
 def fused_vs_plain(fc):
     """Phase 6: kernel 2 against its plain version, and against itself."""
     out = {}
+    # (3, 101, 256, 256): a 51 x 129 plane, not a multiple of four windows
+    # (the backward copies its g and codes element by element), and the
+    # most channels
     cases = [(*TRAIN_SHAPE, torch.float32), (*TRAIN_SHAPE, torch.bfloat16),
              (2, 95, 256, 16, torch.float32), (2, 101, 256, 8, torch.float32),
-             (2, 87, 256, 4, torch.float32), (2, 87, 256, 4, torch.bfloat16)]
+             (2, 87, 256, 4, torch.float32), (2, 87, 256, 4, torch.bfloat16),
+             (3, 101, 256, 256, torch.float32)]
     for i, (b, h, w, c, dtype) in enumerate(cases):
         x, params, cot = fused_case(fc, b, h, w, c, dtype, seed=10 + i)
         runs = []
@@ -664,6 +674,8 @@ def fused_vs_plain(fc):
         pgrads = torch.autograd.grad([py, ps, pq], params, cot)
         torch.cuda.synchronize()
         y, s, q, *grads = runs[0]
+        if not y.permute(0, 3, 1, 2).is_contiguous():
+            raise AssertionError(f"fused conv1 at B{b}-H{h}-W{w}-C{c}: out is not NCHW memory")
         bitwise = all(torch.equal(u, v) for u, v in zip(*runs))
         fp32 = dtype == torch.float32
         fwd_err = (y.float() - py.float()).abs().max().item()
@@ -819,26 +831,38 @@ def train_timing(fc, fused_cuda, norm, card_line: str):
     The kernels are timed through their launchers (``fused_conv1_cuda.
     forward`` / ``backward``: allocation, launch and the ``torch.sum`` that
     finishes the reduction).  Through ``torch.autograd.grad`` the host takes
-    longer to enqueue the 0.3 ms backward than the card to run it, and the
+    longer to enqueue the ~0.2 ms backward than the card to run it, and the
     events would time the host."""
     x, params, cot = fused_case(fc, *TRAIN_SHAPE, torch.float32, seed=20)
     raw = [p.detach() for p in params]
-    out, code, _, _ = fused_cuda.forward(x, *raw, True, True)
+    _, code, _, _ = fused_cuda.forward(x, *raw, True, True)
     plain_graph = fc.plain_conv1_prelu_pool_stats(x, *params)
+
+    def forward():
+        return fused_cuda.forward(x, *raw, True, True)
+
+    def backward():
+        return fused_cuda.backward(x, *raw, cot[0], code, cot[1], cot[2])
+
     fwd = median_ms({
         "plain": lambda: fc.plain_conv1_prelu_pool_stats(x, *params),
-        "kernel": lambda: fused_cuda.forward(x, *raw, True, True),
+        "kernel": forward,
     }, reps=10)
     bwd = median_ms({
         "plain": lambda: torch.autograd.grad(plain_graph, params, cot, retain_graph=True),
-        "kernel": lambda: fused_cuda.backward(x, *raw, cot[0], out, code, cot[1], cot[2]),
+        "kernel": backward,
     }, reps=10)
     with torch.no_grad():
         infer = median_ms({
             "plain": lambda: fc.plain_conv1_prelu_pool(x, *params),
             "kernel": lambda: fused_cuda.forward(x, *raw, False, False),
         }, reps=10)
-    del plain_graph, out, code
+    # the kernels' own device time, without the launchers' host work
+    dev = kernel_device_ms(forward, {"fwd": "fused_conv1_fwd_kernel"})
+    dev.update(kernel_device_ms(backward, {"bwd": "fused_conv1_bwd_kernel"}))
+    b2b = kernel_device_ms(forward, {"fwd": "fused_conv1_fwd_kernel"}, back_to_back=True)
+    b2b.update(kernel_device_ms(backward, {"bwd": "fused_conv1_bwd_kernel"}, back_to_back=True))
+    del plain_graph, code
     fused_train, fused_eval = step_fns(norm, True)
     plain_train, _ = step_fns(norm, False)
     steps = median_ms({"unfused": plain_train, "fused": fused_train}, reps=3)
@@ -846,16 +870,21 @@ def train_timing(fc, fused_cuda, norm, card_line: str):
     out = {
         "fwd_kernel_ms": fwd["kernel"], "fwd_plain_ms": fwd["plain"],
         "bwd_kernel_ms": bwd["kernel"], "bwd_plain_ms": bwd["plain"],
+        "fwd_device_ms": dev["fwd"], "bwd_device_ms": dev["bwd"],
+        "fwd_device_back_to_back_ms": b2b["fwd"], "bwd_device_back_to_back_ms": b2b["bwd"],
         "infer_fwd_kernel_ms": infer["kernel"], "infer_fwd_plain_ms": infer["plain"],
         "train_step_fused_ms": steps["fused"], "train_step_unfused_ms": steps["unfused"],
         "train_fused_frames_per_s": BATCH / steps["fused"] * 1e3,
         "train_unfused_frames_per_s": BATCH / steps["unfused"] * 1e3,
         "eval_step_ms": evals["eval"], "eval_frames_per_s": BATCH / evals["eval"] * 1e3,
     }
+    (fb, _), (bb, _) = fused_bounds(*TRAIN_SHAPE)
     log(f"  B={BATCH} [{card_line}]: fused block fwd (train) kernel {fwd['kernel']:.4f} ms, "
-        f"plain {fwd['plain']:.4f} ms; bwd kernel {bwd['kernel']:.4f} ms, plain "
-        f"{bwd['plain']:.4f} ms; fwd (no grad) kernel {infer['kernel']:.4f} ms, plain "
-        f"{infer['plain']:.4f} ms")
+        f"{dev['fwd']:.4f} ms on the device ({b2b['fwd']:.4f} back to back), plain "
+        f"{fwd['plain']:.4f} ms, bound {fb:.4f} ms; bwd kernel {bwd['kernel']:.4f} ms, "
+        f"{dev['bwd']:.4f} ms on the device ({b2b['bwd']:.4f} back to back), plain "
+        f"{bwd['plain']:.4f} ms, bound {bb:.4f} ms; fwd (no grad) kernel "
+        f"{infer['kernel']:.4f} ms, plain {infer['plain']:.4f} ms")
     log(f"  train step fused {steps['fused']:.3f} ms ({out['train_fused_frames_per_s']:.1f} "
         f"frames/s), unfused {steps['unfused']:.3f} ms "
         f"({out['train_unfused_frames_per_s']:.1f} frames/s); eval step "
@@ -883,24 +912,44 @@ KERNEL_GROUPS = (
 )
 
 
-def kernel_device_ms(fn, keys: dict, n: int = 5) -> dict:
+def kernel_device_ms(fn, keys: dict, n: int = 5, back_to_back: bool = False) -> dict:
     """Device ms per call of ``fn`` of the kernels whose names hold each of
-    ``keys``' values, from ``torch.profiler`` over ``n`` calls."""
+    ``keys``' values (each launched once a call), from ``torch.profiler``
+    over ``n`` calls: the mean duration of their records, so a profile that
+    lost some records still reads right (their sum over ``n`` calls would
+    read low by the share lost, as ``wpt_device_ms`` found).  Logs the
+    records each key got.
+
+    ``back_to_back``: the calls queue behind a spin of the card
+    (``torch.cuda._sleep``, ~10 ms) and so run with no host gap between
+    them.  Without it a launcher whose host work outlasts its kernel leaves
+    the card idle between calls, long enough for the L2 to write back the
+    up to 50 MB of output a kernel leaves dirty when it ends; back to back,
+    each kernel pays for the write-back of the one before, as in a stream of
+    work."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
-    out = {k: sum(e.self_device_time_total for e in rows if v in e.key) / 1e3 / n
+    for _ in range(3):  # a profile that lost every record of a key is taken again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            if back_to_back:
+                torch.cuda._sleep(20_000_000)
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
+        counts = {k: sum(e.count for e in rows if v in e.key) for k, v in keys.items()}
+        if all(counts.values()):
+            break
+    else:
+        raise AssertionError(f"three profiles show no records for some of {keys}: {counts}")
+    out = {k: sum(e.self_device_time_total for e in rows if v in e.key) / 1e3 / counts[k]
            for k, v in keys.items()}
-    if not all(v > 0 for v in out.values()):
-        raise AssertionError(f"the profile shows no device time for some of {keys}: {out}")
+    log(f"  profile records (of {n} calls{', back to back' if back_to_back else ''}): "
+        f"{counts}")
     return out
 
 
@@ -1206,7 +1255,8 @@ def lcnn_step_fns(norm, fused: bool):
 
 
 def copy_profile(step, numel: int, n: int = 3) -> dict:
-    """Phase 13: the copies of ``n`` train steps, from ``torch.profiler``.
+    """Phases 9 and 13: the copies of ``n`` train steps, from
+    ``torch.profiler``.
     A copy of ``numel`` elements into new memory (``contiguous``, ``clone``,
     ``to``) is a transposing copy of the block's output or of its cotangent;
     a deliberate one is counted first, so a profiler that records no shapes
@@ -1246,7 +1296,7 @@ def copy_profile(step, numel: int, n: int = 3) -> dict:
         f"all copy kernels x{out['copy_kernels_per_step']:.0f}, "
         f"{out['copy_kernels_ms_per_step']:.4f} ms")
     if layout:
-        raise AssertionError(f"the fused LCNN step copies its block's output: {out}")
+        raise AssertionError(f"the fused step copies its first block's output: {out}")
     return out
 
 
@@ -1674,19 +1724,24 @@ def mid_timing(fp, pool_cuda, f2, conv2_cuda, norm, card_line: str):
         (fb, _), (bb, _) = pool_bounds(*shape, n_negative, x.element_size())
         # the kernels' own device time: at the small shape the launcher's
         # host work (checks, allocations, the partials' sum) outlasts them
-        dev = kernel_device_ms(lambda: pool_cuda.forward(*raw, True, True),
-                               {"fwd": "fused_pool_fwd_kernel"})
-        dev.update(kernel_device_ms(
-            lambda: pool_cuda.backward(*raw, cot[0], y, code, cot[1], cot[2]),
-            {"bwd": "fused_pool_bwd_kernel"}))
+        dev, b2b = {}, {}
+        for key, call, kernel in (
+                ("fwd", lambda: pool_cuda.forward(*raw, True, True), "fused_pool_fwd_kernel"),
+                ("bwd", lambda: pool_cuda.backward(*raw, cot[0], y, code, cot[1], cot[2]),
+                 "fused_pool_bwd_kernel")):
+            dev.update(kernel_device_ms(call, {key: kernel}))
+            b2b.update(kernel_device_ms(call, {key: kernel}, back_to_back=True))
         out[name] = {"fwd_kernel_ms": fwd["kernel"], "fwd_plain_ms": fwd["plain"],
                      "bwd_kernel_ms": bwd["kernel"], "bwd_plain_ms": bwd["plain"],
                      "fwd_device_ms": dev["fwd"], "bwd_device_ms": dev["bwd"],
+                     "fwd_device_back_to_back_ms": b2b["fwd"],
+                     "bwd_device_back_to_back_ms": b2b["bwd"],
                      "fwd_bound_ms": fb, "bwd_bound_ms": bb, "n_negative": n_negative}
         log(f"  kernel 5 at {name} [{card_line}]: bwd {bwd['kernel']:.4f} ms through the "
-            f"launcher, {dev['bwd']:.4f} ms of device time, against its byte bound {bb:.4f}"
-            f" ms ({100 * bb / bwd['kernel']:.1f} %, {100 * bb / dev['bwd']:.1f} %); fwd "
-            f"{fwd['kernel']:.4f} ms, {dev['fwd']:.4f} ms device, against {fb:.4f} ms")
+            f"launcher, {dev['bwd']:.4f} ms of device time ({b2b['bwd']:.4f} back to back), "
+            f"against its byte bound {bb:.4f} ms ({100 * bb / bwd['kernel']:.1f} %, "
+            f"{100 * bb / dev['bwd']:.1f} %); fwd {fwd['kernel']:.4f} ms, {dev['fwd']:.4f} ms "
+            f"device ({b2b['fwd']:.4f} back to back), against {fb:.4f} ms")
         del graph, y, code, x, raw
     (x, w, corr, alpha), cot = conv2_case(*CONV2_SHAPE, torch.float32, 0.25, seed=91)
     raw = tuple(t.detach() for t in (x, w, corr, alpha))
@@ -2280,6 +2335,8 @@ def main() -> None:
             fused_conv1, fused_conv1_cuda, trained["norm"], card_line)
         log("[9 profile, fused train step]")
         prof = profile_train(fused_step)
+        prof["copies"] = copy_profile(fused_step, TRAIN_SHAPE[0] * TRAIN_SHAPE[3] * int(
+            np.prod(fused_conv1.pad_geometry(*TRAIN_SHAPE[1:3]))))
         del fused_step
         log("[10 fused LCNN block vs plain]")
         mfm_errs = mfm_vs_plain(fused_conv1, fused_conv1_cuda)
@@ -2378,18 +2435,26 @@ def main() -> None:
         },
         {
             "name": "fused_conv1_fwd", "route": "cuda", "source": fused_src,
+            "design": "a thread per 4 windows of a block's range of the flattened plane, "
+                      "4x4 patches in registers from a cp.async halo tile, taps as float4 "
+                      "broadcasts, NCHW stores, moments by warp shuffles",
             "replaces": "audiodeepfake_detection_tpu/ops/fused_conv1.py:376",
             "launches": trained["launches"]["fwd"],
             "max_abs_err": fused_errs[train_key]["fwd_max_abs_err"],
             "ms": train_times["fwd_kernel_ms"], "plain_ms": train_times["fwd_plain_ms"],
+            "device_ms": train_times["fwd_device_ms"],
             "bound_ms": fwd_b, "bound_by": fwd_by, "library_ms": None,
         },
         {
             "name": "fused_conv1_bwd", "route": "cuda", "source": fused_src,
+            "design": "a lane per channel over a run of a 4-row strip's windows, x from a "
+                      "cp.async halo tile; g and codes (NCHW) copied 16 windows at a time by "
+                      "coalesced loads into a per-warp buffer; out rebuilt, not read",
             "replaces": "audiodeepfake_detection_tpu/ops/fused_conv1.py:472",
             "launches": trained["launches"]["bwd"],
             "max_abs_err": fused_errs[train_key]["dW_max_abs_err"],
             "ms": train_times["bwd_kernel_ms"], "plain_ms": train_times["bwd_plain_ms"],
+            "device_ms": train_times["bwd_device_ms"],
             "bound_ms": bwd_b, "bound_by": bwd_by, "library_ms": None,
         },
         {

@@ -53,7 +53,7 @@ def test_forward_matches_jax(h, w, c):
     want = np.asarray(jfc.fused_conv1_prelu_pool(*map(jnp.asarray, arrays)))
     got = tfc.fused_conv1_prelu_pool(*_t(arrays, grad=False))
     assert got.shape == want.shape == (2, *tfc.pad_geometry(h, w), c)
-    assert got.is_contiguous()
+    assert got.permute(0, 3, 1, 2).is_contiguous()  # NCHW memory, as the kernel's
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=FWD_ATOL)
 
 
@@ -249,21 +249,123 @@ def test_input_requiring_grad_raises():
         tfc.fused_conv1_prelu_pool_stats(x, *params)
 
 
+def _forward_cover(plan):
+    """How often the forward's blocks of one frame own each window, and the
+    most x-tile rows a block stages (the kernel's index arithmetic)."""
+    hits = np.zeros((plan.h2, plan.w2), np.int64)
+    per_tile = -(-(plan.h2 * plan.wt) // plan.windows)
+    most_rows = 0
+    for ct in range(plan.n_ct):
+        j0 = ct * plan.wt
+        for k in range(per_tile):
+            q0 = k * plan.windows
+            q1 = min(q0 + plan.windows, plan.h2 * plan.wt)
+            most_rows = max(most_rows, 2 * ((q1 - 1) // plan.wt - q0 // plan.wt) + 4)
+            p = np.arange(q0, q1)
+            i, j = p // plan.wt, j0 + p % plan.wt
+            keep = j < plan.w2
+            np.add.at(hits, (i[keep], j[keep]), 1)
+    return hits, most_rows
+
+
+def _backward_cover(plan, c):
+    """How often the backward's lanes of one channel own each window, and
+    whether every run of four windows a warp copies at once starts on a
+    multiple of four elements of the NCHW plane (its 16-byte loads)."""
+    hits = np.zeros((plan.h2, plan.w2), np.int64)
+    groups = plan.bwd_threads // 32 // -(-c // 32)
+    aligned = True
+    for i0 in range(0, plan.h2, plan.rows):
+        for j0 in range(0, plan.w2, plan.wt):
+            wc, nr = min(plan.wt, plan.w2 - j0), min(plan.rows, plan.h2 - i0)
+            n_win = nr * wc
+            nq = -(-n_win // 4)
+            for grp in range(groups):
+                wa = min(4 * (grp * nq // groups), n_win)
+                wb = min(4 * ((grp + 1) * nq // groups), n_win)
+                v = np.arange(wa, wb)
+                i, j = i0 + v // wc, j0 + v % wc
+                np.add.at(hits, (i, j), 1)
+                e = i * plan.w2 + j  # the window's element in the plane
+                aligned &= bool(np.all(e[::4] % 4 == 0)) and (wb - wa) % 4 == 0
+    return hits, aligned
+
+
 @pytest.mark.parametrize(
-    "b,h,w,c,blocks,threads",
-    [(128, 95, 256, 64, 128 * 12, 256), (2, 87, 256, 4, 2 * 11, 256),
-     (3, 7, 5, 12, 3 * 1, 252), (2, 40, 700, 64, 2 * 6 * 3, 256)],
+    "b,h,w,c,fwd_blocks,bwd_blocks,bwd_threads,aligned",
+    [(128, 95, 256, 64, 128 * 13, 128 * 12, 256, True),  # the DCNN at 1 s: 48 x 129
+     (64, 181, 256, 64, 64 * 23, 64 * 23, 256, False),  # 2 s: 91 x 129, odd plane
+     (2, 87, 256, 4, 2 * 12, 2 * 11, 256, True),  # 44 x 129 = 4 * 1419
+     (2, 101, 256, 8, 2 * 13, 2 * 13, 256, False),  # 51 x 129: odd plane
+     (3, 101, 256, 256, 3 * 13, 3 * 13, 256, False),
+     (2, 95, 512, 96, 2 * 25, 2 * 12, 192, True),  # level 9: 48 x 257, three slabs
+     (3, 7, 5, 12, 3 * 1, 3 * 1, 256, True),  # 4 x 3
+     (2, 40, 700, 64, 2 * 2 * 8, 2 * 6 * 2, 256, False)],  # two column tiles
 )
-def test_launch_plan_covers_the_output(b, h, w, c, blocks, threads):
-    """The tiling the CUDA kernels are given (computed on the host)."""
+def test_launch_plan_covers_the_output(b, h, w, c, fwd_blocks, bwd_blocks, bwd_threads,
+                                       aligned):
+    """The tiling the CUDA kernels are given (computed on the host): each
+    kernel owns every window of the NCHW plane exactly once, the forward's
+    x tile fits what the plan allocates, and the backward copies four
+    windows at a time only where each run starts on 16 bytes of g."""
     plan = fused_conv1_cuda.launch_plan(b, h, w, c)
     assert (plan.h2, plan.w2) == tfc.pad_geometry(h, w)
-    assert plan.blocks == blocks and plan.threads == threads
-    assert plan.threads % c == 0 and plan.threads <= fused_conv1_cuda.MAX_THREADS
-    assert -(-plan.w2 // plan.wt) * plan.wt >= plan.w2
-    assert plan.wt <= fused_conv1_cuda.MAX_TILE_COLS
-    assert plan.stride >= 2 * plan.wt + 2 and plan.stride % 32 not in (0, 1, 31)
-    assert plan.smem_bytes <= 48 * 1024  # no opt-in to large shared memory
+    assert (plan.fwd_blocks, plan.bwd_blocks, plan.bwd_threads, plan.aligned) == (
+        fwd_blocks, bwd_blocks, bwd_threads, aligned)
+    assert plan.bwd_threads % 32 == 0 and plan.bwd_threads <= fused_conv1_cuda.MAX_THREADS
+    assert plan.n_ct * plan.wt >= plan.w2 and plan.wt <= fused_conv1_cuda.CONV1_TILE_COLS
+    # even: the forward's float2 reads; not a multiple of 32: the backward's
+    # lanes read x at offsets 0, 1, stride and stride + 1, in distinct banks
+    assert plan.stride >= 2 * plan.wt + 2 and plan.stride % 2 == 0 and plan.stride % 32
+    hits, most_rows = _forward_cover(plan)
+    assert (hits == 1).all()
+    tables = 4 * (fused_conv1_cuda.TAP_FLOATS * c + fused_conv1_cuda.FWD_THREADS // 32 * 2 * c)
+    assert tables + 4 * most_rows * plan.stride <= plan.fwd_smem_bytes
+    hits, every_run_aligned = _backward_cover(plan, c)
+    assert (hits == 1).all()
+    assert every_run_aligned or not plan.aligned
+    staged = 4 * ((2 * plan.rows + 2) * plan.stride + 2 * plan.rows * plan.wt) + (
+        plan.bwd_threads * 4 * (fused_conv1_cuda.BWD_G_PITCH + fused_conv1_cuda.BWD_C_PITCH))
+    assert plan.bwd_smem_bytes >= staged
+    # the forward takes no opt-in to large shared memory, nor the backward at
+    # the DCNN's 129 columns; wider tiles opt in, within the card's 227 KB
+    assert plan.fwd_smem_bytes <= 48 * 1024
+    assert plan.bwd_smem_bytes <= (48 if plan.wt <= 129 else 227) * 1024
+
+
+def test_dcnn_fused_first_block_makes_no_copy(monkeypatch):
+    """The DCNN hands the block's own memory on: the NCHW view of its
+    output, contiguous, to BatchNorm ``cnn[3]`` (training: the moments'
+    BatchNorm; eval: the module), with no copy between them."""
+    from audiodeepfake_detection_tpu_torch.models import dcnn
+
+    made, seen = [], []
+    for name in ("fused_conv1_prelu_pool", "fused_conv1_prelu_pool_stats"):
+        real = getattr(dcnn, name)
+
+        def spy(*args, real=real):
+            got = real(*args)
+            made.append((got[0] if isinstance(got, tuple) else got).data_ptr())
+            return got
+
+        monkeypatch.setattr(dcnn, name, spy)
+    real_bn = dcnn.batch_norm_from_moments
+    monkeypatch.setattr(dcnn, "batch_norm_from_moments",
+                        lambda bn, x, s, q: seen.append(x) or real_bn(bn, x, s, q))
+    torch.manual_seed(0)
+    model = dcnn.DCNN(fused_layer1="always")
+    model.cnn[3].register_forward_pre_hook(lambda mod, args: seen.append(args[0]))
+    x = torch.randn(2, 1, 9, 16)  # [B, 1, T, F]
+    for training, nxt in ((True, 4), (False, 3)):
+        made.clear()
+        seen.clear()
+        model.train(training)
+        act, at = model._fused_first_block(x)
+        if not training:
+            model.cnn[3](act)
+        assert at == nxt and len(made) == len(seen) == 1
+        assert seen[0].shape == (2, 64, 5, 9) and seen[0].is_contiguous()
+        assert seen[0].data_ptr() == made[0]
 
 
 def test_launch_plan_refuses_with_the_numbers():

@@ -14,8 +14,13 @@ between its launches, without the host) and the profiler's kernel time.
 (this repository or an older commit unpacked elsewhere) at the same
 geometries, with ``chip_smoke.py``'s phase-3 readings, phase-5 scorer
 times and the DCNN train step with all three fusion flags from that
-checkout.  Run it on two checkouts in one call, in turns (parent, change,
-change, parent), to compare them on one card.
+checkout; and the DCNN's fused first block (kernel 2, ``fused_conv1_cuda``)
+at B = 128, H = 95, W = 256, C = 64 in fp32, forward and backward through
+the launcher and as profiler device time, the DCNN train step with
+``fused_layer1`` alone, and the copies of its block's [128, 64, 48, 129]
+output or cotangent into another layout per step.  Run it on two
+checkouts in one call, in turns (parent, change, change, parent), to
+compare them on one card.
 
     python tools/wpt_bench.py sweep --out build/wpt_sweep.json
     python tools/wpt_bench.py compare --root build/parent --out build/parent-1.json
@@ -119,6 +124,94 @@ def device_ms(wpt_cuda, fn, n: int = 20) -> float:
     return sum(e.self_device_time_total for e in rows) / count / 1e3 * launches
 
 
+def kernel_device_ms(fn, key: str, n: int = 20) -> float:
+    """Device ms per call of ``fn`` in the kernel whose name holds ``key``
+    (launched once a call): the mean duration of its records in a profile
+    of ``n`` calls, so a profile that lost a few records still reads right."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a profile that lost every record is taken again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and key in e.key]
+        count = sum(e.count for e in rows)
+        if count:
+            return sum(e.self_device_time_total for e in rows) / count / 1e3
+    raise AssertionError(f"three profiles show no {key}")
+
+
+def transposing_copies(step, numel: int, n: int = 3) -> float:
+    """Copies of ``numel`` elements into new memory (``contiguous``,
+    ``clone``, ``to``) per call of ``step``, from the profiler's shapes; a
+    deliberate copy of that size is counted first, so a profiler that
+    records no shapes fails instead of reading 0."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def count(fn, reps):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        return sum(1 for e in prof.events()
+                   if e.name == "aten::copy_" and e.input_shapes and e.input_shapes[0]
+                   and int(np.prod(e.input_shapes[0])) == numel and e.cpu_parent is not None
+                   and e.cpu_parent.name in ("aten::clone", "aten::_to_copy"))
+
+    probe = torch.empty(numel, device="cuda")
+    if count(lambda: probe.reshape(-1, 32).t().contiguous(), 1) != 1:
+        raise AssertionError("the profiler did not show a deliberate copy")
+    step()
+    torch.cuda.synchronize()
+    return count(step, n) / n
+
+
+def first_block(fcc) -> dict:
+    """Kernel 2 at the DCNN's training shape through this checkout's
+    launchers: the forward with code and moments, the backward with the
+    moments' cotangents.  The first kernel's backward took the output and
+    an NHWC cotangent; the redesigned one takes neither the output nor
+    another layout than NCHW: each gets the same values in its own."""
+    import inspect
+
+    import torch
+
+    b, h, w, c = 128, 95, 256, 64
+    h2, w2 = (h + 2) // 2, (w + 2) // 2
+    gen = torch.Generator().manual_seed(20)
+    x = torch.randn(b, h, w, generator=gen).cuda()
+    params = [(0.3 * torch.randn(9, c, generator=gen)).cuda(),
+              (0.1 * torch.randn(c, generator=gen)).cuda(), torch.tensor([0.25]).cuda()]
+    g = torch.randn(b, c, h2, w2, generator=gen).cuda().permute(0, 2, 3, 1)
+    gs, gq = (0.01 * torch.randn(c, generator=gen)).cuda(), (0.001 * torch.randn(c, generator=gen)).cuda()
+    out, code, _, _ = fcc.forward(x, *params, True, True)
+
+    def forward():
+        fcc.forward(x, *params, True, True)
+
+    if "out" in inspect.signature(fcc.backward).parameters:
+        g = g.contiguous()
+
+        def backward():
+            fcc.backward(x, *params, g, out, code, gs, gq)
+    else:
+        def backward():
+            fcc.backward(x, *params, g, code, gs, gq)
+
+    return {"fwd_launcher_ms": events_ms(forward, 10), "bwd_launcher_ms": events_ms(backward, 10),
+            "fwd_device_ms": kernel_device_ms(forward, "fused_conv1_fwd_kernel"),
+            "bwd_device_ms": kernel_device_ms(backward, "fused_conv1_bwd_kernel")}
+
+
 def sweep(batches, seconds, max_split) -> dict:
     import torch
 
@@ -164,7 +257,7 @@ def compare(root: str) -> dict:
     import torch
 
     import chip_smoke
-    from audiodeepfake_detection_tpu_torch.ops import wpt, wpt_cuda
+    from audiodeepfake_detection_tpu_torch.ops import fused_conv1_cuda, wpt, wpt_cuda
 
     if not wpt_cuda.__file__.startswith(os.path.abspath(root)):
         raise AssertionError(f"imported {wpt_cuda.__file__}, not from {root}")
@@ -188,9 +281,15 @@ def compare(root: str) -> dict:
         snapshot = chip_smoke.write_snapshot(tmp)
         times = chip_smoke.timing(wpt_cuda, wpt, snapshot, out["card"])
     out["scorer_ms"] = {b: times[b]["scorer_kernel_ms"] for b in (64, 128)}
-    train_step, _ = chip_smoke.step_fns(
-        [np.asarray([-5.0]), np.asarray([4.0])], True, fused_pool=True, fused_layer2=True)
+    norm = [np.asarray([-5.0]), np.asarray([4.0])]
+    train_step, _ = chip_smoke.step_fns(norm, True, fused_pool=True, fused_layer2=True)
     out["dcnn_step_b_ms"] = chip_smoke.median_ms({"b": train_step}, reps=3)["b"]
+    del train_step
+    out["first_block"] = first_block(fused_conv1_cuda)
+    print(json.dumps({"first_block": out["first_block"]}), flush=True)
+    step_a, _ = chip_smoke.step_fns(norm, True)  # fused_layer1 alone
+    out["dcnn_step_a_ms"] = chip_smoke.median_ms({"a": step_a}, reps=3)["a"]
+    out["dcnn_step_a_transposing_copies"] = transposing_copies(step_a, 128 * 64 * 48 * 129)
     return out
 
 
