@@ -16,9 +16,21 @@ convs shrink (64, 32) -> (40, 8), the 320 features the head reads per time
 step; the head's logits are averaged over time.
 
 The JAX reference's ``folded_bn_conv`` and ``first_conv`` are schedules of
-BatchNorm -> conv and of a conv's weight gradient for XLA; their math is
-``nn.BatchNorm2d`` -> ``nn.Conv2d`` under autograd, which the unfused layers
-run.  Only the fused second block folds a BatchNorm for real (below).
+BatchNorm -> conv and of a conv's weight gradient for XLA; in float32 their
+math is ``nn.BatchNorm2d`` -> ``nn.Conv2d`` under autograd, which the
+unfused layers run, and only the fused second block folds a BatchNorm for
+real (below).
+
+``dtype=torch.bfloat16`` is the JAX model's ``dtype``, its speed mode: the
+parameters and BatchNorm buffers stay float32 (the state dict does not
+change) and the compute is cast where the JAX model casts it.  The input is
+cast after the permute; every BatchNorm -> conv pair folds as the JAX
+``folded_bn_conv`` does (``layers.run_layers``, statistics in float32,
+the folded weights rounded once); convolutions, PReLUs and the head cast
+their parameters; the fused blocks take bfloat16 activations (the first
+block its parameters cast, the fused pool a float32 slope, the second block
+bfloat16 effective weights and slope and a float32 ``corr``); the logits
+are averaged in bfloat16 and returned in float32.
 
 Three tri-state flags (``False``; ``True``: in training only; ``"always"``:
 in eval too) send parts of ``cnn`` through hand-written kernels.  They read
@@ -42,7 +54,7 @@ every state dict loads under every flag:
 
 from __future__ import annotations
 
-from typing import Union
+from typing import Optional, Union
 
 import torch
 from torch import nn
@@ -50,7 +62,15 @@ from torch import nn
 from ..ops.fused_conv1 import fused_conv1_prelu_pool, fused_conv1_prelu_pool_stats
 from ..ops.fused_conv2 import fused_conv2_prelu_pool, fused_conv2_prelu_pool_stats
 from ..ops.fused_pool import fused_prelu_pool, fused_prelu_pool_stats
-from .layers import batch_norm_from_moments, batch_norm_scale_shift
+from .layers import (
+    batch_norm_from_moments,
+    batch_norm_scale_shift,
+    compute_dtype,
+    folded_bn_conv,
+    linear_in_dtype,
+    one_pass_moments,
+    run_layers,
+)
 
 
 def _bn_conv(cin: int, cout: int, k: int, padding: int, affine: bool, dilation: int = 1):
@@ -83,8 +103,10 @@ class DCNN(nn.Module):
         fused_layer1: Union[bool, str] = False,
         fused_pool: Union[bool, str] = False,
         fused_layer2: Union[bool, str] = False,
+        dtype: Optional[torch.dtype] = None,
     ) -> None:
         super().__init__()
+        self.dtype = compute_dtype(dtype)
         for name, flag in (("fused_layer1", fused_layer1), ("fused_pool", fused_pool),
                            ("fused_layer2", fused_layer2)):
             if flag not in (False, True, "always"):
@@ -126,17 +148,27 @@ class DCNN(nn.Module):
             self.dil_conv = nn.Sequential(*dil)
         self.fc = nn.Sequential(nn.Flatten(2), nn.Linear(flattend_size, nclasses))
 
+    def _moments_bn(self, at: int, x: torch.Tensor, s: torch.Tensor, q: torch.Tensor):
+        """Train-mode BatchNorm ``cnn[at]`` on ``x`` from the moments ``(s,
+        q)`` a fused block accumulated; in a compute dtype folded into conv
+        ``cnn[at + 1]``, as the JAX model folds it.  Returns the activation
+        and the index of the next layer of ``cnn``."""
+        if self.dtype is None:
+            return batch_norm_from_moments(self.cnn[at], x, s, q), at + 1
+        return folded_bn_conv(self.cnn[at], self.cnn[at + 1], x, (s, q)), at + 2
+
     def _fused_first_block(self, x: torch.Tensor):
         """``cnn[0:3]`` (and ``cnn[3]`` in training) through the fused block.
         ``x``: ``[B, 1, T, F]``.  Returns the activation and the index of
         the next layer of ``cnn``."""
         conv, prelu = self.cnn[0], self.cnn[1]
+        dt = x.dtype  # the parameters cast to it, as in the JAX model
         plane = x[:, 0].contiguous()
         args = (
             plane,
-            conv.weight.reshape(conv.out_channels, 9).t(),
-            conv.bias,
-            prelu.weight,
+            conv.weight.reshape(conv.out_channels, 9).t().to(dt),
+            conv.bias.to(dt),
+            prelu.weight.to(dt),
         )
         # the block's [B, h2, w2, C] is a view of NCHW memory, so its permute
         # is the contiguous NCHW tensor cuDNN reads, and the cotangent cuDNN
@@ -145,37 +177,48 @@ class DCNN(nn.Module):
         # than the fused block saves; PERF.md, Findings)
         if self.training:
             out, s, q = fused_conv1_prelu_pool_stats(*args)
-            return batch_norm_from_moments(self.cnn[3], out.permute(0, 3, 1, 2), s, q), 4
+            return self._moments_bn(3, out.permute(0, 3, 1, 2), s, q)
         return fused_conv1_prelu_pool(*args).permute(0, 3, 1, 2), 3
 
     def _fused_second_block(self, x: torch.Tensor):
         """``cnn[6:10]`` (and ``cnn[10]`` in training) through the fused
         block: BatchNorm ``cnn[6]`` folded into conv ``cnn[7]``, PReLU
         ``cnn[8]``, pool.  ``x``: ``[B, C2, H, W]``."""
-        conv = self.cnn[7]
-        s, t = batch_norm_scale_shift(self.cnn[6], x)
+        conv, bn = self.cnn[7], self.cnn[6]
+        # a compute dtype takes the JAX model's one-pass statistics
+        moments = None if self.dtype is None or not bn.training else one_pass_moments(x)
+        s, t = batch_norm_scale_shift(bn, x, moments)
         c_in, (h, w) = x.shape[1], x.shape[2:]
         weight = conv.weight  # [Cout, Cin, 3, 3]
         w_eff = (weight * s.reshape(1, -1, 1, 1)).permute(2, 3, 1, 0)
         w_eff = w_eff.reshape(9 * c_in, conv.out_channels)
+        alpha = self.cnn[8].weight
         # what the folded shift leaves: the conv of the constant map t, which
         # differs from a bias near the zero-padded borders only (batch 1)
-        t_map = t.to(weight.dtype).reshape(1, c_in, 1, 1).expand(1, c_in, h, w)
-        corr = nn.functional.conv2d(t_map, weight, conv.bias, padding=1)[0]
-        args = (x.contiguous(), w_eff, corr, self.cnn[8].weight)
+        if self.dtype is None:
+            t_map = t.to(weight.dtype).reshape(1, c_in, 1, 1).expand(1, c_in, h, w)
+            corr = nn.functional.conv2d(t_map, weight, conv.bias, padding=1)[0]
+        else:
+            # the JAX model's casts: weights, map and slope in the compute
+            # type, the map's convolution plus bias there, then float32
+            dt = self.dtype
+            w_eff, alpha = w_eff.to(dt), alpha.to(dt)
+            t_map = t.to(dt).reshape(1, c_in, 1, 1).expand(1, c_in, h, w)
+            corr = nn.functional.conv2d(t_map, weight.to(dt), padding=1)[0]
+            corr = (corr + conv.bias.to(dt).reshape(-1, 1, 1)).float()
+        args = (x.contiguous(), w_eff, corr, alpha)
         if self.training:
-            x, s10, q10 = fused_conv2_prelu_pool_stats(*args)
-            return batch_norm_from_moments(self.cnn[10], x, s10, q10), 11
+            return self._moments_bn(10, *fused_conv2_prelu_pool_stats(*args))
         return fused_conv2_prelu_pool(*args), 10
 
     def _fused_pool(self, x: torch.Tensor, at: int, feeds_bn: bool):
-        """PReLU ``cnn[at]`` + pool ``cnn[at + 1]`` through the fused block;
-        in training the BatchNorm behind a pool that ``feeds_bn`` takes the
-        kernel's moments."""
+        """PReLU ``cnn[at]`` + pool ``cnn[at + 1]`` through the fused block
+        (the slope in float32, as the JAX model hands it over); in training
+        the BatchNorm behind a pool that ``feeds_bn`` takes the kernel's
+        moments."""
         alpha = self.cnn[at].weight
         if feeds_bn and self.training:
-            x, s, q = fused_prelu_pool_stats(x.contiguous(), alpha)
-            return batch_norm_from_moments(self.cnn[at + 2], x, s, q), at + 3
+            return self._moments_bn(at + 2, *fused_prelu_pool_stats(x.contiguous(), alpha))
         return fused_prelu_pool(x.contiguous(), alpha), at + 2
 
     def _cnn(self, x: torch.Tensor) -> torch.Tensor:
@@ -185,14 +228,12 @@ class DCNN(nn.Module):
             return bool(flag) and (self.training or flag == "always")
 
         layers = list(self.cnn)
-        if not (on(self.fused_layer1) or on(self.fused_pool) or on(self.fused_layer2)):
-            return self.cnn(x)
 
         def run(x, start: int, stop: int):
-            for layer in layers[start:stop]:
-                x = layer(x)
-            return x
+            return run_layers(layers[start:stop], x, self.dtype is not None)
 
+        if not (on(self.fused_layer1) or on(self.fused_pool) or on(self.fused_layer2)):
+            return run(x, 0, len(layers))
         nxt = 0
         if on(self.fused_layer1) and self.in_channels == 1 and self.kernel1 == 3:
             x, nxt = self._fused_first_block(x)
@@ -212,12 +253,15 @@ class DCNN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # [B, C, F, T] -> [B, C, T, F]: time on H (reference permute)
-        x = self._cnn(x.permute(0, 1, 3, 2))
+        x = x.permute(0, 1, 3, 2)
+        if self.dtype is not None:
+            x = x.to(self.dtype)
+        x = self._cnn(x)
         # [B, 64, T/8, F/8] -> [B, T/8, 64, F/8]: time becomes the channels
         # of the dilated block (reference models.py:307)
         x = x.permute(0, 2, 1, 3)
         if self.with_dilation:
-            x = self.dil_conv(x)
+            x = run_layers(list(self.dil_conv), x, self.dtype is not None)
         # the reference's Linear(flattend_size, 2) fails on a geometry
         # mismatch; say which numbers disagree
         width = x.shape[2] * x.shape[3]
@@ -227,7 +271,9 @@ class DCNN(nn.Module):
                 f"flattened feature width {width} for this input geometry"
             )
         # Flatten(2) + Linear per time step, then the mean over time
-        return self.fc(x).mean(dim=1)
+        if self.dtype is None:
+            return self.fc(x).mean(dim=1)
+        return linear_in_dtype(self.fc[1], x.flatten(2), self.dtype).mean(dim=1).float()
 
     def get_name(self) -> str:
         if not self.with_dilation:

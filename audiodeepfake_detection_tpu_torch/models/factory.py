@@ -11,8 +11,9 @@ model-name vocabulary:
                     ``Regression`` named by ``args.module`` (a string name
                     or a callable).
 
-``dtype: bfloat16`` reaches the AST; the CNNs refuse it, naming the ROADMAP
-item that would bring it.
+``dtype: bfloat16`` reaches the DCNN family, the LCNN and the AST, as in the
+JAX package; the grid model is built in float32 under it, as the JAX
+package builds it (its ``get_gridsearch_model`` takes no dtype).
 """
 
 from __future__ import annotations
@@ -52,12 +53,14 @@ def _tri_flag(value):
     return bool(value)
 
 
-def _require_float32(args: DotDict) -> None:
-    if str(args.dtype or "float32") != "float32":
-        raise NotImplementedError(
-            f"dtype={args.dtype!r} is not ported for the CNNs (ROADMAP.md "
-            "queue 1, bf16 mode of the CNNs); the AST takes it"
-        )
+def _compute_dtype(args: DotDict):
+    """The compute type of ``args.dtype``: ``None`` (float32) or
+    ``torch.bfloat16``."""
+    dtypes = {"float32": None, "bfloat16": torch.bfloat16}
+    key = str(args.dtype or "float32")
+    if key not in dtypes:
+        raise ValueError(f"dtype must be float32 or bfloat16: {args.dtype!r}")
+    return dtypes[key]
 
 
 def _build_ast(args: DotDict, nclasses: int) -> ASTModel:
@@ -68,9 +71,6 @@ def _build_ast(args: DotDict, nclasses: int) -> ASTModel:
     else the probed ``input_dim[-1]``, else 101.  ``ast_model_size`` /
     ``ast_drop_*`` / ``ast_fused_attention`` / ``ast_remat`` reach the
     constructor; ``ast_remat_policy`` is refused there."""
-    dtypes = {"float32": None, "bfloat16": torch.bfloat16}
-    if str(args.dtype or "float32") not in dtypes:
-        raise ValueError(f"dtype must be float32 or bfloat16: {args.dtype!r}")
     input_dim = args.input_dim
     input_fdim = int(input_dim[-2]) if input_dim else 256
     if args.flattend_size:
@@ -90,14 +90,14 @@ def _build_ast(args: DotDict, nclasses: int) -> ASTModel:
         fused_attention=bool(args.ast_fused_attention),
         remat_blocks=bool(args.ast_remat),
         remat_policy=args.ast_remat_policy or None,
-        dtype=dtypes[str(args.dtype or "float32")],
+        dtype=_compute_dtype(args),
     )
 
 
 def _build_dcnn(args: DotDict, variant: str, nclasses: int, in_channels: int) -> DCNN:
-    _require_float32(args)
     time_dim = int(args.input_dim[-1]) // 8 + int(args.time_dim_add or 0)
     return DCNN(
+        dtype=_compute_dtype(args),
         fused_layer1=_tri_flag(args.fused_layer1),
         fused_pool=_tri_flag(args.fused_pool),
         fused_layer2=_tri_flag(args.fused_layer2),
@@ -126,7 +126,6 @@ def get_model(
 ) -> nn.Module:
     """Build the model named by ``model_name`` from the experiment config."""
     if model_name == "lcnn":
-        _require_float32(args)
         features = args.features or "none"
         if "doubledelta" in features:
             lstm_channels = 60
@@ -141,6 +140,7 @@ def get_model(
             in_channels=in_channels,
             lstm_channels=lstm_channels,
             fused_layer1=_tri_flag(args.fused_layer1),
+            dtype=_compute_dtype(args),
         )
     if model_name == "gridmodel":
         if args.model_data is None:
@@ -148,7 +148,6 @@ def get_model(
                 "Config dict does not contain the key model_data,"
                 "which should hold the list like model structure."
             )
-        _require_float32(args)
         return get_gridsearch_model(args.model_data)
     if model_name == "modules":
         module = args.module

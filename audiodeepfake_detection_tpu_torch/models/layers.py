@@ -13,17 +13,34 @@ Counterparts in ``audiodeepfake_detection_tpu/models/layers.py``:
 * :class:`MaxFeatureMap2D` -- ``max_feature_map_2d``, the LCNN's maxout
   over channel halves (reference src/audiofakedetect/models.py:161-209);
 * :class:`BLSTMLayer` -- the bidirectional LSTM that keeps the sequence
-  length (reference models.py:212-237).
+  length (reference models.py:212-237);
+* :func:`run_layers` -- the CNNs' layers, in float32 as they are, or in a
+  compute type (the JAX models' ``dtype``, bfloat16) with the JAX module's
+  casts:
+  :func:`folded_bn_conv` for every BatchNorm -> conv pair, and
+  :func:`conv_in_dtype`, :func:`prelu_in_dtype`, :func:`linear_in_dtype`
+  for flax's ``Conv`` / ``PReLU`` / ``Dense`` with ``dtype``.
 
 Everything else the JAX module holds (``Conv2d``, ``PReLU``, ...) is
-``torch.nn`` here; its ``folded_bn_conv`` is a schedule of BatchNorm -> conv
-for XLA and is ``nn.BatchNorm2d`` -> ``nn.Conv2d`` here.
+``torch.nn`` here.  In float32 its ``folded_bn_conv`` is a schedule of
+BatchNorm -> conv for XLA and is ``nn.BatchNorm2d`` -> ``nn.Conv2d`` here;
+in a compute type the rounding points are the result, so
+:func:`folded_bn_conv` folds as the JAX function does.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+
+def compute_dtype(dtype):
+    """A model's compute type: ``None`` for float32, or ``torch.bfloat16``
+    (the JAX models' ``dtype``)."""
+    if dtype not in (None, torch.float32, torch.bfloat16):
+        raise ValueError(f"dtype must be None, float32 or bfloat16: {dtype!r}")
+    return None if dtype == torch.float32 else dtype
 
 
 def _affine_scale_shift(bn: nn.BatchNorm2d, mean, var):
@@ -50,6 +67,13 @@ def _train_scale_shift(bn: nn.BatchNorm2d, n: int, mean, var):
     return _affine_scale_shift(bn, mean, var)
 
 
+def _moments_mean_var(n: int, s: torch.Tensor, q: torch.Tensor):
+    """Float32 ``(mean, biased var)`` from ``s = sum(x)``, ``q = sum(x**2)``
+    over ``n`` values per channel."""
+    mean = s.float() / n
+    return mean, torch.clamp(q.float() / n - mean * mean, min=0.0)
+
+
 def batch_norm_from_moments(
     bn: nn.BatchNorm2d, x: torch.Tensor, s: torch.Tensor, q: torch.Tensor
 ) -> torch.Tensor:
@@ -64,8 +88,7 @@ def batch_norm_from_moments(
     the result is differentiable through ``x``, ``s`` and ``q``.
     """
     n = x.numel() // x.shape[1]
-    mean = s.float() / n
-    var = torch.clamp(q.float() / n - mean * mean, min=0.0)
+    mean, var = _moments_mean_var(n, s, q)
     scale, shift = _train_scale_shift(bn, n, mean, var)
     shape = (1, -1, 1, 1)
     # one pass over x: x * scale + shift
@@ -73,20 +96,106 @@ def batch_norm_from_moments(
     return y.to(x.dtype)
 
 
-def batch_norm_scale_shift(bn: nn.BatchNorm2d, x: torch.Tensor):
+def batch_norm_scale_shift(bn: nn.BatchNorm2d, x: torch.Tensor, moments=None):
     """Float32 per-channel ``(s, t)`` with ``bn(x) = x * s + t``, without
     normalising ``x``.
 
     In training ``s`` and ``t`` come from the batch moments of ``x [B, C, H,
-    W]`` (differentiable through ``x``) and ``bn``'s running buffers and
-    ``num_batches_tracked`` move exactly as in
-    :func:`batch_norm_from_moments`; in eval they come from the running
-    buffers.
+    W]`` (differentiable through ``x``), or from ``moments``, its float32
+    ``(sum, sumsq)`` when a fused block has accumulated them (differentiable
+    through them), and ``bn``'s running buffers and ``num_batches_tracked``
+    move exactly as in :func:`batch_norm_from_moments`; in eval they come
+    from the running buffers.
     """
     if bn.training:
-        var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
-        return _train_scale_shift(bn, x.numel() // x.shape[1], mean, var)
+        n = x.numel() // x.shape[1]
+        if moments is None:
+            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
+        else:
+            mean, var = _moments_mean_var(n, *moments)
+        return _train_scale_shift(bn, n, mean, var)
     return _affine_scale_shift(bn, bn.running_mean, bn.running_var)
+
+
+def one_pass_moments(x: torch.Tensor):
+    """Float32 per-channel ``(sum(x), sum(x**2))`` of ``x [B, C, H, W]``:
+    the JAX package's one-pass BatchNorm statistics, which its models take
+    in every compute type (``_torch_bn_stats``)."""
+    x32 = x.float()
+    return x32.sum(dim=(0, 2, 3)), (x32 * x32).sum(dim=(0, 2, 3))
+
+
+def _conv_args(conv: nn.Conv2d):
+    return conv.stride, conv.padding, conv.dilation
+
+
+def folded_bn_conv(
+    bn: nn.BatchNorm2d, conv: nn.Conv2d, x: torch.Tensor, moments=None
+) -> torch.Tensor:
+    """``conv(bn(x))`` in ``x``'s compute type, folded as the JAX package's
+    ``folded_bn_conv``: with ``bn(x) = x * s + t`` (float32 ``s``, ``t``),
+    ``conv(x, (weight * s))`` plus the convolution of the constant map ``t``
+    with ``weight`` (a batch-1 convolution, exact at the zero-padded
+    borders) plus the bias.  The folded weights are rounded once to the
+    compute type, and ``t``, ``weight`` and the bias are cast to it.
+    ``moments``: the ``(sum, sumsq)`` of ``x`` when a fused block has
+    accumulated them, else :func:`one_pass_moments` in training, as in the
+    JAX function."""
+    dt = x.dtype
+    if bn.training and moments is None:
+        moments = one_pass_moments(x)
+    s, t = batch_norm_scale_shift(bn, x, moments)
+    weight = conv.weight
+    y = F.conv2d(x, (weight * s.reshape(1, -1, 1, 1)).to(dt), None, *_conv_args(conv))
+    t_map = t.to(dt).reshape(1, -1, 1, 1).expand(1, x.shape[1], *x.shape[2:])
+    const = F.conv2d(t_map, weight.to(dt), None, *_conv_args(conv))
+    return y + const + conv.bias.to(dt).reshape(-1, 1, 1)
+
+
+def conv_in_dtype(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """flax ``Conv(dtype=...)``: the convolution in ``x``'s type with the
+    kernel cast to it, then the cast bias added."""
+    dt = x.dtype
+    y = F.conv2d(x, conv.weight.to(dt), None, *_conv_args(conv))
+    return y + conv.bias.to(dt).reshape(-1, 1, 1)
+
+
+def prelu_in_dtype(prelu: nn.PReLU, x: torch.Tensor) -> torch.Tensor:
+    """The JAX ``PReLU``: ``where(x >= 0, x, alpha * x)`` with the slope cast
+    to ``x``'s type."""
+    return torch.where(x >= 0, x, prelu.weight.to(x.dtype) * x)
+
+
+def linear_in_dtype(linear: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
+    """flax ``Dense(dtype=...)``: input and kernel cast to ``dtype``, the
+    product, then the cast bias added."""
+    return F.linear(x.to(dtype), linear.weight.to(dtype)) + linear.bias.to(dtype)
+
+
+def run_layers(layers, x: torch.Tensor, folded: bool) -> torch.Tensor:
+    """``layers`` (a list of modules) on ``x``: as they are, or ``folded``,
+    in ``x``'s compute type with the JAX models' casts: each BatchNorm folds
+    into the convolution that follows it (:func:`folded_bn_conv`),
+    convolutions and PReLUs cast their parameters, pools, dropout and
+    MaxFeatureMap run as they are."""
+    if not folded:
+        for layer in layers:
+            x = layer(x)
+        return x
+    i = 0
+    while i < len(layers):
+        layer = layers[i]
+        if isinstance(layer, nn.BatchNorm2d):
+            x = folded_bn_conv(layer, layers[i + 1], x)
+            i += 1
+        elif isinstance(layer, nn.Conv2d):
+            x = conv_in_dtype(layer, x)
+        elif isinstance(layer, nn.PReLU):
+            x = prelu_in_dtype(layer, x)
+        else:
+            x = layer(x)
+        i += 1
+    return x
 
 
 class MaxFeatureMap2D(nn.Module):

@@ -20,17 +20,28 @@ through ``ops/fused_conv1.py::fused_conv_mfm_pool``: ``True`` in training
 only, ``"always"`` in eval too.  It reads the parameters of ``lcnn[0]`` (no
 new ones, so every state dict loads either way) and needs one input
 channel: asking for it with another count raises.
+
+``dtype=torch.bfloat16`` is the JAX model's ``dtype``: parameters and
+BatchNorm buffers stay float32, and the compute is cast where the JAX model
+casts it (``layers.run_layers``): the input after the permute, every
+BatchNorm -> conv pair folded (statistics in float32, the folded weights
+rounded once), the two plain 1x1 convs and the fused block's weights in
+bfloat16, MaxFeatureMap and the pools in bfloat16.  The BLSTMs run in
+float32, as the JAX package's do: its input projection multiplies the
+bfloat16 sequence by the float32 ``w_ih``, which promotes.  The head is a
+bfloat16 ``Dense``; the logits are averaged in bfloat16 and returned in
+float32.
 """
 
 from __future__ import annotations
 
-from typing import Union
+from typing import Optional, Union
 
 import torch
 from torch import nn
 
 from ..ops.fused_conv1 import fused_conv_mfm_pool
-from .layers import BLSTMLayer, MaxFeatureMap2D
+from .layers import BLSTMLayer, MaxFeatureMap2D, compute_dtype, linear_in_dtype, run_layers
 
 
 def _bn_conv_mfm(cin: int, cout: int, k: int, padding: int):
@@ -51,8 +62,10 @@ class LCNN(nn.Module):
         lstm_channels: int = 256,
         fused_layer1: Union[bool, str] = False,
         dropout: float = 0.7,
+        dtype: Optional[torch.dtype] = None,
     ) -> None:
         super().__init__()
+        self.dtype = compute_dtype(dtype)
         if fused_layer1 not in (False, True, "always"):
             raise ValueError(
                 f"fused_layer1 must be False, True or 'always': {fused_layer1!r}"
@@ -95,23 +108,24 @@ class LCNN(nn.Module):
         """``lcnn[0:3]`` through the fused block, then the rest of ``lcnn``.
         ``x``: ``[B, 1, T, F]``."""
         conv = self.lcnn[0]
+        dt = x.dtype  # the parameters cast to it, as in the JAX model
         out = fused_conv_mfm_pool(
             x[:, 0].contiguous(),
-            conv.weight.reshape(conv.out_channels, 25).t(),
-            conv.bias,
+            conv.weight.reshape(conv.out_channels, 25).t().to(dt),
+            conv.bias.to(dt),
         )
         x = out.permute(0, 3, 1, 2)  # the block stores NCHW: contiguous
-        for layer in list(self.lcnn)[3:]:
-            x = layer(x)
-        return x
+        return run_layers(list(self.lcnn)[3:], x, self.dtype is not None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # [B, C, F, T] -> [B, C, T, F]: time on H (reference permute)
         x = x.permute(0, 1, 3, 2)
+        if self.dtype is not None:
+            x = x.to(self.dtype)
         if self.fused_layer1 and (self.training or self.fused_layer1 == "always"):
             x = self._fused_first_block(x)
         else:
-            x = self.lcnn(x)
+            x = run_layers(list(self.lcnn), x, self.dtype is not None)
         # [B, 32, T', F'] -> [B, T', 32 * F']: per time step, channels major
         # and frequency minor (reference models.py:126-128)
         x = x.permute(0, 2, 1, 3).flatten(2)
@@ -121,7 +135,9 @@ class LCNN(nn.Module):
                 f"({self.feat} features per time step) but this input leaves "
                 f"{x.shape[2]} (32 channels x {x.shape[2] // 32} frequency rows)"
             )
-        x = self.fc(self.lstm(x))
+        if self.dtype is None:
+            return self.fc(self.lstm(x)).mean(dim=1).float()
+        x = linear_in_dtype(self.fc, self.lstm(x.float()), self.dtype)
         return x.mean(dim=1).float()
 
     def get_name(self) -> str:

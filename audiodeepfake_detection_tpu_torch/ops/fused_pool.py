@@ -18,9 +18,10 @@ per-channel ``(sum, sumsq)`` of the stored (rounded) output, the moments the
 next BatchNorm needs; gradients flow through the moments.
 
 float32 in gives float32 out.  bfloat16 in gives bfloat16 out: the slope is
-rounded to bfloat16, the elementwise work runs in float32, and the moments
-are those of the rounded output.  ``dx`` comes back in ``x``'s type,
-``dalpha`` in ``alpha``'s.
+taken in the type it is handed in (the JAX DCNN hands the kernel its float32
+slope), the elementwise work runs in float32, and the moments are those of
+the rounded output.  ``dx`` comes back in ``x``'s type, ``dalpha`` in
+``alpha``'s.
 
 On a CUDA tensor the public functions launch the hand-written kernels of
 ``csrc/fused_pool.cu`` (forward and backward, behind one
@@ -53,7 +54,7 @@ def straight_through_round(t32: torch.Tensor, dtype) -> torch.Tensor:
 def _plain_pooled(x, alpha) -> torch.Tensor:
     """Float32 ``[B, C, H//2, W//2]`` holding the values the block stores."""
     x32 = x.float()
-    act = torch.where(x32 >= 0, x32, alpha.to(x.dtype).float() * x32)
+    act = torch.where(x32 >= 0, x32, alpha.float() * x32)
     # floor mode; its backward takes the first maximum of a window
     return straight_through_round(F.max_pool2d(act, 2), x.dtype)
 
@@ -75,7 +76,7 @@ class _FusedPreluPool(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, alpha, want_stats: bool):
-        aq = alpha.to(x.dtype).float().contiguous()
+        aq = alpha.float().contiguous()
         want_code = any(ctx.needs_input_grad[:2])
         out, code, s, q = fused_pool_cuda.forward(x, aq, want_code, want_stats)
         if want_code:

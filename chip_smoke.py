@@ -1,5 +1,6 @@
 """Drive the PyTorch/CUDA port's serving and training paths (DCNN, with and
-without its fused mid blocks, LCNN and AST) once on one NVIDIA GPU.
+without its fused mid blocks, LCNN and AST, the CNNs also in bf16) once on
+one NVIDIA GPU.
 
 Run from the repository root, with no arguments:
 
@@ -112,7 +113,17 @@ Phases, in order; any failure propagates and the script exits non-zero
     ``run_experiment`` on ``cuda`` with packets + DCNN (the WPT's subtrees
     on chip, no level through device memory: its launch counts read over
     exactly this run) and with stft + AST (477 tokens through kernel 4,
-    counted likewise); the WPT on 2 s frames timed against plain at B=64.
+    counted likewise); the WPT on 2 s frames timed against plain at B=64;
+21. the CNNs in bf16 (``dtype: bfloat16``): the DCNN with all three flags
+    and the LCNN with its fused block trained through ``run_experiment`` on
+    ``cuda``, each against the same model unfused in bf16 loss by loss,
+    launches of kernels 2, 3, 5 and 6 counted and the type each was given
+    read (bf16 only); ``make_score_fn`` on the bf16 DCNN object against its
+    eval step; the four kernels against plain in bf16 at the path's shapes
+    and argument types, timed through their launchers and as device time;
+    the DCNN step (b) and the LCNN step in float32 and bf16, the scorer at
+    B = 64 and 128 on a float32 and a bf16 DCNN object; profiles of the
+    bf16 steps.
 
 The last lines are the kernels' JSON record, the measurements with the
 card's name and power limit, and ``{"ok": true, "device": ...}``.
@@ -121,6 +132,7 @@ card's name and power limit, and ``{"ok": true, "device": ...}``.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import io
 import json
 import os
@@ -225,6 +237,16 @@ MHA_BF16_GRAD_RTOL = 1e-2
 # per-step loss, fused vs unfused base384 training from the same seed: the
 # attention's fp32 sums reordered in each of 12 blocks, then Adam
 AST_LOSS_RTOL = 5e-3
+# ---- the CNNs in bf16 (phase 21)
+# per-step loss, the bf16 DCNN with all three flags (or the bf16 LCNN with
+# its fused block) against the same model unfused in bf16, one seed, dropout
+# 0: the two round to bf16 at other points (a fused block once, the layers
+# after the convolution and again after the PReLU) and Adam carries that
+# on; the bf16 AST's precedent
+BF16_LOSS_RTOL = 2e-2
+# kernel 5 on the bf16 path takes the model's float32 slope (not
+# representable in bf16, so a rounded one would show)
+PATH_SLOPE = 0.2371
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12  # dense tensor-core rate, H100 SXM data sheet
@@ -618,7 +640,7 @@ def wpt_bound(wpt, b: int, t: int):
     return bound_ms(4 * b * (t + (2 ** MAIN[1]) * n), b * flops)
 
 
-def fused_bounds(b, h, w, c, itemsize=4):
+def fused_bounds(b, h, w, c, itemsize=4, flop_per_s=FP32_FLOP_PER_S):
     """Training forward: x and the parameters read, out, code and moments
     written; 36 FMAs per output.  Backward: g, code, x, the parameters and
     the moments' cotangents read (not out: the kernel rebuilds it from x
@@ -627,9 +649,9 @@ def fused_bounds(b, h, w, c, itemsize=4):
     n_out = b * ((h + 2) // 2) * ((w + 2) // 2) * c
     params = 4 * (9 * c + c + 1)
     fwd = bound_ms(itemsize * b * h * w + params + n_out * (itemsize + 1) + 8 * c,
-                   n_out * 72)
+                   n_out * 72, flop_per_s)
     bwd = bound_ms(itemsize * b * h * w + params + n_out * (itemsize + 1) + 8 * c
-                   + params, n_out * 20)
+                   + params, n_out * 20, flop_per_s)
     return fwd, bwd
 
 
@@ -803,9 +825,10 @@ def train(wpt_cuda, fused_cuda, root: str, data: str):
             "norm": [np.asarray(v).tolist() for v in trainer.norm_stats]}
 
 
-def step_fns(norm, fused: bool, **flags):
+def step_fns(norm, fused: bool, dtype=None, **flags):
     """A train step and an eval step at full width on a fixed device batch;
-    ``flags``: the DCNN's ``fused_pool`` / ``fused_layer2``."""
+    ``flags``: the DCNN's ``fused_pool`` / ``fused_layer2``; ``dtype``: its
+    compute type (``None``: float32)."""
     from audiodeepfake_detection_tpu_torch.models.dcnn import DCNN
     from audiodeepfake_detection_tpu_torch.train.steps import (
         make_eval_step, make_optimizer, make_train_step)
@@ -815,7 +838,7 @@ def step_fns(norm, fused: bool, **flags):
     args = train_args("", "", "")
     transform = normalized_transform(make_transform(args), *[np.asarray(v) for v in norm])
     torch.manual_seed(0)
-    model = DCNN(time_dim=12, fused_layer1=fused, **flags).cuda()
+    model = DCNN(time_dim=12, fused_layer1=fused, dtype=dtype, **flags).cuda()
     optimizer = make_optimizer(model.parameters(), 4e-4, 1e-3)
     gen = torch.Generator().manual_seed(5)
     batch = {"audio": (0.3 * torch.randn(BATCH, 1, SR, generator=gen)).cuda(),
@@ -998,14 +1021,16 @@ def profile_train(train_step, n: int = 5, kernel_groups=KERNEL_GROUPS):
 # ------------------------------------------------ the LCNN path (10-13)
 
 
-def mfm_bounds(b, h, w, c, itemsize=4):
+def mfm_bounds(b, h, w, c, itemsize=4, flop_per_s=FP32_FLOP_PER_S):
     """Training forward: x and the parameters read, out and code written;
     8 candidates x 25 FMAs per output.  Backward: g, code and x read, dW/db
     written; 25 FMAs and one add per output."""
     n_out = b * (h // 2) * (w // 2) * (c // 2)
     params = 4 * (25 * c + c)
-    fwd = bound_ms(itemsize * b * h * w + params + n_out * (itemsize + 1), n_out * 400)
-    bwd = bound_ms(itemsize * b * h * w + n_out * (itemsize + 1) + params, n_out * 51)
+    fwd = bound_ms(itemsize * b * h * w + params + n_out * (itemsize + 1), n_out * 400,
+                   flop_per_s)
+    bwd = bound_ms(itemsize * b * h * w + n_out * (itemsize + 1) + params, n_out * 51,
+                   flop_per_s)
     return fwd, bwd
 
 
@@ -1233,8 +1258,9 @@ def train_lcnn(wpt_cuda, fused_cuda, root: str, data: str):
             "norm": [np.asarray(v).tolist() for v in trainer.norm_stats]}
 
 
-def lcnn_step_fns(norm, fused: bool):
-    """An LCNN train step and eval step at full width on a fixed batch."""
+def lcnn_step_fns(norm, fused: bool, dtype=None):
+    """An LCNN train step and eval step at full width on a fixed batch;
+    ``dtype``: its compute type (``None``: float32)."""
     from audiodeepfake_detection_tpu_torch.models.lcnn import LCNN
     from audiodeepfake_detection_tpu_torch.train.steps import (
         make_eval_step, make_optimizer, make_train_step)
@@ -1244,7 +1270,7 @@ def lcnn_step_fns(norm, fused: bool):
     args = lcnn_args("", "", "")
     transform = normalized_transform(make_transform(args), *[np.asarray(v) for v in norm])
     torch.manual_seed(0)
-    model = LCNN(fused_layer1=fused).cuda()
+    model = LCNN(fused_layer1=fused, dtype=dtype).cuda()
     optimizer = make_optimizer(model.parameters(), args.learning_rate, args.weight_decay)
     gen = torch.Generator().manual_seed(5)
     batch = {"audio": (0.3 * torch.randn(BATCH, 1, SR, generator=gen)).cuda(),
@@ -1366,19 +1392,20 @@ def lcnn_timing(fc, fused_cuda, norm, card_line: str):
 # ------------------------------------------- the fused mid blocks (14-16)
 
 
-def pool_bounds(b, c, h, w, n_negative, itemsize=4):
+def pool_bounds(b, c, h, w, n_negative, itemsize=4, flop_per_s=FP32_FLOP_PER_S):
     """Training forward: x read, out, code and the per-plane moments written;
     4 compare-selects per output.  Backward: g, code and out read, dx
     written, and x read at the selected negative elements (counted from this
     run's code); 2 operations per element of dx."""
     n_out = b * c * (h // 2) * (w // 2)
     n_in = b * c * h * w
-    fwd = bound_ms(itemsize * n_in + n_out * (itemsize + 1) + 8 * b * c, 8 * n_out)
-    bwd = bound_ms(n_out * (2 * itemsize + 1) + itemsize * (n_in + n_negative), 2 * n_in)
+    fwd = bound_ms(itemsize * n_in + n_out * (itemsize + 1) + 8 * b * c, 8 * n_out, flop_per_s)
+    bwd = bound_ms(n_out * (2 * itemsize + 1) + itemsize * (n_in + n_negative), 2 * n_in,
+                   flop_per_s)
     return fwd, bwd
 
 
-def conv2_bounds(b, c_in, c_out, h, w, itemsize=4):
+def conv2_bounds(b, c_in, c_out, h, w, itemsize=4, flop_per_s=FP32_FLOP_PER_S):
     """Training forward: x, the weights and corr read, out, code and moments
     written; a max over four conv values needs all of them: 2 * 9 * Cin flops
     for each of the 4 * n_out conv values.  Backward: x, g, out, code and the
@@ -1391,9 +1418,10 @@ def conv2_bounds(b, c_in, c_out, h, w, itemsize=4):
     n_out = b * c_out * (h // 2) * (w // 2)
     n_x = b * c_in * h * w
     small = 4 * (9 * c_in * c_out + c_out * h * w)
-    fwd = bound_ms(itemsize * n_x + small + n_out * (itemsize + 1), 4 * n_out * 18 * c_in)
+    fwd = bound_ms(itemsize * n_x + small + n_out * (itemsize + 1), 4 * n_out * 18 * c_in,
+                   flop_per_s)
     bwd = bound_ms(2 * itemsize * n_x + n_out * (2 * itemsize + 1) + 2 * small,
-                   2 * n_out * 18 * c_in)
+                   2 * n_out * 18 * c_in, flop_per_s)
     dense_3xtf32_ms = 3 * 2 * (2 * b * h * w * 9 * c_in * c_out) / TF32_FLOP_PER_S * 1e3
     return fwd, bwd, dense_3xtf32_ms
 
@@ -2282,6 +2310,344 @@ def train_long(wpt, wpt_cuda, fa_cuda, root: str, data: str, card_line: str):
             "wpt_long": ms}
 
 
+# ------------------------------------------------------ the CNNs in bf16 (21)
+
+
+@contextlib.contextmanager
+def launch_dtypes(targets):
+    """Record the type of ``x``, the first argument, that each launcher of
+    ``targets`` (``(module, function name, key)``) is given in the block."""
+    seen = {key: set() for _, _, key in targets}
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in targets]
+
+    def spy(fn, key):
+        def call(x, *rest, **kw):
+            seen[key].add(str(x.dtype).split(".")[-1])
+            return fn(x, *rest, **kw)
+        return call
+
+    for (mod, name, fn), (_, _, key) in zip(saved, targets):
+        setattr(mod, name, spy(fn, key))
+    try:
+        yield seen
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def train_bf16(wpt_cuda, fused_cuda, pool_cuda, conv2_cuda, root: str, data: str,
+               fp32_unfused_losses):
+    """Phase 21: the DCNN with all three flags and the LCNN with its fused
+    block trained in bf16 (``dtype: bfloat16``, float32 Adam) through
+    ``run_experiment`` on the card, each against the same model unfused in
+    bf16, loss by loss; every launch counted and the type of every launch's
+    ``x`` read over exactly each run.  ``fp32_unfused_losses``: phase 7's
+    unfused float32 run from the same seed, beside which the bf16 losses
+    are reported."""
+    from audiodeepfake_detection_tpu_torch.models.lcnn import LCNN
+    from audiodeepfake_detection_tpu_torch.train.experiment import run_experiment
+    from audiodeepfake_detection_tpu_torch.train.predict import make_score_fn
+
+    counters = {
+        "conv1_fwd": (fused_cuda, "FWD_LAUNCHES"), "conv1_bwd": (fused_cuda, "BWD_LAUNCHES"),
+        "mfm_fwd": (fused_cuda, "MFM_FWD_LAUNCHES"), "mfm_bwd": (fused_cuda, "MFM_BWD_LAUNCHES"),
+        "pool_fwd": (pool_cuda, "POOL_FWD_LAUNCHES"), "pool_bwd": (pool_cuda, "POOL_BWD_LAUNCHES"),
+        "conv2_fwd": (conv2_cuda, "CONV2_FWD_LAUNCHES"),
+        "conv2_bwd": (conv2_cuda, "CONV2_BWD_LAUNCHES"),
+    }
+    launchers = [(fused_cuda, "forward", "conv1_fwd"), (fused_cuda, "backward", "conv1_bwd"),
+                 (fused_cuda, "mfm_forward", "mfm_fwd"), (fused_cuda, "mfm_backward", "mfm_bwd"),
+                 (pool_cuda, "forward", "pool_fwd"), (pool_cuda, "backward", "pool_bwd"),
+                 (conv2_cuda, "forward", "conv2_fwd"), (conv2_cuda, "backward", "conv2_bwd")]
+    steps = EPOCHS * STEPS_PER_EPOCH
+
+    def run(name, args, want, packets: bool):
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        wpt_cuda.LAUNCHES = 0
+        t0 = time.perf_counter()
+        with launch_dtypes(launchers) as seen:
+            trainer = run_experiment(args)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+        losses = [row[2] for row in trainer.loss_list]
+        dtypes = {k: sorted(v) for k, v in seen.items() if v}
+        log(f"  {name}: losses {['%.6f' % v for v in losses]}, test {trainer.test_results}, "
+            f"launches {counts}, kernels given {dtypes}, {wall:.1f} s wall")
+        if len(losses) != steps or not np.isfinite(losses).all():
+            raise AssertionError(f"{name} losses: {losses}")
+        if counts != {k: want.get(k, 0) for k in counters}:
+            raise AssertionError(f"{name} launch counts {counts}, want {want}")
+        if any(v != ["bfloat16"] for v in dtypes.values()) or set(dtypes) != set(want):
+            raise AssertionError(f"{name}: the kernels were given {dtypes}")
+        if packets and wpt_cuda.LAUNCHES < steps:
+            raise AssertionError(f"{name}: {wpt_cuda.LAUNCHES} WPT launches")
+        model = trainer.model
+        if model.dtype != torch.bfloat16 or trainer.device.type != "cuda":
+            raise AssertionError(f"{name} left the bf16 mode or the card")
+        if any(v.dtype == torch.bfloat16 for v in model.state_dict().values()):
+            raise AssertionError(f"{name}: a parameter or buffer is stored in bf16")
+        acc, eer = trainer.test_results[:2]
+        if not (0.0 <= acc <= 1.0 and 0.0 <= eer <= 1.0):  # NaN fails too
+            raise AssertionError(f"{name} test results {trainer.test_results}")
+        return trainer, {"launches": counts, "dtypes": dtypes, "losses": losses, "wall_s": wall}
+
+    out = {"steps": steps}
+    per_run = {k: steps for k in ("conv1_fwd", "conv1_bwd", "pool_fwd", "pool_bwd",
+                                  "conv2_fwd", "conv2_bwd")}
+    no_dropout = dict(dropout_cnn=0.0, dropout_lstm=0.0)
+    trainer, out["dcnn"] = run("DCNN, bf16, all three flags", train_args(
+        root, data, "log_bf16_dcnn", dtype="bfloat16", fused_pool=True, fused_layer2=True,
+        **no_dropout), per_run, packets=True)
+    # make_score_fn on the bf16 model object scores as the trainer's eval step
+    clip = (0.3 * np.tanh(np.random.RandomState(17).randn(4, 1, SR))).astype(np.float32)
+    audio = torch.from_numpy(clip).cuda()
+    own = trainer.eval_step({"audio": audio, "label": torch.zeros(
+        4, dtype=torch.int32, device="cuda")})["scores"]
+    scored = make_score_fn(trainer.model, trainer.transform, "cuda")(audio)
+    out["dcnn"]["scorer_vs_eval_step"] = (scored - own).abs().max().item()
+    if out["dcnn"]["scorer_vs_eval_step"] != 0.0:
+        raise AssertionError(f"bf16 scorer vs eval step: {out['dcnn']['scorer_vs_eval_step']}")
+    del trainer
+    _, out["dcnn_unfused"] = run("DCNN, bf16, unfused", train_args(
+        root, data, "log_bf16_dcnn_unfused", dtype="bfloat16", fused_layer1=False,
+        **no_dropout), {}, packets=True)
+    _, out["lcnn"] = run("LCNN, bf16, fused block", lcnn_args(
+        root, data, "log_bf16_lcnn", model="modules", dtype="bfloat16",
+        module=lambda _args: LCNN(fused_layer1=True, dropout=0.0, dtype=torch.bfloat16)),
+        {"mfm_fwd": steps, "mfm_bwd": steps}, packets=False)
+    _, out["lcnn_unfused"] = run("LCNN, bf16, unfused", lcnn_args(
+        root, data, "log_bf16_lcnn_unfused", model="modules", dtype="bfloat16",
+        module=lambda _args: LCNN(fused_layer1=False, dropout=0.0, dtype=torch.bfloat16)),
+        {}, packets=False)
+
+    def worst(a, b):
+        return max(abs(u - v) / abs(v) for u, v in zip(a, b))
+
+    for model in ("dcnn", "lcnn"):
+        diff = worst(out[model]["losses"], out[f"{model}_unfused"]["losses"])
+        out[f"{model}_loss_rel_diff"] = diff
+        log(f"  {model} bf16 fused vs unfused: worst rel diff {diff:.2e} (tol {BF16_LOSS_RTOL})")
+        if not diff <= BF16_LOSS_RTOL:
+            raise AssertionError(f"bf16 {model} fused vs unfused losses differ by {diff}")
+    out["dcnn_unfused_vs_fp32_rel_diff"] = worst(out["dcnn_unfused"]["losses"],
+                                                 fp32_unfused_losses)
+    log(f"  DCNN unfused, bf16 against phase 7's float32 run: worst rel diff "
+        f"{out['dcnn_unfused_vs_fp32_rel_diff']:.2e} (reported)")
+    return out
+
+
+def bf16_cases(fc, fp, f2):
+    """The bf16 path's arguments to kernels 2, 3, 5 and 6 at its shapes, in
+    the types the models hand over: ``{kernel: (fused fn, plain fn, args,
+    the arguments with gradients, cotangents, gradient names)}``."""
+    bf16 = torch.bfloat16
+    x, params, cot = fused_case(fc, *TRAIN_SHAPE, bf16, seed=110)
+    cases = {"conv1": (fc.fused_conv1_prelu_pool_stats, fc.plain_conv1_prelu_pool_stats,
+                       [x, *params], params, cot, ("dW", "db", "dalpha"))}
+    x, params, g = mfm_case(*LCNN_SHAPE, bf16, seed=111)
+    cases["mfm"] = (fc.fused_conv_mfm_pool, fc.plain_conv_mfm_pool, [x, *params], params, [g],
+                    ("dW", "db"))
+    # the third pool (no moments: a dropout follows it) with the float32 slope
+    (x, _), cot = pool_case(*POOL3_SHAPE, bf16, 0.25, seed=112)
+    alpha = torch.tensor([PATH_SLOPE], device="cuda", requires_grad=True)
+    cases["pool"] = (fp.fused_prelu_pool, fp.plain_prelu_pool, [x, alpha], [x, alpha],
+                     cot[:1], ("dx", "dalpha"))
+    args, cot = conv2_case(*CONV2_SHAPE, bf16, 0.25, seed=113)
+    cases["conv2"] = (f2.fused_conv2_prelu_pool_stats, f2.plain_conv2_prelu_pool_stats, args,
+                      args, cot, ("dx", "dw", "dcorr", "dalpha"))
+    return cases
+
+
+def bf16_vs_plain(fc, fp, f2):
+    """Phase 21: kernels 2, 3, 5 and 6 against their plain versions in bf16
+    at the bf16 path's shapes and argument types, and against themselves;
+    the tolerances of phases 6, 10 and 14's bf16 cases."""
+    out = {}
+    for name, (fused_fn, plain_fn, args, wrt, cot, names) in bf16_cases(fc, fp, f2).items():
+        def outs(fn):
+            got = fn(*args)
+            return got if isinstance(got, tuple) else (got,)
+
+        runs = []
+        for _ in range(2):
+            got = outs(fused_fn)
+            runs.append((*got, *torch.autograd.grad(got, wrt, cot)))
+        want = outs(plain_fn)
+        pgrads = torch.autograd.grad(want, wrt, cot)
+        torch.cuda.synchronize()
+        n_out = len(want)
+        got, grads = runs[0][:n_out], runs[0][n_out:]
+        bitwise = all(torch.equal(u, v) for u, v in zip(*runs))
+        fwd_err = (got[0].float() - want[0].float()).abs().max().item()
+        fwd_tol = want[0].float().abs().max().item() * 2.0 ** -7
+        sums = {n: rel_err(u, v) for n, u, v in zip(("sum", "sumsq"), got[1:], want[1:])}
+        gerr = {n: rel_err(u, v) for n, u, v in zip(names, grads, pgrads)}
+        # float32 corr keeps a float32 dcorr; kernel 6's dalpha comes from
+        # the stored bf16 output (phase 14)
+        tols = {n: MID_SUM_RTOL if n == "dcorr" else FUSED_BF16_RTOL for n in names}
+        if name == "conv2":
+            tols["dalpha"] = MID_BF16_DALPHA_RTOL
+        out[name] = {
+            "fwd_max_abs_err": fwd_err, "moments_rel_err": sums, "grad_rel_err": gerr,
+            # of dW (kernels 2 and 3) or dx (kernels 5 and 6)
+            "grad_max_abs_err": (grads[0].float() - pgrads[0].float()).abs().max().item(),
+            "bitwise_repeat": bitwise, "x": list(args[0].shape),
+            "types": [str(a.dtype).split(".")[-1] for a in args],
+        }
+        if name == "conv2":
+            out[name]["dw_max_abs_err"] = (grads[1].float() - pgrads[1].float()).abs().max().item()
+        log(f"  {name} {out[name]['x']} {out[name]['types']}: out max|err| {fwd_err:.3e} (tol "
+            f"{fwd_tol:.1e}), moments rel {sums}, grads rel {gerr}, repeat bit-equal {bitwise}")
+        if not (fwd_err <= fwd_tol and all(v <= MID_SUM_RTOL for v in sums.values())
+                and all(gerr[n] <= tols[n] for n in names)):
+            raise AssertionError(f"bf16 {name} vs plain: {out[name]}")
+        if not bitwise:
+            raise AssertionError(f"bf16 {name}: two runs differ")
+        del runs, grads, pgrads, got, want
+    return out
+
+
+def bf16_timing(fc, fused_cuda, fp, pool_cuda, f2, conv2_cuda, norm, lcnn_norm, card_line: str):
+    """Phase 21: kernels 2, 3, 5 and 6 in bf16 at the path's shapes through
+    their launchers and as device time, against plain and their bf16
+    bounds; the DCNN step (b) and the fused LCNN step in float32 and bf16;
+    ``make_score_fn`` on a float32 and a bf16 DCNN object at B = 64 and
+    128."""
+    from audiodeepfake_detection_tpu_torch.models.dcnn import DCNN
+    from audiodeepfake_detection_tpu_torch.train.predict import make_score_fn
+    from audiodeepfake_detection_tpu_torch.train.transforms import (
+        make_transform, normalized_transform)
+
+    cases = bf16_cases(fc, fp, f2)
+    out = {}
+    # conv1: x, w, b, alpha as the glue hands them to the launchers
+    x, *params = cases["conv1"][2]
+    cot = cases["conv1"][4]
+    raw = [p.detach().float() for p in params]
+    code = fused_cuda.forward(x, *raw, True, True)[1]
+    kernels = {"conv1": dict(
+        fwd=lambda: fused_cuda.forward(x, *raw, True, True),
+        bwd=lambda: fused_cuda.backward(x, *raw, cot[0], code, cot[1], cot[2]),
+        fwd_keys={"k": "fused_conv1_fwd_kernel"}, bwd_keys={"k": "fused_conv1_bwd_kernel"},
+        bounds=fused_bounds(*TRAIN_SHAPE, itemsize=2, flop_per_s=BF16_FLOP_PER_S))}
+    mx, *mparams = cases["mfm"][2]
+    mg = cases["mfm"][4][0]
+    mraw = [p.detach().float() for p in mparams]
+    mcode = fused_cuda.mfm_forward(mx, *mraw, True)[1]
+    kernels["mfm"] = dict(
+        fwd=lambda: fused_cuda.mfm_forward(mx, *mraw, True),
+        bwd=lambda: fused_cuda.mfm_backward(mx, mg, mcode, LCNN_SHAPE[3]),
+        fwd_keys={"k": "fused_conv_mfm_fwd_kernel"},
+        bwd_keys={"k": "fused_conv_mfm_bwd_kernel", "sum": "fused_conv_mfm_sum_kernel"},
+        bounds=mfm_bounds(*LCNN_SHAPE, itemsize=2, flop_per_s=BF16_FLOP_PER_S))
+    px, palpha = cases["pool"][2]
+    pg = cases["pool"][4][0]
+    praw = (px.detach(), palpha.detach())
+    py, pcode, _, _ = pool_cuda.forward(*praw, True, False)
+    kernels["pool"] = dict(
+        fwd=lambda: pool_cuda.forward(*praw, True, False),
+        bwd=lambda: pool_cuda.backward(*praw, pg, py, pcode, None, None),
+        fwd_keys={"k": "fused_pool_fwd_kernel"}, bwd_keys={"k": "fused_pool_bwd_kernel"},
+        bounds=pool_bounds(*POOL3_SHAPE, int((pcode >= 4).sum()), itemsize=2,
+                           flop_per_s=BF16_FLOP_PER_S))
+    cx, cw, ccorr, calpha = cases["conv2"][2]
+    ccot = cases["conv2"][4]
+    craw = (cx.detach(), cw.detach().float(), ccorr.detach().float(), calpha.detach().float())
+    cy, ccode, _, _ = conv2_cuda.forward(*craw, True, True)
+    kernels["conv2"] = dict(
+        fwd=lambda: conv2_cuda.forward(*craw, True, True),
+        bwd=lambda: conv2_cuda.backward(*craw, ccot[0], cy, ccode, ccot[1], ccot[2]),
+        fwd_keys={"k": "fused_conv2_fwd_kernel"},
+        bwd_keys={"dx": "fused_conv2_dx_kernel", "dw": "fused_conv2_dw_kernel",
+                  "small": "fused_conv2_small_kernel"},
+        bounds=conv2_bounds(*CONV2_SHAPE, itemsize=2, flop_per_s=BF16_FLOP_PER_S)[:2])
+    for name, k in kernels.items():
+        fused_fn, plain_fn, args, wrt, cot_, _ = cases[name]
+        graph = plain_fn(*args)
+        reps = 5 if name == "conv2" else 10
+        fwd = median_ms({"plain": lambda: plain_fn(*args), "kernel": k["fwd"]}, reps=reps)
+        bwd = median_ms({
+            "plain": lambda: torch.autograd.grad(graph, wrt, cot_, retain_graph=True),
+            "kernel": k["bwd"]}, reps=reps)
+        dev_fwd = sum(kernel_device_ms(k["fwd"], k["fwd_keys"]).values())
+        dev_bwd = sum(kernel_device_ms(k["bwd"], k["bwd_keys"]).values())
+        (fb, fby), (bb, bby) = k["bounds"]
+        out[name] = {"fwd_kernel_ms": fwd["kernel"], "fwd_plain_ms": fwd["plain"],
+                     "fwd_device_ms": dev_fwd, "fwd_bound_ms": fb, "fwd_bound_by": fby,
+                     "bwd_kernel_ms": bwd["kernel"], "bwd_plain_ms": bwd["plain"],
+                     "bwd_device_ms": dev_bwd, "bwd_bound_ms": bb, "bwd_bound_by": bby}
+        log(f"  kernel {name}, bf16 [{card_line}]: fwd {fwd['kernel']:.4f} ms through the "
+            f"launcher, {dev_fwd:.4f} ms device, plain {fwd['plain']:.4f} ms, bound {fb:.4f} ms "
+            f"({fby}); bwd {bwd['kernel']:.4f} ms, {dev_bwd:.4f} ms device, plain "
+            f"{bwd['plain']:.4f} ms, bound {bb:.4f} ms ({bby})")
+        del graph
+    del kernels, cases
+
+    flags = dict(fused_pool=True, fused_layer2=True)
+    fns = {"dcnn_b_fp32": step_fns(norm, True, **flags),
+           "dcnn_b_bf16": step_fns(norm, True, dtype=torch.bfloat16, **flags),
+           "lcnn_fp32": lcnn_step_fns(lcnn_norm, True),
+           "lcnn_bf16": lcnn_step_fns(lcnn_norm, True, dtype=torch.bfloat16)}
+    steps = median_ms({name: fn[0] for name, fn in fns.items()}, reps=3)
+    evals = median_ms({name: fn[1] for name, fn in fns.items()}, reps=3)
+    out["train_step_ms"] = steps
+    out["eval_step_ms"] = evals
+    out["train_frames_per_s"] = {k: BATCH / v * 1e3 for k, v in steps.items()}
+    log(f"  [{card_line}] train step: " + ", ".join(
+        f"{k} {v:.3f} ms ({BATCH / v * 1e3:.1f} frames/s)" for k, v in steps.items()))
+    log("  eval step: " + ", ".join(f"{k} {v:.3f} ms" for k, v in evals.items()))
+
+    args = train_args("", "", "")
+    transform = normalized_transform(make_transform(args), *[np.asarray(v) for v in norm])
+    scorers = {}
+    for name, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
+        torch.manual_seed(0)
+        scorers[name] = make_score_fn(DCNN(time_dim=12, dtype=dtype), transform, "cuda")
+    gen = torch.Generator().manual_seed(19)
+    out["scorer_ms"] = {}
+    for b in (64, 128):
+        audio = (0.3 * torch.randn(b, 1, SR, generator=gen)).cuda()
+        sms = median_ms({name: (lambda fn=fn: fn(audio)) for name, fn in scorers.items()}, reps=5)
+        diff = (scorers["bf16"](audio) - scorers["fp32"](audio)).abs().max().item()
+        out["scorer_ms"][b] = {**sms, "p_fake_bf16_vs_fp32": diff,
+                               **{f"{k}_frames_per_s": b / v * 1e3 for k, v in sms.items()}}
+        log(f"  scorer B={b}: fp32 {sms['fp32']:.3f} ms, bf16 {sms['bf16']:.3f} ms "
+            f"({b / sms['bf16'] * 1e3:.1f} frames/s); max |P(fake) bf16 - fp32| {diff:.3e}")
+    return out, {"dcnn_b_bf16": fns["dcnn_b_bf16"][0], "lcnn_bf16": fns["lcnn_bf16"][0]}
+
+
+
+def bf16_rows(run, errs, times):
+    """The ``kernels`` rows of kernels 2, 3, 5 and 6 in bf16 on phase 21's
+    path: launches from its bf16 runs, errors and times from its checks."""
+    src = "audiodeepfake_detection_tpu_torch/csrc/"
+    table = (
+        ("fused_conv1", "conv1", "dcnn", "fused_conv1.cu", "fused_conv1.py:376",
+         "fused_conv1.py:472"),
+        ("fused_conv_mfm", "mfm", "lcnn", "fused_conv1.cu", "fused_conv1.py:756",
+         "fused_conv1.py:806"),
+        ("fused_pool", "pool", "dcnn", "fused_pool.cu", "fused_pool.py:197",
+         "fused_pool.py:241"),
+        ("fused_conv2", "conv2", "dcnn", "fused_conv2.cu", "fused_conv2.py:323",
+         "fused_conv2.py:383"),
+    )
+    rows = []
+    for name, key, model, source, fwd_line, bwd_line in table:
+        t = times[key]
+        for way, line, err in (("fwd", fwd_line, errs[key]["fwd_max_abs_err"]),
+                               ("bwd", bwd_line, errs[key]["grad_max_abs_err"])):
+            rows.append({
+                "name": f"{name}_{way}_bf16", "route": "cuda", "source": src + source,
+                "replaces": f"audiodeepfake_detection_tpu/ops/{line}", "dtype": "bfloat16",
+                "x": errs[key]["x"], "launches": run[model]["launches"][f"{key}_{way}"],
+                "max_abs_err": err, "ms": t[f"{way}_kernel_ms"], "plain_ms": t[f"{way}_plain_ms"],
+                "device_ms": t[f"{way}_device_ms"], "bound_ms": t[f"{way}_bound_ms"],
+                "bound_by": t[f"{way}_bound_by"], "library_ms": None,
+            })
+    return rows
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2382,6 +2748,20 @@ def main() -> None:
         del ast_steps
         log("[20 train on 2 s frames]")
         long_run = train_long(wpt, wpt_cuda, flash_attention_cuda, root, data, card_line)
+        log("[21 the CNNs in bf16]")
+        bf16_run = train_bf16(wpt_cuda, fused_conv1_cuda, fused_pool_cuda, fused_conv2_cuda,
+                              root, data, trained["unfused_losses"])
+        log("  kernels 2, 3, 5 and 6 in bf16 against plain, at the path's shapes")
+        bf16_errs = bf16_vs_plain(fused_conv1, fused_pool, fused_conv2)
+        log("  time")
+        bf16_times, bf16_steps = bf16_timing(
+            fused_conv1, fused_conv1_cuda, fused_pool, fused_pool_cuda, fused_conv2,
+            fused_conv2_cuda, trained["norm"], lcnn["norm"], card_line)
+        bf16_prof = {}
+        for name, step in bf16_steps.items():
+            log(f"  profile of the {name} step")
+            bf16_prof[name] = profile_train(step)
+        del bf16_steps
 
     main_key = f"{MAIN[0]}-L{MAIN[1]}-B64-T{SR}"
     train_key = "B{}-H{}-W{}-C{}-float32".format(*TRAIN_SHAPE)
@@ -2581,6 +2961,7 @@ def main() -> None:
             "split": long_run["wpt_long"]["split"],
             "bound_ms": long_b, "bound_by": long_by, "library_ms": None,
         },
+        *bf16_rows(bf16_run, bf16_errs, bf16_times),
     ]}))
     trained.pop("norm")
     lcnn.pop("norm")
@@ -2595,7 +2976,8 @@ def main() -> None:
         "mid_vs_plain": mid_errs, "mid_hmma": mid_mma, "mid_train": mid, "mid_timing": mid_times,
         "mid_profile": mid_prof, "mha_vs_plain": mha_errs, "mha_hmma": mma,
         "ast_train": ast_run, "ast_timing": ast_times, "ast_profile": ast_prof,
-        "long_frames": long_run,
+        "long_frames": long_run, "bf16_train": bf16_run, "bf16_vs_plain": bf16_errs,
+        "bf16_timing": bf16_times, "bf16_profile": bf16_prof,
     }))
     print(card_line)
     print(json.dumps({"ok": True, "device": {

@@ -265,9 +265,9 @@ def test_factory_geometry_and_knobs():
         get_model(DotDict(base, ast_remat_policy="dots_saveable"), "modules")
     with pytest.raises(NotImplementedError, match="slice 6"):
         ast.ASTModel(**GEOMETRY, quant="calibrate")
-    with pytest.raises(NotImplementedError, match="bf16 mode of the CNNs"):
-        get_model(DotDict(input_dim=[8, 1, 256, 95], module="DCNN", dtype="bfloat16",
-                          flattend_size=320, time_dim_add=1), "modules")
+    dcnn = get_model(DotDict(input_dim=[8, 1, 256, 95], module="DCNN", dtype="bfloat16",
+                             flattend_size=320, time_dim_add=1), "modules")
+    assert dcnn.get_name() == "DCNN" and dcnn.dtype == torch.bfloat16
 
 
 def test_initialisation_follows_flax():

@@ -84,13 +84,12 @@ def test_stats_variant_moments_and_gradients_match_jax(h, w, c):
     gs = (rng.randn(c) * 0.5).astype(np.float32)
     gq = (rng.randn(c) * 0.05).astype(np.float32)
 
-    def loss(w_, b_, a_):
-        y, s, q = jfc.fused_conv1_prelu_pool_stats(jnp.asarray(arrays[0]), w_, b_, a_)
-        return jnp.sum(y * g) + jnp.sum(s * gs) + jnp.sum(q * gq)
-
-    jparams = tuple(map(jnp.asarray, arrays[1:]))
-    jy, js, jq = jfc.fused_conv1_prelu_pool_stats(jnp.asarray(arrays[0]), *jparams)
-    want = jax.grad(loss, argnums=(0, 1, 2))(*jparams)
+    # one pass of the interpreted kernel gives the outputs and, from the
+    # same residuals, the gradients
+    (jy, js, jq), vjp = jax.vjp(
+        lambda *p: jfc.fused_conv1_prelu_pool_stats(jnp.asarray(arrays[0]), *p),
+        *map(jnp.asarray, arrays[1:]))
+    want = vjp((jnp.asarray(g), jnp.asarray(gs), jnp.asarray(gq)))
 
     x, *params = _t(arrays)
     y, s, q = tfc.fused_conv1_prelu_pool_stats(x, *params)
@@ -121,15 +120,9 @@ def test_bf16_io_matches_jax():
     j16 = [jnp.asarray(a).astype(jnp.bfloat16) for a in arrays]
     g16 = jnp.asarray(g).astype(jnp.bfloat16)
 
-    def loss(w_, b_, a_):
-        y, s, q = jfc.fused_conv1_prelu_pool_stats(j16[0], w_, b_, a_)
-        return (
-            jnp.sum(y.astype(jnp.float32) * g16.astype(jnp.float32))
-            + jnp.sum(s * gs) + jnp.sum(q * gq)
-        )
-
-    jy, js, jq = jfc.fused_conv1_prelu_pool_stats(*j16)
-    want = jax.grad(loss, argnums=(0, 1, 2))(*j16[1:])
+    (jy, js, jq), vjp = jax.vjp(
+        lambda *p: jfc.fused_conv1_prelu_pool_stats(j16[0], *p), *j16[1:])
+    want = vjp((g16, jnp.asarray(gs), jnp.asarray(gq)))
 
     x, *params = _t(arrays, dtype=torch.bfloat16)
     y, s, q = tfc.fused_conv1_prelu_pool_stats(x, *params)
@@ -181,12 +174,11 @@ def test_negative_alpha_matches_jax():
     arrays = _inputs(33, 40, 4, seed=4, alpha=-0.5)
     g = np.random.RandomState(1).randn(2, *tfc.pad_geometry(33, 40), 4).astype(np.float32)
 
-    def loss(w_, b_, a_):
-        return jnp.sum(jfc.fused_conv1_prelu_pool(jnp.asarray(arrays[0]), w_, b_, a_) * g)
-
-    jparams = tuple(map(jnp.asarray, arrays[1:]))
-    want_y = np.asarray(jfc.fused_conv1_prelu_pool(jnp.asarray(arrays[0]), *jparams))
-    want = jax.grad(loss, argnums=(0, 1, 2))(*jparams)
+    want_y, vjp = jax.vjp(
+        lambda *p: jfc.fused_conv1_prelu_pool(jnp.asarray(arrays[0]), *p),
+        *map(jnp.asarray, arrays[1:]))
+    want = vjp(jnp.asarray(g))
+    want_y = np.asarray(want_y)
     x, *params = _t(arrays)
     y = tfc.fused_conv1_prelu_pool(x, *params)
     np.testing.assert_allclose(y.detach().numpy(), want_y, rtol=0, atol=FWD_ATOL)

@@ -3,6 +3,8 @@
 equal outputs on the JAX tests' model strings.
 """
 
+import copy
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -158,6 +160,8 @@ def test_factory_lcnn_lstm_channels_rule(features, want):
 
 
 def test_factory_gridmodel_regression_and_what_stays_unported():
+    # building a grid model parses its spec in place, as in the JAX package
+    model_data, shape, _ = copy.deepcopy(MODELS["conv-pool-linear"])
     with pytest.raises(RuntimeError, match="model_data"):
         factory.get_model(DotDict(), "gridmodel")
     model = factory.get_model(DotDict(model_data=MODELS["conv-pool-linear"][0]), "gridmodel")
@@ -168,10 +172,14 @@ def test_factory_gridmodel_regression_and_what_stays_unported():
     with pytest.raises(NotImplementedError, match="remat_policy"):
         factory.get_model(DotDict(module="AST", input_dim=[4, 1, 256, 101],
                                   ast_remat_policy="dots_saveable"), "modules")
-    with pytest.raises(NotImplementedError, match="bf16 mode of the CNNs"):
-        factory.get_model(DotDict(features="none", num_of_scales=256, dtype="bfloat16"), "lcnn")
-    with pytest.raises(NotImplementedError, match="bf16 mode of the CNNs"):
-        factory.get_model(DotDict(model_data=MODELS["conv-pool-linear"][0], dtype="bfloat16"),
-                          "gridmodel")
+    # dtype: bfloat16 reaches the LCNN; the grid model ignores it and runs
+    # float32, as the JAX package's (its get_gridsearch_model takes no dtype)
+    lcnn = factory.get_model(DotDict(features="none", num_of_scales=256, dtype="bfloat16"),
+                             "lcnn")
+    assert lcnn.dtype == torch.bfloat16
+    grid = factory.get_model(DotDict(model_data=model_data, dtype="bfloat16"), "gridmodel")
+    assert grid.get_name() == "GridModel"
+    assert all(p.dtype == torch.float32 for p in grid.parameters())
+    assert grid(torch.zeros(shape)).dtype == torch.float32
     with pytest.raises(ValueError, match="in_channels == 1"):
         factory.get_model(DotDict(num_of_scales=256, fused_layer1=True), "lcnn", in_channels=2)

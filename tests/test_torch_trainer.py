@@ -229,12 +229,39 @@ def test_unsupported_trainer_flags_name_their_slice(tmp_path, flag, value, where
     "extra,where",
     [(dict(only_ig=True), "slice 9"), (dict(tensorboard=True), "slice 9"),
      (dict(frame_cache=True), "slice 8"),
-     (dict(dtype="bfloat16"), "bf16 mode of the CNNs"),
      (dict(block_norm=True, calc_normalization=True), "slice 9")],
 )
 def test_unsupported_experiment_flags_name_their_slice(corpus, tmp_path, extra, where):
     with pytest.raises(NotImplementedError, match=where):
         run_experiment(_args(corpus, tmp_path / "log", tmp_path / "meta", **extra))
+
+
+def test_dcnn_bf16_mode_trains_through_run_experiment(corpus, tmp_path):
+    """``dtype: bfloat16`` with all three fused flags (their plain versions
+    on the CPU) and bf16 Adam moments: the full-width DCNN trains, keeps
+    float32 parameters and buffers, and scores through ``make_score_fn`` as
+    its eval step does.  The snapshot is the float32 state dict, and the
+    scorer built from it runs float32, as in the JAX package."""
+    extra = dict(dtype="bfloat16", adam_moments_dtype="bfloat16", fused_pool=True,
+                 fused_layer2=True, epochs=1, dropout_cnn=0.0, dropout_lstm=0.0)
+    trainer = run_experiment(_args(corpus, tmp_path / "log", tmp_path / "meta", **extra))
+    model = trainer.model
+    assert model.dtype == torch.bfloat16 and model.fused_layer1 is True
+    losses = [row[2] for row in trainer.loss_list]
+    assert len(losses) == 2 and np.isfinite(losses).all()
+    assert all(v.dtype != torch.bfloat16 for v in model.state_dict().values())
+    moments = trainer.optimizer.state[model.cnn[0].weight]
+    assert moments["exp_avg"].dtype == moments["exp_avg_sq"].dtype == torch.bfloat16
+    clip = (0.3 * np.tanh(np.random.RandomState(5).randn(2, 1, SR))).astype(np.float32)
+    own = trainer.eval_step(
+        {"audio": torch.from_numpy(clip), "label": torch.zeros(2, dtype=torch.int32)}
+    )["scores"].numpy()
+    got = predict.make_score_fn(model, trainer.transform, "cpu")(torch.from_numpy(clip))
+    np.testing.assert_array_equal(got.numpy(), own)
+    scorer, transform, _ = predict.build_scorer_from_snapshot(trainer.snapshot_path)
+    assert scorer.dtype is None
+    fp32 = predict.make_score_fn(scorer, transform, "cpu")(torch.from_numpy(clip)).numpy()
+    assert np.abs(fp32 - own).max() < 0.05  # the same weights, bf16 against float32
 
 
 @pytest.mark.parametrize(
