@@ -28,14 +28,22 @@ Initialisation follows the flax module: lecun-normal kernels (truncated at
 two standard deviations), zero biases, unit LayerNorm scales, zero class
 and distillation tokens, a truncated-normal (0.02) positional embedding.
 
-Not carried: post-training int8 (``quant``, ROADMAP.md slice 6) and
-``remat_policy`` (a ``jax.checkpoint_policies`` name; ROADMAP.md
-"Left out of slice 5"); each raises ``NotImplementedError``.
+``quant`` is the JAX model's post-training int8 (``ops/quantize.py``):
+``"calibrate"`` records the input absmax of each block's ``qkv``,
+``proj``, ``fc1`` and ``fc2`` (sites ``block_{i}/qkv`` and so on), a
+``{site: act_scale}`` dict runs those matmuls on the int8 path
+(``torch._int_mm``, per-output weight scales; the dequantized ``qkv``
+feeds the fused attention as it is).  The patch embedding and the head
+stay in the working type; calling a scales dict in training raises.
+
+Not carried: ``remat_policy`` (a ``jax.checkpoint_policies`` name;
+ROADMAP.md "Left out of slice 5"), which raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import math
+from collections.abc import Mapping
 from typing import Optional
 
 import torch
@@ -44,6 +52,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.flash_attention import flash_mha_packed
+from ..ops.quantize import dense_int8_weights, int8_sites, quantized_dense
 
 _SIZES = {
     "tiny224": dict(embed_dim=192, depth=12, num_heads=3),
@@ -149,12 +158,23 @@ class _Block(nn.Module):
     def _dropout(self, x: torch.Tensor, rate: float) -> torch.Tensor:
         return F.dropout(x, rate, self.training) if rate else x
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, sites=None) -> torch.Tensor:
+        """``sites``: the block's int8 sites (``Int8Sites`` scoped to
+        ``block_{i}/``), or None."""
         dt = self.dtype
+
+        def dense(layer: nn.Linear, h: torch.Tensor, name: str) -> torch.Tensor:
+            scale = sites.scale(name, h) if sites is not None else None
+            if scale is None:
+                return _dense(layer, h, dt)
+            rec = sites.baked(name, lambda: dense_int8_weights(layer.weight))
+            y = quantized_dense(h, layer.weight, scale, out_dtype=h.dtype, baked=rec)
+            return y + layer.bias.to(h.dtype)
+
         h = _layer_norm(self.norm1, x, dt)
         b, n, d = h.shape
         head_dim = d // self.num_heads
-        qkv = _dense(self.attn.qkv, h, dt)
+        qkv = dense(self.attn.qkv, h, "qkv")
         if self.fused_attention and self.attn_drop_rate == 0.0:
             # the kernel takes the Dense output's [B, N, 3HD] layout as it is
             h = flash_mha_packed(qkv, self.num_heads, 1.0 / math.sqrt(head_dim))
@@ -163,11 +183,11 @@ class _Block(nn.Module):
             attn = torch.einsum("bnhd,bmhd->bhnm", q, k) / math.sqrt(head_dim)
             attn = self._dropout(torch.softmax(attn, dim=-1), self.attn_drop_rate)
             h = torch.einsum("bhnm,bmhd->bnhd", attn, v).reshape(b, n, d)
-        h = self._dropout(_dense(self.attn.proj, h, dt), self.drop_rate)
+        h = self._dropout(dense(self.attn.proj, h, "proj"), self.drop_rate)
         x = x + self.drop_path(h)
         h = _layer_norm(self.norm2, x, dt)
-        h = self._dropout(F.gelu(_dense(self.mlp.fc1, h, dt)), self.drop_rate)
-        h = self._dropout(_dense(self.mlp.fc2, h, dt), self.drop_rate)
+        h = self._dropout(F.gelu(dense(self.mlp.fc1, h, "fc1")), self.drop_rate)
+        h = self._dropout(dense(self.mlp.fc2, h, "fc2"), self.drop_rate)
         return x + self.drop_path(h)
 
 
@@ -217,11 +237,6 @@ class ASTModel(nn.Module):
         quant=None,
     ) -> None:
         super().__init__()
-        if quant is not None:
-            raise NotImplementedError(
-                "quant (post-training int8 AST) is not ported yet (ROADMAP.md "
-                "queue 1, slice 6: int8 and export)"
-            )
         if remat_policy is not None:
             raise NotImplementedError(
                 f"remat_policy={remat_policy!r} (a jax.checkpoint_policies name) "
@@ -235,6 +250,7 @@ class ASTModel(nn.Module):
         self.input_fdim, self.input_tdim = input_fdim, input_tdim
         self.model_size = model_size
         self.dtype = None if dtype == torch.float32 else dtype
+        self.quant = quant
         self.fused_attention = fused_attention
         self.remat_blocks = remat_blocks
         self.drop_rate = drop_rate
@@ -276,11 +292,13 @@ class ASTModel(nn.Module):
 
     def encode(self, h: torch.Tensor) -> torch.Tensor:
         """The DeiT encoder: all transformer blocks in sequence."""
-        for block in self.v.blocks:
+        sites = int8_sites(self)
+        for i, block in enumerate(self.v.blocks):
+            scoped = sites.scope(f"block_{i}/") if sites is not None else None
             if self.remat_blocks and self.training and torch.is_grad_enabled():
-                h = checkpoint(block, h, use_reentrant=False)
+                h = checkpoint(block, h, scoped, use_reentrant=False)
             else:
-                h = block(h)
+                h = block(h, scoped)
         return h
 
     def classify(self, h: torch.Tensor) -> torch.Tensor:
@@ -290,6 +308,11 @@ class ASTModel(nn.Module):
         return self.mlp_head(h)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and isinstance(self.quant, Mapping):
+            raise ValueError(
+                "quant is inference-only (int8 rounding has no gradient); call the "
+                "model in eval mode"
+            )
         return self.classify(self.encode(self.embed(x)))
 
     def get_name(self) -> str:

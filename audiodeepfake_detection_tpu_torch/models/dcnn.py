@@ -50,6 +50,16 @@ every state dict loads under every flag:
 * ``fused_pool``: PReLU + pool ``cnn[8:10]`` (unless ``fused_layer2`` took
   them) and ``cnn[18:20]`` through ``ops/fused_pool.py``, the first with
   moments for ``cnn[10]`` in training.
+
+``quant`` is the JAX model's post-training int8 (``ops/quantize.py``;
+inference only, training with it raises): ``"calibrate"`` records the
+input absmax of each conv site, a ``{site: act_scale}`` dict runs those
+sites on the int8 path, their BatchNorm folded into the quantized weights
+(``layers.folded_bn_conv(..., act_scale=)``).  The sites are named by the
+conv's index in ``cnn`` / ``dil_conv``, as the JAX modules are: ``cnn_0``,
+``cnn_4``, ``cnn_7``, ``cnn_11``, ``cnn_14``, ``cnn_17``, ``dil_1``,
+``dil_4``, ``dil_7``.  A fused block that runs in eval (``"always"``) takes
+precedence and its conv stays unquantized, as in the JAX model.
 """
 
 from __future__ import annotations
@@ -62,6 +72,7 @@ from torch import nn
 from ..ops.fused_conv1 import fused_conv1_prelu_pool, fused_conv1_prelu_pool_stats
 from ..ops.fused_conv2 import fused_conv2_prelu_pool, fused_conv2_prelu_pool_stats
 from ..ops.fused_pool import fused_prelu_pool, fused_prelu_pool_stats
+from ..ops.quantize import check_quant_eval, int8_sites
 from .layers import (
     batch_norm_from_moments,
     batch_norm_scale_shift,
@@ -104,9 +115,11 @@ class DCNN(nn.Module):
         fused_pool: Union[bool, str] = False,
         fused_layer2: Union[bool, str] = False,
         dtype: Optional[torch.dtype] = None,
+        quant=None,
     ) -> None:
         super().__init__()
         self.dtype = compute_dtype(dtype)
+        self.quant = quant
         for name, flag in (("fused_layer1", fused_layer1), ("fused_pool", fused_pool),
                            ("fused_layer2", fused_layer2)):
             if flag not in (False, True, "always"):
@@ -222,15 +235,17 @@ class DCNN(nn.Module):
         return fused_prelu_pool(x.contiguous(), alpha), at + 2
 
     def _cnn(self, x: torch.Tensor) -> torch.Tensor:
-        """``self.cnn(x)``, with the blocks the flags name run fused."""
+        """``self.cnn(x)``, with the blocks the flags name run fused (a
+        fused block's conv is no int8 site, as in the JAX model)."""
 
         def on(flag) -> bool:
             return bool(flag) and (self.training or flag == "always")
 
         layers = list(self.cnn)
+        sites = int8_sites(self, "cnn_")
 
         def run(x, start: int, stop: int):
-            return run_layers(layers[start:stop], x, self.dtype is not None)
+            return run_layers(layers[start:stop], x, self.dtype is not None, sites, start)
 
         if not (on(self.fused_layer1) or on(self.fused_pool) or on(self.fused_layer2)):
             return run(x, 0, len(layers))
@@ -252,6 +267,7 @@ class DCNN(nn.Module):
         return run(x, nxt, len(layers))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        check_quant_eval(self)
         # [B, C, F, T] -> [B, C, T, F]: time on H (reference permute)
         x = x.permute(0, 1, 3, 2)
         if self.dtype is not None:
@@ -261,7 +277,8 @@ class DCNN(nn.Module):
         # of the dilated block (reference models.py:307)
         x = x.permute(0, 2, 1, 3)
         if self.with_dilation:
-            x = run_layers(list(self.dil_conv), x, self.dtype is not None)
+            x = run_layers(list(self.dil_conv), x, self.dtype is not None,
+                           int8_sites(self, "dil_"))
         # the reference's Linear(flattend_size, 2) fails on a geometry
         # mismatch; say which numbers disagree
         width = x.shape[2] * x.shape[3]

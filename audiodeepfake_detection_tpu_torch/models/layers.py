@@ -19,7 +19,10 @@ Counterparts in ``audiodeepfake_detection_tpu/models/layers.py``:
   casts:
   :func:`folded_bn_conv` for every BatchNorm -> conv pair, and
   :func:`conv_in_dtype`, :func:`prelu_in_dtype`, :func:`linear_in_dtype`
-  for flax's ``Conv`` / ``PReLU`` / ``Dense`` with ``dtype``.
+  for flax's ``Conv`` / ``PReLU`` / ``Dense`` with ``dtype``; with the
+  model's int8 sites, each site's convolution on the int8 path
+  (``folded_bn_conv(..., act_scale=)`` for the JAX function's int8 branch,
+  :func:`quantized_conv_bias` for the un-normalised sites).
 
 Everything else the JAX module holds (``Conv2d``, ``PReLU``, ...) is
 ``torch.nn`` here.  In float32 its ``folded_bn_conv`` is a schedule of
@@ -30,9 +33,14 @@ in a compute type the rounding points are the result, so
 
 from __future__ import annotations
 
+from functools import partial
+from typing import Callable, Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops.quantize import conv_int8_weights, quantized_conv
 
 
 def compute_dtype(dtype):
@@ -130,7 +138,12 @@ def _conv_args(conv: nn.Conv2d):
 
 
 def folded_bn_conv(
-    bn: nn.BatchNorm2d, conv: nn.Conv2d, x: torch.Tensor, moments=None
+    bn: nn.BatchNorm2d,
+    conv: nn.Conv2d,
+    x: torch.Tensor,
+    moments=None,
+    act_scale: Optional[float] = None,
+    baked: Optional[Callable] = None,
 ) -> torch.Tensor:
     """``conv(bn(x))`` in ``x``'s compute type, folded as the JAX package's
     ``folded_bn_conv``: with ``bn(x) = x * s + t`` (float32 ``s``, ``t``),
@@ -140,13 +153,27 @@ def folded_bn_conv(
     compute type, and ``t``, ``weight`` and the bias are cast to it.
     ``moments``: the ``(sum, sumsq)`` of ``x`` when a fused block has
     accumulated them, else :func:`one_pass_moments` in training, as in the
-    JAX function."""
+    JAX function.
+
+    ``act_scale``: the site's calibrated activation scale; the main
+    convolution then runs on the int8 path (``ops/quantize.py``) with the
+    weights folded in float32 and quantized per output channel, and the
+    map's convolution and the bias stay in the compute type.  ``baked``
+    (``Int8Sites.baked`` of the site) gives the site's baked record from
+    the function that makes it, or None."""
     dt = x.dtype
     if bn.training and moments is None:
         moments = one_pass_moments(x)
     s, t = batch_norm_scale_shift(bn, x, moments)
     weight = conv.weight
-    y = F.conv2d(x, (weight * s.reshape(1, -1, 1, 1)).to(dt), None, *_conv_args(conv))
+    if act_scale is None:
+        y = F.conv2d(x, (weight * s.reshape(1, -1, 1, 1)).to(dt), None, *_conv_args(conv))
+    else:
+        # folded in float32: the codes do not inherit the compute type's rounding
+        w32 = weight.float() * s.reshape(1, -1, 1, 1)
+        rec = baked(lambda: conv_int8_weights(w32)) if baked is not None else None
+        y = quantized_conv(x, w32, act_scale, conv.padding[0], conv.dilation[0],
+                           out_dtype=dt, baked=rec)
     t_map = t.to(dt).reshape(1, -1, 1, 1).expand(1, x.shape[1], *x.shape[2:])
     const = F.conv2d(t_map, weight.to(dt), None, *_conv_args(conv))
     return y + const + conv.bias.to(dt).reshape(-1, 1, 1)
@@ -172,25 +199,54 @@ def linear_in_dtype(linear: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
     return F.linear(x.to(dtype), linear.weight.to(dtype)) + linear.bias.to(dtype)
 
 
-def run_layers(layers, x: torch.Tensor, folded: bool) -> torch.Tensor:
+def quantized_conv_bias(
+    conv: nn.Conv2d, x: torch.Tensor, act_scale: float, baked: Optional[Callable] = None
+) -> torch.Tensor:
+    """An un-normalised conv site on the int8 path (the JAX DCNN's ``cnn_0``,
+    the LCNN's ``lcnn_0``, ``lcnn_3`` and ``lcnn_16``): ``quantized_conv(x,
+    weight, act_scale) + bias``, in ``x``'s type."""
+    w32 = conv.weight.float()
+    rec = baked(lambda: conv_int8_weights(w32)) if baked is not None else None
+    y = quantized_conv(x, w32, act_scale, conv.padding[0], conv.dilation[0],
+                       out_dtype=x.dtype, baked=rec)
+    return y + conv.bias.to(x.dtype).reshape(-1, 1, 1)
+
+
+def run_layers(layers, x: torch.Tensor, folded: bool, sites=None, start: int = 0) -> torch.Tensor:
     """``layers`` (a list of modules) on ``x``: as they are, or ``folded``,
     in ``x``'s compute type with the JAX models' casts: each BatchNorm folds
     into the convolution that follows it (:func:`folded_bn_conv`),
     convolutions and PReLUs cast their parameters, pools, dropout and
-    MaxFeatureMap run as they are."""
-    if not folded:
+    MaxFeatureMap run as they are.
+
+    ``sites`` (``ops.quantize.Int8Sites``, or None): the model's int8 sites;
+    the convolution at index ``start + i`` of the model's sequence is the
+    site ``sites.prefix + str(start + i)``, calibrated on its input (the
+    input of the BatchNorm in front of it, if any) and, where the scales
+    include it, run on the int8 path, its BatchNorm folded."""
+    if not folded and sites is None:
         for layer in layers:
             x = layer(x)
         return x
     i = 0
     while i < len(layers):
         layer = layers[i]
-        if isinstance(layer, nn.BatchNorm2d):
-            x = folded_bn_conv(layer, layers[i + 1], x)
-            i += 1
-        elif isinstance(layer, nn.Conv2d):
-            x = conv_in_dtype(layer, x)
-        elif isinstance(layer, nn.PReLU):
+        if isinstance(layer, (nn.BatchNorm2d, nn.Conv2d)):
+            bn = layer if isinstance(layer, nn.BatchNorm2d) else None
+            if bn is not None:
+                i += 1
+            conv, name = layers[i], str(start + i)
+            scale = sites.scale(name, x) if sites is not None else None
+            baked = partial(sites.baked, name) if scale is not None else None
+            if bn is not None and (folded or scale is not None):
+                x = folded_bn_conv(bn, conv, x, act_scale=scale, baked=baked)
+            elif bn is not None:
+                x = conv(bn(x))
+            elif scale is not None:
+                x = quantized_conv_bias(conv, x, scale, baked)
+            else:
+                x = conv_in_dtype(conv, x) if folded else conv(x)
+        elif isinstance(layer, nn.PReLU) and folded:
             x = prelu_in_dtype(layer, x)
         else:
             x = layer(x)

@@ -31,6 +31,15 @@ float32, as the JAX package's do: its input projection multiplies the
 bfloat16 sequence by the float32 ``w_ih``, which promotes.  The head is a
 bfloat16 ``Dense``; the logits are averaged in bfloat16 and returned in
 float32.
+
+``quant`` is the JAX model's post-training int8 (``ops/quantize.py``;
+inference only): ``"calibrate"`` records the input absmax of each of the
+nine convs, ``lcnn_0``, ``lcnn_3``, ``lcnn_6``, ``lcnn_10``, ``lcnn_13``,
+``lcnn_16``, ``lcnn_19``, ``lcnn_22``, ``lcnn_25`` (named by their index
+in ``lcnn``), and a ``{site: act_scale}`` dict runs those sites on the
+int8 path, a BatchNorm in front folded into the quantized weights.  The
+BLSTMs and the head stay in the working type; a fused first block that
+runs in eval takes precedence over ``lcnn_0``, as in the JAX model.
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ import torch
 from torch import nn
 
 from ..ops.fused_conv1 import fused_conv_mfm_pool
+from ..ops.quantize import check_quant_eval, int8_sites
 from .layers import BLSTMLayer, MaxFeatureMap2D, compute_dtype, linear_in_dtype, run_layers
 
 
@@ -63,9 +73,11 @@ class LCNN(nn.Module):
         fused_layer1: Union[bool, str] = False,
         dropout: float = 0.7,
         dtype: Optional[torch.dtype] = None,
+        quant=None,
     ) -> None:
         super().__init__()
         self.dtype = compute_dtype(dtype)
+        self.quant = quant
         if fused_layer1 not in (False, True, "always"):
             raise ValueError(
                 f"fused_layer1 must be False, True or 'always': {fused_layer1!r}"
@@ -115,9 +127,11 @@ class LCNN(nn.Module):
             conv.bias.to(dt),
         )
         x = out.permute(0, 3, 1, 2)  # the block stores NCHW: contiguous
-        return run_layers(list(self.lcnn)[3:], x, self.dtype is not None)
+        return run_layers(list(self.lcnn)[3:], x, self.dtype is not None,
+                          int8_sites(self, "lcnn_"), 3)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        check_quant_eval(self)
         # [B, C, F, T] -> [B, C, T, F]: time on H (reference permute)
         x = x.permute(0, 1, 3, 2)
         if self.dtype is not None:
@@ -125,7 +139,8 @@ class LCNN(nn.Module):
         if self.fused_layer1 and (self.training or self.fused_layer1 == "always"):
             x = self._fused_first_block(x)
         else:
-            x = run_layers(list(self.lcnn), x, self.dtype is not None)
+            x = run_layers(list(self.lcnn), x, self.dtype is not None,
+                           int8_sites(self, "lcnn_"))
         # [B, 32, T', F'] -> [B, T', 32 * F']: per time step, channels major
         # and frequency minor (reference models.py:126-128)
         x = x.permute(0, 2, 1, 3).flatten(2)

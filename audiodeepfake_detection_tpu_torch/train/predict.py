@@ -116,6 +116,7 @@ def score_files(
     self_norm: bool = False,
     output: str = "prob",
     chunk: int = 0,
+    int8: bool = False,
 ) -> Dict[str, float]:
     """Per-file fake probability (or logit margin), aggregated over frames.
 
@@ -123,6 +124,10 @@ def score_files(
     scored frames themselves (one extra transform pass) — an approximation
     of the training-corpus Welford stats for snapshots that ship without a
     ``*_mean_std.pkl``.
+
+    ``int8`` quantizes the model post-training (``ops/quantize.py``): its
+    activation scales calibrated on at most 4 batches of the scored frames,
+    its weights baked once (:func:`quantize_for_scoring`).
     """
     device = resolve_device(device)
     win = int(seconds * sample_rate)
@@ -151,6 +156,8 @@ def score_files(
         )
         transform = normalized_transform(transform, mean, std)
 
+    if int8:
+        model = quantize_for_scoring(model, transform, frames, device, batch_size)
     score = make_score_fn(model, transform, device, output=output, chunk=chunk)
     scores = np.zeros(len(frames), np.float32)
     outs: list = []
@@ -177,6 +184,43 @@ def score_files(
         paths[fi]: float(agg(scores[owners_arr == fi]))
         for fi in np.unique(owners_arr)
     }
+
+
+def quantize_for_scoring(
+    model: nn.Module,
+    transform: Callable,
+    frames: Sequence[np.ndarray],
+    device: torch.device | str,
+    batch_size: int,
+    max_batches: int = 4,
+) -> nn.Module:
+    """The int8 scorer of ``model``: calibrated on the transform of at most
+    ``max_batches`` batches of ``frames``, its weights baked from the first
+    batch (the JAX package's ``quantize_model`` + ``bake_int8_weights``).
+    The DCNN family quantizes its six front convs (``DEFAULT_INT8_SITES``),
+    the LCNN its nine convs and the AST its block matmuls (every observed
+    site); other models raise.  ``model`` moves to ``device`` in eval mode
+    and is otherwise left as it was."""
+    from ..models.dcnn import DCNN
+    from ..ops.quantize import DEFAULT_INT8_SITES, bake_int8_weights, quantize_model
+
+    if not hasattr(model, "quant"):
+        raise ValueError(
+            "int8 scoring supports the DCNN, LCNN and AST families only "
+            f"(got {type(model).__name__})"
+        )
+    device = resolve_device(device)
+    model = model.to(device).eval()
+    include = DEFAULT_INT8_SITES if isinstance(model, DCNN) else None
+
+    def images(n: int):
+        with torch.no_grad():
+            for start in range(0, min(len(frames), n * batch_size), batch_size):
+                chunk = np.stack(frames[start : start + batch_size])[:, None, :]
+                yield transform(torch.from_numpy(chunk).to(device))
+
+    qmodel, _ = quantize_model(model, images(max_batches), include=include)
+    return bake_int8_weights(qmodel, next(images(1)))
 
 
 # --------------------------------------------------------------------- CLI
@@ -344,7 +388,8 @@ def main(argv=None) -> None:
     )
     parser.add_argument(
         "--int8", action="store_true",
-        help="post-training int8 quantization (not ported yet)",
+        help="post-training int8 quantization, calibrated on the first "
+        "scored batches (DCNN, LCNN and AST families)",
     )
     parser.add_argument(
         "--chunk", type=int, default=0,
@@ -363,11 +408,6 @@ def main(argv=None) -> None:
             "--self-norm conflicts with --norm/--mean/--std: the explicit "
             "stats already normalize the transform, and self-norm would "
             "normalize the result a second time"
-        )
-    if args.int8:
-        raise NotImplementedError(
-            "--int8 scoring is not ported yet (ROADMAP.md queue 1, slice 6: "
-            "int8 and export)"
         )
     # fp32 convolutions, like the JAX reference's HIGHEST precision
     torch.backends.cudnn.allow_tf32 = False
@@ -392,6 +432,7 @@ def main(argv=None) -> None:
         aggregate=args.aggregate,
         self_norm=args.self_norm,
         chunk=args.chunk,
+        int8=args.int8,
     )
     if args.as_json:
         print(json.dumps(scores, indent=2, sort_keys=True))

@@ -105,6 +105,7 @@ class ScoringService:
         self._queue: "queue.Queue" = queue.Queue()
         self._thread: Optional[threading.Thread] = None
         self._stop = object()
+        self.model = model  # the scoring model (an int8 one carries its scales)
         self.model_name = type(model).__name__
         self.n_scored = 0
         self.n_dispatches = 0
@@ -423,24 +424,39 @@ def service_from_snapshot(
 ) -> ScoringService:
     """Build a ready-to-start service from a config-encoded ``.pt``.
 
-    ``int8`` (with ``calibrate``) is not ported yet and raises.
+    ``int8`` quantizes post-training (``ops/quantize.py``) with activation
+    scales calibrated on ``calibrate`` (files/dirs; at most 4 batches of
+    their frames) through the same normalized transform the service scores
+    with, and bakes the int8 weights once.
     """
-    from .predict import build_scorer_from_snapshot
+    from ..data.wavio import audio_read
+    from ..ops.audio import resample
+    from .predict import _expand_inputs, build_scorer_from_snapshot, quantize_for_scoring
 
-    if int8 or calibrate:
-        raise NotImplementedError(
-            "--int8 serving is not ported yet (ROADMAP.md queue 1, slice 6: "
-            "int8 and export)"
-        )
     model, transform, cfg = build_scorer_from_snapshot(
         snapshot, norm=norm, mean=mean, std=std
     )
+    sr, sec = int(cfg.sample_rate), float(cfg.seconds)
+    if int8:
+        paths = _expand_inputs(list(calibrate))
+        if not paths:
+            raise ValueError("--int8 needs --calibrate files/dirs")
+        win = int(sr * sec)
+        frames: List[np.ndarray] = []
+        for path in paths:
+            audio, in_sr = audio_read(path)
+            if in_sr > sr:
+                audio = resample(audio, in_sr, sr)
+            frames += [audio[i * win : (i + 1) * win] for i in range(len(audio) // win)]
+        if not frames:
+            raise ValueError("calibration clips shorter than one frame")
+        model = quantize_for_scoring(model, transform, frames, device, batch_size)
     return ScoringService(
         model,
         transform,
         device=device,
-        sample_rate=int(cfg.sample_rate),
-        seconds=float(cfg.seconds),
+        sample_rate=sr,
+        seconds=sec,
         batch_size=batch_size,
         max_wait_ms=max_wait_ms,
         output=output,
@@ -468,7 +484,7 @@ def main(argv=None) -> None:
     )
     parser.add_argument(
         "--int8", action="store_true",
-        help="post-training int8 (not ported yet)",
+        help="post-training int8 quantization (needs --calibrate)",
     )
     parser.add_argument(
         "--calibrate", nargs="+", default=[],

@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port's serving and training paths (DCNN, with and
-without its fused mid blocks, LCNN and AST, the CNNs also in bf16) once on
-one NVIDIA GPU.
+without its fused mid blocks, LCNN and AST, the CNNs also in bf16, and
+post-training int8 scoring) once on one NVIDIA GPU.
 
 Run from the repository root, with no arguments:
 
@@ -11,8 +11,8 @@ Phases, in order; any failure propagates and the script exits non-zero
 
 1. device: require CUDA, print ``nvidia-smi``'s card name and power limit;
 2. build: compile ``csrc/wpt_cascade.cu``, ``csrc/fused_conv1.cu``,
-   ``csrc/fused_pool.cu``, ``csrc/fused_conv2.cu`` and ``csrc/flash_mha.cu``
-   for sm_90a from this checkout, all at once;
+   ``csrc/fused_pool.cu``, ``csrc/fused_conv2.cu``, ``csrc/flash_mha.cu``
+   and ``csrc/int8_conv.cu`` for sm_90a from this checkout, all at once;
 3. kernel vs plain: the wavelet-packet kernel against the plain PyTorch
    cascade on the card, at the serving shapes (B = 1, 8, 64, 128), a few
    other geometries and frames longer than one CTA holds (2 s of sym5,
@@ -123,7 +123,22 @@ Phases, in order; any failure propagates and the script exits non-zero
     and argument types, timed through their launchers and as device time;
     the DCNN step (b) and the LCNN step in float32 and bf16, the scorer at
     B = 64 and 128 on a float32 and a bf16 DCNN object; profiles of the
-    bf16 steps.
+    bf16 steps;
+22. post-training int8: the s8 implicit-GEMM convolution against its plain
+    version (a float64 convolution of the codes) at every DCNN site shape
+    (B = 64 and 128), every LCNN site shape (B = 128), the dilated sites and
+    an odd plane, int32 accumulators and float32 / bf16 outputs bit-equal,
+    repeats the same bits, the IMMA instructions of its six variants
+    counted; phase 7's DCNN snapshot behind ``service_from_snapshot(int8=True,
+    calibrate=<corpus clips>)`` over HTTP, the WPT's and the int8 conv's
+    launches (per site) read over exactly the requests, the scores against
+    the same int8 model on the CPU and against float32 on the card; phase
+    11's LCNN through ``score_files(int8=True)``; phase 18's AST quantized,
+    baked and scored at B = 64, kernel 4's launches read; the kernel per
+    DCNN site at B = 64 through its launcher and as device time against
+    plain, its bound and cuDNN's fp32 / bf16 convolutions (a yardstick),
+    the DCNN scorer at B = 64 and 128 and the AST scorer at B = 64 in fp32,
+    bf16 and int8.
 
 The last lines are the kernels' JSON record, the measurements with the
 card's name and power limit, and ``{"ok": true, "device": ...}``.
@@ -247,6 +262,39 @@ BF16_LOSS_RTOL = 2e-2
 # kernel 5 on the bf16 path takes the model's float32 slope (not
 # representable in bf16, so a rounded one would show)
 PATH_SLOPE = 0.2371
+# ---- post-training int8 (phase 22)
+# (Cin, Cout, k, padding, dilation, H, W) of each int8 site's input: the DCNN
+# on 1 s packets-sym5 ([B, 1, 95, 256] after the permute), the LCNN on the
+# stft image ([B, 1, 101, 256])
+INT8_DCNN_SITES = {
+    "cnn_0": (1, 64, 3, 2, 1, 95, 256), "cnn_4": (64, 64, 1, 0, 1, 48, 129),
+    "cnn_7": (64, 96, 3, 1, 1, 48, 129), "cnn_11": (96, 128, 3, 1, 1, 24, 64),
+    "cnn_14": (128, 32, 3, 1, 1, 24, 64), "cnn_17": (32, 64, 3, 1, 1, 24, 64),
+}
+INT8_LCNN_SITES = {
+    "lcnn_0": (1, 64, 5, 2, 1, 101, 256), "lcnn_3": (32, 64, 1, 0, 1, 50, 128),
+    "lcnn_6": (32, 96, 3, 1, 1, 50, 128), "lcnn_10": (48, 96, 1, 0, 1, 25, 64),
+    "lcnn_13": (48, 128, 3, 1, 1, 25, 64), "lcnn_16": (64, 128, 1, 0, 1, 12, 32),
+    "lcnn_19": (64, 64, 3, 1, 1, 12, 32), "lcnn_22": (32, 64, 1, 0, 1, 12, 32),
+    "lcnn_25": (32, 64, 3, 1, 1, 12, 32),
+}
+INT8_EXTRA_CASES = {  # name: (B, Cin, Cout, k, padding, dilation, H, W)
+    "odd-plane": (3, 16, 40, 3, 1, 1, 7, 13),
+    "dil_1": (64, 12, 12, 3, 1, 1, 64, 32), "dil_4": (64, 12, 12, 5, 2, 2, 64, 32),
+    "dil_7": (64, 12, 12, 7, 2, 4, 60, 28),
+}
+# JAX's int8 budget for served P(fake) (tests/test_int8_quality.py:105-127):
+# every int8 score within 0.05 of its fp32 score, and the fp32 decision kept
+# wherever the fp32 score lies more than 0.05 from 0.5
+INT8_DRIFT = 0.05
+# P(fake), the same int8 model (the card's scales, its weights baked on each
+# side) on the card against the CPU: the float layers sum in another order
+# (SCORE_ATOL), and an activation whose fp32 value lands within that
+# roundoff of a code's rounding boundary takes the neighbouring code on the
+# other side, moving one input of a site by one quantization step; a few
+# such codes in a frame's ~10^6 move P(fake) by far less than this
+INT8_CPU_ATOL = 2e-3
+INT8_FLOP_PER_S = 1979e12  # dense int8 tensor-core rate, H100 SXM data sheet
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12  # dense tensor-core rate, H100 SXM data sheet
@@ -391,6 +439,18 @@ def write_snapshot(root: str) -> str:
     return path
 
 
+def keep_snapshot(snapshot: str, where: str) -> str:
+    """Copy a config-encoded snapshot and its ``.norm.pkl`` to ``where``/models
+    under the same name (the name carries its configuration)."""
+    import shutil
+
+    os.makedirs(os.path.join(where, "models"), exist_ok=True)
+    kept = os.path.join(where, "models", os.path.basename(snapshot))
+    for suffix in ("", ".norm.pkl"):
+        shutil.copy(snapshot + suffix, kept + suffix)
+    return kept
+
+
 def wav_bytes(pcm: np.ndarray, rate: int) -> bytes:
     buf = io.BytesIO()
     with wave.open(buf, "wb") as w:
@@ -438,10 +498,11 @@ def serve(wpt_cuda, snapshot: str, kernel_on_path: bool = True):
     return serve_service(svc, cpu_score, clips, pcms, reset, read, kernel_on_path)
 
 
-def serve_service(svc, cpu_score, clips, pcms, reset, read, kernel_on_path: bool = True):
+def serve_service(svc, cpu_score, clips, pcms, reset, read, kernel_on_path: bool = True,
+                  atol: float = SCORE_ATOL):
     """Concurrent HTTP uploads (and one garbage body) scored by ``svc`` on the
-    card, held against ``cpu_score``; ``reset`` / ``read`` zero and read the
-    launch count of the kernel on the serving path."""
+    card, held against ``cpu_score`` within ``atol``; ``reset`` / ``read``
+    zero and read the launch count of the kernel on the serving path."""
     server = svc.make_server("127.0.0.1", 0)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     url = f"http://127.0.0.1:{server.server_port}"
@@ -482,7 +543,7 @@ def serve_service(svc, cpu_score, clips, pcms, reset, read, kernel_on_path: bool
         raise AssertionError(f"/healthz: {code} {payload}")
     log(f"  /healthz: {payload}")
 
-    worst = 0.0
+    worst, served = 0.0, []
     for (sec, rate), pcm, (code, payload) in zip(clips, pcms, results):
         if code != 200:
             raise AssertionError(f"{sec} s clip at {rate} Hz: {code} {payload}")
@@ -497,10 +558,11 @@ def serve_service(svc, cpu_score, clips, pcms, reset, read, kernel_on_path: bool
         ref = cpu_score(torch.from_numpy(frames[:, None, :])).numpy()
         err = float(np.abs(p - ref).max())
         worst = max(worst, err)
+        served.append({"p_fake": payload["p_fake"], "frame_scores": p.tolist()})
         log(f"  {sec} s @ {rate} Hz: {payload['frames']} frames, p_fake "
             f"{payload['p_fake']:.6f}, max|cuda - cpu| {err:.3e}")
-    if not worst <= SCORE_ATOL:
-        raise AssertionError(f"cuda vs cpu scores: {worst} > {SCORE_ATOL}")
+    if not worst <= atol:
+        raise AssertionError(f"cuda vs cpu scores: {worst} > {atol}")
     if kernel_on_path and launches < max(dispatches, 1):
         raise AssertionError(
             f"kernel launched {launches} times for {dispatches} dispatches"
@@ -508,7 +570,7 @@ def serve_service(svc, cpu_score, clips, pcms, reset, read, kernel_on_path: bool
     log(f"  {dispatches} dispatches, {launches} kernel launches, "
         f"{wall:.3f} s wall for {len(results)} requests")
     return {"dispatches": dispatches, "launches": launches,
-            "max_abs_err_cuda_vs_cpu": worst}
+            "max_abs_err_cuda_vs_cpu": worst, "clips": served}
 
 
 def median_ms(fns: dict, reps: int) -> dict:
@@ -546,7 +608,7 @@ def wpt_device_ms(wpt_cuda, fn, n: int = 20) -> float:
     launches = sum(wpt_counts(wpt_cuda)) - sum(before)
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # a profile that lost every record is taken again
+    for _ in range(8):  # a profile that lost every record is taken again
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 fn()
@@ -557,7 +619,7 @@ def wpt_device_ms(wpt_cuda, fn, n: int = 20) -> float:
         if count:
             break
     else:
-        raise AssertionError("three profiles show no WPT kernel")
+        raise AssertionError("eight profiles show no WPT kernel")
     return sum(e.self_device_time_total for e in rows) / count / 1e3 * launches
 
 
@@ -821,7 +883,7 @@ def train(wpt_cuda, fused_cuda, root: str, data: str):
     return {"launches": counts, "steps": steps, "eval_steps": eval_steps,
             "losses": losses, "fused_losses": pair["fused"],
             "unfused_losses": pair["unfused"], "loss_rel_diff": worst,
-            "served_vs_trainer": err, "wall_s": wall,
+            "served_vs_trainer": err, "wall_s": wall, "snapshot": trainer.snapshot_path,
             "norm": [np.asarray(v).tolist() for v in trainer.norm_stats]}
 
 
@@ -955,8 +1017,13 @@ def kernel_device_ms(fn, keys: dict, n: int = 5, back_to_back: bool = False) -> 
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # a profile that lost every record of a key is taken again
+    # a profile that lost every record of a key is taken again: CUPTI drops
+    # records now and then (a fifth to two fifths of them in a profile, read
+    # all through one run), and three profiles in a row lost every record of
+    # kernel 2's bf16 forward once
+    for _ in range(8):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.05)  # the tracer's start on the host, before the first call
             if back_to_back:
                 torch.cuda._sleep(20_000_000)
             for _ in range(n):
@@ -968,7 +1035,7 @@ def kernel_device_ms(fn, keys: dict, n: int = 5, back_to_back: bool = False) -> 
         if all(counts.values()):
             break
     else:
-        raise AssertionError(f"three profiles show no records for some of {keys}: {counts}")
+        raise AssertionError(f"eight profiles show no records for some of {keys}: {counts}")
     out = {k: sum(e.self_device_time_total for e in rows if v in e.key) / 1e3 / counts[k]
            for k, v in keys.items()}
     log(f"  profile records (of {n} calls{', back to back' if back_to_back else ''}): "
@@ -2648,13 +2715,381 @@ def bf16_rows(run, errs, times):
             })
     return rows
 
+# ---- phase 22: post-training int8
+
+
+def int8_bound(b, cin, cout, k, pad, dil, h, w, itemsize=4):
+    """The int8 convolution's least time: the int8 codes read once, the
+    weight codes once, the output written once in the working type; 2
+    operations per product of the true K (no padding) at the int8 rate."""
+    ho, wo = h + 2 * pad - dil * (k - 1), w + 2 * pad - dil * (k - 1)
+    n_bytes = b * h * w * cin + cout * cin * k * k + b * cout * ho * wo * itemsize
+    return bound_ms(n_bytes, 2.0 * b * ho * wo * cout * cin * k * k, INT8_FLOP_PER_S)
+
+
+def int8_device_ms(icc, x_q, w_q, scale, pad: int, dil: int, n: int = 20) -> float:
+    """Device ms per launch of the int8 convolution: CUDA events around ``n``
+    launches (weights laid out once) queued behind a spin of the card, so
+    they run back to back and the launcher's host work is not in the time.
+    (Not a profile: in one run eight profiles in a row kept no record of
+    this kernel at the DCNN's cnn_4.)"""
+    rows = icc.gemm_weights(w_q)
+    ho, wo = icc.output_plane(x_q.shape[1], x_q.shape[2], w_q.shape[2], pad, dil)
+    out = torch.empty((x_q.shape[0], w_q.shape[0], ho, wo), device=x_q.device)
+
+    def run():
+        icc.launch(x_q, rows, scale, out, w_q.shape[2], pad, dil)
+
+    times = []
+    for _ in range(3):
+        run()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)  # ~10 ms: the host queues all n launches meanwhile
+        start.record()
+        for _ in range(n):
+            run()
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop) / n)
+    return statistics.median(times)
+
+
+def int8_case(gen, b, cin, cout, k, h, w):
+    """Random codes over the whole int8 range and per-channel scales."""
+    x_q = torch.randint(-127, 128, (b, h, w, cin), generator=gen, dtype=torch.int8).cuda()
+    w_q = torch.randint(-127, 128, (cout, cin, k, k), generator=gen, dtype=torch.int8).cuda()
+    scale = (torch.rand(cout, generator=gen) * 1e-4 + 1e-6).cuda()
+    return x_q, w_q, scale
+
+
+def int8_vs_plain(ic, icc):
+    """Phase 22, first: the int8 convolution against its plain version at
+    every DCNN site shape (B = 64 and 128), every LCNN site shape (B = 128),
+    the dilated sites, and an odd plane; the int32 accumulators and the
+    float32 and bf16 outputs bit-equal to plain, a repeat the same bits, one
+    launch a call; then the IMMA instructions of each compiled variant."""
+    gen = torch.Generator().manual_seed(22)
+    cases = [(f"dcnn-{site}-B{b}", b, *geo)
+             for b in (64, 128) for site, geo in INT8_DCNN_SITES.items()]
+    cases += [(f"lcnn-{site}-B128", 128, *geo) for site, geo in INT8_LCNN_SITES.items()]
+    cases += [(name, *geo) for name, geo in INT8_EXTRA_CASES.items()]
+    errs = {}
+    for name, b, cin, cout, k, pad, dil, h, w in cases:
+        x_q, w_q, scale = int8_case(gen, b, cin, cout, k, h, w)
+        acc = ic.int8_conv_plain(x_q, w_q, None, pad, dil, torch.int32)
+        for dt in (torch.int32, torch.float32, torch.bfloat16):
+            before = icc.LAUNCHES
+            got = ic.int8_conv(x_q, w_q, scale, pad, dil, dt)
+            again = ic.int8_conv(x_q, w_q, scale, pad, dil, dt)
+            want = acc if dt == torch.int32 else ic.dequantize(acc, scale, dt)
+            torch.cuda.synchronize()
+            if icc.LAUNCHES - before != 2 or not torch.equal(got, again):
+                raise AssertionError(f"int8 conv {name} {dt}: launches or repeats")
+            err = 0.0 if torch.equal(got, want) else (got.double() - want.double()).abs().max().item()
+            errs[f"{name}-{str(dt)[6:]}"] = err
+            if err != 0.0:
+                raise AssertionError(f"int8 conv {name} {dt}: max|kernel - plain| {err}")
+        del acc, got, again, want
+    log(f"  {len(cases)} geometries x (int32, float32, bfloat16): bit-equal to plain, "
+        "repeats the same bits")
+    imma = {}
+    for mangled, ops in sass_opcodes(icc._LIB).items():
+        if "int8_conv_kernel" in mangled:
+            out = "bfloat16" if "bfloat16" in mangled else ("float32" if "IfLb" in mangled
+                                                            else "int32")
+            imma[f"{out}-{'vec16' if 'Lb1E' in mangled else 'bytes'}"] = ops["IMMA"]
+    log(f"  IMMA instructions per int8-conv kernel: {imma}")
+    if len(imma) != 6 or min(imma.values()) <= 0:
+        raise AssertionError(f"int8 conv tensor-core instructions: {imma}")
+    return errs, imma
+
+
+def int8_site_spy(icc, sites: dict):
+    """Patch the launcher to count launches per site, the site told by its
+    geometry (Cin, Cout, k, dilation, H, W); returns ``(counts, restore)``."""
+    launch = icc.forward
+    by_geo = {(g[0], g[1], g[2], g[4], g[5], g[6]): site for site, g in sites.items()}
+    counts = {site: 0 for site in sites}
+
+    def spy(x_q, w_q, scale, padding, dilation, out_dtype):
+        b, h, w, cin = x_q.shape
+        key = (cin, w_q.shape[0], w_q.shape[2], dilation, h, w)
+        if key not in by_geo:
+            raise AssertionError(f"an int8 launch at no known site: {key}")
+        counts[by_geo[key]] += 1
+        return launch(x_q, w_q, scale, padding, dilation, out_dtype)
+
+    icc.forward = spy
+
+    def restore():
+        icc.forward = launch
+
+    return counts, restore
+
+
+def int8_drift(name: str, q, fp) -> float:
+    """JAX's budget on P(fake): within ``INT8_DRIFT`` of fp32, and the fp32
+    decision kept wherever fp32 lies more than ``INT8_DRIFT`` from 0.5."""
+    q, fp = np.asarray(q, np.float64), np.asarray(fp, np.float64)
+    drift = float(np.abs(q - fp).max())
+    flips = int(((np.abs(fp - 0.5) > INT8_DRIFT) & ((q > 0.5) != (fp > 0.5))).sum())
+    log(f"  {name}: {q.size} scores, max |int8 - fp32| {drift:.3e}, decisions flipped {flips}")
+    if not drift < INT8_DRIFT or flips:
+        raise AssertionError(f"{name}: int8 drift {drift}, {flips} decisions flipped")
+    return drift
+
+
+def calibration_clips(data: str, n: int) -> list:
+    """``n`` corpus clips of each label, interleaved, so that the first
+    calibration batches hold both."""
+    dirs = [os.path.join(data, d) for d in ("A_ljspeech", "B_fbmelgan")]
+    files = [sorted(os.path.join(d, f) for f in os.listdir(d))[:n] for d in dirs]
+    return [p for pair in zip(*files) for p in pair]
+
+
+def serve_int8(wpt_cuda, icc, snapshot: str, data: str):
+    """Phase 22: phase 7's trained DCNN behind ``service_from_snapshot(int8=True,
+    calibrate=<corpus clips>)`` on ``cuda`` over HTTP, the WPT's and the int8
+    convolution's launches (per site) counted over exactly the requests; the
+    scores held against the same int8 model (the card's scales) on the CPU and
+    against the snapshot scored in float32 on the card."""
+    from audiodeepfake_detection_tpu_torch.ops.quantize import (
+        DEFAULT_INT8_SITES, bake_int8_weights, with_quant)
+    from audiodeepfake_detection_tpu_torch.train.predict import (
+        build_scorer_from_snapshot, make_score_fn)
+    from audiodeepfake_detection_tpu_torch.train.serve import service_from_snapshot
+
+    clips = [(1.0, SR), (2.5, SR), (5.0, SR), (2.0, 2 * SR)]
+    rng = np.random.RandomState(23)
+    pcms = [rng.randint(-12000, 12000, int(s * r)).astype(np.int16) for s, r in clips]
+    t0 = time.perf_counter()
+    svc = service_from_snapshot(snapshot, device="cuda", batch_size=64, int8=True,
+                                calibrate=calibration_clips(data, 14))
+    build_s = time.perf_counter() - t0
+    scales = svc.model.quant
+    if sorted(scales) != sorted(DEFAULT_INT8_SITES):
+        raise AssertionError(f"int8 DCNN sites: {sorted(scales)}")
+    model, transform, _ = build_scorer_from_snapshot(snapshot)
+    fp32 = make_score_fn(model, transform, "cuda")
+    cpu_model, cpu_transform, _ = build_scorer_from_snapshot(snapshot)
+    cpu_q = with_quant(cpu_model.eval(), dict(scales))
+    bake_int8_weights(cpu_q, cpu_transform(torch.zeros(1, 1, SR)))
+    cpu_score = make_score_fn(cpu_q, cpu_transform, "cpu")
+    counts, restore = int8_site_spy(icc, INT8_DCNN_SITES)
+    launched = {}
+
+    def reset():
+        wpt_cuda.LAUNCHES = icc.LAUNCHES = 0
+        for site in counts:
+            counts[site] = 0
+
+    def read():
+        launched["int8"] = icc.LAUNCHES
+        return wpt_cuda.LAUNCHES
+
+    try:
+        out = serve_service(svc, cpu_score, clips, pcms, reset, read, atol=INT8_CPU_ATOL)
+    finally:
+        restore()
+    d = out["dispatches"]
+    out.update(int8_launches=launched["int8"], site_launches=dict(counts),
+               scales=dict(scales), service_build_s=build_s)
+    log(f"  int8 launches {launched['int8']} ({counts}) for {d} dispatches; service built "
+        f"(calibrated, baked, warmed up) in {build_s:.1f} s")
+    if launched["int8"] != 6 * d or set(counts.values()) != {d}:
+        raise AssertionError(f"int8 launches {launched['int8']} {counts} for {d} dispatches")
+    q, f = [], []
+    for (sec, rate), pcm, clip in zip(clips, pcms, out["clips"]):
+        frames = svc.frame_clip(pcm.astype(np.float32) / 32768.0, rate)
+        ref = fp32(torch.from_numpy(frames[:, None, :])).cpu().numpy()
+        q += [clip["p_fake"], *clip["frame_scores"]]
+        f += [float(ref.mean()), *ref.tolist()]
+    out["drift_vs_fp32"] = int8_drift("DCNN over HTTP, int8 vs fp32 on the card", q, f)
+    return out
+
+
+def score_lcnn_int8(icc, snapshot: str, data: str):
+    """Phase 22: phase 11's trained LCNN through ``score_files(int8=True)`` on
+    ``cuda`` (calibrated on the scored frames, baked), its nine sites'
+    launches counted, the scores against ``score_files`` in float32."""
+    from audiodeepfake_detection_tpu_torch.train.predict import (
+        build_scorer_from_snapshot, score_files)
+
+    paths = calibration_clips(data, 4)
+    model, transform, _ = build_scorer_from_snapshot(snapshot)
+    fp = score_files(model, transform, paths, "cuda", batch_size=64)
+    counts, restore = int8_site_spy(icc, INT8_LCNN_SITES)
+    icc.LAUNCHES = 0
+    try:
+        q = score_files(model, transform, paths, "cuda", batch_size=64, int8=True)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    # one int8 forward to bake, then the 80 frames in two batches of 64
+    log(f"  LCNN int8: {len(paths)} clips, launches {icc.LAUNCHES} ({counts})")
+    if icc.LAUNCHES != 27 or set(counts.values()) != {3}:
+        raise AssertionError(f"LCNN int8 launches {icc.LAUNCHES}: {counts}")
+    drift = int8_drift("LCNN score_files, int8 vs fp32 on the card",
+                       [q[p] for p in paths], [fp[p] for p in paths])
+    return {"launches": icc.LAUNCHES, "site_launches": dict(counts), "drift_vs_fp32": drift}
+
+
+def corpus_frames(data: str, n: int) -> np.ndarray:
+    """``n`` 1 s frames cut from the corpus clips of both labels."""
+    from audiodeepfake_detection_tpu_torch.data.wavio import audio_read
+
+    frames = []
+    for path in calibration_clips(data, 28):
+        audio, _ = audio_read(path)
+        frames += [audio[i * SR:(i + 1) * SR] for i in range(len(audio) // SR)][:2]
+        if len(frames) >= n:
+            break
+    return np.stack(frames[:n]).astype(np.float32)
+
+
+def ast_int8(fa_cuda, model, transform, data: str):
+    """Phase 22: phase 18's trained AST quantized (every block's qkv, proj,
+    fc1, fc2) and baked on corpus frames, scored at B = 64: kernel 4's
+    launches read over the scoring call, the scores against fp32."""
+    from audiodeepfake_detection_tpu_torch.train.predict import (
+        make_score_fn, quantize_for_scoring)
+
+    frames = corpus_frames(data, 64)
+    audio = torch.from_numpy(frames[:, None, :]).cuda()
+    qmodel = quantize_for_scoring(model, transform, list(frames), "cuda", 64)
+    sites = sorted(qmodel.quant)
+    if len(sites) != 4 * AST_BLOCKS:
+        raise AssertionError(f"AST int8 sites: {sites}")
+    fp = make_score_fn(model, transform, "cuda")(audio).cpu().numpy()
+    score = make_score_fn(qmodel, transform, "cuda")
+    fa_cuda.MHA_FWD_LAUNCHES = 0
+    q = score(audio).cpu().numpy()
+    torch.cuda.synchronize()
+    launches = fa_cuda.MHA_FWD_LAUNCHES
+    log(f"  AST int8 at B=64: {len(sites)} sites, kernel 4 launched {launches} times")
+    if launches != AST_BLOCKS:
+        raise AssertionError(f"kernel 4 launched {launches} times in the int8 AST scorer")
+    drift = int8_drift("AST int8 vs fp32 on the card, B=64", q, fp)
+    return qmodel, {"sites": len(sites), "mha_launches": launches, "drift_vs_fp32": drift}
+
+
+def int8_timing(ic, icc, snapshot: str, ast_model, ast_q, ast_transform, card_line: str):
+    """Phase 22, last: the int8 convolution at each DCNN site (B = 64, float32
+    out) through its launcher and as device time, against plain, its bound,
+    the whole quantized site (the quantizing pass + the kernel) and cuDNN's
+    float32 and bf16 convolution of the same shape (a yardstick only); the
+    DCNN scorer in float32, bf16 and int8 at B = 64 and 128; the AST scorer
+    in float32, bf16 and int8 at B = 64."""
+    import torch.nn.functional as F
+
+    from audiodeepfake_detection_tpu_torch.models.ast import ASTModel
+    from audiodeepfake_detection_tpu_torch.models.dcnn import DCNN
+    from audiodeepfake_detection_tpu_torch.ops.quantize import (
+        conv_int8_weights, quantized_conv)
+    from audiodeepfake_detection_tpu_torch.train.predict import (
+        build_scorer_from_snapshot, make_score_fn, quantize_for_scoring)
+
+    gen = torch.Generator().manual_seed(24)
+    out = {"sites": {}}
+    b = 64
+    for site, (cin, cout, k, pad, dil, h, w) in INT8_DCNN_SITES.items():
+        x_q, w_q, scale = int8_case(gen, b, cin, cout, k, h, w)
+        x = torch.randn(b, cin, h, w, generator=gen).cuda()
+        wf = torch.randn(cout, cin, k, k, generator=gen).cuda()
+        rec = conv_int8_weights(wf)
+        xb, wb = x.bfloat16(), wf.bfloat16()
+
+        def kernel():
+            return ic.int8_conv(x_q, w_q, scale, pad, dil)
+
+        ms = median_ms({
+            "plain": lambda: ic.int8_conv_plain(x_q, w_q, scale, pad, dil),
+            "kernel": kernel,
+            "site": lambda: quantized_conv(x, None, 0.02, pad, dil, baked=rec),
+            "cudnn_fp32": lambda: F.conv2d(x, wf, padding=pad, dilation=dil),
+            "cudnn_bf16": lambda: F.conv2d(xb, wb, padding=pad, dilation=dil),
+        }, reps=5)
+        device = int8_device_ms(icc, x_q, w_q, scale, pad, dil)
+        bound, by = int8_bound(b, cin, cout, k, pad, dil, h, w)
+        out["sites"][site] = {**{f"{k_}_ms": v for k_, v in ms.items()}, "device_ms": device,
+                              "bound_ms": bound, "bound_by": by}
+        log(f"  {site} B={b} [{card_line}]: kernel {ms['kernel']:.4f} ms through the "
+            f"launcher, {device:.4f} ms device ({bound / device:.0%} of the bound "
+            f"{bound:.4f} ms, {by}); plain {ms['plain']:.4f}; quantize + kernel "
+            f"{ms['site']:.4f}; cuDNN fp32 {ms['cudnn_fp32']:.4f}, bf16 {ms['cudnn_bf16']:.4f}")
+        del x_q, w_q, x, wf, xb, wb
+    total = {k_: sum(v[k_] for v in out["sites"].values())
+             for k_ in ("kernel_ms", "device_ms", "bound_ms", "site_ms", "cudnn_fp32_ms",
+                        "cudnn_bf16_ms")}
+    out["six_sites"] = total
+    log("  the six sites together: " + ", ".join(f"{k_} {v:.4f}" for k_, v in total.items()))
+
+    model, transform, _ = build_scorer_from_snapshot(snapshot)
+    bf = DCNN(time_dim=12, dtype=torch.bfloat16)
+    bf.load_state_dict(model.state_dict())
+    audio = {bb: (0.3 * torch.randn(bb, 1, SR, generator=gen)).cuda() for bb in (64, 128)}
+    frames = list(audio[128][:, 0].cpu().numpy())
+    q = quantize_for_scoring(model, transform, frames, "cuda", 64)
+    scorers = {"fp32": make_score_fn(model, transform, "cuda"),
+               "bf16": make_score_fn(bf, transform, "cuda"),
+               "int8": make_score_fn(q, transform, "cuda")}
+    out["dcnn_scorer_ms"] = {}
+    for bb, a in audio.items():
+        sms = median_ms({name: (lambda fn=fn: fn(a)) for name, fn in scorers.items()}, reps=5)
+        out["dcnn_scorer_ms"][bb] = {**sms, **{f"{k_}_frames_per_s": bb / v * 1e3
+                                                for k_, v in sms.items()}}
+        log(f"  DCNN scorer B={bb} [{card_line}]: " + ", ".join(
+            f"{k_} {v:.3f} ms ({bb / v * 1e3:.1f} frames/s)" for k_, v in sms.items()))
+
+    ast_bf = ASTModel(input_tdim=ast_model.input_tdim, fused_attention=True,
+                      dtype=torch.bfloat16).cuda()
+    ast_bf.load_state_dict(ast_model.state_dict())
+    a = audio[64]
+    ast_scorers = {"fp32": make_score_fn(ast_model, ast_transform, "cuda"),
+                   "bf16": make_score_fn(ast_bf, ast_transform, "cuda"),
+                   "int8": make_score_fn(ast_q, ast_transform, "cuda")}
+    sms = median_ms({name: (lambda fn=fn: fn(a)) for name, fn in ast_scorers.items()}, reps=3)
+    out["ast_scorer_ms"] = {64: {**sms, **{f"{k_}_frames_per_s": 64 / v * 1e3
+                                          for k_, v in sms.items()}}}
+    log(f"  AST scorer B=64 [{card_line}]: " + ", ".join(
+        f"{k_} {v:.3f} ms ({64 / v * 1e3:.1f} frames/s)" for k_, v in sms.items()))
+    return out
+
+
+def int8_rows(errs, served, times):
+    """The ``kernels`` rows of the int8 convolution, one per DCNN site at B =
+    64: launches at the site over phase 22's HTTP run, checked and timed in
+    phase 22 (``library_ms`` null: no PyTorch call convolves int8 on CUDA;
+    cuDNN's float32 and bf16 times stand beside it as a yardstick)."""
+    rows = []
+    for site in INT8_DCNN_SITES:
+        t = times["sites"][site]
+        rows.append({
+            "name": f"int8_conv_{site}", "route": "cuda",
+            "source": "audiodeepfake_detection_tpu_torch/csrc/int8_conv.cu",
+            "replaces": "audiodeepfake_detection_tpu/ops/quantize.py:113 int8_conv "
+                        "(XLA s8 conv, no Pallas kernel)",
+            "design": "implicit GEMM, mma.sync m16n8k32 s8 (IMMA), 64 x 64 tiles, 32-deep "
+                      "steps double-buffered in shared memory, NCHW epilogue",
+            "launches": served["site_launches"][site],
+            "max_abs_err": errs[f"dcnn-{site}-B64-float32"],
+            "ms": t["kernel_ms"], "plain_ms": t["plain_ms"], "device_ms": t["device_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
+            "cudnn_fp32_ms": t["cudnn_fp32_ms"], "cudnn_bf16_ms": t["cudnn_bf16_ms"],
+        })
+    return rows
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; needs a CUDA device")
     from audiodeepfake_detection_tpu_torch.ops import (
         flash_attention, flash_attention_cuda, fused_conv1, fused_conv1_cuda, fused_conv2,
-        fused_conv2_cuda, fused_pool, fused_pool_cuda, wpt, wpt_cuda)
+        fused_conv2_cuda, fused_pool, fused_pool_cuda, int8_conv, int8_conv_cuda, wpt,
+        wpt_cuda)
 
     # fp32 convolutions on both sides of every comparison (TF32 keeps ~3
     # digits); the JAX reference runs its convolutions at HIGHEST
@@ -2669,7 +3104,7 @@ def main() -> None:
         return mod.build(), time.perf_counter() - t0
 
     kernel_mods = (wpt_cuda, fused_conv1_cuda, fused_pool_cuda, fused_conv2_cuda,
-                   flash_attention_cuda)
+                   flash_attention_cuda, int8_conv_cuda)
     with concurrent.futures.ThreadPoolExecutor(len(kernel_mods)) as pool:  # one nvcc each
         builds = list(pool.map(timed_build, kernel_mods))
     build_s = {}
@@ -2696,6 +3131,8 @@ def main() -> None:
         data = write_corpus(root)
         log(f"[7 train] corpus: 56 clips of 10 s written in {time.perf_counter() - t0:.1f} s")
         trained = train(wpt_cuda, fused_conv1_cuda, root, data)
+        # phase 22 serves this snapshot: kept apart from the later runs' snapshots
+        int8_dcnn = keep_snapshot(trained.pop("snapshot"), os.path.join(root, "int8"))
         log("[8 time, training]")
         train_times, fused_step = train_timing(
             fused_conv1, fused_conv1_cuda, trained["norm"], card_line)
@@ -2709,7 +3146,8 @@ def main() -> None:
         log("[11 train the LCNN]")
         lcnn = train_lcnn(wpt_cuda, fused_conv1_cuda, root, data)
         log("[12 serve the trained LCNN]")
-        lcnn_served = serve(wpt_cuda, lcnn.pop("snapshot"), kernel_on_path=False)
+        lcnn_snapshot = lcnn.pop("snapshot")
+        lcnn_served = serve(wpt_cuda, lcnn_snapshot, kernel_on_path=False)
         log("[13 time and profile, LCNN]")
         lcnn_times, lcnn_step = lcnn_timing(
             fused_conv1, fused_conv1_cuda, lcnn["norm"], card_line)
@@ -2737,6 +3175,7 @@ def main() -> None:
         ast_trainer, ast_run = train_ast(flash_attention_cuda, root, data)
         log("  the trained AST over HTTP")
         ast_run["serve"] = serve_ast(flash_attention_cuda, ast_trainer)
+        ast_model, ast_transform = ast_trainer.model, ast_trainer.transform  # phase 22
         del ast_trainer
         log("[19 time and profile, AST]")
         ast_times, ast_steps = ast_timing(
@@ -2762,6 +3201,18 @@ def main() -> None:
             log(f"  profile of the {name} step")
             bf16_prof[name] = profile_train(step)
         del bf16_steps
+        log("[22 post-training int8]")
+        int8_errs, int8_imma = int8_vs_plain(int8_conv, int8_conv_cuda)
+        log("  phase 7's DCNN snapshot, int8, over HTTP")
+        int8_run = {"serve": serve_int8(wpt_cuda, int8_conv_cuda, int8_dcnn, data)}
+        log("  phase 11's LCNN snapshot through score_files(int8=True)")
+        int8_run["lcnn"] = score_lcnn_int8(int8_conv_cuda, lcnn_snapshot, data)
+        log("  phase 18's AST, int8")
+        ast_q, int8_run["ast"] = ast_int8(flash_attention_cuda, ast_model, ast_transform, data)
+        log("  time")
+        int8_times = int8_timing(int8_conv, int8_conv_cuda, int8_dcnn, ast_model, ast_q,
+                                 ast_transform, card_line)
+        del ast_model, ast_q
 
     main_key = f"{MAIN[0]}-L{MAIN[1]}-B64-T{SR}"
     train_key = "B{}-H{}-W{}-C{}-float32".format(*TRAIN_SHAPE)
@@ -2962,6 +3413,7 @@ def main() -> None:
             "bound_ms": long_b, "bound_by": long_by, "library_ms": None,
         },
         *bf16_rows(bf16_run, bf16_errs, bf16_times),
+        *int8_rows(int8_errs, int8_run["serve"], int8_times),
     ]}))
     trained.pop("norm")
     lcnn.pop("norm")
@@ -2978,6 +3430,8 @@ def main() -> None:
         "ast_train": ast_run, "ast_timing": ast_times, "ast_profile": ast_prof,
         "long_frames": long_run, "bf16_train": bf16_run, "bf16_vs_plain": bf16_errs,
         "bf16_timing": bf16_times, "bf16_profile": bf16_prof,
+        "int8_vs_plain": int8_errs, "int8_imma": int8_imma, "int8": int8_run,
+        "int8_timing": int8_times,
     }))
     print(card_line)
     print(json.dumps({"ok": True, "device": {

@@ -23,6 +23,8 @@ from audiodeepfake_detection_tpu_torch.ops import (
     fused_conv2_cuda,
     fused_pool,
     fused_pool_cuda,
+    int8_conv,
+    int8_conv_cuda,
     wpt_cuda,
 )
 from audiodeepfake_detection_tpu_torch.ops.wpt import log_power, wpt_analysis
@@ -994,3 +996,73 @@ def test_ast_train_step_fused_matches_unfused_on_the_card(card, monkeypatch):
     assert abs(losses[0] - losses[1]) <= 1e-5
     for (name, p), (_, f) in zip(plain.named_parameters(), fused.named_parameters()):
         assert _rel(f.grad, p.grad) <= 1e-4, name
+
+
+# ---- the int8 convolution (csrc/int8_conv.cu)
+
+# (B, Cin, Cout, k, padding, dilation, H, W): the port's int8 site kinds
+_INT8_SITES = {
+    "cnn_0": (2, 1, 64, 3, 2, 1, 95, 256),      # Cin 1, K = 9: byte loads
+    "cnn_4": (2, 64, 64, 1, 0, 1, 48, 129),     # 1x1
+    "cnn_7": (2, 64, 96, 3, 1, 1, 48, 129),     # 3x3, Cout not a tile multiple
+    "cnn_14": (2, 128, 32, 3, 1, 1, 24, 64),    # K = 1152 (past 2**24 in fp32)
+    "lcnn_0": (2, 1, 64, 5, 2, 1, 101, 256),    # 5x5, K = 25
+    "lcnn_13": (2, 48, 128, 3, 1, 1, 25, 64),   # Cin 48, K = 432
+    "dil_4": (2, 12, 12, 5, 2, 2, 64, 32),      # dilation 2, Cin 12
+    "dil_7": (2, 12, 12, 7, 2, 4, 64, 32),      # dilation 4
+    "odd": (3, 16, 40, 3, 1, 1, 7, 13),         # odd plane, partial tiles
+}
+
+
+def _int8_case(b, c_in, c_out, k, h, w, device, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    x_q = torch.randint(-127, 128, (b, h, w, c_in), generator=gen, dtype=torch.int8)
+    w_q = torch.randint(-127, 128, (c_out, c_in, k, k), generator=gen, dtype=torch.int8)
+    scale = torch.rand(c_out, generator=gen) * 1e-4 + 1e-6
+    return x_q.to(device), w_q.to(device), scale.to(device)
+
+
+@pytest.mark.parametrize("site", sorted(_INT8_SITES))
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32, torch.bfloat16])
+def test_int8_conv_is_plain_bit_for_bit(card, site, dtype):
+    """Accumulators and dequantized outputs (fp32, bf16) equal the plain
+    version (a float64 convolution of the codes, exact) bit for bit; a
+    repeat gives the same bits; one launch a call."""
+    b, c_in, c_out, k, pad, dil, h, w = _INT8_SITES[site]
+    x_q, w_q, scale = _int8_case(b, c_in, c_out, k, h, w, card)
+    before = int8_conv_cuda.LAUNCHES
+    got = int8_conv.int8_conv(x_q, w_q, scale, pad, dil, dtype)
+    again = int8_conv.int8_conv(x_q, w_q, scale, pad, dil, dtype)
+    want = int8_conv.int8_conv_plain(x_q, w_q, scale, pad, dil, dtype)
+    torch.cuda.synchronize()
+    assert int8_conv_cuda.LAUNCHES - before == 2
+    assert got.dtype == dtype and got.shape == want.shape and got.is_contiguous()
+    assert torch.equal(got, want) and torch.equal(got, again)
+
+
+def test_int8_conv_takes_an_input_off_the_16_byte_grid(card):
+    """Cin = 64 at an odd address: the byte loads, the same bits."""
+    b, c_in, c_out, k, pad, dil, h, w = _INT8_SITES["cnn_7"]
+    x_q, w_q, scale = _int8_case(b, c_in, c_out, k, h, w, card, seed=1)
+    flat = torch.empty(x_q.numel() + 1, dtype=torch.int8, device=card)
+    shifted = flat[1:].view(x_q.shape)
+    shifted.copy_(x_q)
+    assert shifted.data_ptr() % 16 != 0
+    got = int8_conv.int8_conv(shifted, w_q, scale, pad, dil)
+    assert torch.equal(got, int8_conv.int8_conv_plain(x_q, w_q, scale, pad, dil))
+
+
+def test_int8_conv_refuses_what_it_does_not_take(card):
+    x_q, w_q, scale = _int8_case(1, 8, 16, 3, 5, 6, card)
+    with pytest.raises(ValueError, match="square"):
+        int8_conv.int8_conv(x_q, w_q[:, :, :, :2].contiguous(), scale, 1)
+    with pytest.raises(ValueError, match="leave an output"):
+        int8_conv.int8_conv(x_q, w_q, scale, 0, dilation=3)  # 5x6 plane, reach 6
+    with pytest.raises(TypeError, match="int8"):
+        int8_conv.int8_conv(x_q.float(), w_q, scale, 1)
+    with pytest.raises(ValueError, match="contiguous NHWC"):
+        int8_conv.int8_conv(x_q.permute(0, 2, 1, 3), w_q, scale, 1)
+    with pytest.raises(ValueError, match="scale"):
+        int8_conv.int8_conv(x_q, w_q, scale[:8], 1)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        int8_conv_cuda.forward(x_q.cpu(), w_q.cpu(), scale.cpu(), 1, 1, torch.float32)

@@ -272,5 +272,10 @@ def test_predict_cli_scores_files(snapshot, wav_files, capsys):
     model, transform, _ = predict.build_scorer_from_snapshot(snapshot)
     direct = predict.score_files(model, transform, wav_files, "cpu", batch_size=2)
     assert scores == pytest.approx(direct, abs=1e-7)
-    with pytest.raises(NotImplementedError, match="int8"):
-        predict.main([snapshot, *wav_files, "--device", "cpu", "--int8"])
+    # post-training int8 (calibrated on the scored frames): within the JAX
+    # package's int8 budget of the fp scores (test_int8_quality.py:211)
+    predict.main([snapshot, *wav_files, "--device", "cpu", "--batch-size", "2", "--json",
+                  "--int8"])
+    int8 = json.loads(capsys.readouterr().out)
+    assert sorted(int8) == sorted(scores)
+    assert all(abs(int8[p] - scores[p]) < 0.1 and int8[p] != scores[p] for p in scores)
