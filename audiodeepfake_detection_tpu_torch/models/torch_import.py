@@ -135,6 +135,7 @@ _LCNN_FC = [("fc", "linear", None)]
 _LAYOUTS = {
     "dcnn": (("cnn", _DCNN_CNN), ("dil_conv", _DCNN_DIL), ("fc", _DCNN_FC)),
     "lcnn": (("lcnn", _LCNN_CNN), ("lstm", _LCNN_LSTM), ("fc", _LCNN_FC)),
+    "regression": (("linear", [("linear", "linear", None)]),),
 }
 # the reference wraps each LSTM in a BLSTMLayer whose member is ``l_blstm``
 _LSTM_PREFIX = "l_blstm."
@@ -336,7 +337,7 @@ def import_timm_deit(
 def state_dict_from_jax(variables: Dict[str, Any], layout: str = "dcnn") -> StateDict:
     """The port's ``state_dict`` from JAX ``{"params", "batch_stats"}``.
 
-    ``layout`` is ``"dcnn"``, ``"lcnn"`` or ``"ast"``.  Inverse of the JAX
+    ``layout`` is ``"dcnn"``, ``"lcnn"``, ``"regression"`` or ``"ast"``.  Inverse of the JAX
     package's ``import_dcnn`` / ``import_lcnn`` / ``import_timm_deit`` and
     equal, key by key and value by value, to its
     ``export_state_dict(variables, layout)``.

@@ -15,16 +15,18 @@ bfloat16 input rounds where the JAX kernel rounds: the probabilities before
 On a CUDA tensor :func:`flash_mha_packed` launches the hand-written kernels of
 ``csrc/flash_mha.cu`` (forward and backward, behind one
 ``torch.autograd.Function``; the ``[B, H, N, N]`` scores never reach device
-memory; one route for every N) or raises; nothing falls back.  The plain
-PyTorch version :func:`plain_mha_packed` runs only for a CPU tensor, and is
-what the kernels are checked against.
+memory; one route for every N) or raises; nothing falls back.  Where no
+gradient is needed it calls the op ``adfd::flash_mha_packed`` instead
+(``ops/library.py``): the forward kernel on a CUDA tensor, the plain
+version on a CPU one.  The plain PyTorch version :func:`plain_mha_packed`
+runs only for a CPU tensor, and is what the kernels are checked against.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import flash_attention_cuda
+from . import flash_attention_cuda, library
 
 
 class _RoundGrad(torch.autograd.Function):
@@ -86,8 +88,31 @@ class _FlashMHA(torch.autograd.Function):
         return dqkv, None, None
 
 
+def _mha_cuda(qkv, heads: int, scale: float) -> torch.Tensor:
+    """The forward kernel without row statistics: ``_FlashMHA`` in eval."""
+    return flash_attention_cuda.forward(qkv, heads, scale, False)[0]
+
+
+def _mha_plain(qkv, heads: int, scale: float) -> torch.Tensor:
+    # contiguous, as the kernel writes it
+    return plain_mha_packed(qkv, heads, scale).contiguous()
+
+
+def _mha_fake(qkv, heads: int, scale: float) -> torch.Tensor:
+    b, n, c = qkv.shape
+    return qkv.new_empty((b, n, c // 3))
+
+
+_MHA_OP = library.register(
+    "flash_mha_packed", "(Tensor qkv, int heads, float scale) -> Tensor",
+    cpu=_mha_plain, cuda=_mha_cuda, fake=_mha_fake)
+
+
 def flash_mha_packed(qkv: torch.Tensor, heads: int, scale: float) -> torch.Tensor:
-    """Fused MHA on packed ``[B, N, 3*H*D]`` qkv; returns ``[B, N, H*D]``."""
+    """Fused MHA on packed ``[B, N, 3*H*D]`` qkv; returns ``[B, N, H*D]``;
+    the op ``adfd::flash_mha_packed`` where no gradient is needed."""
+    if not library.needs_grad(qkv):
+        return _MHA_OP(qkv, heads, float(scale))
     if qkv.device.type == "cpu":
         return plain_mha_packed(qkv, heads, scale)
     return _FlashMHA.apply(qkv, heads, scale)

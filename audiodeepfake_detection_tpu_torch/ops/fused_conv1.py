@@ -29,7 +29,11 @@ those of the rounded output.  Gradients come back in each parameter's type.
 
 On a CUDA tensor the public functions launch the hand-written kernels of
 ``csrc/fused_conv1.cu`` (forward and backward, behind one
-``torch.autograd.Function``) or raise; there is no fallback.  The plain
+``torch.autograd.Function``) or raise; there is no fallback.  Where no
+gradient is needed, :func:`fused_conv1_prelu_pool` and
+:func:`fused_conv_mfm_pool` call the ops ``adfd::fused_conv1_prelu_pool``
+and ``adfd::fused_conv_mfm_pool`` instead (``ops/library.py``): the forward
+kernel on a CUDA tensor, the plain version on a CPU one.  The plain
 PyTorch version below (``F.conv2d`` -> PReLU -> ``F.max_pool2d`` -> moments,
 ordinary autograd) runs only for a CPU tensor, and is what the kernels are
 checked against.  Both return the true ``dalpha`` at ``alpha == 0`` (the
@@ -60,7 +64,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from . import fused_conv1_cuda
+from . import fused_conv1_cuda, library
 
 PAD = 2
 K = 3
@@ -143,13 +147,16 @@ class _FusedConv1(torch.autograd.Function):
         return None, dw.to(wt), db.to(bt), da.to(at), None
 
 
-def _run(x, w, b, alpha, want_stats: bool):
+def _refuse_x_grad(x, what: str) -> None:
     if x.requires_grad:
         raise ValueError(
-            "fused_conv1_prelu_pool defines no gradient for x (the "
-            "transform's output needs none); detach it, or use the unfused "
-            "block"
+            f"{what} defines no gradient for x (the transform's output needs "
+            "none); detach it, or use the unfused block"
         )
+
+
+def _run(x, w, b, alpha, want_stats: bool):
+    _refuse_x_grad(x, "fused_conv1_prelu_pool")
     if x.device.type == "cpu":
         if want_stats:
             return plain_conv1_prelu_pool_stats(x, w, b, alpha)
@@ -157,9 +164,29 @@ def _run(x, w, b, alpha, want_stats: bool):
     return _FusedConv1.apply(x, w, b, alpha, want_stats)
 
 
+def _conv1_cuda(x, w, b, alpha) -> torch.Tensor:
+    """The forward kernel without code or moments: ``_FusedConv1`` in eval."""
+    wq, bq, aq = (t.contiguous() for t in _rounded_params(x, w, b, alpha))
+    return fused_conv1_cuda.forward(x, wq, bq, aq, False, False)[0]
+
+
+def _conv1_fake(x, w, b, alpha) -> torch.Tensor:
+    shape = (x.shape[0], *pad_geometry(*x.shape[1:]), w.shape[1])
+    return fused_conv1_cuda._nchw_empty(shape, x.dtype, x.device)
+
+
+_CONV1_OP = library.register(
+    "fused_conv1_prelu_pool", "(Tensor x, Tensor w, Tensor b, Tensor alpha) -> Tensor",
+    cpu=plain_conv1_prelu_pool, cuda=_conv1_cuda, fake=_conv1_fake)
+
+
 def fused_conv1_prelu_pool(x, w, b, alpha) -> torch.Tensor:
-    """``[B, H, W] x [9, C] x [C] x [1] -> [B, h2, w2, C]`` fused block."""
-    return _run(x, w, b, alpha, False)[0]
+    """``[B, H, W] x [9, C] x [C] x [1] -> [B, h2, w2, C]`` fused block;
+    the op ``adfd::fused_conv1_prelu_pool`` where no gradient is needed."""
+    if library.needs_grad(w, b, alpha):
+        return _run(x, w, b, alpha, False)[0]
+    _refuse_x_grad(x, "fused_conv1_prelu_pool")
+    return _CONV1_OP(x, w, b, alpha)
 
 
 def fused_conv1_prelu_pool_stats(x, w, b, alpha):
@@ -217,13 +244,30 @@ class _FusedConvMfm(torch.autograd.Function):
         return None, dw.to(wt), db.to(bt)
 
 
+def _mfm_cuda(x, w, b) -> torch.Tensor:
+    """The forward kernel without the code: ``_FusedConvMfm`` in eval."""
+    wq = w.to(x.dtype).float().contiguous()
+    bq = b.to(x.dtype).float().contiguous()
+    return fused_conv1_cuda.mfm_forward(x, wq, bq, False)[0]
+
+
+def _mfm_fake(x, w, b) -> torch.Tensor:
+    bsz, h, win = x.shape
+    return fused_conv1_cuda._nchw_empty((bsz, h // 2, win // 2, w.shape[1] // 2), x.dtype,
+                                        x.device)
+
+
+_MFM_OP = library.register(
+    "fused_conv_mfm_pool", "(Tensor x, Tensor w, Tensor b) -> Tensor",
+    cpu=plain_conv_mfm_pool, cuda=_mfm_cuda, fake=_mfm_fake)
+
+
 def fused_conv_mfm_pool(x, w, b) -> torch.Tensor:
-    """``[B, H, W] x [25, C] x [C] -> [B, H//2, W//2, C//2]`` fused block."""
-    if x.requires_grad:
-        raise ValueError(
-            "fused_conv_mfm_pool defines no gradient for x (the transform's "
-            "output needs none); detach it, or use the unfused block"
-        )
+    """``[B, H, W] x [25, C] x [C] -> [B, H//2, W//2, C//2]`` fused block;
+    the op ``adfd::fused_conv_mfm_pool`` where no gradient is needed."""
+    _refuse_x_grad(x, "fused_conv_mfm_pool")
+    if not library.needs_grad(w, b):
+        return _MFM_OP(x, w, b)
     if x.device.type == "cpu":
         return plain_conv_mfm_pool(x, w, b)
     return _FusedConvMfm.apply(x, w, b)

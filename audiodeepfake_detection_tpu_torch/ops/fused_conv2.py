@@ -37,6 +37,9 @@ On a CUDA tensor the public functions launch the hand-written kernels of
 ``csrc/fused_conv2.cu`` (the contraction is theirs: no ``F.conv2d``, no
 matrix product of a library) behind one ``torch.autograd.Function``, or
 raise; there is no fallback and no geometry switch to the unfused layers.
+Where no gradient is needed, :func:`fused_conv2_prelu_pool` calls the op
+``adfd::fused_conv2_prelu_pool`` instead (``ops/library.py``): the forward
+kernel on a CUDA tensor, the plain version on a CPU one.
 The plain PyTorch version below (``F.conv2d`` -> PReLU -> ``F.max_pool2d``
 -> moments, ordinary autograd) runs only for a CPU tensor, and is what the
 kernels are checked against.  Both return the true ``dalpha`` at ``alpha ==
@@ -48,7 +51,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from . import fused_conv2_cuda
+from . import fused_conv2_cuda, library
 from .fused_pool import straight_through_round
 
 K = 3  # kernel size; padding 1
@@ -123,10 +126,31 @@ def _run(x, w, corr, alpha, want_stats: bool):
     return _FusedConv2.apply(x, w, corr, alpha, want_stats)
 
 
+def _conv2_cuda(x, w, corr, alpha) -> torch.Tensor:
+    """The forward kernel without code or moments: ``_FusedConv2`` in eval."""
+    wq, aq = _rounded(x, w, alpha)
+    out = fused_conv2_cuda.forward(
+        x, wq.contiguous(), corr.float().contiguous(), aq.contiguous(), False, False)
+    return out[0]
+
+
+def _conv2_fake(x, w, corr, alpha) -> torch.Tensor:
+    b, _, h, win = x.shape
+    return x.new_empty((b, w.shape[1], h // 2, win // 2))
+
+
+_CONV2_OP = library.register(
+    "fused_conv2_prelu_pool", "(Tensor x, Tensor w, Tensor corr, Tensor alpha) -> Tensor",
+    cpu=plain_conv2_prelu_pool, cuda=_conv2_cuda, fake=_conv2_fake)
+
+
 def fused_conv2_prelu_pool(x, w, corr, alpha) -> torch.Tensor:
     """``[B, Cin, H, W] x [9*Cin, Cout] x [Cout, H, W] x [1] -> [B, Cout,
-    H//2, W//2]`` fused block."""
-    return _run(x, w, corr, alpha, False)[0]
+    H//2, W//2]`` fused block; the op ``adfd::fused_conv2_prelu_pool`` where
+    no gradient is needed."""
+    if library.needs_grad(x, w, corr, alpha):
+        return _run(x, w, corr, alpha, False)[0]
+    return _CONV2_OP(x, w, corr, alpha)
 
 
 def fused_conv2_prelu_pool_stats(x, w, corr, alpha):

@@ -26,7 +26,10 @@ the rounded output.  ``dx`` comes back in ``x``'s type, ``dalpha`` in
 On a CUDA tensor the public functions launch the hand-written kernels of
 ``csrc/fused_pool.cu`` (forward and backward, behind one
 ``torch.autograd.Function``) or raise; there is no fallback and no geometry
-switch to the unfused layers.  The plain PyTorch version below
+switch to the unfused layers.  Where no gradient is needed,
+:func:`fused_prelu_pool` calls the op ``adfd::fused_prelu_pool`` instead
+(``ops/library.py``): the forward kernel on a CUDA tensor, the plain
+version on a CPU one.  The plain PyTorch version below
 (``torch.where`` -> ``F.max_pool2d`` -> moments, ordinary autograd) runs only
 for a CPU tensor, and is what the kernels are checked against.  Both return
 the true ``dalpha`` at ``alpha == 0`` (the JAX kernel returns 0 there).
@@ -37,7 +40,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from . import fused_pool_cuda
+from . import fused_pool_cuda, library
 
 
 def straight_through_round(t32: torch.Tensor, dtype) -> torch.Tensor:
@@ -104,9 +107,27 @@ def _run(x, alpha, want_stats: bool):
     return _FusedPreluPool.apply(x, alpha, want_stats)
 
 
+def _pool_cuda(x, alpha) -> torch.Tensor:
+    """The forward kernel without code or moments: ``_FusedPreluPool`` in eval."""
+    return fused_pool_cuda.forward(x, alpha.float().contiguous(), False, False)[0]
+
+
+def _pool_fake(x, alpha) -> torch.Tensor:
+    b, c, h, w = x.shape
+    return x.new_empty((b, c, h // 2, w // 2))
+
+
+_POOL_OP = library.register(
+    "fused_prelu_pool", "(Tensor x, Tensor alpha) -> Tensor",
+    cpu=plain_prelu_pool, cuda=_pool_cuda, fake=_pool_fake)
+
+
 def fused_prelu_pool(x, alpha) -> torch.Tensor:
-    """``[B, C, H, W] x [1] -> [B, C, H//2, W//2]`` fused PReLU + pool."""
-    return _run(x, alpha, False)[0]
+    """``[B, C, H, W] x [1] -> [B, C, H//2, W//2]`` fused PReLU + pool; the
+    op ``adfd::fused_prelu_pool`` where no gradient is needed."""
+    if library.needs_grad(x, alpha):
+        return _run(x, alpha, False)[0]
+    return _POOL_OP(x, alpha)
 
 
 def fused_prelu_pool_stats(x, alpha):

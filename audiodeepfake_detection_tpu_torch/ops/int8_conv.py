@@ -14,9 +14,10 @@ returns ``acc`` itself.  The input is NHWC, as the quantizing pass writes
 it, so the kernel reads a tap's channels as one run; the output is NCHW,
 where the port's layers take it.
 
-On a CUDA tensor :func:`int8_conv` launches the hand-written kernel of
-``csrc/int8_conv.cu`` (``ops/int8_conv_cuda.py``) or raises; there is no
-fallback.  :func:`int8_conv_plain` runs only for a CPU tensor, and is what
+:func:`int8_conv` calls the op ``adfd::int8_conv`` (``ops/library.py``;
+no gradient is defined): on a CUDA tensor it launches the hand-written
+kernel of ``csrc/int8_conv.cu`` (``ops/int8_conv_cuda.py``) or raises; there
+is no fallback.  :func:`int8_conv_plain` runs only for a CPU tensor, and is what
 the kernel is checked against: the convolution of the codes in float64,
 which is exact (every partial sum is an integer below 2^53; fp32 is not:
 at the DCNN's cnn_14, K = 1152 and 1152 * 127^2 > 2^24), rounded to int32,
@@ -30,7 +31,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from . import int8_conv_cuda
+from . import int8_conv_cuda, library
 
 
 def int8_conv_plain(
@@ -65,9 +66,30 @@ def int8_conv(
     dilation: int = 1,
     out_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
-    """The kernel on a CUDA tensor, the plain version on a CPU one."""
-    if x_q.device.type == "cuda":
-        return int8_conv_cuda.forward(x_q, w_q, scale, padding, dilation, out_dtype)
-    if x_q.device.type != "cpu":
+    """The kernel on a CUDA tensor, the plain version on a CPU one (the op
+    ``adfd::int8_conv``)."""
+    if x_q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"int8_conv runs on cuda or cpu, not {x_q.device}")
-    return int8_conv_plain(x_q, w_q, scale, padding, dilation, out_dtype)
+    return _OP(x_q, w_q, scale, padding, dilation, out_dtype)
+
+
+def _plain_contiguous(x_q, w_q, scale, padding, dilation, out_dtype):
+    # contiguous NCHW, as the kernel writes it (the CPU convolution of the
+    # NHWC codes may leave channels-last strides)
+    return int8_conv_plain(x_q, w_q, scale, padding, dilation, out_dtype).contiguous()
+
+
+def _cuda(x_q, w_q, scale, padding, dilation, out_dtype):
+    return int8_conv_cuda.forward(x_q, w_q, scale, padding, dilation, out_dtype)
+
+
+def _fake(x_q, w_q, scale, padding, dilation, out_dtype):
+    b, h, w, _ = x_q.shape
+    ho, wo = int8_conv_cuda.output_plane(h, w, w_q.shape[2], padding, dilation)
+    return x_q.new_empty((b, w_q.shape[0], ho, wo), dtype=out_dtype)
+
+
+_OP = library.register(
+    "int8_conv", "(Tensor x_q, Tensor w_q, Tensor? scale, int padding, int dilation, "
+    "ScalarType out_dtype) -> Tensor",
+    cpu=_plain_contiguous, cuda=_cuda, fake=_fake)

@@ -10,11 +10,11 @@ device the feature stack is two matrix products plus elementwise work.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from .library import tensor_cache
 
 
 def linear_fbanks(
@@ -53,7 +53,7 @@ def create_dct(n_mfcc: int, n_mels: int, norm: str | None = "ortho") -> np.ndarr
     return dct.T.astype(np.float32)
 
 
-@functools.lru_cache(maxsize=16)
+@tensor_cache(maxsize=16)
 def _matrices(
     num_of_scales: int, f_min: float, f_max: float, n_lin: int, n_lfcc: int,
     sample_rate: int, device: torch.device,

@@ -13,13 +13,13 @@ device the audio lies on (cuFFT on a GPU), so there is no ``method`` knob.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
+from .library import tensor_cache
 
-@functools.lru_cache(maxsize=16)
+
+@tensor_cache(maxsize=16)
 def _window(n: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     k = np.arange(n)
     w = 0.5 - 0.5 * np.cos(2.0 * np.pi * k / n)  # float64, rounded once

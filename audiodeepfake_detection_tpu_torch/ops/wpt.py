@@ -17,13 +17,13 @@ not on the serving path and waits for the analysis slice.
 
 from __future__ import annotations
 
-import functools
 from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .library import tensor_cache
 from .wavelets import get_wavelet
 
 
@@ -62,14 +62,15 @@ def reflect_indices(n: int, padl: int, padr: int) -> np.ndarray:
     return t
 
 
-@functools.lru_cache(maxsize=64)
+@tensor_cache(maxsize=64)
 def _reflect_index_tensor(n: int, padl: int, padr: int, device: str) -> torch.Tensor:
     # cached per device: the plain cascade is timed on the GPU against the
-    # kernel, and a fresh host->device index copy per level would be timed too
+    # kernel, and a fresh host->device index copy per level would be timed
+    # too (not while tracing: see library.tensor_cache)
     return torch.as_tensor(reflect_indices(n, padl, padr), device=device)
 
 
-@functools.lru_cache(maxsize=64)
+@tensor_cache(maxsize=64)
 def dec_kernel(wavelet_name: str, device: str) -> torch.Tensor:
     """Stacked ``[2, 1, L]`` float32 analysis kernel (flipped dec_lo /
     dec_hi), built in float64 and cast once."""
@@ -80,7 +81,7 @@ def dec_kernel(wavelet_name: str, device: str) -> torch.Tensor:
     return torch.as_tensor(k, device=device)
 
 
-@functools.lru_cache(maxsize=16)
+@tensor_cache(maxsize=16)
 def _gray_index_tensor(level: int, device: str) -> torch.Tensor:
     return torch.as_tensor(graycode_permutation(level), device=device)
 
@@ -141,10 +142,11 @@ def packet_image(
             whole batch (the reference's runtime block normalisation,
             wavelet_math.py:202-203; depends on batch composition).
         block_norm_scale: optional precomputed per-node scale ``[2**level]``.
-        use_kernel: run the cascade through ``wpt_cuda.wpt_packets_cuda``
-            (the CUDA kernel for a CUDA tensor, this module's plain version
-            for a CPU tensor); ``False`` forces the plain version on any
-            device, which is what the kernel is timed against.
+        use_kernel: run the cascade through the op ``adfd::wpt_packets``
+            (``wpt_cuda.wpt_packets``: the CUDA kernel for a CUDA tensor,
+            this module's plain version for a CPU tensor); ``False`` forces
+            the plain version on any device, which is what the kernel is
+            timed against.
 
     Returns:
         ``[B, C, 2**level, n_level]`` with C = 2 if ``loss_less`` else 1.
@@ -152,15 +154,13 @@ def packet_image(
     if audio.ndim == 3:
         audio = audio.reshape(audio.shape[0] * audio.shape[1], audio.shape[-1])
     if use_kernel:
-        from .wpt_cuda import wpt_packets_cuda
+        from .wpt_cuda import wpt_packets
 
         if log_scale and not (block_norm or loss_less) and block_norm_scale is None:
             # nothing needs the raw coefficients: the log runs at the
             # kernel's store
-            return wpt_packets_cuda(
-                audio, wavelet_name, level, log_scale=True, power=power
-            )[:, None]
-        wp = wpt_packets_cuda(audio, wavelet_name, level)
+            return wpt_packets(audio, wavelet_name, level, True, float(power))[:, None]
+        wp = wpt_packets(audio, wavelet_name, level, False, float(power))
     else:
         wp = wpt_analysis(audio, wavelet_name, level)
     if block_norm:

@@ -11,7 +11,10 @@ bound with ``ctypes``.  Nothing here imports or invokes the CUDA toolchain
 at import time.
 
 ``wpt_packets_cuda`` takes the plain PyTorch version (``wpt.wpt_analysis``)
-only for a CPU tensor.  A CUDA tensor gets the subtree kernel, a CTA per
+only for a CPU tensor.  The same forward is the op ``adfd::wpt_packets``
+(``ops/library.py``; :data:`wpt_packets`), which ``wpt.packet_image`` calls:
+its CUDA implementation is ``wpt_packets_cuda`` on the plan
+:func:`wpt_plan` picks.  A CUDA tensor gets the subtree kernel, a CTA per
 (frame, node at the split depth ``k``), or an exception.  :func:`wpt_plan`
 picks ``k`` and where each CTA's level-``k`` node comes from (the "top"):
 ``"frame"`` (``k <= 1``: read from the frames), ``"path"`` (the CTA
@@ -35,8 +38,10 @@ from typing import Optional, Tuple
 
 import torch
 
+from . import library
 from .cuda_build import CSRC_DIR, compile_library
-from .wpt import dec_kernel, log_power, wpt_analysis
+from .wavelets import get_wavelet
+from .wpt import dec_kernel, log_power, wpt_analysis, wpt_output_length
 
 #: calls of :func:`wpt_packets_cuda` that launched the subtree kernel
 LAUNCHES = 0
@@ -325,8 +330,7 @@ def wpt_packets_cuda(
     """
     global LAUNCHES, LEVEL_LAUNCHES
     if x.device.type == "cpu":
-        wp = wpt_analysis(x, wavelet_name, level)
-        return log_power(wp, power) if log_scale else wp
+        return plain_packets(x, wavelet_name, level, log_scale, power)
     if x.device.type != "cuda":
         raise ValueError(f"wpt_packets_cuda: unsupported device {x.device}")
     if x.dtype != torch.float32:
@@ -360,3 +364,27 @@ def wpt_packets_cuda(
            f"wpt_subtree launch ({plan})")
     LAUNCHES += 1
     return out
+
+
+def plain_packets(x: torch.Tensor, wavelet_name: str, level: int, log_scale: bool = False,
+                  power: float = 2.0) -> torch.Tensor:
+    """The plain PyTorch version: ``wpt.wpt_analysis`` plus the same log."""
+    wp = wpt_analysis(x, wavelet_name, level)
+    return log_power(wp, power) if log_scale else wp
+
+
+def _packets_cuda(x, wavelet_name, level, log_scale, power):
+    return wpt_packets_cuda(x, wavelet_name, level, log_scale, power)
+
+
+def _packets_fake(x, wavelet_name, level, log_scale, power):
+    n = wpt_output_length(x.shape[1], get_wavelet(wavelet_name).dec_len, level)
+    return x.new_empty((x.shape[0], 2**level, n))
+
+
+#: ``adfd::wpt_packets(x, wavelet, level, log_scale, power)``: ``[B, T] ->
+#: [B, 2**level, n_level]``, the kernel on the automatic plan for a CUDA
+#: tensor, :func:`plain_packets` for a CPU one
+wpt_packets = library.register(
+    "wpt_packets", "(Tensor x, str wavelet, int level, bool log_scale, float power) -> Tensor",
+    cpu=plain_packets, cuda=_packets_cuda, fake=_packets_fake)

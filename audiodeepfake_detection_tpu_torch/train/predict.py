@@ -61,8 +61,6 @@ def make_score_fn(
     every chunk for the AST too (the JAX package's AST chunk of 32 avoids a
     TPU memory knee; PERF.md).
     """
-    from .steps import audio_to_float
-
     if output not in ("prob", "margin"):
         raise ValueError(f"output must be prob or margin: {output!r}")
     device = resolve_device(device)
@@ -71,21 +69,34 @@ def make_score_fn(
     def score(audio: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
             audio = torch.as_tensor(audio).to(device, non_blocking=True)
-            image = transform(audio_to_float(audio))
-            b = image.shape[0]
-            if chunk and chunk < b:
-                if b % chunk:
-                    raise ValueError(
-                        f"chunk={chunk} does not divide the batch of {b}"
-                    )
-                logits = torch.cat([model(g) for g in image.split(chunk)])
-            else:
-                logits = model(image)
-            if output == "margin":
-                return logits[:, 1] - logits[:, 0]
-            return torch.softmax(logits, dim=-1)[:, 1]
+            return score_batch(model, transform, audio, output, chunk)
 
     return score
+
+
+def score_batch(
+    model: nn.Module,
+    transform: Callable,
+    audio: torch.Tensor,
+    output: str = "prob",
+    chunk: int = 0,
+) -> torch.Tensor:
+    """The body of :func:`make_score_fn`'s scorer, and of the exported one
+    (``train/export.py``): ``[B, 1, T]`` audio on the model's device ->
+    ``[B]`` scores, the model in whatever mode it is in."""
+    from .steps import audio_to_float
+
+    image = transform(audio_to_float(audio))
+    b = image.shape[0]
+    if chunk and chunk < b:
+        if b % chunk:
+            raise ValueError(f"chunk={chunk} does not divide the batch of {b}")
+        logits = torch.cat([model(g) for g in image.split(chunk)])
+    else:
+        logits = model(image)
+    if output == "margin":
+        return logits[:, 1] - logits[:, 0]
+    return torch.softmax(logits, dim=-1)[:, 1]
 
 
 def _frames_of(path: str, sample_rate: int, win: int) -> List[np.ndarray]:

@@ -12,12 +12,13 @@ from __future__ import annotations
 import math
 import os
 import pickle
-from typing import Callable, Dict, Iterable, Optional, Tuple
+from typing import Callable, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..ops.lfcc import compute_deltas, lfcc
+from ..ops.library import tensor_cache
 from ..ops.normalize import (
     normalize,
     welford_finalize,
@@ -189,18 +190,20 @@ def normalized_transform(
 ) -> TransformFn:
     """``transform`` followed by per-channel ``(x - mean) / std``.
 
-    The stats are copied to each device once, not on every call.
+    The stats are copied to each device once, not on every call (nor kept
+    from inside a trace: ``ops.library.tensor_cache``).
     """
-    on_device: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+    @tensor_cache(maxsize=None)
+    def stats(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+        return (
+            torch.as_tensor(np.asarray(mean, np.float32), device=device),
+            torch.as_tensor(np.asarray(std, np.float32), device=device),
+        )
 
     def fn(audio: torch.Tensor) -> torch.Tensor:
         image = transform(audio)
-        if image.device not in on_device:
-            on_device[image.device] = (
-                torch.as_tensor(np.asarray(mean, np.float32), device=image.device),
-                torch.as_tensor(np.asarray(std, np.float32), device=image.device),
-            )
-        m, s = on_device[image.device]
+        m, s = stats(image.device)
         return normalize(image, m, s)
 
     return fn

@@ -138,7 +138,15 @@ Phases, in order; any failure propagates and the script exits non-zero
     DCNN site at B = 64 through its launcher and as device time against
     plain, its bound and cuDNN's fp32 / bf16 convolutions (a yardstick),
     the DCNN scorer at B = 64 and 128 and the AST scorer at B = 64 in fp32,
-    bf16 and int8.
+    bf16 and int8;
+23. the serving export: phase 7's DCNN scorer, the same int8-baked, a DCNN
+    with all three fused flags, phase 11's LCNN with its fused block and
+    phase 18's AST exported with ``torch.export`` on ``cuda`` (symbolic
+    batch), saved and reloaded; each graph's ``adfd`` ops asserted, its
+    scores at B = 1, 64 and 128 against the eager scorer, each op's launch
+    counter read over one call of the artifact; the fp32 and int8 DCNN
+    artifacts timed against eager at B = 64 and 128; the dispatch of an op
+    against its direct launcher (kernel 1 at B = 64, kernel 4 at N = 227).
 
 The last lines are the kernels' JSON record, the measurements with the
 card's name and power limit, and ``{"ok": true, "device": ...}``.
@@ -295,6 +303,13 @@ INT8_DRIFT = 0.05
 # such codes in a frame's ~10^6 move P(fake) by far less than this
 INT8_CPU_ATOL = 2e-3
 INT8_FLOP_PER_S = 1979e12  # dense int8 tensor-core rate, H100 SXM data sheet
+# ---- the serving export (phase 23)
+# P(fake), the reloaded artifact against the eager scorer on the same card:
+# both run the same ops on the same inputs, so anything but the same bits
+# is reported with its size; this bound takes a changed summation order in
+# one layer, not a wrong kernel or a wrong weight
+EXPORT_ATOL = 2e-6
+EXPORT_BATCHES = (1, 64, 128)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12  # dense tensor-core rate, H100 SXM data sheet
@@ -3058,6 +3073,182 @@ def int8_timing(ic, icc, snapshot: str, ast_model, ast_q, ast_transform, card_li
     return out
 
 
+def op_counters(mods) -> dict:
+    """``{op name: (module, counter)}``: the launch count each ``adfd`` op's
+    CUDA implementation adds one to per kernel launch."""
+    wpt_cuda, fc, fp, f2, fa, icc = mods
+    return {
+        "adfd::wpt_packets": (wpt_cuda, "LAUNCHES"),
+        "adfd::fused_conv1_prelu_pool": (fc, "FWD_LAUNCHES"),
+        "adfd::fused_conv_mfm_pool": (fc, "MFM_FWD_LAUNCHES"),
+        "adfd::fused_prelu_pool": (fp, "POOL_FWD_LAUNCHES"),
+        "adfd::fused_conv2_prelu_pool": (f2, "CONV2_FWD_LAUNCHES"),
+        "adfd::flash_mha_packed": (fa, "MHA_FWD_LAUNCHES"),
+        "adfd::int8_conv": (icc, "LAUNCHES"),
+    }
+
+
+def export_scorers(dcnn_snapshot: str, lcnn_snapshot: str, ast_model, ast_transform,
+                   data: str):
+    """Phase 23's scorers: ``(name, model, transform, adfd ops per call)``.
+    Phase 7's DCNN snapshot (kernel 1), int8-baked (the int8 convolution),
+    with all three fused flags (kernels 2, 5 and 6); phase 11's LCNN with
+    its fused block (kernel 3); phase 18's AST (kernel 4)."""
+    import copy
+
+    from audiodeepfake_detection_tpu_torch.ops.quantize import DEFAULT_INT8_SITES
+    from audiodeepfake_detection_tpu_torch.train.predict import (
+        build_scorer_from_snapshot, quantize_for_scoring)
+
+    model, transform, _ = build_scorer_from_snapshot(dcnn_snapshot)
+    fused = copy.deepcopy(model)
+    fused.fused_layer1 = fused.fused_pool = fused.fused_layer2 = "always"
+    q = quantize_for_scoring(model, transform, list(corpus_frames(data, 64)), "cuda", 64)
+    lcnn, lcnn_transform, _ = build_scorer_from_snapshot(lcnn_snapshot)
+    lcnn.fused_layer1 = "always"
+    return [
+        ("dcnn", model, transform, {"adfd::wpt_packets": 1}),
+        ("dcnn-int8", q, transform,
+         {"adfd::wpt_packets": 1, "adfd::int8_conv": len(DEFAULT_INT8_SITES)}),
+        ("dcnn-fused", fused, transform,
+         {"adfd::wpt_packets": 1, "adfd::fused_conv1_prelu_pool": 1,
+          "adfd::fused_conv2_prelu_pool": 1, "adfd::fused_prelu_pool": 1}),
+        ("lcnn-fused", lcnn, lcnn_transform, {"adfd::fused_conv_mfm_pool": 1}),
+        ("ast-fused", ast_model, ast_transform, {"adfd::flash_mha_packed": AST_BLOCKS}),
+    ]
+
+
+def graph_ops(ep) -> dict:
+    """``{op: calls}`` over every call in an exported graph (a report of
+    what the program runs, printed where its bits differ from eager)."""
+    from collections import Counter
+
+    return dict(Counter(str(n.target) for n in ep.graph.nodes if n.op == "call_function"))
+
+
+def export_phase(mods, scorers, root: str, card_line: str):
+    """Phase 23: each scorer exported on ``cuda`` with a symbolic batch, saved
+    and reloaded from its file; its graph's ``adfd`` ops; at B = 1, 64 and
+    128 its scores against the eager scorer (the same bits, or the maximum
+    difference within ``EXPORT_ATOL``) and each op's launch counter grown by
+    its calls per artifact call; the fp32 and int8 DCNN artifacts timed
+    against their eager scorers at B = 64 and 128."""
+    from audiodeepfake_detection_tpu_torch.train import export
+    from audiodeepfake_detection_tpu_torch.train.predict import make_score_fn
+
+    counters = op_counters(mods)
+    gen = torch.Generator().manual_seed(31)
+    audio = {b: (0.3 * torch.randn(b, 1, SR, generator=gen)).cuda() for b in EXPORT_BATCHES}
+    out = {}
+    for name, model, transform, want_ops in scorers:
+        t0 = time.perf_counter()
+        ep = export.export_scorer(model, transform, SR, "cuda")
+        export_s = time.perf_counter() - t0
+        path = os.path.join(root, f"{name}.adfx")
+        export.save_artifact(ep, path, {"model": name, "win": SR})
+        t0 = time.perf_counter()
+        loaded, meta = export.load_artifact(path)
+        load_s = time.perf_counter() - t0
+        ops = dict(export.adfd_ops(loaded))
+        if ops != want_ops or meta["in_shape"] != ["b", "1", str(SR)]:
+            raise AssertionError(f"{name}: adfd ops {ops} (want {want_ops}), meta {meta}")
+        artifact = loaded.module()
+        eager = make_score_fn(model, transform, "cuda")
+        row = {"export_s": export_s, "load_s": load_s, "bytes": os.path.getsize(path),
+               "ops": ops, "max_abs_diff": {}, "launches_per_call": {}}
+        for b, a in audio.items():
+            want = eager(a)
+            for mod, attr in counters.values():
+                setattr(mod, attr, 0)
+            with torch.inference_mode():
+                got = artifact(a)
+            torch.cuda.synchronize()
+            launched = {op: getattr(*counters[op]) for op in counters
+                        if getattr(*counters[op])}
+            if launched != want_ops:
+                raise AssertionError(f"{name} B={b}: launches {launched}, want {want_ops}")
+            if type(want) is not torch.Tensor or got.shape != (b,):
+                raise AssertionError(f"{name} B={b}: eager {type(want)}, artifact {got.shape}")
+            diff = (got - want).abs().max().item()
+            row["max_abs_diff"][b] = diff
+            row["launches_per_call"][b] = launched
+            if diff:
+                log(f"  {name} B={b}: artifact differs from eager by {diff:.3e} (limit "
+                    f"{EXPORT_ATOL}); the graph runs {graph_ops(loaded)}")
+            if not diff <= EXPORT_ATOL:
+                raise AssertionError(f"{name} B={b}: artifact vs eager {diff}")
+        if name in ("dcnn", "dcnn-int8"):
+            row["ms"] = {}
+            for b in (64, 128):
+                a = audio[b]
+
+                def run_artifact(a=a):
+                    with torch.inference_mode():  # as make_score_fn's scorer
+                        return artifact(a)
+
+                fns = {"eager": lambda a=a: eager(a), "artifact": run_artifact}
+                ms = median_ms(fns, reps=5)
+                host = {k: host_ms(fn, reps=5) for k, fn in fns.items()}
+                row["ms"][b] = {**ms, **{f"{k}_host": v for k, v in host.items()}}
+                log(f"  {name} B={b} [{card_line}]: artifact {ms['artifact']:.3f} ms, eager "
+                    f"{ms['eager']:.3f} ms; host time a call (no synchronize) artifact "
+                    f"{host['artifact']:.3f} ms, eager {host['eager']:.3f} ms")
+        log(f"  {name}: exported in {export_s:.2f} s, {row['bytes']} bytes, loaded in "
+            f"{load_s:.2f} s, ops {ops}, max |artifact - eager| {row['max_abs_diff']}")
+        out[name] = row
+        del artifact, loaded, ep
+    out["dispatch"] = op_dispatch(mods, card_line)
+    return out
+
+
+def host_ms(fn, reps: int) -> float:
+    """Host milliseconds a call of ``fn``: the loop timed before the
+    synchronize, so the queued device work is not in it (unless the queue
+    fills)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return ms
+
+
+def op_dispatch(mods, card_line: str, reps: int = 50) -> dict:
+    """Phase 23: each of two ops against its direct launcher, the same kernel
+    on the same tensor: kernel 1 at B = 64 (1 s frames, with the log) and
+    kernel 4 at B = 32, N = 227 (12 heads); CUDA-event medians and the
+    host's microseconds a call (:func:`host_ms`, median of ``WINDOWS``)."""
+    wpt_cuda, _, _, _, fa, _ = mods
+    gen = torch.Generator().manual_seed(32)
+    x = torch.randn(64, SR, generator=gen).cuda()
+    b, n, heads = AST_SHAPE
+    qkv = torch.randn(b, n, 3 * heads * 64, generator=gen).cuda()
+    cases = {
+        "wpt-B64": {
+            "op": lambda: torch.ops.adfd.wpt_packets.default(x, MAIN[0], MAIN[1], True, 2.0),
+            "launcher": lambda: wpt_cuda.wpt_packets_cuda(x, *MAIN, log_scale=True),
+        },
+        "mha-N227": {
+            "op": lambda: torch.ops.adfd.flash_mha_packed.default(qkv, heads, 0.125),
+            "launcher": lambda: fa.forward(qkv, heads, 0.125, False)[0],
+        },
+    }
+    out = {}
+    with torch.inference_mode():
+        for case, fns in cases.items():
+            if not torch.equal(fns["op"](), fns["launcher"]()):
+                raise AssertionError(f"{case}: the op and its launcher differ")
+            ms = median_ms(fns, reps=reps)
+            host = {name: 1e3 * statistics.median(host_ms(fn, reps) for _ in range(WINDOWS))
+                    for name, fn in fns.items()}
+            out[case] = {"op_ms": ms["op"], "launcher_ms": ms["launcher"],
+                         "op_host_us": host["op"], "launcher_host_us": host["launcher"]}
+            log(f"  {case} [{card_line}]: op {ms['op']:.4f} ms ({host['op']:.1f} us of host "
+                f"a call), launcher {ms['launcher']:.4f} ms ({host['launcher']:.1f} us)")
+    return out
+
+
 def int8_rows(errs, served, times):
     """The ``kernels`` rows of the int8 convolution, one per DCNN site at B =
     64: launches at the site over phase 22's HTTP run, checked and timed in
@@ -3212,7 +3403,14 @@ def main() -> None:
         log("  time")
         int8_times = int8_timing(int8_conv, int8_conv_cuda, int8_dcnn, ast_model, ast_q,
                                  ast_transform, card_line)
-        del ast_model, ast_q
+        del ast_q
+        log("[23 the serving export]")
+        export_mods = (wpt_cuda, fused_conv1_cuda, fused_pool_cuda, fused_conv2_cuda,
+                       flash_attention_cuda, int8_conv_cuda)
+        export_run = export_phase(
+            export_mods, export_scorers(int8_dcnn, lcnn_snapshot, ast_model, ast_transform,
+                                        data), root, card_line)
+        del ast_model
 
     main_key = f"{MAIN[0]}-L{MAIN[1]}-B64-T{SR}"
     train_key = "B{}-H{}-W{}-C{}-float32".format(*TRAIN_SHAPE)
@@ -3431,7 +3629,7 @@ def main() -> None:
         "long_frames": long_run, "bf16_train": bf16_run, "bf16_vs_plain": bf16_errs,
         "bf16_timing": bf16_times, "bf16_profile": bf16_prof,
         "int8_vs_plain": int8_errs, "int8_imma": int8_imma, "int8": int8_run,
-        "int8_timing": int8_times,
+        "int8_timing": int8_times, "export": export_run,
     }))
     print(card_line)
     print(json.dumps({"ok": True, "device": {

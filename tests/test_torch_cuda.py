@@ -1066,3 +1066,97 @@ def test_int8_conv_refuses_what_it_does_not_take(card):
         int8_conv.int8_conv(x_q, w_q, scale[:8], 1)
     with pytest.raises(ValueError, match="CUDA tensor"):
         int8_conv_cuda.forward(x_q.cpu(), w_q.cpu(), scale.cpu(), 1, 1, torch.float32)
+
+
+# ------------------------------------------------- the adfd ops (serving export)
+
+
+def _op_cases(device):
+    """``{case: (op, args, launcher call, launch counter)}`` at the scorers'
+    shapes: each op against the launcher its CUDA implementation calls."""
+    gen = torch.Generator().manual_seed(40)
+
+    def r(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen)).to(device)
+
+    x1 = r(8, 22050)
+    x2, w2, b2, a2 = r(4, 95, 256), r(9, 64, scale=0.3), r(64, scale=0.1), r(1).abs()
+    x3, w3, b3 = r(4, 101, 256), r(25, 64, scale=0.2), r(64, scale=0.1)
+    x4 = r(2, 227, 3 * 12 * 64)
+    x5, a5 = r(4, 96, 48, 129), torch.tensor([0.25], device=device)
+    x6, w6, c6 = r(4, 64, 48, 129), r(576, 96, scale=0.05), r(96, 48, 129, scale=0.1)
+    xq, wq, sq = _int8_case(4, 64, 96, 3, 48, 129, device, seed=3)
+    ops = torch.ops.adfd
+    return {
+        "wpt_packets": (ops.wpt_packets.default, (x1, "sym5", 8, True, 2.0),
+                        lambda: wpt_cuda.wpt_packets_cuda(x1, "sym5", 8, log_scale=True),
+                        (wpt_cuda, "LAUNCHES")),
+        "wpt_packets-raw": (ops.wpt_packets.default, (x1, "db4", 6, False, 2.0),
+                            lambda: wpt_cuda.wpt_packets_cuda(x1, "db4", 6),
+                            (wpt_cuda, "LAUNCHES")),
+        "fused_conv1_prelu_pool": (
+            ops.fused_conv1_prelu_pool.default, (x2, w2, b2, a2),
+            lambda: fused_conv1_cuda.forward(x2, w2, b2, a2, False, False)[0],
+            (fused_conv1_cuda, "FWD_LAUNCHES")),
+        "fused_conv1_prelu_pool-bf16": (
+            ops.fused_conv1_prelu_pool.default, (x2.bfloat16(), w2, b2, a2),
+            lambda: fused_conv1_cuda.forward(
+                x2.bfloat16(), *(t.bfloat16().float() for t in (w2, b2, a2)), False, False)[0],
+            (fused_conv1_cuda, "FWD_LAUNCHES")),
+        "fused_conv_mfm_pool": (
+            ops.fused_conv_mfm_pool.default, (x3, w3, b3),
+            lambda: fused_conv1_cuda.mfm_forward(x3, w3, b3, False)[0],
+            (fused_conv1_cuda, "MFM_FWD_LAUNCHES")),
+        "flash_mha_packed": (
+            ops.flash_mha_packed.default, (x4, 12, 0.125),
+            lambda: flash_attention_cuda.forward(x4, 12, 0.125, False)[0],
+            (flash_attention_cuda, "MHA_FWD_LAUNCHES")),
+        "flash_mha_packed-bf16": (
+            ops.flash_mha_packed.default, (x4.bfloat16(), 12, 0.125),
+            lambda: flash_attention_cuda.forward(x4.bfloat16(), 12, 0.125, False)[0],
+            (flash_attention_cuda, "MHA_FWD_LAUNCHES")),
+        "fused_prelu_pool": (
+            ops.fused_prelu_pool.default, (x5, a5),
+            lambda: fused_pool_cuda.forward(x5, a5, False, False)[0],
+            (fused_pool_cuda, "POOL_FWD_LAUNCHES")),
+        "fused_conv2_prelu_pool": (
+            ops.fused_conv2_prelu_pool.default, (x6, w6, c6, a5),
+            lambda: fused_conv2_cuda.forward(x6, w6, c6, a5, False, False)[0],
+            (fused_conv2_cuda, "CONV2_FWD_LAUNCHES")),
+        "int8_conv": (ops.int8_conv.default, (xq, wq, sq, 1, 1, torch.float32),
+                      lambda: int8_conv_cuda.forward(xq, wq, sq, 1, 1, torch.float32),
+                      (int8_conv_cuda, "LAUNCHES")),
+    }
+
+
+_OP_CASE_NAMES = ("wpt_packets", "wpt_packets-raw", "fused_conv1_prelu_pool",
+                  "fused_conv1_prelu_pool-bf16", "fused_conv_mfm_pool", "flash_mha_packed",
+                  "flash_mha_packed-bf16", "fused_prelu_pool", "fused_conv2_prelu_pool",
+                  "int8_conv")
+
+
+@pytest.mark.parametrize("case", _OP_CASE_NAMES)
+def test_each_op_is_its_launcher_bit_for_bit(card, case):
+    """The op's CUDA implementation is the launcher: the same bits, shape,
+    type and strides (kernels 2 and 3: NCHW memory behind ``[B, h2, w2,
+    C]``), one launch a call."""
+    op, args, launcher, (mod, counter) = _op_cases(card)[case]
+    before = getattr(mod, counter)
+    with torch.inference_mode():
+        got = op(*args)
+    torch.cuda.synchronize()
+    assert getattr(mod, counter) - before == 1
+    want = launcher()
+    assert got.dtype == want.dtype and got.stride() == want.stride()
+    assert torch.equal(got, want)
+
+
+def test_public_functions_call_the_ops_without_gradients(card):
+    """Where no gradient is needed the public functions give the op's bits
+    (the forward without code, moments or statistics)."""
+    op, args, _, _ = _op_cases(card)["fused_conv1_prelu_pool"]
+    with torch.no_grad():
+        assert torch.equal(fused_conv1.fused_conv1_prelu_pool(*args), op(*args))
+    op, args, _, _ = _op_cases(card)["flash_mha_packed"]
+    with torch.no_grad():
+        assert torch.equal(flash_attention.flash_mha_packed(*args), op(*args))
