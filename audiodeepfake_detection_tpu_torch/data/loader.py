@@ -14,8 +14,10 @@ the JAX package's are equal byte for byte.
 device from pinned host memory before the current batch is consumed, so the
 host never waits for a copy.
 
-Not ported yet: the pre-decoded frame cache (``data/frame_cache.py``);
-``use_frame_cache=True`` raises.
+``use_frame_cache`` serves frames from the pre-decoded int16 memmap of
+``data/frame_cache.py``: ``True`` builds it, ``None`` uses one that already
+exists, ``False`` never uses one.  A warm cache serves batches inline,
+with no prefetch thread.
 """
 
 from __future__ import annotations
@@ -68,11 +70,15 @@ class FrameLoader:
         if emit not in ("float32", "int16"):
             raise ValueError(f"emit must be float32 or int16, got {emit}")
         self.emit = emit
-        if use_frame_cache:
-            raise NotImplementedError(
-                "the pre-decoded frame cache is not ported yet (ROADMAP.md "
-                "queue 1, slice 8: sweeps and resident data)"
-            )
+        # pre-decoded frame cache: None = use it if present, True = build
+        # if missing, False = always decode
+        self._frame_cache = None
+        if use_frame_cache is not False and getattr(dataset, "save_path", None):
+            from .frame_cache import build_frame_cache, open_frame_cache
+
+            if use_frame_cache:
+                build_frame_cache(dataset, num_threads=num_threads)
+            self._frame_cache = open_frame_cache(dataset)
 
     def __len__(self) -> int:
         per_proc = math.ceil(len(self.dataset) / self.process_count)
@@ -113,6 +119,8 @@ class FrameLoader:
 
     def _make_batch(self, indices: np.ndarray, pad_to: int) -> Dict[str, np.ndarray]:
         indices = indices[indices >= 0]  # drop -1 pad sentinels (zero-weight)
+        if self._frame_cache is not None:
+            return self._cached_batch(indices, pad_to)
         rows = self.dataset.audio_data[indices]
         paths = [str(r[0]) for r in rows]
         wins = np.asarray([int(r[2]) for r in rows], dtype=np.int64)
@@ -157,6 +165,30 @@ class FrameLoader:
             )
         return batch
 
+    def _cached_batch(self, indices: np.ndarray, pad_to: int) -> Dict[str, np.ndarray]:
+        """``_make_batch`` from the frame cache: one memmap gather."""
+        from .frame_cache import decode_frames, gather_frames_int16
+
+        n = len(indices)
+        labels = self.dataset.audio_data[indices, 3].astype(np.int32)
+        dtype = np.int16 if self.emit == "int16" else np.float32
+        audio = np.empty((pad_to, self.target_len), dtype=dtype)
+        if self.emit == "int16":
+            gather_frames_int16(self._frame_cache, indices, out=audio[:n])
+        else:
+            decode_frames(self._frame_cache, indices, out=audio[:n])
+        audio[n:] = 0
+        batch = {
+            "audio": audio[:, None, :],
+            "label": np.pad(labels, (0, pad_to - n)),
+            "weight": np.pad(np.ones(n, np.float32), (0, pad_to - n)),
+        }
+        if self.include_index:
+            batch["index"] = np.pad(
+                indices.astype(np.int64), (0, pad_to - n), constant_values=-1
+            )
+        return batch
+
     def _batches(self, epoch: int, shuffle: bool) -> Iterator[Dict[str, np.ndarray]]:
         order = self._order(epoch, shuffle)
         n = len(order)
@@ -174,9 +206,11 @@ class FrameLoader:
         self, epoch: int = 0, shuffle: Optional[bool] = None
     ) -> Iterator[Dict[str, np.ndarray]]:
         """Yield one epoch of batches, decoded ahead by a prefetch thread
-        (the C++ decoder releases the GIL)."""
+        (the C++ decoder releases the GIL).  A warm frame cache serves a
+        batch with one gather, where a thread's handoff would cost more, so
+        cached epochs run inline."""
         shuffle = self.shuffle if shuffle is None else shuffle
-        if self.prefetch <= 0:
+        if self.prefetch <= 0 or self._frame_cache is not None:
             yield from self._batches(epoch, shuffle)
             return
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)

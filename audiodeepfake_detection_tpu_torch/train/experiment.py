@@ -11,8 +11,11 @@ dumps, and LaTeX result emission.
 Run as ``python -m audiodeepfake_detection_tpu_torch.train.experiment
 [flags] --device cuda``; flag names match the reference CLI.  Everything
 runs on one device (``--device``, default ``cuda``; ``cpu`` must be asked
-for).  Not ported yet: distributed init (slice 7), the vectorized sweep
-(slice 8), integrated gradients and tensorboard (slice 9).
+for).  ``--vmap-seeds`` / ``--vmap-hparams`` train each group of grid
+points that differ only in seed (and lr / wd) as one vectorized sweep
+(``train/sweep.py``); ``--frame-cache`` builds the pre-decoded frame cache
+and ships int16 PCM.  Not ported yet: distributed init (slice 7),
+integrated gradients and tensorboard (slice 9).
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import numpy as np
 import torch
 
 from ..data.dataset import get_custom_dataset
+from ..data.frame_cache import rank_and_world
 from ..data.loader import FrameLoader
 from ..models.factory import get_model
 from ..utils.config import (
@@ -164,14 +168,25 @@ def norm_batches_fn(train_loader):
     return norm_batches
 
 
+def loader_shard_kw(args: DotDict) -> dict:
+    """Per-process feeding policy, the one source for every loader the
+    serial and the vectorized paths build (they must feed identically, or
+    the sweep's data order leaves the serial grid's)."""
+    rank, world = rank_and_world()
+    return dict(
+        process_index=rank,
+        process_count=world,
+        # True builds the pre-decoded frame cache up front; None only uses
+        # one that already exists (data/frame_cache.py).  With the cache
+        # on, batches ship as int16 PCM (converted on the device).
+        use_frame_cache=True if args.frame_cache else None,
+        emit="int16" if args.frame_cache else "float32",
+    )
+
+
 def create_data_loaders(args: DotDict):
     """Five loaders: train/val/test + cross val/test
     (reference train_classifier.py:50-229)."""
-    if args.frame_cache:
-        raise NotImplementedError(
-            "--frame-cache is not ported yet (ROADMAP.md queue 1, slice 8: "
-            "sweeps and resident data)"
-        )
 
     def make(ds_type, limit, asv_suffix, data_path, only_use):
         asv = args.asvspoof_name
@@ -193,16 +208,18 @@ def create_data_loaders(args: DotDict):
     val_ds = make("val", args.limit_train[1], "D", args.data_path, args.only_use)
     test_ds = make("test", args.limit_train[2], "E", args.data_path, args.only_use)
 
+    shard_kw = loader_shard_kw(args)
     train_loader = FrameLoader(
         train_ds,
         args.batch_size,
         shuffle=True,
         drop_last=True,
         seed=int(args.seed or 0),
+        **shard_kw,
     )
-    val_loader = FrameLoader(val_ds, args.batch_size)
+    val_loader = FrameLoader(val_ds, args.batch_size, **shard_kw)
     test_loader = FrameLoader(
-        test_ds, args.batch_size, include_index=bool(args.get_details)
+        test_ds, args.batch_size, include_index=bool(args.get_details), **shard_kw
     )
 
     cross_loader_val = cross_loader_test = None
@@ -223,19 +240,15 @@ def create_data_loaders(args: DotDict):
         cross_val_ds = get_custom_dataset(
             ds_type="val", limit=args.cross_limit[1], **cross_kw
         )
-        cross_loader_val = FrameLoader(cross_val_ds, args.batch_size)
+        cross_loader_val = FrameLoader(cross_val_ds, args.batch_size, **shard_kw)
         cross_loader_test = FrameLoader(
-            cross_test_ds, args.batch_size, include_index=bool(args.get_details)
+            cross_test_ds, args.batch_size, include_index=bool(args.get_details),
+            **shard_kw,
         )
     return train_loader, val_loader, test_loader, cross_loader_val, cross_loader_test
 
 
-def run_experiment(args: DotDict, device: "torch.device | str | None" = None) -> Trainer:
-    """One grid point: transforms, model, loaders, Trainer, chosen mode.
-
-    ``device`` defaults to ``args.device`` and that to ``"cuda"``.
-    """
-    device = resolve_device(device or args.device or "cuda")
+def _check_unported(args: DotDict) -> None:
     if args.features != "none" and args.model != "lcnn":
         raise NotImplementedError(
             f"LFCC features are currently not implemented for {args.model}."
@@ -250,11 +263,20 @@ def run_experiment(args: DotDict, device: "torch.device | str | None" = None) ->
             "--tensorboard is not ported yet (ROADMAP.md queue 1, slice 9: "
             "analysis and tooling)"
         )
-    loss_less = args.loss_less == "True"
-    if args.transform == "stft" and loss_less:
+    if args.transform == "stft" and args.loss_less == "True":
         raise ValueError(
             "Sign channel not possible for stft due to complex data type."
         )
+
+
+def run_experiment(args: DotDict, device: "torch.device | str | None" = None) -> Trainer:
+    """One grid point: transforms, model, loaders, Trainer, chosen mode.
+
+    ``device`` defaults to ``args.device`` and that to ``"cuda"``.
+    """
+    device = resolve_device(device or args.device or "cuda")
+    _check_unported(args)
+    loss_less = args.loss_less == "True"
 
     seed = int(args.seed or 0)
     np.random.seed(seed)
@@ -318,6 +340,98 @@ def run_experiment(args: DotDict, device: "torch.device | str | None" = None) ->
     return trainer
 
 
+def run_experiment_vectorized(args_list, device: "torch.device | str | None" = None,
+                              seed_axis: str = "scan"):
+    """One grid configuration x S seeds (and, with ``--vmap-hparams``, lr /
+    wd points), trained as one vectorized sweep
+    (:func:`prepare_vectorized_sweep`).  Returns the per-seed shadow
+    Trainers."""
+    sweep = prepare_vectorized_sweep(args_list, device, seed_axis)
+    sweep.train(sweep.args.epochs)
+    return sweep.shadows
+
+
+def prepare_vectorized_sweep(args_list, device: "torch.device | str | None" = None,
+                             seed_axis: str = "scan"):
+    """The :class:`~.sweep.VectorizedSeedSweep` of one grid configuration x
+    S seeds, ready to train; ``ValueError`` when the sweep refuses the
+    configuration.
+
+    Setup that does not depend on the slice (datasets, normalization
+    statistics, transform) happens once.  Each slice's model is built as
+    :func:`run_experiment` builds its seed's (``torch.manual_seed(seed)``,
+    then ``get_model``), inside a per-seed shadow Trainer that keeps its
+    snapshots and metrics.
+    """
+    from .sweep import VectorizedSeedSweep
+
+    base = args_list[0].copy()
+    device = resolve_device(device or base.device or "cuda")
+    _check_unported(base)
+    loss_less = base.loss_less == "True"
+    np.random.seed(int(base.seed or 0))
+
+    (
+        train_loader,
+        val_loader,
+        test_loader,
+        cross_loader_val,
+        cross_loader_test,
+    ) = create_data_loaders(base)
+
+    transform, mean, std = get_transforms(
+        base, train_batches=norm_batches_fn(train_loader), device=device
+    )
+    base.input_dim = get_input_dims(base, transform, device)
+    full_transform = normalized_transform(transform, mean, std)
+
+    base_dir = base.log_dir
+    os.makedirs(base_dir + "/models", exist_ok=True)
+    shard_kw = loader_shard_kw(base)
+    shadows, train_loaders = [], []
+    for a in args_list:
+        a = a.copy()
+        a.input_dim = base.input_dim
+        torch.manual_seed(int(a.seed or 0))  # this seed's initial weights
+        model = get_model(
+            a, a.model, nclasses=int(a.nclasses or 2), in_channels=2 if loss_less else 1,
+        )
+        model_name = model.get_name() if a.model == "modules" else "customModel"
+        shadows.append(
+            Trainer(
+                model=model,
+                transform=full_transform,
+                args=a,
+                snapshot_path=experiment_model_file(a, base_dir, model_name),
+                train_loader=train_loader,
+                val_loader=val_loader,
+                test_loader=test_loader,
+                cross_loader_val=cross_loader_val,
+                cross_loader_test=cross_loader_test,
+                label_names=test_loader.dataset.label_names,
+                norm_stats=None if base.block_norm else (mean, std),
+                device=device,
+            )
+        )
+        train_loaders.append(
+            FrameLoader(
+                train_loader.dataset,
+                a.batch_size,
+                shuffle=True,
+                drop_last=True,
+                seed=int(a.seed or 0),
+                **shard_kw,
+            )
+        )
+    slices = [
+        (int(a.seed or 0), float(a.learning_rate), float(a.weight_decay))
+        for a in args_list
+    ]
+    print(f"vmap_seeds: training (seed, lr, wd) slices {slices} in one vectorized sweep "
+          f"(seed axis {seed_axis})")
+    return VectorizedSeedSweep(shadows, train_loaders, seed_axis=seed_axis)
+
+
 def dump_true_indices(args: DotDict, trainer, model_file: str) -> str:
     """Write the ``--get-details`` correct-index dump for model-diff analysis.
 
@@ -371,6 +485,53 @@ def main(argv=None) -> None:
 
     exp_results: Dict[Any, list] = {}
     model_file = "defaultmodel"
+
+    if (
+        (args.get("vmap_seeds") or args.get("vmap_hparams"))
+        and griderator is not None
+        and not (args.only_testing or args.only_ig)
+    ):
+        # every grid point, grouped by the axes that are not vectorized:
+        # each group trains as one vectorized sweep (--vmap-hparams folds
+        # the lr / wd axes in as per-slice optimizer groups).  Groups run in
+        # order of first appearance, so each seed's result list keeps the
+        # serial loop's order of configurations.
+        vec_axes = {"seed"}
+        if args.get("vmap_hparams"):
+            vec_axes |= {"learning_rate", "weight_decay"}
+        configs = []
+        for _exp in range(num_exp):
+            args, _ = griderator.update_step(args)
+            configs.append(args.copy())
+        groups: Dict[str, list] = {}
+        for a in configs:
+            key = repr(sorted((k, repr(v)) for k, v in a.items() if k not in vec_axes))
+            groups.setdefault(key, []).append(a)
+        for group in groups.values():
+            try:
+                sweep = prepare_vectorized_sweep(group)
+            except ValueError as exc:
+                # a group the sweep refuses (device_data, fsdp, pp_stages)
+                # runs serially, and the sweep goes on
+                print(f"vmap_seeds: group not vectorizable ({exc}); "
+                      "running its configs serially")
+                shadows = [run_experiment(a) for a in group]
+            else:
+                # outside the try: a kernel that refuses a shape while the
+                # sweep trains stops the run
+                sweep.train(sweep.args.epochs)
+                shadows = sweep.shadows
+            for sh in shadows:
+                model_file = sh.snapshot_path[: -len(".pt")]
+                exp_results.setdefault(sh.args.seed, []).append(sh.test_results)
+                if sh.args.get_details and sh.current_true_indices:
+                    dump_true_indices(sh.args, sh, model_file)
+        print_results(configs[-1], exp_results, griderator, model_file)
+        return
+
+    if args.get("vmap_seeds") or args.get("vmap_hparams"):
+        print("vmap_seeds: nothing to vectorize (needs --enable-gs training "
+              "mode); running serially.")
 
     for _exp in range(num_exp):
         if griderator is not None:

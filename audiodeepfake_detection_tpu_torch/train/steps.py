@@ -12,13 +12,19 @@ JAX package's ``add_decayed_weights -> scale_by_adam -> scale(-lr)`` chain.
 With ``adam_moments_dtype="bfloat16"`` the optimizer is
 :class:`AdamLowPrecisionMoments`, the JAX package's ``scale_by_adam_lowp``.
 
-Not ported yet: the chained / device-resident variants (``make_multi_*``,
-``make_resident_*``, slice 8).
+The device-resident variants (``make_resident_*``) are Python loops over
+the same step bodies where the JAX package runs a ``lax.scan``: G steps
+over frames that live on the device (``train/device_data.py``) take only
+a ``[G, B]`` index block from the host, and evolve exactly as G single
+steps.  The JAX package's chained steps over a streamed ``[G, B, ...]``
+batch (``make_multi_*``) are not ported: here they would be the same G
+steps after one larger copy, and ``device_prefetch`` already overlaps each
+batch's copy with the step before.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -151,7 +157,6 @@ def make_train_step(
     params = [p for group in optimizer.param_groups for p in group["params"]]
 
     def train_step(batch: Batch) -> Batch:
-        model.train()
         labels = (batch["label"] != 0).long()
         with torch.no_grad():
             audio = audio_to_float(batch["audio"])
@@ -159,35 +164,39 @@ def make_train_step(
                 audio = augment(generator, audio, aug_contrast, aug_noise)
             image = transform(audio)
         optimizer.zero_grad(set_to_none=True)
-        if grad_accum <= 1:
-            out = model(image)
-            loss = F.cross_entropy(out, labels)
-            loss.backward()
-            loss = loss.detach()
-            acc = (out.argmax(-1) == labels).float().mean()
-        else:
-            b = image.shape[0]
-            if b % grad_accum:
-                raise ValueError(
-                    f"batch {b} not divisible by grad_accum {grad_accum}"
-                )
-            mb = b // grad_accum
-            loss = torch.zeros((), device=image.device)
-            correct = torch.zeros((), device=image.device)
-            for img_mb, lab_mb in zip(image.split(mb), labels.split(mb)):
-                out = model(img_mb)
-                mb_loss = F.cross_entropy(out, lab_mb)
-                mb_loss.backward()  # gradients add up across microbatches
-                loss += mb_loss.detach()
-                correct += (out.argmax(-1) == lab_mb).float().sum()
-            inv = 1.0 / grad_accum
-            torch._foreach_mul_([p.grad for p in params if p.grad is not None], inv)
-            loss = loss * inv
-            acc = correct / b
+        loss, acc = forward_backward(model, params, image, labels, grad_accum)
         optimizer.step()
         return {"loss": loss, "acc": acc}
 
     return train_step
+
+
+def forward_backward(model: nn.Module, params, image: torch.Tensor, labels: torch.Tensor,
+                     grad_accum: int = 1):
+    """The train step's model part: forward in train mode, cross-entropy,
+    gradients into ``params``' ``.grad`` (the mean over ``grad_accum``
+    microbatches); returns the detached loss and the accuracy."""
+    model.train()
+    if grad_accum <= 1:
+        out = model(image)
+        loss = F.cross_entropy(out, labels)
+        loss.backward()
+        return loss.detach(), (out.argmax(-1) == labels).float().mean()
+    b = image.shape[0]
+    if b % grad_accum:
+        raise ValueError(f"batch {b} not divisible by grad_accum {grad_accum}")
+    mb = b // grad_accum
+    loss = torch.zeros((), device=image.device)
+    correct = torch.zeros((), device=image.device)
+    for img_mb, lab_mb in zip(image.split(mb), labels.split(mb)):
+        out = model(img_mb)
+        mb_loss = F.cross_entropy(out, lab_mb)
+        mb_loss.backward()  # gradients add up across microbatches
+        loss += mb_loss.detach()
+        correct += (out.argmax(-1) == lab_mb).float().sum()
+    inv = 1.0 / grad_accum
+    torch._foreach_mul_([p.grad for p in params if p.grad is not None], inv)
+    return loss * inv, correct / b
 
 
 def make_eval_step(
@@ -206,25 +215,95 @@ def make_eval_step(
         model.eval()
         with torch.inference_mode():
             audio = audio_to_float(batch["audio"])
-            labels = batch["label"].long()
-            weight = batch.get("weight")
-            if weight is None:
-                weight = torch.ones(labels.shape, device=labels.device)
-            weight = weight.float()
-            out = model(transform(audio))
-            out_max = out.argmax(-1)
-            y = (labels != 0).long()
-            ok = (out_max == y).float() * weight
-            onehot = F.one_hot(labels, MAX_LABELS).float() * weight[:, None]
-            return {
-                "ok_per_label": (onehot * ok[:, None]).sum(0),
-                "count_per_label": onehot.sum(0),
-                "ok_sum": ok.sum(),
-                "total": weight.sum(),
-                "y": y,
-                "out_max": out_max,
-                "scores": torch.softmax(out, dim=-1)[:, 1],
-                "ok_mask": ok > 0,
-            }
+            return eval_results(model(transform(audio)), batch)
 
     return eval_step
+
+
+def eval_results(out: torch.Tensor, batch: Batch) -> Batch:
+    """The eval step's results from the logits ``out [B, 2]`` of ``batch``."""
+    labels = batch["label"].long()
+    weight = batch.get("weight")
+    if weight is None:
+        weight = torch.ones(labels.shape, device=labels.device)
+    weight = weight.float()
+    out_max = out.argmax(-1)
+    y = (labels != 0).long()
+    ok = (out_max == y).float() * weight
+    onehot = F.one_hot(labels, MAX_LABELS).float() * weight[:, None]
+    return {
+        "ok_per_label": (onehot * ok[:, None]).sum(0),
+        "count_per_label": onehot.sum(0),
+        "ok_sum": ok.sum(),
+        "total": weight.sum(),
+        "y": y,
+        "out_max": out_max,
+        "scores": torch.softmax(out, dim=-1)[:, 1],
+        "ok_mask": ok > 0,
+    }
+
+
+def stack_results(results: List[Batch]) -> Batch:
+    """Stack per-step result dicts into one dict of ``[G, ...]`` tensors."""
+    return {k: torch.stack([r[k] for r in results]) for k in results[0]}
+
+
+def stack_batches(batches: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
+    """Stack same-shape host batches into one ``[G, ...]`` batch."""
+    return {k: np.stack([b[k] for b in batches]) for k in batches[0]}
+
+
+def make_resident_multi_train_step(
+    model: nn.Module,
+    transform: Callable[[torch.Tensor], torch.Tensor],
+    optimizer: torch.optim.Optimizer,
+    aug_contrast: bool = False,
+    aug_noise: bool = False,
+    grad_accum: int = 1,
+    generator: Optional[torch.Generator] = None,
+) -> Callable[..., Batch]:
+    """G optimizer steps over device-resident frames:
+    ``(audio_all [N, 1, T], labels_all [N], idx [G, B]) -> stats [G]``.
+
+    Each step gathers its batch on the device (``index_select`` with its
+    row of ``idx``) and runs :func:`make_train_step`'s step, so only the
+    index block crosses from the host."""
+    step = make_train_step(model, transform, optimizer, aug_contrast, aug_noise,
+                           grad_accum, generator)
+
+    def multi_step(audio_all: torch.Tensor, labels_all: torch.Tensor,
+                   idx: torch.Tensor) -> Batch:
+        return stack_results([
+            step({"audio": audio_all.index_select(0, row),
+                  "label": labels_all.index_select(0, row)})
+            for row in idx
+        ])
+
+    return multi_step
+
+
+def make_resident_multi_eval_step(
+    model: nn.Module,
+    transform: Callable[[torch.Tensor], torch.Tensor],
+) -> Callable[..., Batch]:
+    """A whole eval pass over device-resident frames:
+    ``(audio_all, labels_all, idx [n_batches, B]) -> results [n_batches, ...]``.
+
+    ``-1`` entries of ``idx`` pad the last batch: their gather index is
+    clamped to 0 and they become zero-weight rows, as in the JAX step; the
+    host masks their row outputs by the same ``idx >= 0``."""
+    step = make_eval_step(model, transform)
+
+    def multi_eval(audio_all: torch.Tensor, labels_all: torch.Tensor,
+                   idx: torch.Tensor) -> Batch:
+        results = []
+        for row in idx:
+            safe = row.clamp(min=0)
+            results.append(step({
+                "audio": audio_all.index_select(0, safe),
+                "label": labels_all.index_select(0, safe),
+                "weight": (row >= 0).float(),
+            }))
+        return stack_results(results)
+
+    return multi_eval

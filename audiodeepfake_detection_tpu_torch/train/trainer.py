@@ -21,37 +21,49 @@ src/audiofakedetect/train_classifier.py:232-1065):
   gathered arrays, with the reference's argmax-EER definition
   (train_classifier.py:479-481).
 
+* ``device_data`` parks the training set (and each eval set that fits the
+  budget) in device memory (``train/device_data.py``); an epoch then runs
+  in groups of ``steps_per_call`` steps, each group shipping only its
+  ``[G, B]`` index block.  With streamed batches ``steps_per_call`` changes
+  nothing: each batch is its own copy, which ``device_prefetch`` overlaps
+  with the step before (the JAX package's chained streamed steps are not
+  ported, ``train/steps.py``).  The seed sweep
+  (``vmap_seeds`` / ``vmap_hparams``) drives per-seed Trainers from
+  ``train/sweep.py``.
+
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP slice:
-``fsdp`` and ``pp_stages > 1`` (slice 7), ``device_data``,
-``steps_per_call > 1``, ``vmap_seeds`` / ``vmap_hparams`` (slice 8), and the
-tensorboard writer (slice 9).
+``fsdp`` and ``pp_stages > 1`` (slice 7), and the tensorboard writer
+(slice 9).
 """
 
 from __future__ import annotations
 
 import os
 import pickle
+import weakref
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-from ..data.loader import device_prefetch
+from ..data.loader import batch_to_device, device_prefetch
 from ..utils.config import DotDict
 from .metrics import calculate_acc_label, dense_counts_to_dicts, safe_eer
 from .predict import resolve_device
 from .profiling import StepTimer
-from .steps import make_eval_step, make_optimizer, make_train_step
+from .steps import (
+    make_eval_step,
+    make_optimizer,
+    make_resident_multi_eval_step,
+    make_resident_multi_train_step,
+    make_train_step,
+)
 
 _NOT_PORTED = (
     # (args key, is it switched on, ROADMAP slice)
     ("fsdp", bool, "slice 7: distributed"),
     ("pp_stages", lambda v: int(v or 1) > 1, "slice 7: distributed"),
-    ("device_data", bool, "slice 8: sweeps and resident data"),
-    ("steps_per_call", lambda v: int(v or 1) > 1, "slice 8: sweeps and resident data"),
-    ("vmap_seeds", bool, "slice 8: sweeps and resident data"),
-    ("vmap_hparams", bool, "slice 8: sweeps and resident data"),
 )
 
 
@@ -112,6 +124,13 @@ class Trainer:
                 f"grad_accum {grad_accum}"
             )
         self.grad_accum = grad_accum
+        self.steps_per_call = int(args.get("steps_per_call") or 1)
+        # device-resident frames (train/device_data.py): the training set
+        # once, each eval set cached by its loader (weakly: a dead loader
+        # frees its device memory)
+        self._device_data = bool(args.get("device_data"))
+        self._resident = None
+        self._resident_eval_cache: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
         self.epochs_run = 0
         self.step_total = 0
@@ -139,16 +158,18 @@ class Trainer:
             args.weight_decay,
             moment_dtype=args.get("adam_moments_dtype") or None,
         )
-        self.train_step = make_train_step(
-            self.model,
-            self.transform,
-            self.optimizer,
+        step_kw = dict(
             aug_contrast=bool(args.aug_contrast),
             aug_noise=bool(args.aug_noise),
             grad_accum=self.grad_accum,
             generator=self.aug_generator,
         )
+        self.train_step = make_train_step(
+            self.model, self.transform, self.optimizer, **step_kw)
+        self.resident_train_step = make_resident_multi_train_step(
+            self.model, self.transform, self.optimizer, **step_kw)
         self.eval_step = make_eval_step(self.model, self.transform)
+        self.resident_eval_step = make_resident_multi_eval_step(self.model, self.transform)
 
     def load_variables(self, state_dict: Dict[str, torch.Tensor]) -> None:
         """Install imported weights (e.g. from a ``.pt`` snapshot) and start
@@ -160,6 +181,9 @@ class Trainer:
 
     def _run_epoch(self, epoch: int) -> None:
         print(f"+------------------- Epoch {epoch + 1} -------------------+", flush=True)
+        if self._device_data:
+            self._run_resident_epoch(epoch)
+            return
         steps = device_prefetch(self.train_loader.epoch(epoch), self.device)
         if self.args.get("pbar"):
             from tqdm import tqdm
@@ -179,6 +203,41 @@ class Trainer:
             self.step_total += 1
             timer.step()
             pending.append((self.step_total, stats))
+        self._flush_epoch_stats(pending, timer, epoch)
+
+    def _run_resident_epoch(self, epoch: int) -> None:
+        """An epoch over device-resident frames (``device_data``): the
+        loader's own order, groups of ``steps_per_call`` steps, each
+        shipping only its ``[G, B]`` index block (a tail group is shorter)."""
+        loader = self.train_loader
+        if not loader.drop_last:
+            raise ValueError(
+                "device_data requires a drop_last training loader (the "
+                "train step has no weight mask for pad sentinels)"
+            )
+        if self._resident is None:
+            from .device_data import ResidentData
+
+            self._resident = ResidentData(loader, self.device)
+            print(
+                f"resident training data: {self._resident.n} frames, "
+                f"{self._resident.nbytes / 2**20:.1f} MiB on {self.device}"
+            )
+        res = self._resident
+        bsz = loader.batch_size
+        order = loader._order(epoch, loader.shuffle)
+        n_full = len(order) // bsz
+        idx = order[: n_full * bsz].reshape(n_full, bsz)
+        timer = StepTimer(bsz)
+        pending = []
+        group = max(1, self.steps_per_call)
+        for s in range(0, n_full, group):
+            device_idx = batch_to_device({"idx": idx[s : s + group]}, self.device)["idx"]
+            stats = self.resident_train_step(res.audio, res.labels, device_idx)
+            for g in range(len(stats["loss"])):
+                self.step_total += 1
+                timer.step()
+                pending.append((self.step_total, {k: v[g] for k, v in stats.items()}))
         self._flush_epoch_stats(pending, timer, epoch)
 
     def _flush_epoch_stats(self, pending, timer, epoch) -> None:
@@ -222,7 +281,12 @@ class Trainer:
 
     def val_test_loop(self, loader, name: str = "") -> Tuple[float, float]:
         """Evaluate a loader; per-batch results stay on the device and are
-        fetched once at the end (the reference syncs per batch)."""
+        fetched once at the end (the reference syncs per batch).  With
+        ``device_data`` a resident eval set runs in one call."""
+        if self._device_data:
+            out = self._resident_eval_loop(loader, name)
+            if out is not None:
+                return out
         ok_label = None
         count_label = None
         device_results = []
@@ -248,6 +312,63 @@ class Trainer:
             )
         return self._eval_finalize(
             name, ok_label, count_label, device_results, host_batches
+        )
+
+    def _resident_eval_data(self, loader):
+        """The loader's eval set in device memory (cached), or None to
+        stream it: an eval set over the cumulative budget streams, with a
+        note, since the results are the same either way."""
+        if loader in self._resident_eval_cache:
+            return self._resident_eval_cache[loader]
+        from .device_data import ResidentData
+
+        reserved = sum(
+            r.nbytes
+            for r in [self._resident, *self._resident_eval_cache.values()]
+            if r is not None
+        )
+        try:
+            res = ResidentData(loader, self.device, reserved_bytes=reserved)
+        except (ValueError, torch.cuda.OutOfMemoryError) as exc:
+            print(f"(resident eval set skipped, streaming instead: {exc})")
+            res = None
+        self._resident_eval_cache[loader] = res
+        return res
+
+    def _resident_eval_loop(self, loader, name: str):
+        """A whole eval pass in one call over the resident eval set; the
+        last batch's missing rows are ``-1`` sentinels (zero weight on the
+        device, masked out on the host by the same ``idx >= 0``).  None:
+        stream instead."""
+        res = self._resident_eval_data(loader)
+        if res is None:
+            return None
+        bsz = loader.batch_size
+        order = loader._order(0, False)
+        n = len(order)
+        if loader.drop_last:
+            n_batches = n // bsz
+            flat = order[: n_batches * bsz]
+        else:
+            n_batches = -(-n // bsz)
+            flat = np.full(n_batches * bsz, -1, np.int64)
+            flat[:n] = order
+        if n_batches == 0:
+            return 0.0, 0.0
+        idx = flat.reshape(n_batches, bsz)
+        stacked = self.resident_eval_step(
+            res.audio, res.labels, batch_to_device({"idx": idx}, self.device)["idx"])
+        device_results = [
+            tuple(stacked[k][g] for k in ("y", "out_max", "ok_mask", "scores"))
+            for g in range(n_batches)
+        ]
+        host_batches = [
+            ((idx[g] >= 0).astype(np.float32), idx[g] if loader.include_index else None)
+            for g in range(n_batches)
+        ]
+        return self._eval_finalize(
+            name, stacked["ok_per_label"].sum(0), stacked["count_per_label"].sum(0),
+            device_results, host_batches,
         )
 
     def _eval_finalize(
@@ -341,6 +462,14 @@ class Trainer:
                     [np.asarray(mean, np.float32), np.asarray(std, np.float32)],
                     fh,
                 )
+        _save_atomically(self.full_state(epoch, model_state), self.state_path)
+        print(f"Epoch {epoch + 1} | Training snapshot saved at {self.snapshot_path}")
+
+    def full_state(self, epoch: int, model_state=None) -> dict:
+        """The ``.state.pt`` blob: model, optimizer, epoch, step and the
+        random streams (the device's default generators included)."""
+        if model_state is None:
+            model_state = {k: v.detach().cpu() for k, v in self.model.state_dict().items()}
         full_state = {
             "model": model_state,
             "optimizer": self.optimizer.state_dict(),
@@ -351,8 +480,21 @@ class Trainer:
         }
         if self.device.type == "cuda":
             full_state["cuda_rng"] = torch.cuda.get_rng_state(self.device)
-        _save_atomically(full_state, self.state_path)
-        print(f"Epoch {epoch + 1} | Training snapshot saved at {self.snapshot_path}")
+        return full_state
+
+    def load_full_state(self, blob: dict) -> None:
+        """Install a :meth:`full_state` blob; ``train()`` then continues
+        from the epoch after the stored one."""
+        self.load_variables(blob["model"])
+        self.optimizer.load_state_dict(blob["optimizer"])
+        self.aug_generator.set_state(blob["aug_generator"])
+        torch.set_rng_state(blob["torch_rng"])
+        if self.device.type == "cuda" and "cuda_rng" in blob:
+            torch.cuda.set_rng_state(blob["cuda_rng"], self.device)
+        # the stored epoch is the COMPLETED epoch's index: running it
+        # again would apply its gradients twice
+        self.epochs_run = int(blob["epoch"]) + 1
+        self.step_total = int(blob["step"])
 
     def load_snapshot(self, snapshot_path: Optional[str] = None) -> None:
         """Restore the full state (``.state.pt``) or the weights only
@@ -371,17 +513,8 @@ class Trainer:
         base = path[: -len(".pt")] if path.endswith(".pt") else path
         state_path = base + ".state.pt"
         if os.path.exists(state_path):
-            blob = torch.load(state_path, map_location="cpu", weights_only=True)
-            self.load_variables(blob["model"])
-            self.optimizer.load_state_dict(blob["optimizer"])
-            self.aug_generator.set_state(blob["aug_generator"])
-            torch.set_rng_state(blob["torch_rng"])
-            if self.device.type == "cuda" and "cuda_rng" in blob:
-                torch.cuda.set_rng_state(blob["cuda_rng"], self.device)
-            # the stored epoch is the COMPLETED epoch's index: running it
-            # again would apply its gradients twice
-            self.epochs_run = int(blob["epoch"]) + 1
-            self.step_total = int(blob["step"])
+            self.load_full_state(
+                torch.load(state_path, map_location="cpu", weights_only=True))
         else:
             model = self.model
             if self.args.model == "lcnn":

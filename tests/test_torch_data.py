@@ -150,14 +150,6 @@ def test_frame_loader_batches_equal_byte_for_byte(corpus, tmp_path_factory, kw):
         assert gb[-1]["weight"].min() == 0.0  # padded tail of the last batch
 
 
-def test_frame_cache_names_its_slice(corpus, tmp_path_factory):
-    _, tds = _datasets(corpus, tmp_path_factory, "val")
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        tloader.FrameLoader(tds, 4, use_frame_cache=True)
-    with pytest.raises(ValueError, match="emit"):
-        tloader.FrameLoader(tds, 4, emit="float64")
-
-
 def test_device_prefetch_keeps_order_and_values(corpus, tmp_path_factory):
     _, tds = _datasets(corpus, tmp_path_factory, "test")
     loader = tloader.FrameLoader(tds, 5, include_index=True)

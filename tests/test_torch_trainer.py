@@ -213,9 +213,7 @@ def test_zero_alpha_trains_on_the_fused_path(tmp_path):
 
 @pytest.mark.parametrize(
     "flag,value,where",
-    [("fsdp", True, "slice 7"), ("pp_stages", 2, "slice 7"),
-     ("device_data", True, "slice 8"), ("steps_per_call", 4, "slice 8"),
-     ("vmap_seeds", True, "slice 8"), ("vmap_hparams", True, "slice 8")],
+    [("fsdp", True, "slice 7"), ("pp_stages", 2, "slice 7")],
 )
 def test_unsupported_trainer_flags_name_their_slice(tmp_path, flag, value, where):
     args = _args("unused", tmp_path, tmp_path, **{flag: value})
@@ -228,7 +226,6 @@ def test_unsupported_trainer_flags_name_their_slice(tmp_path, flag, value, where
 @pytest.mark.parametrize(
     "extra,where",
     [(dict(only_ig=True), "slice 9"), (dict(tensorboard=True), "slice 9"),
-     (dict(frame_cache=True), "slice 8"),
      (dict(block_norm=True, calc_normalization=True), "slice 9")],
 )
 def test_unsupported_experiment_flags_name_their_slice(corpus, tmp_path, extra, where):
