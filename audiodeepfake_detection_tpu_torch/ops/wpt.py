@@ -11,8 +11,9 @@ ptwt's ``WaveletPacket(data, wavelet, mode="reflect")`` + ``get_level``:
 
 Each level is one stride-2 ``F.conv1d`` with the node axis folded into the
 batch.  This is the reference the CUDA kernel (``wpt_cuda.py``) is held
-against, and what a CPU tensor runs.  The synthesis (inverse) transform is
-not on the serving path and waits for the analysis slice.
+against, and what a CPU tensor runs.  The synthesis (inverse) transform
+(:func:`wpt_synthesis`) is one stride-2 ``F.conv_transpose1d`` a level; no
+kernel reaches it.
 """
 
 from __future__ import annotations
@@ -112,6 +113,45 @@ def wpt_analysis(
     if not natural_order:
         y = y.index_select(1, _gray_index_tensor(level, str(x.device)))
     return y
+
+
+def idwt_level(y: torch.Tensor, kernel: torch.Tensor, out_len: int) -> torch.Tensor:
+    """Inverse of :func:`dwt_level`: ``[B, 2N, n'] -> [B, N, out_len]``.
+
+    Synthesis is ``x[t] = sum_c sum_s y_c[s] * rec_c[t - 2s]``: a stride-2
+    transposed convolution with the rec filters, which are the flipped dec
+    filters, i.e. the analysis ``kernel`` as it is.  The result covers the
+    reflect-padded analysis signal; cropping ``padl`` from the left leaves
+    the original samples.
+    """
+    b, nodes2, n = y.shape
+    nodes = nodes2 // 2
+    filt_len = kernel.shape[-1]
+    padl = (2 * filt_len - 3) // 2
+    x = F.conv_transpose1d(y.reshape(b * nodes, 2, n), kernel, stride=2)
+    return x[:, 0, padl : padl + out_len].reshape(b, nodes, out_len)
+
+
+def wpt_synthesis(
+    packets: torch.Tensor,
+    wavelet_name: str,
+    level: int,
+    out_len: int,
+    natural_order: bool = False,
+) -> torch.Tensor:
+    """Inverse WPT: ``[B, 2**level, n_level] -> [B, out_len]``."""
+    kernel = dec_kernel(wavelet_name, str(packets.device)).to(packets.dtype)
+    if not natural_order:
+        inv = np.argsort(graycode_permutation(level))
+        packets = packets.index_select(1, torch.as_tensor(inv, device=packets.device))
+    filt_len = kernel.shape[-1]
+    lengths = [out_len]
+    for _ in range(level - 1):
+        lengths.append(wpt_output_length(lengths[-1], filt_len, 1))
+    y = packets
+    for lev in range(level):
+        y = idwt_level(y, kernel, lengths[level - 1 - lev])
+    return y[:, 0, :]
 
 
 def log_power(wp: torch.Tensor, power: float) -> torch.Tensor:

@@ -5,8 +5,8 @@ reference's ``main``, src/audiofakedetect/train_classifier.py:1084-1368):
 grid search over a dict-of-lists config with a seed axis, per-experiment
 seeding, transform + normalization construction, model factory, five data
 loaders (train/val/test/cross-val/cross-test), Trainer with
-``only_testing`` / train modes, per-seed result accumulation, true-index
-dumps, and LaTeX result emission.
+``only_testing`` / ``only_ig`` / train modes, per-seed result
+accumulation, true-index dumps, and LaTeX result emission.
 
 Run as ``python -m audiodeepfake_detection_tpu_torch.train.experiment
 [flags] --device cuda``; flag names match the reference CLI.  Everything
@@ -14,8 +14,10 @@ runs on one device (``--device``, default ``cuda``; ``cpu`` must be asked
 for).  ``--vmap-seeds`` / ``--vmap-hparams`` train each group of grid
 points that differ only in seed (and lr / wd) as one vectorized sweep
 (``train/sweep.py``); ``--frame-cache`` builds the pre-decoded frame cache
-and ships int16 PCM.  Not ported yet: distributed init (slice 7),
-integrated gradients and tensorboard (slice 9).
+and ships int16 PCM; ``--only-ig`` loads the snapshot and writes the
+integrated-gradients maps (``analysis/integrated_gradients.py``);
+``--tensorboard`` gives each Trainer a ``torch.utils.tensorboard``
+writer.  Not ported yet: distributed init (slice 7).
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ from ..utils.config import (
     default_config,
     load_grid_config,
 )
-from ..utils.naming import experiment_model_file
+from ..utils.naming import experiment_model_file, tensorboard_dir
 from .predict import resolve_device
 from .results import print_results
 from .trainer import Trainer
@@ -253,29 +255,46 @@ def _check_unported(args: DotDict) -> None:
         raise NotImplementedError(
             f"LFCC features are currently not implemented for {args.model}."
         )
-    if args.only_ig:
-        raise NotImplementedError(
-            "--only-ig (integrated gradients) is not ported yet (ROADMAP.md "
-            "queue 1, slice 9: analysis)"
-        )
-    if args.tensorboard:
-        raise NotImplementedError(
-            "--tensorboard is not ported yet (ROADMAP.md queue 1, slice 9: "
-            "analysis and tooling)"
-        )
     if args.transform == "stft" and args.loss_less == "True":
         raise ValueError(
             "Sign channel not possible for stft due to complex data type."
         )
 
 
+def make_writer(args: DotDict, base_dir: str, model_name: str):
+    """The ``--tensorboard`` writer of one run, under
+    ``utils.naming.tensorboard_dir``.  PyTorch's own writer, whose event
+    files read like tensorboardX's; it needs the ``tensorboard`` package."""
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+    except ImportError as exc:
+        raise ImportError(
+            "--tensorboard needs the `tensorboard` package "
+            "(torch.utils.tensorboard's SummaryWriter), which is not installed"
+        ) from exc
+    return SummaryWriter(tensorboard_dir(args, base_dir, model_name))
+
+
 def run_experiment(args: DotDict, device: "torch.device | str | None" = None) -> Trainer:
     """One grid point: transforms, model, loaders, Trainer, chosen mode.
 
-    ``device`` defaults to ``args.device`` and that to ``"cuda"``.
+    ``device`` defaults to ``args.device`` and that to ``"cuda"``.  With
+    ``args.tensorboard`` the run's writer is closed at its end.
     """
     device = resolve_device(device or args.device or "cuda")
     _check_unported(args)
+    if args.only_ig and args.get("fused_layer1"):
+        # integrated gradients differentiate with respect to the input
+        # image; the fused first blocks' backwards return no input
+        # gradient (the transform in front is under stop-gradient in
+        # training), which would make every attribution map silently zero
+        # (the fused pool and second block give the full dx)
+        print(
+            "only_ig: disabling fused_layer1 (its compact VJP carries no "
+            "input gradient; attributions need the unfused first layer)."
+        )
+        args = args.copy()
+        args.fused_layer1 = False
     loss_less = args.loss_less == "True"
 
     seed = int(args.seed or 0)
@@ -307,6 +326,7 @@ def run_experiment(args: DotDict, device: "torch.device | str | None" = None) ->
     base_dir = args.log_dir
     os.makedirs(base_dir + "/models", exist_ok=True)
     model_file = experiment_model_file(args, base_dir, model_name)
+    writer = make_writer(args, base_dir, model_name) if args.tensorboard else None
 
     trainer = Trainer(
         model=model,
@@ -321,22 +341,37 @@ def run_experiment(args: DotDict, device: "torch.device | str | None" = None) ->
         label_names=test_loader.dataset.label_names,
         norm_stats=None if args.block_norm else (mean, std),
         device=device,
+        writer=writer,
     )
 
-    if args.only_testing:
-        trainer.load_snapshot()
-        trainer.test_results = trainer.testing(only_unknown=True)
-    else:
-        if args.get("resume") and (
-            os.path.exists(trainer.state_path)
-            or os.path.exists(trainer.snapshot_path)
-        ):
+    try:
+        if args.only_testing:
             trainer.load_snapshot()
-            print(
-                f"--resume: restored snapshot, continuing from epoch "
-                f"{trainer.epochs_run + 1}"
+            trainer.test_results = trainer.testing(only_unknown=True)
+        elif args.only_ig:
+            from ..analysis.integrated_gradients import run_integrated_gradients
+
+            trainer.load_snapshot()
+            path = f"{args.transform}_{args.sample_rate}_{args.seconds}"
+            path += (
+                f"_{args.seed}_{args.only_use[-1]}_{args.wavelet}_{args.power}"
+                f"_{str(loss_less)}"
             )
-        trainer.train(args.epochs)
+            run_integrated_gradients(trainer, path)
+        else:
+            if args.get("resume") and (
+                os.path.exists(trainer.state_path)
+                or os.path.exists(trainer.snapshot_path)
+            ):
+                trainer.load_snapshot()
+                print(
+                    f"--resume: restored snapshot, continuing from epoch "
+                    f"{trainer.epochs_run + 1}"
+                )
+            trainer.train(args.epochs)
+    finally:
+        if writer is not None:
+            writer.close()
     return trainer
 
 
@@ -347,8 +382,18 @@ def run_experiment_vectorized(args_list, device: "torch.device | str | None" = N
     (:func:`prepare_vectorized_sweep`).  Returns the per-seed shadow
     Trainers."""
     sweep = prepare_vectorized_sweep(args_list, device, seed_axis)
-    sweep.train(sweep.args.epochs)
+    train_sweep(sweep)
     return sweep.shadows
+
+
+def train_sweep(sweep) -> None:
+    """Train a prepared sweep, then close its shadows' writers."""
+    try:
+        sweep.train(sweep.args.epochs)
+    finally:
+        for sh in sweep.shadows:
+            if sh.writer is not None:
+                sh.writer.close()
 
 
 def prepare_vectorized_sweep(args_list, device: "torch.device | str | None" = None,
@@ -411,6 +456,7 @@ def prepare_vectorized_sweep(args_list, device: "torch.device | str | None" = No
                 label_names=test_loader.dataset.label_names,
                 norm_stats=None if base.block_norm else (mean, std),
                 device=device,
+                writer=make_writer(a, base_dir, model_name) if a.tensorboard else None,
             )
         )
         train_loaders.append(
@@ -468,7 +514,7 @@ def main(argv=None) -> None:
     args.update(flags)
 
     base_dir = args.log_dir
-    for sub in ("models", "norms"):
+    for sub in ("models", "tensorboard", "norms"):
         os.makedirs(f"{base_dir}/{sub}", exist_ok=True)
 
     griderator = None
@@ -519,7 +565,7 @@ def main(argv=None) -> None:
             else:
                 # outside the try: a kernel that refuses a shape while the
                 # sweep trains stops the run
-                sweep.train(sweep.args.epochs)
+                train_sweep(sweep)
                 shadows = sweep.shadows
             for sh in shadows:
                 model_file = sh.snapshot_path[: -len(".pt")]

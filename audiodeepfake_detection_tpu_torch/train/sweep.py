@@ -179,6 +179,9 @@ class VectorizedSeedSweep:
                 for i, sh in enumerate(self.shadows):
                     sh.loss_list.append([step_no, epoch, float(loss[i])])
                     sh.accuracy_list.append([step_no, epoch, float(acc[i])])
+                    if sh.writer is not None:
+                        sh.writer.add_scalar("loss/train", float(loss[i]), step_no)
+                        sh.writer.add_scalar("accuracy/train", float(acc[i]), step_no)
         print(f"epoch {epoch + 1}: {timer.summary()}", flush=True)
 
     # ------------------------------------------------------------ evaluation
@@ -214,12 +217,16 @@ class VectorizedSeedSweep:
             out.append(sh._eval_finalize(name, ok[i], cnt[i], per_seed, host_batches))
         return out
 
-    def _run_validation(self) -> None:
-        """Trainer._run_validation, one vectorized pass per loader."""
+    def _run_validation(self, epoch: int) -> None:
+        """Trainer._run_validation, one vectorized pass per loader; each
+        shadow's writer gets its seed's validation tags."""
         lead = self.shadows[0]
-        self._vectorized_eval(lead.val_loader, "val known")
+        known = self._vectorized_eval(lead.val_loader, "val known")
+        unknown = [(0.0, 0.0)] * len(self.shadows)
         if lead.cross_loader_val is not None:
-            self._vectorized_eval(lead.cross_loader_val, "val unknown")
+            unknown = self._vectorized_eval(lead.cross_loader_val, "val unknown")
+        for sh, k, u in zip(self.shadows, known, unknown):
+            sh.log_validation(epoch, k, u)  # at the step _push_states gave it
 
     def _testing(self) -> None:
         """Trainer.testing, one vectorized pass per loader."""
@@ -230,6 +237,7 @@ class VectorizedSeedSweep:
             unknown = self._vectorized_eval(lead.cross_loader_test, "test unknown")
         for sh, (ta, te), (ca, ce) in zip(self.shadows, known, unknown):
             sh.test_results = (ta, te, ca, ce)
+            sh.log_test(sh.test_results)
             print(
                 f"seed {sh.args.seed} test results: "
                 f"known acc {ta * 100:2.2f} %, known eer {te:.3f}, "
@@ -258,7 +266,7 @@ class VectorizedSeedSweep:
             if (epoch > 0 and epoch % args.validation_interval == 0) or (
                 epoch == 0 and args.validation_interval == 1
             ):
-                self._run_validation()
+                self._run_validation(epoch)
             if epoch == max_epochs - 1:
                 print("Training done, now testing...")
                 self._testing()

@@ -31,9 +31,16 @@ src/audiofakedetect/train_classifier.py:232-1065):
   (``vmap_seeds`` / ``vmap_hparams``) drives per-seed Trainers from
   ``train/sweep.py``.
 
+* ``writer`` (a ``torch.utils.tensorboard.SummaryWriter``, or anything
+  with ``add_scalar`` / ``add_text``) gets the JAX Trainer's tags at the
+  same steps: ``epochs``, ``loss/train``, ``accuracy/train``,
+  ``perf/train_frames_per_sec``, ``{accuracy,eer}/{validation,
+  cross_validation,test,cross_test}`` and, once, ``model/summary``: a
+  table of the model's modules and parameter counts (the JAX Trainer
+  logs flax's ``tabulate`` there).
+
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP slice:
-``fsdp`` and ``pp_stages > 1`` (slice 7), and the tensorboard writer
-(slice 9).
+``fsdp`` and ``pp_stages > 1`` (slice 7).
 """
 
 from __future__ import annotations
@@ -90,6 +97,7 @@ class Trainer:
         label_names: Optional[Dict[int, str]] = None,
         norm_stats: Optional[Tuple[np.ndarray, np.ndarray]] = None,
         device: torch.device | str = "cuda",
+        writer=None,
     ) -> None:
         for key, is_on, where in _NOT_PORTED:
             if is_on(args.get(key)):
@@ -116,6 +124,8 @@ class Trainer:
         self.cross_loader_val = cross_loader_val
         self.cross_loader_test = cross_loader_test
         self.label_names = label_names or {}
+        self.writer = writer
+        self._summary_logged = False
 
         grad_accum = int(args.get("grad_accum") or 1)
         if grad_accum > 1 and args.batch_size % grad_accum:
@@ -181,6 +191,9 @@ class Trainer:
 
     def _run_epoch(self, epoch: int) -> None:
         print(f"+------------------- Epoch {epoch + 1} -------------------+", flush=True)
+        if self.writer is not None:
+            self.writer.add_scalar("epochs", epoch, self.step_total)
+            self._log_model_summary()
         if self._device_data:
             self._run_resident_epoch(epoch)
             return
@@ -249,7 +262,32 @@ class Trainer:
             for (step_no, _), (loss, acc) in zip(pending, fetched.tolist()):
                 self.loss_list.append([step_no, epoch, loss])
                 self.accuracy_list.append([step_no, epoch, acc])
+                if self.writer is not None:
+                    self.writer.add_scalar("loss/train", loss, step_no)
+                    self.writer.add_scalar("accuracy/train", acc, step_no)
         print(f"epoch {epoch + 1}: {timer.summary()}", flush=True)
+        if self.writer is not None:
+            self.writer.add_scalar(
+                "perf/train_frames_per_sec", timer.frames_per_sec, self.step_total
+            )
+
+    def _log_model_summary(self) -> None:
+        """Once per Trainer: the model's modules, their types and parameter
+        counts as a text table under ``model/summary`` (the reference logs
+        ``writer.add_graph``, train_classifier.py:994-995)."""
+        if self._summary_logged:
+            return
+        self._summary_logged = True
+        rows = [("module", "type", "params")]
+        for name, mod in self.model.named_modules():
+            count = sum(p.numel() for p in mod.parameters(recurse=False))
+            rows.append((name or "(model)", type(mod).__name__, str(count)))
+        total = sum(p.numel() for p in self.model.parameters())
+        rows.append(("total", "", str(total)))
+        widths = [max(len(r[i]) for r in rows) for i in range(3)]
+        table = "\n".join(
+            f"{a:<{widths[0]}}  {b:<{widths[1]}}  {c:>{widths[2]}}" for a, b, c in rows)
+        self.writer.add_text("model/summary", f"```\n{table}\n```", 0)
 
     def train(self, max_epochs: int) -> None:
         """Epoch loop with the reference's ckpt/validation cadence
@@ -426,9 +464,34 @@ class Trainer:
         return val_acc, eer
 
     def _run_validation(self, epoch: int) -> None:
-        self.val_test_loop(self.val_loader, name="val known")
+        val_acc, val_eer = self.val_test_loop(self.val_loader, name="val known")
+        cr_val_acc = cr_val_eer = 0.0
         if self.cross_loader_val is not None:
-            self.val_test_loop(self.cross_loader_val, name="val unknown")
+            cr_val_acc, cr_val_eer = self.val_test_loop(
+                self.cross_loader_val, name="val unknown"
+            )
+        self.log_validation(epoch, (val_acc, val_eer), (cr_val_acc, cr_val_eer))
+
+    def log_validation(self, epoch: int, known: tuple, unknown: tuple) -> None:
+        """The validation tags of one epoch: ``(acc, eer)`` of the known and
+        the cross validation sets."""
+        if self.writer is None:
+            return
+        self.writer.add_scalar("accuracy/validation", known[0], self.step_total)
+        self.writer.add_scalar("eer/validation", known[1], self.step_total)
+        self.writer.add_scalar("accuracy/cross_validation", unknown[0], self.step_total)
+        self.writer.add_scalar("eer/cross_validation", unknown[1], self.step_total)
+        self.writer.add_scalar("epochs", epoch, self.step_total)
+
+    def log_test(self, results: tuple) -> None:
+        """The test tags: ``(acc, eer, cross acc, cross eer)``."""
+        if self.writer is None:
+            return
+        for tag, value in zip(
+            ("accuracy/test", "eer/test", "accuracy/cross_test", "eer/cross_test"),
+            results,
+        ):
+            self.writer.add_scalar(tag, value, self.step_total)
 
     def testing(self, only_unknown: bool = False) -> Tuple[float, float, float, float]:
         if not only_unknown:
@@ -441,6 +504,7 @@ class Trainer:
             )
         else:
             cr_acc = cr_eer = 0.0
+        self.log_test((test_acc, test_eer, cr_acc, cr_eer))
         return test_acc, test_eer, cr_acc, cr_eer
 
     # ----------------------------------------------------------- checkpoints

@@ -130,6 +130,39 @@ def compute_normalization(
     return mean.cpu().numpy(), std.cpu().numpy()
 
 
+def compute_block_norm_stats(
+    args: DotDict,
+    batches: Iterable,
+    device: torch.device | str,
+) -> dict:
+    """Per-packet-node Welford statistics over the training set.
+
+    The reference collects a Welford estimator per WPT node while computing
+    normalization (wavelet_math.py:194-200) and stores the finalized
+    ``{node: {mean, std}}`` dict (the ``*_mean_std_bn`` cache).  The raw
+    packets come from the op ``adfd::wpt_packets`` without the log (the
+    CUDA kernel on a GPU); node keys are the Gray-code frequency indices.
+    """
+    from ..ops.wpt_cuda import wpt_packets
+
+    level = int(math.log2(args.num_of_scales))
+    state = welford_init(int(args.num_of_scales), device)
+    with torch.inference_mode():
+        for batch in batches:
+            audio = torch.as_tensor(batch, device=device)
+            if audio.ndim == 3:
+                audio = audio.reshape(-1, audio.shape[-1])
+            wp = wpt_packets(audio.contiguous(), args.wavelet, level, False, 2.0)
+            state = welford_update(state, wp.permute(0, 2, 1))
+        mean, std = welford_finalize(state)
+    mean = mean.cpu().numpy()
+    std = std.cpu().numpy()
+    return {
+        int(node): {"mean": float(mean[node]), "std": float(std[node])}
+        for node in range(int(args.num_of_scales))
+    }
+
+
 def get_transforms(
     args: DotDict,
     train_batches: Optional[Callable[[], Iterable]] = None,
@@ -142,7 +175,10 @@ def get_transforms(
     :func:`normalized_transform`.  With ``calc_normalization`` the Welford
     pass over ``train_batches()`` runs on ``device`` and its result is
     cached as a pickle under ``<log_dir>/norms/``, keyed like the
-    reference's (``utils.naming.norm_cache_prefix``).
+    reference's (``utils.naming.norm_cache_prefix``).  With ``block_norm``
+    the stats are zeros / ones, and the per-node statistics
+    (:func:`compute_block_norm_stats`) are cached for analysis as
+    ``*_mean_std_bn.pkl``.
     """
     transform = make_transform(args)
     loss_less = args.loss_less == "True" or args.loss_less is True
@@ -150,12 +186,20 @@ def get_transforms(
 
     if args.block_norm:
         # block normalisation replaces dataset mean/std (reference
-        # wavelet_math.py:373-375)
-        if args.calc_normalization:
-            raise NotImplementedError(
-                "per-node block-norm statistics (the *_mean_std_bn cache) "
-                "are not ported yet (ROADMAP.md queue 1, slice 9: analysis)"
-            )
+        # wavelet_math.py:373-375); per-node Welford stats are cached for
+        # analysis like the reference's *_mean_std_bn file (which it saves
+        # as .pkl and loads as .pt; one path here)
+        if (
+            args.data_path is not None
+            and args.log_dir is not None
+            and train_batches is not None
+        ):
+            cache = norm_cache_prefix(args) + "_mean_std_bn.pkl"
+            if not os.path.exists(cache) and args.calc_normalization:
+                stats = compute_block_norm_stats(args, train_batches(), device)
+                os.makedirs(os.path.dirname(cache), exist_ok=True)
+                with open(cache, "wb") as fh:
+                    pickle.dump(stats, fh)
         return (
             transform,
             np.zeros(num_channels, np.float32),

@@ -1,7 +1,7 @@
 """Experiment / checkpoint naming, compatible with the reference scheme.
 
-Copy of ``experiment_model_file``, ``parse_model_file`` and
-``norm_cache_prefix`` from
+Copy of ``experiment_model_file``, ``parse_model_file``,
+``norm_cache_prefix`` and ``tensorboard_dir`` from
 ``audiodeepfake_detection_tpu/utils/naming.py``.  The reference encodes the
 full experiment configuration into the snapshot filename, which acts as its
 checkpoint registry (reference: src/audiofakedetect/train_classifier.py:
@@ -152,3 +152,28 @@ def norm_cache_prefix(args: DotDict) -> str:
         + str(args.seconds)
         + "secs"
     )
+
+
+def tensorboard_dir(args: DotDict, base_dir: str, model_name: str) -> str:
+    loss_less = False if args.loss_less == "False" else True
+    known_gen_name = args.data_prefix.split("/")[-1].split("_")[4]
+    parts = [
+        base_dir + "/tensorboard",
+        model_name,
+        str(args.transform),
+    ]
+    if args.transform == "packets":
+        parts.append(str(args.wavelet))
+    parts += [
+        str(args.features),
+        f"{args.batch_size}_{args.learning_rate}_{args.weight_decay}_{args.epochs}",
+        f"{args.f_min}-{args.f_max}",
+        str(args.num_of_scales),
+        f"signs{loss_less}",
+        f"augc{args.aug_contrast}",
+        f"augn{args.aug_noise}",
+        f"power{args.power}",
+        known_gen_name,
+        str(args.seed),
+    ]
+    return "/".join(parts)

@@ -753,16 +753,16 @@ def bound_ms(n_bytes: float, n_flops: float, flop_per_s: float = FP32_FLOP_PER_S
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def wpt_bound(wpt, b: int, t: int):
+def wpt_bound(wpt, b: int, t: int, wavelet: str = MAIN[0], level: int = MAIN[1]):
     """The frame read once and the last level written once; 2 flops per tap
     per output of every level (either route: the long-frame route's level
     round trips are its own cost, not the function's)."""
-    filt_len = wpt.dec_kernel(MAIN[0], "cpu").shape[-1]
+    filt_len = wpt.dec_kernel(wavelet, "cpu").shape[-1]
     flops, n = 0, t
-    for lvl in range(MAIN[1]):
+    for lvl in range(level):
         n = (n + filt_len - 1) // 2
         flops += (2 << lvl) * n * 2 * filt_len
-    return bound_ms(4 * b * (t + (2 ** MAIN[1]) * n), b * flops)
+    return bound_ms(4 * b * (t + (2 ** level) * n), b * flops)
 
 
 def fused_bounds(b, h, w, c, itemsize=4, flop_per_s=FP32_FLOP_PER_S):
@@ -3832,6 +3832,380 @@ def sweep_phase(mods, root: str, data: str, norm, card_line: str) -> dict:
     return out
 
 
+# ---- analysis on the card (phase 25)
+# the fingerprints' mean |WPT| spectra through kernel 1 against the plain
+# cascade on the card, relative to the largest entry: the raw packets read
+# 0.0 from plain on every plan (phase 3), so the same means follow; this
+# bound takes a mean over time and clips summed in another order
+FINGERPRINT_RTOL = 1e-6
+# mean attributions through kernels 5 and 6 ("always") against the same
+# fused model with the blocks' plain PyTorch versions in their place (the
+# same folded math), relative to the largest: kernel 6's forward sums in
+# cuDNN's order (phase 14 reads 0.0), kernel 5's is elementwise, so the
+# pools choose alike, and what is left is the kernels' dx in fp32 (kernel
+# 6's split TF32, ~2**-22 a product) summed over 201 path images
+IG_KERNEL_RTOL = 1e-4
+# mean attributions, fused against unfused (cuDNN, BatchNorm then conv),
+# relative to the largest: the fused block folds its BatchNorm into its
+# weights, so its values differ from the unfused ones by fp32 roundoff, and
+# a max-pool window whose two largest values lie within that roundoff
+# chooses differently (48 of 201 path images of one image held such a
+# window on the card, more of them near the zero baseline, where the image
+# is nearly constant); such a row moves by up to 0.9 of its largest entry
+# at a few pixels and weighs 1/200 in the trapezoid.  First set at 2e-3
+# from the CPU's 5.2e-4 (a narrow DCNN, tests/test_torch_analysis.py); the
+# card read 2.4e-3 on the trained full-width DCNN (NVIDIA H100 80GB HBM3,
+# 700 W), so the bound is 1e-2, and the per-row reading below shows where
+# it sits
+IG_UNFUSED_RTOL = 1e-2
+# a path image's gradient, fused against unfused, relative to its largest
+# entry: fp32 sums in another order (kernel 6's dx split TF32); a row above
+# this holds a max-pool choice the two roundings made differently
+IG_GRAD_RTOL = 1e-4
+# the mean and last images of the two IG runs: the same transform of the
+# same frames, each run with its own normalization pass on the card
+IG_IMAGE_RTOL = 1e-6
+# block-norm statistics on the card against the CPU, relative to each
+# node's std: fp32 packets of two cascades (cuDNN against the CPU's conv)
+# and Welford sums over 392 frames in another order
+BLOCK_NORM_RTOL = 1e-4
+# |CWT| on the card against the CPU, relative to the largest coefficient:
+# three complex64 FFTs of 32,768 points in two libraries (cuFFT, pocketfft),
+# the bound the CPU tests hold the complex64 CWT to against the float64
+# oracle (read 1.4e-5 on an NVIDIA H100 80GB HBM3 at 700 W)
+CWT_RTOL = 1e-4
+# the average STFT energy on the card against the CPU, relative to the
+# largest bin: one 2048-point FFT a frame, summed over the frames
+ENERGY_RTOL = 1e-5
+IG_PER_TARGET = 2  # ig_times_per_target: 2 images of each class
+FINGERPRINT_CLIPS = 28  # every clip of each directory of the corpus
+
+
+def rel_max(got, want) -> float:
+    got, want = np.asarray(got), np.asarray(want)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def fingerprint_phase(wpt, wpt_cuda, root: str, data: str, card_line: str) -> dict:
+    """(a) Per-generator level-14 haar fingerprints over the whole 10 s clips
+    through kernel 1 (its top-level route: one ``wpt_level_kernel`` launch
+    per level through device memory, then the subtree kernel), against the
+    plain cascade on the card; the CLI end to end; one clip timed."""
+    from audiodeepfake_detection_tpu_torch.analysis import cli as analysis_cli
+    from audiodeepfake_detection_tpu_torch.analysis.fingerprints import (
+        generator_fingerprints,
+        load_clips,
+    )
+
+    kw = dict(real_name="ljspeech", wavelet="haar", level=14,
+              max_files=FINGERPRINT_CLIPS, device="cuda")
+    wpt_cuda.LAUNCHES = wpt_cuda.LEVEL_LAUNCHES = 0
+    got = generator_fingerprints(data, ["fbmelgan"], **kw)
+    torch.cuda.synchronize()
+    launches = {"subtree": wpt_cuda.LAUNCHES, "level": wpt_cuda.LEVEL_LAUNCHES}
+    want = generator_fingerprints(data, ["fbmelgan"], use_kernel=False, **kw)
+    errs = {f"{gen}_{key}": rel_max(got[gen][key], want[gen][key])
+            for gen in want for key in want[gen] if key.startswith("wpt")}
+    clip = load_clips(os.path.join(data, "A_ljspeech"), 1)[0]
+    t = (len(clip) >> 14) << 14
+    x = torch.from_numpy(clip[None, :t]).cuda()
+    plan = wpt_cuda.wpt_plan(1, t, wpt_cuda.filter_length("haar"), 14,
+                             *wpt_cuda.device_limits(x.device.index))
+    clips = 2 * FINGERPRINT_CLIPS
+    log(f"  {clips} clips of {t} samples (level-14 haar, plan {plan}): launches {launches}; "
+        f"mean spectra against the plain cascade, relative to the largest: {errs}")
+    if launches != {"subtree": clips, "level": clips * plan.in_level} or plan.in_level < 1:
+        raise AssertionError(f"level-14 launches {launches} for {clips} clips on plan {plan}")
+    if not max(errs.values()) <= FINGERPRINT_RTOL:
+        raise AssertionError(f"fingerprints, kernel against plain: {errs} > {FINGERPRINT_RTOL}")
+
+    out_dir = os.path.join(root, "fingerprints")
+    analysis_cli.main(["fingerprints", "--data-path", data, "--generators", "fbmelgan",
+                       "--real-name", "ljspeech", "--max-files", str(FINGERPRINT_CLIPS),
+                       "--out-dir", out_dir, "--device", "cuda"])
+    files = sorted(os.listdir(out_dir))
+    expect = sorted([f"ljspeech_{k}" for k in ("wpt.npy", "rfft.npy", "fingerprint.wav")]
+                    + [f"fbmelgan_{k}" for k in ("wpt.npy", "rfft.npy", "wpt_diff.npy",
+                                                 "rfft_diff.npy", "fingerprint.wav")])
+    if files != expect:
+        raise AssertionError(f"analysis.cli fingerprints wrote {files}")
+    cli_err = rel_max(np.load(os.path.join(out_dir, "fbmelgan_wpt.npy")), want["fbmelgan"]["wpt"])
+    log(f"  analysis.cli fingerprints wrote {files}; fbmelgan_wpt against plain {cli_err:.3e}")
+
+    kernel = lambda: wpt_cuda.wpt_packets_cuda(x, "haar", 14)  # noqa: E731
+    raw = float((kernel() - wpt.wpt_analysis(x, "haar", 14)).abs().max())
+    ms = median_ms({"plain": lambda: wpt.wpt_analysis(x, "haar", 14), "kernel": kernel}, reps=10)
+    device = wpt_device_ms(wpt_cuda, kernel)
+    b_ms, b_by = wpt_bound(wpt, 1, t, "haar", 14)
+    log(f"  one clip [1, {t}]: kernel {ms['kernel']:.4f} ms (device {ms_or_not(device)}), plain "
+        f"{ms['plain']:.4f} ms, bound {b_ms:.5f} ms ({b_by}); raw max|kernel - plain| {raw:.3e} "
+        f"({card_line})")
+    if not raw <= RAW_ATOL:
+        raise AssertionError(f"level-14 raw packets, kernel against plain: {raw} > {RAW_ATOL}")
+    return {"launches": launches, "clips": clips, "samples": t, "split": plan.split,
+            "in_level": plan.in_level, "rel_err": errs, "cli_files": files,
+            "cli_rel_err": cli_err, "max_abs_err": raw, "kernel_ms": ms["kernel"],
+            "plain_ms": ms["plain"], "device_ms": device, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def ig_counts(fused_cuda, pool_cuda, conv2_cuda) -> dict:
+    return {"conv1_fwd": fused_cuda.FWD_LAUNCHES, "conv1_bwd": fused_cuda.BWD_LAUNCHES,
+            "pool_fwd": pool_cuda.POOL_FWD_LAUNCHES, "pool_bwd": pool_cuda.POOL_BWD_LAUNCHES,
+            "conv2_fwd": conv2_cuda.CONV2_FWD_LAUNCHES,
+            "conv2_bwd": conv2_cuda.CONV2_BWD_LAUNCHES}
+
+
+@contextlib.contextmanager
+def plain_mid_blocks():
+    """The DCNN's fused mid blocks through their plain PyTorch versions on
+    any device, wherever autograd records (``fused_pool._run`` and
+    ``fused_conv2._run``, looked up at call time, patched for the block)."""
+    from audiodeepfake_detection_tpu_torch.ops import fused_conv2, fused_pool
+
+    saved = fused_pool._run, fused_conv2._run
+
+    def pool(x, alpha, want_stats):
+        if want_stats:
+            return fused_pool.plain_prelu_pool_stats(x, alpha)
+        return fused_pool.plain_prelu_pool(x, alpha), None, None
+
+    def conv2(x, w, corr, alpha, want_stats):
+        if want_stats:
+            return fused_conv2.plain_conv2_prelu_pool_stats(x, w, corr, alpha)
+        return fused_conv2.plain_conv2_prelu_pool(x, w, corr, alpha), None, None
+
+    fused_pool._run, fused_conv2._run = pool, conv2
+    try:
+        yield
+    finally:
+        fused_pool._run, fused_conv2._run = saved
+
+
+def path_grads(model, image, target: int, m_steps: int = 200) -> torch.Tensor:
+    """The gradients of ``softmax(model(path))[:, target]`` at every path
+    image ``alpha * image`` (what ``integrated_grad`` integrates)."""
+    alphas = torch.linspace(0.0, 1.0, m_steps + 1, device=image.device)
+    path = (alphas.reshape(-1, 1, 1, 1) * image[None]).requires_grad_(True)
+    probs = torch.softmax(model(path), -1)[:, target]
+    return torch.autograd.grad(probs.sum(), path)[0]
+
+
+def ig_phase(mods, root: str, data: str, snapshot: str, card_line: str) -> dict:
+    """(b) ``run_experiment(only_ig=True)`` on phase 7's DCNN snapshot at full
+    width: fused (``fused_layer1=True``, which the run switches off with
+    JAX's message, ``fused_pool`` and ``fused_layer2`` at ``"always"``:
+    kernels 5 and 6 forward and ``dx`` at B = 201) against the same with
+    the blocks' plain versions, and against unfused; each path image's
+    gradient fused against unfused; completeness; a trace; the times."""
+    from audiodeepfake_detection_tpu_torch.analysis.integrated_gradients import integrated_grad
+    from audiodeepfake_detection_tpu_torch.train import profiling
+    from audiodeepfake_detection_tpu_torch.train.experiment import run_experiment
+
+    fused_cuda, pool_cuda, conv2_cuda = mods
+    always = dict(fused_layer1=True, fused_pool="always", fused_layer2="always")
+    runs_of = {"fused": (always, contextlib.nullcontext),
+               "fused_plain": (always, plain_mid_blocks),
+               "unfused": (dict(fused_layer1=False), contextlib.nullcontext)}
+    images = 2 * IG_PER_TARGET
+    runs, maps = {}, {}
+    for name, (flag, blocks) in runs_of.items():
+        log_dir = f"log_ig_{name}"
+        keep_snapshot(snapshot, os.path.join(root, log_dir))  # the name the args give it
+        args = train_args(root, data, log_dir, aug_contrast=True, aug_noise=True,
+                          cross_data_path=data, cross_sources=["ljspeech", "fbmelgan"],
+                          ig_times_per_target=IG_PER_TARGET, only_ig=True, **flag)
+        fused_cuda.FWD_LAUNCHES = fused_cuda.BWD_LAUNCHES = 0
+        pool_cuda.POOL_FWD_LAUNCHES = pool_cuda.POOL_BWD_LAUNCHES = 0
+        conv2_cuda.CONV2_FWD_LAUNCHES = conv2_cuda.CONV2_BWD_LAUNCHES = 0
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), blocks():
+            trainer = run_experiment(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ig_counts(fused_cuda, pool_cuda, conv2_cuda)
+        plots = os.path.join(root, log_dir, "plots")
+        maps[name] = {f.split("target-01_")[1]: np.load(os.path.join(plots, f))
+                      for f in sorted(os.listdir(plots))}
+        runs[name] = {"launches": counts, "wall_s": wall, "files": sorted(os.listdir(plots)),
+                      "guard": "only_ig: disabling fused_layer1" in out.getvalue(),
+                      "trainer": trainer}
+        log(f"  {name}: {images} images, launches {counts}, files {runs[name]['files']}, "
+            f"{wall:.1f} s wall")
+    fused, unfused = runs["fused"], runs["unfused"]
+    if not fused["guard"] or fused["trainer"].model.fused_layer1 is not False:
+        raise AssertionError("only_ig left fused_layer1 on (kernel 2 has no input gradient)")
+    want = {"conv1_fwd": 0, "conv1_bwd": 0, "pool_fwd": images, "pool_bwd": images,
+            "conv2_fwd": images, "conv2_bwd": images}
+    if fused["launches"] != want or any(
+            any(runs[n]["launches"].values()) for n in ("fused_plain", "unfused")):
+        raise AssertionError(f"IG launches: {({n: r['launches'] for n, r in runs.items()})}, "
+                             f"fused wants {want}")
+    if not all(len(r["files"]) == 3 and r["files"] == fused["files"] for r in runs.values()):
+        raise AssertionError(f"IG files {[r['files'] for r in runs.values()]}")
+    errs = {other: {key: rel_max(maps["fused"][key], maps[other][key]) for key in maps[other]}
+            for other in ("fused_plain", "unfused")}
+    ig = maps["fused"]["integrated_gradients.npy"]
+    log(f"  mean maps through the kernels, relative to the largest: against their plain "
+        f"versions {errs['fused_plain']}, against unfused {errs['unfused']}; "
+        f"|IG| max {np.abs(ig).max():.3e}")
+    if not (np.isfinite(ig).all() and np.abs(ig).max() > 0):
+        raise AssertionError("attributions not finite or all zero")
+    if not errs["fused_plain"]["integrated_gradients.npy"] <= IG_KERNEL_RTOL:
+        raise AssertionError(f"IG, kernels 5 and 6 against plain: {errs} > {IG_KERNEL_RTOL}")
+    if not errs["unfused"]["integrated_gradients.npy"] <= IG_UNFUSED_RTOL:
+        raise AssertionError(f"IG, fused against unfused: {errs} > {IG_UNFUSED_RTOL}")
+    if not max(e[k] for e in errs.values() for k in ("mean_images.npy", "last_image.npy")) \
+            <= IG_IMAGE_RTOL:
+        raise AssertionError(f"IG images differ between the runs: {errs}")
+
+    # per path image, completeness and the times on frames of the cross test set
+    fm, um = fused["trainer"].model.eval(), unfused["trainer"].model.eval()
+    batch = next(iter(fused["trainer"].cross_loader_test.epoch(0, shuffle=False)))
+    with torch.no_grad():
+        imgs = fused["trainer"].transform(torch.from_numpy(batch["audio"][:3]).cuda())
+    gf, gu = path_grads(fm, imgs[0], 1), path_grads(um, imgs[0], 1)
+    row_err = ((gf - gu).flatten(1).abs().amax(1) / gu.flatten(1).abs().amax(1)).cpu().numpy()
+    apart = np.nonzero(row_err > IG_GRAD_RTOL)[0]
+    log(f"  path gradients of one image, fused against unfused: {len(apart)} of 201 rows "
+        f"above {IG_GRAD_RTOL} of their largest (alpha index {apart.tolist()[:12]}, up to "
+        f"{row_err.max():.3e}); alpha = 1: {row_err[-1]:.3e}")
+    if not row_err[-1] <= IG_GRAD_RTOL:
+        raise AssertionError(f"image gradient fused against unfused: {row_err[-1]} > "
+                             f"{IG_GRAD_RTOL}")
+    completeness = []
+    for img in imgs:
+        attr = integrated_grad(fm, img, 1)
+        with torch.no_grad():
+            p = torch.softmax(fm(torch.stack([img, torch.zeros_like(img)])), -1)[:, 1]
+        completeness.append({"sum_ig": float(attr.sum()), "delta_p": float(p[0] - p[1]),
+                             "abs_gap": abs(float(attr.sum()) - float(p[0] - p[1]))})
+    log(f"  completeness |sum(IG) - (P(x) - P(0))| on {len(imgs)} images: "
+        f"{[float('%.3e' % c['abs_gap']) for c in completeness]} (delta P "
+        f"{[float('%.3e' % c['delta_p']) for c in completeness]})")
+    if not all(np.isfinite(c["abs_gap"]) for c in completeness):
+        raise AssertionError(f"completeness: {completeness}")
+
+    trace_dir = os.path.join(root, "trace")
+    with profiling.trace(trace_dir):
+        with profiling.annotate("integrated_grad"):
+            integrated_grad(fm, imgs[0], 1)
+        torch.cuda.synchronize()
+    (trace_file,) = os.listdir(trace_dir)
+    with open(os.path.join(trace_dir, trace_file)) as fh:
+        events = json.load(fh)["traceEvents"]
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    ranges = sum(1 for e in events if e.get("name") == "integrated_grad")
+    log(f"  profiling.trace: {kernels} kernel events, {ranges} 'integrated_grad' range(s)")
+    if not (kernels > 0 and ranges > 0):
+        raise AssertionError("profiling.trace kept no kernel or no annotation")
+
+    ms = median_ms({"unfused": lambda: integrated_grad(um, imgs[0], 1),
+                    "fused": lambda: integrated_grad(fm, imgs[0], 1)}, reps=2)
+    log(f"  IG per image (201 path images, forward and backward): fused {ms['fused']:.3f} ms, "
+        f"unfused {ms['unfused']:.3f} ms ({card_line})")
+    for run in runs.values():
+        del run["trainer"]
+    return {"runs": runs, "images": images, "launches": fused["launches"],
+            "rel_err": errs, "rows_apart": apart.tolist(), "row_rel_err_max": float(row_err.max()),
+            "image_grad_rel_err": float(row_err[-1]), "completeness": completeness,
+            "trace_kernel_events": kernels, "fused_ms": ms["fused"], "unfused_ms": ms["unfused"]}
+
+
+def stats_phase(root: str, data: str, card_line: str) -> dict:
+    """(c) per-node block-norm statistics of the training set (kernel 1, raw
+    packets) on the card against the CPU, and the ``*_mean_std_bn`` cache
+    through ``get_transforms``; (d) the scalogram's CWT and the average STFT
+    energy on the card against the CPU."""
+    import pickle as pkl
+
+    from audiodeepfake_detection_tpu_torch.analysis.fingerprints import load_clips
+    from audiodeepfake_detection_tpu_torch.analysis.plots import compute_scalogram
+    from audiodeepfake_detection_tpu_torch.analysis.stats import average_energy
+    from audiodeepfake_detection_tpu_torch.train.experiment import (
+        create_data_loaders,
+        norm_batches_fn,
+    )
+    from audiodeepfake_detection_tpu_torch.train.transforms import (
+        compute_block_norm_stats,
+        get_transforms,
+        norm_cache_prefix,
+    )
+
+    args = train_args(root, data, "log_bn", block_norm=True)
+    batches = list(norm_batches_fn(create_data_loaders(args)[0])())
+    frames = sum(len(b) for b in batches)
+    compute_block_norm_stats(args, iter(batches), "cuda")  # warm
+    t0 = time.perf_counter()
+    gpu = compute_block_norm_stats(args, iter(batches), "cuda")
+    secs = time.perf_counter() - t0
+    cpu = compute_block_norm_stats(args, iter(batches), "cpu")
+    nodes = sorted(cpu)
+    std = np.asarray([cpu[n]["std"] for n in nodes])
+    bn_err = max(
+        float(np.max(np.abs(np.asarray([gpu[n][k] for n in nodes])
+                            - np.asarray([cpu[n][k] for n in nodes])) / std))
+        for k in ("mean", "std"))
+    get_transforms(args, train_batches=lambda: iter(batches), device="cuda")
+    with open(norm_cache_prefix(args) + "_mean_std_bn.pkl", "rb") as fh:
+        cached = pkl.load(fh)
+    log(f"  block-norm statistics: {frames} frames in {secs * 1e3:.3f} ms on the card "
+        f"({frames / secs:.1f} frames/s, {card_line}); card against CPU {bn_err:.3e} of each "
+        f"node's std; cache of {len(cached)} nodes")
+    if not bn_err <= BLOCK_NORM_RTOL:
+        raise AssertionError(
+            f"block-norm statistics card against CPU: {bn_err} > {BLOCK_NORM_RTOL}")
+    if cached != gpu:
+        raise AssertionError("get_transforms cached other block-norm statistics")
+
+    clips = load_clips(os.path.join(data, "A_ljspeech"), 8)
+    t0 = time.perf_counter()
+    scal, freqs = compute_scalogram(clips[0][:SR], SR, device="cuda")
+    cwt_s = time.perf_counter() - t0
+    scal_cpu, _ = compute_scalogram(clips[0][:SR], SR, device="cpu")
+    cwt_err = rel_max(scal, scal_cpu)
+    energy_err = rel_max(average_energy(clips, device="cuda"), average_energy(clips, device="cpu"))
+    log(f"  scalogram {scal.shape} ({cwt_s * 1e3:.1f} ms on the card, host clock): card against "
+        f"CPU {cwt_err:.3e}; average energy over {len(clips)} clips {energy_err:.3e}")
+    if not (cwt_err <= CWT_RTOL and energy_err <= ENERGY_RTOL):
+        raise AssertionError(f"CWT {cwt_err} / energy {energy_err} on the card against the CPU")
+    return {"block_norm": {"frames": frames, "seconds": secs, "frames_per_s": frames / secs,
+                           "rel_err": bn_err},
+            "cwt": {"shape": list(scal.shape), "rel_err": cwt_err, "host_ms": cwt_s * 1e3},
+            "energy_rel_err": energy_err}
+
+
+def analysis_phase(wpt, mods, root: str, data: str, snapshot: str, card_line: str) -> dict:
+    """Phase 25: fingerprints, integrated gradients, block-norm statistics,
+    CWT and energy on the card; ``--tensorboard`` refused by name where the
+    package is missing."""
+    import importlib.util
+
+    t_phase = time.perf_counter()
+    wpt_cuda, fused_cuda, pool_cuda, conv2_cuda = mods
+    out = {}
+    log("  (a) fingerprints")
+    out["fingerprints"] = fingerprint_phase(wpt, wpt_cuda, root, data, card_line)
+    log("  (b) integrated gradients")
+    out["ig"] = ig_phase((fused_cuda, pool_cuda, conv2_cuda), root, data, snapshot, card_line)
+    log("  (c, d) block-norm statistics, CWT, energy")
+    out.update(stats_phase(root, data, card_line))
+    if importlib.util.find_spec("tensorboard") is None:
+        from audiodeepfake_detection_tpu_torch.train.experiment import make_writer
+
+        try:
+            make_writer(train_args(root, data, "log_tb"), root, "DCNN")
+        except ImportError as exc:
+            if "`tensorboard` package" not in str(exc):
+                raise
+            log(f"  --tensorboard without the package: {exc}")
+        else:
+            raise AssertionError("--tensorboard ran without the tensorboard package")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 25 took {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3973,8 +4347,14 @@ def main() -> None:
         log("[24 sweeps and resident data]")
         sweep_run = sweep_phase((wpt_cuda, fused_conv1_cuda, fused_pool_cuda, fused_conv2_cuda),
                                 root, data, trained["norm"], card_line)
+        log("[25 analysis on the card]")
+        analysis_run = analysis_phase(
+            wpt, (wpt_cuda, fused_conv1_cuda, fused_pool_cuda, fused_conv2_cuda), root, data,
+            int8_dcnn, card_line)
 
     sweep_launches = sweep_run["scan"]["launches"]
+    ig_launches = analysis_run["ig"]["launches"]
+    l14 = analysis_run["fingerprints"]
     main_key = f"{MAIN[0]}-L{MAIN[1]}-B64-T{SR}"
     train_key = "B{}-H{}-W{}-C{}-float32".format(*TRAIN_SHAPE)
     fused_src = "audiodeepfake_detection_tpu_torch/csrc/fused_conv1.cu"
@@ -4073,7 +4453,8 @@ def main() -> None:
         {
             "name": "fused_pool_fwd", "route": "cuda", "source": pool_src,
             "replaces": "audiodeepfake_detection_tpu/ops/fused_pool.py:197",
-            "launches": mid_launches["pool_fwd"], "sweep_launches": sweep_launches["pool_fwd"],
+            "launches": mid_launches["pool_fwd"], "ig_launches": ig_launches["pool_fwd"],
+            "sweep_launches": sweep_launches["pool_fwd"],
             "max_abs_err": mid_errs[pool_key]["fwd_max_abs_err"],
             "ms": mid_times["pool2"]["fwd_kernel_ms"],
             "plain_ms": mid_times["pool2"]["fwd_plain_ms"],
@@ -4085,7 +4466,8 @@ def main() -> None:
                       "and out by independent coalesced loads, dx as a pair to each input "
                       "row; blocks over strips of 8 pooled rows, one dalpha partial each",
             "replaces": "audiodeepfake_detection_tpu/ops/fused_pool.py:241",
-            "launches": mid_launches["pool_bwd"], "sweep_launches": sweep_launches["pool_bwd"],
+            "launches": mid_launches["pool_bwd"], "ig_launches": ig_launches["pool_bwd"],
+            "sweep_launches": sweep_launches["pool_bwd"],
             "max_abs_err": mid_errs[pool_key]["dx_max_abs_err"],
             "ms": mid_times["pool2"]["bwd_kernel_ms"],
             "plain_ms": mid_times["pool2"]["bwd_plain_ms"],
@@ -4095,7 +4477,7 @@ def main() -> None:
             "name": "fused_conv2_fwd", "route": "cuda", "source": conv2_src,
             "design": "FMA pipe in cuDNN's summation order, two-stage cp.async ring",
             "replaces": "audiodeepfake_detection_tpu/ops/fused_conv2.py:323",
-            "launches": mid_launches["conv2_fwd"],
+            "launches": mid_launches["conv2_fwd"], "ig_launches": ig_launches["conv2_fwd"],
             "sweep_launches": sweep_launches["conv2_fwd"],
             "max_abs_err": mid_errs[conv2_key]["fwd_max_abs_err"],
             "ms": mid_times["conv2"]["fwd_kernel_ms"],
@@ -4109,7 +4491,7 @@ def main() -> None:
             "design": "dx, dw: mma.sync m16n8k8 split-TF32 (3 products), two-stage "
                       "ring; dcorr / dalpha: FMA",
             "replaces": "audiodeepfake_detection_tpu/ops/fused_conv2.py:383",
-            "launches": mid_launches["conv2_bwd"],
+            "launches": mid_launches["conv2_bwd"], "ig_launches": ig_launches["conv2_bwd"],
             "sweep_launches": sweep_launches["conv2_bwd"],
             "max_abs_err": mid_errs[conv2_key]["dw_max_abs_err"],
             "ms": mid_times["conv2"]["bwd_kernel_ms"],
@@ -4178,6 +4560,18 @@ def main() -> None:
             "split": long_run["wpt_long"]["split"],
             "bound_ms": long_b, "bound_by": long_by, "library_ms": None,
         },
+        {
+            # the same kernel on phase 25's whole 10 s clips at level-14 haar,
+            # B = 1: the top levels through device memory (wpt_level_kernel,
+            # one launch a level), then the subtree kernel
+            "name": "wpt_cascade_l14", "route": "cuda",
+            "source": "audiodeepfake_detection_tpu_torch/csrc/wpt_cascade.cu",
+            "replaces": "audiodeepfake_detection_tpu/ops/wpt_pallas.py:287",
+            "launches": l14["launches"]["subtree"], "level_launches": l14["launches"]["level"],
+            "max_abs_err": l14["max_abs_err"], "ms": l14["kernel_ms"], "plain_ms": l14["plain_ms"],
+            "device_ms": l14["device_ms"], "split": l14["split"], "in_level": l14["in_level"],
+            "bound_ms": l14["bound_ms"], "bound_by": l14["bound_by"], "library_ms": None,
+        },
         *bf16_rows(bf16_run, bf16_errs, bf16_times),
         *int8_rows(int8_errs, int8_run["serve"], int8_times),
     ]}))
@@ -4198,6 +4592,7 @@ def main() -> None:
         "bf16_timing": bf16_times, "bf16_profile": bf16_prof,
         "int8_vs_plain": int8_errs, "int8_imma": int8_imma, "int8": int8_run,
         "int8_timing": int8_times, "export": export_run, "sweep": sweep_run,
+        "analysis": analysis_run,
     }))
     print(card_line)
     print(json.dumps({"ok": True, "device": {

@@ -1160,3 +1160,72 @@ def test_public_functions_call_the_ops_without_gradients(card):
     op, args, _, _ = _op_cases(card)["flash_mha_packed"]
     with torch.no_grad():
         assert torch.equal(flash_attention.flash_mha_packed(*args), op(*args))
+
+
+# ------------------------------------------------- analysis (slice 9)
+
+
+def test_level14_fingerprint_takes_the_top_level_route_and_equals_plain(card):
+    """``mean_wpt_spectrum`` over two 10 s clips at level-14 haar: kernel 1
+    on its top-level route (``wpt_level_kernel`` launches, then the
+    subtree kernel) against the plain cascade on the card.  The raw packets
+    read 0.0 from plain on every plan, so the mean spectra are the same
+    bits; the bound takes a mean summed in another order."""
+    from audiodeepfake_detection_tpu_torch.analysis.fingerprints import mean_wpt_spectrum
+
+    rng = np.random.RandomState(14)
+    clips = [(0.3 * rng.randn(220500)).astype(np.float32) for _ in range(2)]
+    before = (wpt_cuda.LAUNCHES, wpt_cuda.LEVEL_LAUNCHES)
+    got = mean_wpt_spectrum(clips, "haar", 14, device=card)
+    subtree, levels = wpt_cuda.LAUNCHES - before[0], wpt_cuda.LEVEL_LAUNCHES - before[1]
+    want = mean_wpt_spectrum(clips, "haar", 14, device=card, use_kernel=False)
+    assert subtree == 2 and levels > 0
+    assert got.shape == (2**14,)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6 * np.abs(want).max())
+
+
+def test_integrated_grad_through_kernels_5_and_6_equals_plain(card, monkeypatch):
+    """The full-width DCNN in eval with ``fused_pool`` and ``fused_layer2``
+    at ``"always"``: one forward and one ``dx`` backward of kernels 5 and 6
+    at B = 201 per image.  The attributions within 1e-4 of the largest of
+    the same model's with the blocks' plain versions in the kernels' place
+    (the same folded math: kernel 6 sums its forward in cuDNN's order and
+    kernel 5's is elementwise, so the pools choose alike; what is left is
+    the kernels' fp32 dx).  The gradient at the image within 1e-4 of its
+    largest entry of the unfused (cuDNN) model's; the unfused attributions
+    are not held here: where a max-pool window's two largest values lie
+    within the roundoff between the folded and the unfolded BatchNorm, the
+    two models choose differently (``chip_smoke.py`` phase 25)."""
+    from audiodeepfake_detection_tpu_torch.analysis.integrated_gradients import integrated_grad
+    from audiodeepfake_detection_tpu_torch.models.dcnn import DCNN
+
+    torch.manual_seed(0)
+    plain = DCNN(time_dim=12).to(card).eval()
+    fused = DCNN(time_dim=12, fused_pool="always", fused_layer2="always").to(card).eval()
+    fused.load_state_dict(plain.state_dict())
+    x = torch.from_numpy(np.random.RandomState(5).randn(1, 256, 95).astype(np.float32)).to(card)
+    grads = []
+    for model in (plain, fused):
+        img = x[None].clone().requires_grad_(True)
+        grads.append(torch.autograd.grad(torch.softmax(model(img), -1)[0, 1], img)[0])
+    assert (grads[1] - grads[0]).abs().max() <= 1e-4 * grads[0].abs().max()
+    counters = [(fused_pool_cuda, "POOL_FWD_LAUNCHES"), (fused_pool_cuda, "POOL_BWD_LAUNCHES"),
+                (fused_conv2_cuda, "CONV2_FWD_LAUNCHES"), (fused_conv2_cuda, "CONV2_BWD_LAUNCHES")]
+    before = [getattr(m, c) for m, c in counters]
+    got = integrated_grad(fused, x, 1)
+    assert [getattr(m, c) - b for (m, c), b in zip(counters, before)] == [1, 1, 1, 1]
+
+    def pool(x, alpha, want_stats):
+        assert not want_stats
+        return fused_pool.plain_prelu_pool(x, alpha), None, None
+
+    def conv2(x, w, corr, alpha, want_stats):
+        assert not want_stats
+        return fused_conv2.plain_conv2_prelu_pool(x, w, corr, alpha), None, None
+
+    monkeypatch.setattr(fused_pool, "_run", pool)
+    monkeypatch.setattr(fused_conv2, "_run", conv2)
+    want = integrated_grad(fused, x, 1)
+    assert [getattr(m, c) - b for (m, c), b in zip(counters, before)] == [1, 1, 1, 1]
+    assert torch.isfinite(got).all() and want.abs().max() > 0
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()

@@ -2,9 +2,10 @@
 
 No ``.py`` file of ``audiodeepfake_detection_tpu_torch`` (nor
 ``chip_smoke.py``) imports jax, flax, optax, orbax or the JAX package, and
-none imports ``triton`` at module level, so the port imports on a machine
-that has neither JAX nor a GPU toolchain.  Importing every module builds no
-kernel.
+none imports ``triton``, matplotlib or a tensorboard writer at module
+level, so the port imports on a machine that has neither JAX, nor a GPU
+toolchain, nor those packages (the GPU machine has no matplotlib and no
+tensorboard).  Importing every module builds no kernel.
 """
 
 import ast
@@ -17,6 +18,8 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "audiodeepfake_detection_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "audiodeepfake_detection_tpu"}
+#: imported inside the functions that draw or log, never at module level
+LAZY = ("matplotlib", "tensorboard", "tensorboardX", "torch.utils.tensorboard")
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -48,7 +51,9 @@ def test_sources_found():
         "ops/stft.py", "ops/lfcc.py", "models/lcnn.py", "models/regression.py",
         "models/gridmodel.py", "ops/fused_pool.py", "ops/fused_pool_cuda.py",
         "ops/fused_conv2.py", "ops/fused_conv2_cuda.py", "ops/flash_attention.py",
-        "ops/flash_attention_cuda.py", "models/ast.py",
+        "ops/flash_attention_cuda.py", "models/ast.py", "ops/cwt.py",
+        "analysis/cli.py", "analysis/fingerprints.py", "analysis/integrated_gradients.py",
+        "analysis/model_diffs.py", "analysis/plots.py", "analysis/stats.py",
     ):
         assert f"audiodeepfake_detection_tpu_torch/{new}" in names
     assert "chip_smoke.py" in names
@@ -62,6 +67,36 @@ def test_no_jax_and_no_module_level_triton(path):
         assert not (name == "triton" and at_import), (
             f"{path.name} imports triton at module level"
         )
+
+
+def _module_level_imports(node):
+    """Full dotted names of the imports outside every function body."""
+    for child in ast.iter_child_nodes(node):
+        if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+            continue
+        if isinstance(child, ast.Import):
+            yield from (alias.name for alias in child.names)
+        elif isinstance(child, ast.ImportFrom) and child.level == 0:
+            yield child.module
+            yield from (f"{child.module}.{alias.name}" for alias in child.names)
+        yield from _module_level_imports(child)
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_module_level_plotting_or_tensorboard(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for name in _module_level_imports(tree):
+        assert not any(name == lazy or name.startswith(lazy + ".") for lazy in LAZY), (
+            f"{path.name} imports {name} at module level")
+
+
+def test_lazy_scanner_sees_module_level_writers():
+    tree = ast.parse(
+        "import os\nfrom torch.utils.tensorboard import SummaryWriter\n"
+        "def f():\n    import matplotlib\n"
+    )
+    assert list(_module_level_imports(tree)) == [
+        "os", "torch.utils.tensorboard", "torch.utils.tensorboard.SummaryWriter"]
 
 
 def test_scanner_sees_nested_and_import_time_imports():
