@@ -17,9 +17,12 @@ Sub-commands (reference counterparts):
 Counterpart of ``audiodeepfake_detection_tpu/analysis/cli.py``, with its
 sub-commands, flags and file names.  ``--device`` (default ``cuda``; the
 CPU must be asked for) says where the transforms of ``fingerprints``,
-``spectrogram``, ``scalogram`` and ``energy`` run.  ``fingerprints
---sp`` (the sequence-parallel cascade) waits for the distributed slice and
-raises.
+``spectrogram``, ``scalogram`` and ``energy`` run.  ``fingerprints --sp``
+shards each clip's time axis over the ranks (``parallel/sequence.py``):
+run it under torchrun (``torchrun --nproc-per-node N -m
+audiodeepfake_detection_tpu_torch.analysis.cli fingerprints --sp ...``;
+gloo ranks with ``--device cpu``); rank 0 writes the files.  With one rank
+it is the dense transform, as JAX's one-device mesh is.
 
 Run ``python -m audiodeepfake_detection_tpu_torch.analysis.cli <cmd> --help``.
 """
@@ -50,22 +53,46 @@ def _cmd_attribution(args) -> None:
 
 
 def _cmd_fingerprints(args) -> None:
-    from .fingerprints import fingerprint_audio, generator_fingerprints
+    from .fingerprints import generator_fingerprints
 
+    from ..parallel.mesh import is_distributed, is_lead
+
+    mesh, joined = None, False
     if args.sp:
-        raise NotImplementedError(
-            "fingerprints --sp (the sequence-parallel WPT) is not ported yet "
-            "(ROADMAP.md queue 1, slice 7: distributed)"
+        # shard each clip's time axis over the ranks for the deep (level-14)
+        # transform -- parallel/sequence.py
+        from ..parallel.mesh import get_mesh
+        from ..train.experiment import maybe_initialize_distributed
+        from ..utils.config import DotDict
+
+        joined = not is_distributed()
+        _, _, args.device = maybe_initialize_distributed(DotDict(device=str(args.device)))
+        joined = joined and is_distributed()
+        mesh = get_mesh(args.device)
+    try:
+        out = generator_fingerprints(
+            args.data_path,
+            args.generators,
+            real_name=args.real_name,
+            wavelet=args.wavelet,
+            level=args.level,
+            max_files=args.max_files,
+            device=args.device,
+            mesh=mesh,
         )
-    out = generator_fingerprints(
-        args.data_path,
-        args.generators,
-        real_name=args.real_name,
-        wavelet=args.wavelet,
-        level=args.level,
-        max_files=args.max_files,
-        device=args.device,
-    )
+        if is_lead():
+            _write_fingerprints(args, out)
+    finally:
+        if joined:  # a group the caller made is the caller's to destroy
+            import torch.distributed as dist
+
+            dist.barrier()
+            dist.destroy_process_group()
+
+
+def _write_fingerprints(args, out) -> None:
+    from .fingerprints import fingerprint_audio
+
     os.makedirs(args.out_dir, exist_ok=True)
     for gen, spectra in out.items():
         for key, spec in spectra.items():
@@ -173,7 +200,7 @@ def main(argv=None) -> None:
     p.add_argument("--out-dir", default="./plots/fingerprints")
     p.add_argument(
         "--sp", action="store_true",
-        help="sequence-parallel WPT (not ported yet: ROADMAP.md slice 7)",
+        help="sequence-parallel WPT over the ranks of a torchrun launch",
     )
     p.set_defaults(fn=_cmd_fingerprints)
 

@@ -11,8 +11,16 @@ The level-14 packets of a whole clip go through the op
 kernel, whose plan sends the top levels through device memory
 (``wpt_level_kernel``) when a subtree does not fit one CTA; on the CPU the
 plain cascade.  The JAX function runs its plain ``wpt_analysis`` even on a
-TPU; it is the same function.  Its ``mesh`` (the sequence-parallel
-cascade, JAX ``parallel/sequence.py``) waits for the distributed slice.
+TPU; it is the same function.
+
+With a ``mesh`` (``parallel/mesh.py``) a clip cropped to a multiple of
+``ranks * 2**level`` and at least ``sp_wpt_min_len`` long takes the
+sequence-parallel cascade (``parallel/sequence.py``: its time axis sharded
+over the ranks, a stride-2 ``conv1d`` a level); a shorter clip takes the
+dense op, kernel 1 on the card.  That routing is the JAX function's own
+(JAX ``fingerprints.py:50-75``), not a fallback: the sharded cascade needs
+an aligned clip whose blocks outlast the filter, and the two transforms are
+equal to float32 roundoff.
 """
 
 from __future__ import annotations
@@ -33,19 +41,36 @@ def mean_wpt_spectrum(
     level: int = 14,
     device: torch.device | str = "cuda",
     use_kernel: bool = True,
+    mesh=None,
 ) -> np.ndarray:
     """Mean |WPT| spectrum over clips: mean over time and clips -> [2**level].
 
     Each clip is cropped to a multiple of ``2**level`` samples; a shorter
     clip is skipped.  The per-clip spectra are summed on ``device`` and
     fetched once.  ``use_kernel=False`` runs the plain cascade on any
-    device (what the kernel is held against).
+    device (what the kernel is held against).  ``mesh``: each clip long
+    enough for it goes through the sequence-parallel cascade over the
+    ranks, cropped to a multiple of ``ranks * 2**level`` (every rank passes
+    the same clips and gets the same spectrum).
     """
     from ..ops.wpt_cuda import wpt_packets
+    from ..parallel.mesh import mesh_size
+    from ..parallel.sequence import sp_wpt_analysis, sp_wpt_min_len
 
+    shards = mesh_size(mesh)
+    min_sp_len = sp_wpt_min_len(wavelet, level, shards) if mesh is not None else 0
     acc = None
     count = 0
     for clip in clips:
+        block = shards << level
+        t_sp = (len(clip) // block) * block
+        if mesh is not None and t_sp >= min_sp_len:
+            x = torch.as_tensor(np.asarray(clip[None, :t_sp], np.float32), device=device)
+            wp = sp_wpt_analysis(x, wavelet, level, mesh)
+            spec = wp[0].abs().mean(-1)
+            acc = spec if acc is None else acc + spec
+            count += 1
+            continue
         t = (len(clip) >> level) << level
         if t == 0:
             continue
@@ -99,16 +124,19 @@ def generator_fingerprints(
     max_files: int = 128,
     device: torch.device | str = "cuda",
     use_kernel: bool = True,
+    mesh=None,
 ) -> Dict[str, Dict[str, np.ndarray]]:
     """Per-generator mean spectra and differences against the real corpus.
 
-    ``data_path`` holds one directory per source, named ``<prefix>_<name>``.
+    ``data_path`` holds one directory per source, named ``<prefix>_<name>``;
+    ``mesh`` shards each clip's time axis (:func:`mean_wpt_spectrum`).
     """
     dirs = {d.split("_")[-1]: d for d in os.listdir(data_path)}
 
     def spectra(name):
         clips = load_clips(os.path.join(data_path, dirs[name]), max_files)
-        wpt = mean_wpt_spectrum(clips, wavelet, level, device=device, use_kernel=use_kernel)
+        wpt = mean_wpt_spectrum(clips, wavelet, level, device=device,
+                                use_kernel=use_kernel, mesh=mesh)
         return wpt, mean_rfft_spectrum(clips)
 
     real_wpt, real_fft = spectra(real_name)

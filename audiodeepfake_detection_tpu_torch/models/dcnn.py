@@ -51,6 +51,13 @@ every state dict loads under every flag:
   them) and ``cnn[18:20]`` through ``ops/fused_pool.py``, the first with
   moments for ``cnn[10]`` in training.
 
+``mesh`` (``parallel/mesh.py``; JAX ``DCNN.mesh``) puts the model on a
+process group's ``"data"`` mesh: every BatchNorm becomes a
+``layers.SyncBatchNorm2d`` (the global batch's moments, as JAX's
+reductions over the sharded batch give them), and the fused blocks run as
+``ops/fused_conv1.py::batch_shard_mapped`` on the rank's own batch, their
+moments summed over the ranks before the BatchNorm that takes them.
+
 ``quant`` is the JAX model's post-training int8 (``ops/quantize.py``;
 inference only, training with it raises): ``"calibrate"`` records the
 input absmax of each conv site, a ``{site: act_scale}`` dict runs those
@@ -69,7 +76,12 @@ from typing import Optional, Union
 import torch
 from torch import nn
 
-from ..ops.fused_conv1 import fused_conv1_prelu_pool, fused_conv1_prelu_pool_stats
+from ..ops.fused_conv1 import (
+    batch_shard_mapped,
+    can_batch_shard,
+    fused_conv1_prelu_pool,
+    fused_conv1_prelu_pool_stats,
+)
 from ..ops.fused_conv2 import fused_conv2_prelu_pool, fused_conv2_prelu_pool_stats
 from ..ops.fused_pool import fused_prelu_pool, fused_prelu_pool_stats
 from ..ops.quantize import check_quant_eval, int8_sites
@@ -79,8 +91,9 @@ from .layers import (
     compute_dtype,
     folded_bn_conv,
     linear_in_dtype,
-    one_pass_moments,
+    batch_moments,
     run_layers,
+    use_mesh,
 )
 
 
@@ -116,10 +129,12 @@ class DCNN(nn.Module):
         fused_layer2: Union[bool, str] = False,
         dtype: Optional[torch.dtype] = None,
         quant=None,
+        mesh=None,
     ) -> None:
         super().__init__()
         self.dtype = compute_dtype(dtype)
         self.quant = quant
+        self.mesh = mesh
         for name, flag in (("fused_layer1", fused_layer1), ("fused_pool", fused_pool),
                            ("fused_layer2", fused_layer2)):
             if flag not in (False, True, "always"):
@@ -160,6 +175,15 @@ class DCNN(nn.Module):
                 dil.append(nn.Dropout(dropout_lstm))
             self.dil_conv = nn.Sequential(*dil)
         self.fc = nn.Sequential(nn.Flatten(2), nn.Linear(flattend_size, nclasses))
+        if mesh is not None:
+            use_mesh(self, mesh)
+
+    def _sharded(self, fn, x: torch.Tensor, stat_outputs: int = 0):
+        """``fn`` as ``batch_shard_mapped`` when the model is on a mesh (its
+        moments summed over the ranks), else ``fn``."""
+        if can_batch_shard(self.mesh, x.shape[0]):
+            return batch_shard_mapped(fn, self.mesh, stat_outputs=stat_outputs)
+        return fn
 
     def _moments_bn(self, at: int, x: torch.Tensor, s: torch.Tensor, q: torch.Tensor):
         """Train-mode BatchNorm ``cnn[at]`` on ``x`` from the moments ``(s,
@@ -189,17 +213,18 @@ class DCNN(nn.Module):
         # channels-last, cuDNN's fp32 convolutions would run slower by more
         # than the fused block saves; PERF.md, Findings)
         if self.training:
-            out, s, q = fused_conv1_prelu_pool_stats(*args)
+            out, s, q = self._sharded(fused_conv1_prelu_pool_stats, x, 2)(*args)
             return self._moments_bn(3, out.permute(0, 3, 1, 2), s, q)
-        return fused_conv1_prelu_pool(*args).permute(0, 3, 1, 2), 3
+        return self._sharded(fused_conv1_prelu_pool, x)(*args).permute(0, 3, 1, 2), 3
 
     def _fused_second_block(self, x: torch.Tensor):
         """``cnn[6:10]`` (and ``cnn[10]`` in training) through the fused
         block: BatchNorm ``cnn[6]`` folded into conv ``cnn[7]``, PReLU
         ``cnn[8]``, pool.  ``x``: ``[B, C2, H, W]``."""
         conv, bn = self.cnn[7], self.cnn[6]
-        # a compute dtype takes the JAX model's one-pass statistics
-        moments = None if self.dtype is None or not bn.training else one_pass_moments(x)
+        # a compute dtype takes the JAX model's one-pass statistics (over
+        # the global batch on a mesh), float32 its var_mean off a mesh
+        moments = None if self.dtype is None or not bn.training else batch_moments(bn, x)
         s, t = batch_norm_scale_shift(bn, x, moments)
         c_in, (h, w) = x.shape[1], x.shape[2:]
         weight = conv.weight  # [Cout, Cin, 3, 3]
@@ -221,8 +246,8 @@ class DCNN(nn.Module):
             corr = (corr + conv.bias.to(dt).reshape(-1, 1, 1)).float()
         args = (x.contiguous(), w_eff, corr, alpha)
         if self.training:
-            return self._moments_bn(10, *fused_conv2_prelu_pool_stats(*args))
-        return fused_conv2_prelu_pool(*args), 10
+            return self._moments_bn(10, *self._sharded(fused_conv2_prelu_pool_stats, x, 2)(*args))
+        return self._sharded(fused_conv2_prelu_pool, x)(*args), 10
 
     def _fused_pool(self, x: torch.Tensor, at: int, feeds_bn: bool):
         """PReLU ``cnn[at]`` + pool ``cnn[at + 1]`` through the fused block
@@ -231,8 +256,9 @@ class DCNN(nn.Module):
         moments."""
         alpha = self.cnn[at].weight
         if feeds_bn and self.training:
-            return self._moments_bn(at + 2, *fused_prelu_pool_stats(x.contiguous(), alpha))
-        return fused_prelu_pool(x.contiguous(), alpha), at + 2
+            stats = self._sharded(fused_prelu_pool_stats, x, 2)(x.contiguous(), alpha)
+            return self._moments_bn(at + 2, *stats)
+        return self._sharded(fused_prelu_pool, x)(x.contiguous(), alpha), at + 2
 
     def _cnn(self, x: torch.Tensor) -> torch.Tensor:
         """``self.cnn(x)``, with the blocks the flags name run fused (a

@@ -14,6 +14,12 @@ model-name vocabulary:
 ``dtype: bfloat16`` reaches the DCNN family, the LCNN and the AST, as in the
 JAX package; the grid model is built in float32 under it, as the JAX
 package builds it (its ``get_gridsearch_model`` takes no dtype).
+
+``mesh`` (``parallel/mesh.py``) reaches the DCNN family and the LCNN, as in
+the JAX package, and under it every model's ``nn.BatchNorm2d`` (the grid
+model's ``SyncBatchNorm`` / ``BatchNorm2d`` too) becomes the port's
+synchronized BatchNorm (``layers.use_mesh``), which takes the global
+batch's moments on the CPU as on the card.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from ..utils.config import DotDict
 from .ast import ASTModel
 from .dcnn import DCNN
 from .gridmodel import get_gridsearch_model
+from .layers import use_mesh
 from .lcnn import LCNN
 from .regression import Regression
 
@@ -94,10 +101,12 @@ def _build_ast(args: DotDict, nclasses: int) -> ASTModel:
     )
 
 
-def _build_dcnn(args: DotDict, variant: str, nclasses: int, in_channels: int) -> DCNN:
+def _build_dcnn(args: DotDict, variant: str, nclasses: int, in_channels: int,
+                mesh=None) -> DCNN:
     time_dim = int(args.input_dim[-1]) // 8 + int(args.time_dim_add or 0)
     return DCNN(
         dtype=_compute_dtype(args),
+        mesh=mesh,
         fused_layer1=_tri_flag(args.fused_layer1),
         fused_pool=_tri_flag(args.fused_pool),
         fused_layer2=_tri_flag(args.fused_layer2),
@@ -123,8 +132,16 @@ def get_model(
     nclasses: int = 2,
     in_channels: int = 1,
     lead: bool = False,
+    mesh=None,
 ) -> nn.Module:
-    """Build the model named by ``model_name`` from the experiment config."""
+    """Build the model named by ``model_name`` from the experiment config
+    (on ``mesh``, when one is given)."""
+    model = _get_model(args, model_name, nclasses, in_channels, lead, mesh)
+    return model if mesh is None else use_mesh(model, mesh)
+
+
+def _get_model(args: DotDict, model_name: str, nclasses: int, in_channels: int,
+               lead: bool, mesh) -> nn.Module:
     if model_name == "lcnn":
         features = args.features or "none"
         if "doubledelta" in features:
@@ -141,6 +158,7 @@ def get_model(
             lstm_channels=lstm_channels,
             fused_layer1=_tri_flag(args.fused_layer1),
             dtype=_compute_dtype(args),
+            mesh=mesh,
         )
     if model_name == "gridmodel":
         if args.model_data is None:
@@ -156,7 +174,7 @@ def get_model(
         else:
             name = str(module)
         if name in _MODULE_REGISTRY:
-            model = _build_dcnn(args, name, nclasses, in_channels)
+            model = _build_dcnn(args, name, nclasses, in_channels, mesh)
         elif name in ("AST", "ASTModel"):
             model = _build_ast(args, nclasses)
         elif name == "Regression":

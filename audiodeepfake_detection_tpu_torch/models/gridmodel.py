@@ -11,7 +11,8 @@ per entry" -- the parser expands the grid of variants; inter-block
 Layer vocabulary (torch's own, so each token is one module):
 ``Conv2d in out k [stride [padding]]``, ``MaxPool2d k s``,
 ``SyncBatchNorm n [eps [momentum [affine]]]`` and ``BatchNorm2d`` with the
-same positional arguments (both ``nn.BatchNorm2d`` on one device),
+same positional arguments (both ``nn.BatchNorm2d``; under a mesh the factory
+makes each the port's synchronized BatchNorm, ``layers.use_mesh``),
 ``Dropout p``, ``Linear in out``, ``ReLU``, ``PReLU``, ``Softmax dim``,
 ``LogSoftmax dim``, ``Flatten [start]``, ``MaxFeatureMap2D``,
 ``BLSTMLayer in out``, ``Permute a,b,c,d``.

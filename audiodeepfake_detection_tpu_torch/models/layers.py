@@ -6,6 +6,18 @@ Counterparts in ``audiodeepfake_detection_tpu/models/layers.py``:
   sumsq))``: the DCNN's fused first block returns the per-channel ``(sum,
   sumsq)`` of its output, and the BatchNorm that follows normalises with
   them instead of reading the activation again;
+* :class:`SyncBatchNorm2d` -- under a mesh the JAX BatchNorm normalises
+  with the moments of the global batch, since its reductions run over the
+  sharded batch axis ("== SyncBatchNorm", JAX ``models/layers.py:12``).
+  Here each rank holds its own batch, so :func:`use_mesh` turns a model's
+  ``nn.BatchNorm2d`` into this subclass: the one-pass float32 ``(sum,
+  sumsq)`` (:func:`one_pass_moments`, what JAX's ``_torch_bn_stats`` takes)
+  summed over the ranks by ``parallel.mesh.all_reduce_sum``, the count
+  ``n`` the global one.  Moments a synchronized BatchNorm is *handed*
+  (:func:`batch_norm_from_moments`, ``batch_norm_scale_shift(...,
+  moments=)``, :func:`folded_bn_conv`) are taken to be global already: the
+  fused blocks sum theirs over the ranks (``ops/fused_conv1.py::
+  batch_shard_mapped``); moments they compute themselves are summed here;
 * :func:`batch_norm_scale_shift` -- ``BatchNormStats``: the per-channel
   ``(s, t)`` of ``BN(x) = x * s + t``, for the DCNN's fused second block,
   whose kernel takes the BatchNorm folded into its weights (``weight * s``)
@@ -41,6 +53,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.quantize import conv_int8_weights, quantized_conv
+from ..parallel.mesh import all_reduce_sum, mesh_size
 
 
 def compute_dtype(dtype):
@@ -82,11 +95,33 @@ def _moments_mean_var(n: int, s: torch.Tensor, q: torch.Tensor):
     return mean, torch.clamp(q.float() / n - mean * mean, min=0.0)
 
 
+def _bn_mesh(bn: nn.BatchNorm2d):
+    """The mesh a synchronized BatchNorm sums its moments over, or None."""
+    return getattr(bn, "mesh", None)
+
+
+def _count(bn: nn.BatchNorm2d, x: torch.Tensor) -> int:
+    """Values per channel the moments of ``bn`` cover: ``x``'s over
+    ``(B, H, W)``, times the ranks when ``bn`` is synchronized (every rank
+    holds a batch of the same size: the loader and ``shard_batch`` see to
+    it)."""
+    return x.numel() // x.shape[1] * mesh_size(_bn_mesh(bn))
+
+
+def batch_moments(bn: nn.BatchNorm2d, x: torch.Tensor):
+    """:func:`one_pass_moments` of ``x``, summed over the ranks when ``bn``
+    is synchronized (differentiable: the cotangents are summed too)."""
+    s, q = one_pass_moments(x)
+    mesh = _bn_mesh(bn)
+    return (s, q) if mesh is None else all_reduce_sum((s, q), mesh)
+
+
 def batch_norm_from_moments(
     bn: nn.BatchNorm2d, x: torch.Tensor, s: torch.Tensor, q: torch.Tensor
 ) -> torch.Tensor:
     """Train-mode ``bn(x)`` on ``x [B, C, H, W]`` from ``s = sum(x)`` and
-    ``q = sum(x**2)`` over ``(B, H, W)``, float32 ``[C]``.
+    ``q = sum(x**2)`` over ``(B, H, W)``, float32 ``[C]`` (over the global
+    batch when ``bn`` is synchronized: then ``n`` counts every rank's).
 
     torch semantics: ``mean = s/n``, ``var = max(q/n - mean**2, 0)``
     (biased) normalises; ``running_var`` takes the unbiased ``var*n/(n-1)``;
@@ -95,7 +130,7 @@ def batch_norm_from_moments(
     place, so the state dict keeps its layout.  All statistics are float32;
     the result is differentiable through ``x``, ``s`` and ``q``.
     """
-    n = x.numel() // x.shape[1]
+    n = _count(bn, x)
     mean, var = _moments_mean_var(n, s, q)
     scale, shift = _train_scale_shift(bn, n, mean, var)
     shape = (1, -1, 1, 1)
@@ -113,10 +148,14 @@ def batch_norm_scale_shift(bn: nn.BatchNorm2d, x: torch.Tensor, moments=None):
     ``(sum, sumsq)`` when a fused block has accumulated them (differentiable
     through them), and ``bn``'s running buffers and ``num_batches_tracked``
     move exactly as in :func:`batch_norm_from_moments`; in eval they come
-    from the running buffers.
+    from the running buffers.  A synchronized ``bn`` takes the global
+    batch's moments (:func:`batch_moments`; ``moments`` it is handed are
+    global already).
     """
     if bn.training:
-        n = x.numel() // x.shape[1]
+        n = _count(bn, x)
+        if moments is None and _bn_mesh(bn) is not None:
+            moments = batch_moments(bn, x)
         if moments is None:
             var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
         else:
@@ -131,6 +170,43 @@ def one_pass_moments(x: torch.Tensor):
     in every compute type (``_torch_bn_stats``)."""
     x32 = x.float()
     return x32.sum(dim=(0, 2, 3)), (x32 * x32).sum(dim=(0, 2, 3))
+
+
+class SyncBatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` that normalises a train-mode batch with the
+    moments of the global batch over ``mesh``: the one-pass float32
+    moments summed over the ranks (:func:`batch_moments`), then
+    :func:`batch_norm_from_moments` with the global count, so the running
+    buffers move the same on every rank (their unbiased factor takes the
+    global ``n``).  Without a mesh, and in eval, it is ``nn.BatchNorm2d``;
+    its state dict is ``nn.BatchNorm2d``'s.
+
+    Not ``nn.SyncBatchNorm``: that one refuses CPU tensors under a process
+    group, and its Welford moments are not the JAX package's one-pass ones.
+    """
+
+    mesh = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.mesh is None:
+            return super().forward(x)
+        return batch_norm_from_moments(self, x, *batch_moments(self, x))
+
+
+def use_mesh(model: nn.Module, mesh) -> nn.Module:
+    """Put ``model`` on ``mesh`` (or take it off, ``None``), in place: each
+    ``nn.BatchNorm2d`` becomes a :class:`SyncBatchNorm2d` over it (the same
+    object, parameters and buffers, so an optimizer that holds them is
+    unaffected), and each module with a ``mesh`` attribute (the DCNN's and
+    the LCNN's fused blocks) takes it.  Returns ``model``."""
+    for module in model.modules():
+        if isinstance(module, nn.BatchNorm2d):
+            if type(module) is nn.BatchNorm2d:
+                module.__class__ = SyncBatchNorm2d
+            module.mesh = mesh
+        elif "mesh" in vars(module):
+            module.mesh = mesh
+    return model
 
 
 def _conv_args(conv: nn.Conv2d):
@@ -163,7 +239,7 @@ def folded_bn_conv(
     the function that makes it, or None."""
     dt = x.dtype
     if bn.training and moments is None:
-        moments = one_pass_moments(x)
+        moments = batch_moments(bn, x)
     s, t = batch_norm_scale_shift(bn, x, moments)
     weight = conv.weight
     if act_scale is None:

@@ -32,6 +32,12 @@ bfloat16 sequence by the float32 ``w_ih``, which promotes.  The head is a
 bfloat16 ``Dense``; the logits are averaged in bfloat16 and returned in
 float32.
 
+``mesh`` (``parallel/mesh.py``; JAX ``LCNN.mesh``) puts the model on a
+process group's ``"data"`` mesh: its six BatchNorms become
+``layers.SyncBatchNorm2d`` (the global batch's moments), and the fused
+block runs as ``ops/fused_conv1.py::batch_shard_mapped`` on the rank's own
+batch (it has no moments to sum).
+
 ``quant`` is the JAX model's post-training int8 (``ops/quantize.py``;
 inference only): ``"calibrate"`` records the input absmax of each of the
 nine convs, ``lcnn_0``, ``lcnn_3``, ``lcnn_6``, ``lcnn_10``, ``lcnn_13``,
@@ -49,9 +55,16 @@ from typing import Optional, Union
 import torch
 from torch import nn
 
-from ..ops.fused_conv1 import fused_conv_mfm_pool
+from ..ops.fused_conv1 import batch_shard_mapped, can_batch_shard, fused_conv_mfm_pool
 from ..ops.quantize import check_quant_eval, int8_sites
-from .layers import BLSTMLayer, MaxFeatureMap2D, compute_dtype, linear_in_dtype, run_layers
+from .layers import (
+    BLSTMLayer,
+    MaxFeatureMap2D,
+    compute_dtype,
+    linear_in_dtype,
+    run_layers,
+    use_mesh,
+)
 
 
 def _bn_conv_mfm(cin: int, cout: int, k: int, padding: int):
@@ -74,10 +87,12 @@ class LCNN(nn.Module):
         dropout: float = 0.7,
         dtype: Optional[torch.dtype] = None,
         quant=None,
+        mesh=None,
     ) -> None:
         super().__init__()
         self.dtype = compute_dtype(dtype)
         self.quant = quant
+        self.mesh = mesh
         if fused_layer1 not in (False, True, "always"):
             raise ValueError(
                 f"fused_layer1 must be False, True or 'always': {fused_layer1!r}"
@@ -115,13 +130,18 @@ class LCNN(nn.Module):
             BLSTMLayer(self.feat, self.feat), BLSTMLayer(self.feat, self.feat)
         )
         self.fc = nn.Linear(self.feat, classes)
+        if mesh is not None:
+            use_mesh(self, mesh)
 
     def _fused_first_block(self, x: torch.Tensor) -> torch.Tensor:
         """``lcnn[0:3]`` through the fused block, then the rest of ``lcnn``.
         ``x``: ``[B, 1, T, F]``."""
         conv = self.lcnn[0]
         dt = x.dtype  # the parameters cast to it, as in the JAX model
-        out = fused_conv_mfm_pool(
+        block = fused_conv_mfm_pool
+        if can_batch_shard(self.mesh, x.shape[0]):
+            block = batch_shard_mapped(block, self.mesh)
+        out = block(
             x[:, 0].contiguous(),
             conv.weight.reshape(conv.out_channels, 25).t().to(dt),
             conv.bias.to(dt),

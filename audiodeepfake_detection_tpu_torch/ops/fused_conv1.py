@@ -64,10 +64,40 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel.mesh import all_reduce_sum, has_axis
 from . import fused_conv1_cuda, library
 
 PAD = 2
 K = 3
+
+
+def can_batch_shard(mesh, batch_size: int, axis: str = "data") -> bool:
+    """True when a fused kernel runs as :func:`batch_shard_mapped` over
+    ``mesh``: the mesh exists and has the batch axis (the JAX gate, its
+    ``fused_conv1.py:544``).  ``batch_size`` is the rank's own batch: a
+    process per device already holds its shard, so any size runs (JAX's
+    check that the global batch divides over the devices is the loader's
+    and ``parallel.mesh.shard_batch``'s here)."""
+    return has_axis(mesh, axis) and batch_size > 0
+
+
+def batch_shard_mapped(fn, mesh, axis: str = "data", stat_outputs: int = 0):
+    """A fused kernel on this rank's batch shard (JAX ``fused_conv1.py:
+    554``, a ``shard_map``): ``fn`` itself, with its last ``stat_outputs``
+    outputs (the BatchNorm moments) summed over the ranks of ``axis`` by
+    one autograd-aware all-reduce, so the BatchNorm behind it normalises
+    with the global batch's moments and every rank's gradient sees their
+    cotangents summed (the transpose of JAX's ``psum``)."""
+    if stat_outputs == 0:
+        return fn
+
+    def wrapped(*args):
+        outs = list(fn(*args))
+        k = len(outs) - stat_outputs
+        outs[k:] = all_reduce_sum(outs[k:], mesh, axis)
+        return tuple(outs)
+
+    return wrapped
 
 
 def pad_geometry(h: int, w: int) -> Tuple[int, int]:

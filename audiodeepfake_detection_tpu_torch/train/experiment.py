@@ -9,15 +9,25 @@ loaders (train/val/test/cross-val/cross-test), Trainer with
 accumulation, true-index dumps, and LaTeX result emission.
 
 Run as ``python -m audiodeepfake_detection_tpu_torch.train.experiment
-[flags] --device cuda``; flag names match the reference CLI.  Everything
-runs on one device (``--device``, default ``cuda``; ``cpu`` must be asked
-for).  ``--vmap-seeds`` / ``--vmap-hparams`` train each group of grid
+[flags] --device cuda``; flag names match the reference CLI.  A run takes
+one device (``--device``, default ``cuda``; ``cpu`` must be asked for), or
+one device per rank under torchrun::
+
+    torchrun --nproc-per-node N -m audiodeepfake_detection_tpu_torch.train.experiment \
+        [flags] --ddp            # --fsdp for FSDP2; --device cpu: gloo ranks
+
+:func:`maybe_initialize_distributed` reads torchrun's environment and joins
+the group (NCCL on ``cuda:<LOCAL_RANK>``, gloo on the CPU); the Trainer
+then trains under DDP or FSDP (``train/trainer.py``), rank 0 alone writes
+snapshots, results, true-index dumps and TensorBoard events, and the group
+is destroyed at the end of :func:`main`.  ``--ddp`` / ``--fsdp`` on one
+rank take the distributed path all the same.  ``--vmap-seeds`` / ``--vmap-hparams`` train each group of grid
 points that differ only in seed (and lr / wd) as one vectorized sweep
 (``train/sweep.py``); ``--frame-cache`` builds the pre-decoded frame cache
 and ships int16 PCM; ``--only-ig`` loads the snapshot and writes the
 integrated-gradients maps (``analysis/integrated_gradients.py``);
 ``--tensorboard`` gives each Trainer a ``torch.utils.tensorboard``
-writer.  Not ported yet: distributed init (slice 7).
+writer.
 """
 
 from __future__ import annotations
@@ -33,6 +43,7 @@ from ..data.dataset import get_custom_dataset
 from ..data.frame_cache import rank_and_world
 from ..data.loader import FrameLoader
 from ..models.factory import get_model
+from ..parallel.mesh import barrier, is_distributed, is_lead, lead_first
 from ..utils.config import (
     DotDict,
     build_new_grid,
@@ -42,7 +53,7 @@ from ..utils.config import (
 from ..utils.naming import experiment_model_file, tensorboard_dir
 from .predict import resolve_device
 from .results import print_results
-from .trainer import Trainer
+from .trainer import Trainer, default_mesh, wants_distributed
 from .transforms import get_transforms, normalized_transform
 
 
@@ -100,7 +111,8 @@ def add_default_parser_args(parser: argparse.ArgumentParser) -> argparse.Argumen
     parser.add_argument("--only-testing", action="store_true")
     parser.add_argument("--ckpt-every", type=int, default=d.ckpt_every)
     parser.add_argument("--time-dim-add", type=int, default=d.time_dim_add)
-    parser.add_argument("--ddp", action="store_true")  # accepted; one device
+    # under torchrun: DDP (and the synchronized BatchNorm) even on one rank
+    parser.add_argument("--ddp", action="store_true")
     parser.add_argument("--frame-cache", action="store_true")
     parser.add_argument("--steps-per-call", type=int, default=d.steps_per_call)
     parser.add_argument("--device-data", action="store_true")
@@ -141,6 +153,50 @@ def add_default_parser_args(parser: argparse.ArgumentParser) -> argparse.Argumen
         help="torch device to train on (default cuda; cpu must be asked for)",
     )
     return parser
+
+
+def maybe_initialize_distributed(args: DotDict):
+    """Join torchrun's process group, the counterpart of JAX
+    ``maybe_initialize_distributed`` (the reference's ``ddp_setup``,
+    train_classifier.py:44-47).
+
+    With torchrun's environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+    ``MASTER_ADDR`` / ``MASTER_PORT``) and two or more ranks, or ``--ddp`` /
+    ``--fsdp``, ``init_process_group``: NCCL on ``cuda`` (the rank's device
+    becomes ``cuda:<LOCAL_RANK>``), gloo on the CPU.  Without that
+    environment nothing happens.  Returns ``(rank, world, device)``.
+    """
+    device = torch.device(args.device or "cuda")
+    env = os.environ
+    if "RANK" not in env or "WORLD_SIZE" not in env:
+        return 0, 1, device
+    rank, world = int(env["RANK"]), int(env["WORLD_SIZE"])
+    if world < 2 and not wants_distributed(args):
+        return rank, world, device
+    import torch.distributed as dist
+
+    backend = "gloo"
+    if device.type == "cuda":
+        local = int(env.get("LOCAL_RANK", rank))
+        if local >= torch.cuda.device_count():
+            raise RuntimeError(
+                f"LOCAL_RANK {local} has no card ({torch.cuda.device_count()} visible); "
+                "one rank a card")
+        device = torch.device("cuda", local)
+        torch.cuda.set_device(device)
+        backend = "nccl"
+    if not dist.is_initialized():
+        dist.init_process_group(backend, rank=rank, world_size=world,
+                                device_id=device if device.type == "cuda" else None)
+    return rank, world, device
+
+
+def mesh_for(args: DotDict, device):
+    """The experiment's device mesh (JAX ``mesh_for``): the world's
+    ``("data",)`` mesh under a process group of two or more ranks, or of
+    one with ``--ddp`` / ``--fsdp``; else None (one device).  ``pp_stages >
+    1`` (a ``("data", "stage")`` mesh) waits for slice 7b."""
+    return default_mesh(args, device)
 
 
 def get_input_dims(args: DotDict, transform, device) -> list:
@@ -275,14 +331,22 @@ def make_writer(args: DotDict, base_dir: str, model_name: str):
     return SummaryWriter(tensorboard_dir(args, base_dir, model_name))
 
 
-def run_experiment(args: DotDict, device: "torch.device | str | None" = None) -> Trainer:
+def run_experiment(args: DotDict, device: "torch.device | str | None" = None,
+                   mesh=None) -> Trainer:
     """One grid point: transforms, model, loaders, Trainer, chosen mode.
 
-    ``device`` defaults to ``args.device`` and that to ``"cuda"``.  With
-    ``args.tensorboard`` the run's writer is closed at its end.
+    ``device`` defaults to ``args.device`` and that to ``"cuda"``; ``mesh``
+    to :func:`mesh_for` (None off a process group).  With
+    ``args.tensorboard`` the run's writer (rank 0's) is closed at its end.
     """
     device = resolve_device(device or args.device or "cuda")
+    if mesh is None:
+        mesh = mesh_for(args, device)
     _check_unported(args)
+    if args.only_ig and args.get("fsdp") and mesh is not None:
+        # each rank attributes as many frames as its shard holds targets, so
+        # ranks would call FSDP's gathering forward different numbers of times
+        raise ValueError("--only-ig does not run under --fsdp: use --ddp or one device")
     if args.only_ig and args.get("fused_layer1"):
         # integrated gradients differentiate with respect to the input
         # image; the fused first blocks' backwards return no input
@@ -309,9 +373,10 @@ def run_experiment(args: DotDict, device: "torch.device | str | None" = None) ->
         cross_loader_test,
     ) = create_data_loaders(args)
 
-    transform, mean, std = get_transforms(
-        args, train_batches=norm_batches_fn(train_loader), device=device
-    )
+    # rank 0 computes (and caches) the normalization stats; the others
+    # read its cache
+    transform, mean, std = lead_first(lambda: get_transforms(
+        args, train_batches=norm_batches_fn(train_loader), device=device))
     args.input_dim = get_input_dims(args, transform, device)
     full_transform = normalized_transform(transform, mean, std)
 
@@ -320,13 +385,16 @@ def run_experiment(args: DotDict, device: "torch.device | str | None" = None) ->
         args.model,
         nclasses=int(args.nclasses or 2),
         in_channels=2 if loss_less else 1,
+        mesh=mesh,
     )
     model_name = model.get_name() if args.model == "modules" else "customModel"
 
     base_dir = args.log_dir
     os.makedirs(base_dir + "/models", exist_ok=True)
     model_file = experiment_model_file(args, base_dir, model_name)
-    writer = make_writer(args, base_dir, model_name) if args.tensorboard else None
+    writer = None
+    if args.tensorboard and is_lead():
+        writer = make_writer(args, base_dir, model_name)
 
     trainer = Trainer(
         model=model,
@@ -342,6 +410,7 @@ def run_experiment(args: DotDict, device: "torch.device | str | None" = None) ->
         norm_stats=None if args.block_norm else (mean, std),
         device=device,
         writer=writer,
+        mesh=mesh,
     )
 
     try:
@@ -408,8 +477,9 @@ def prepare_vectorized_sweep(args_list, device: "torch.device | str | None" = No
     then ``get_model``), inside a per-seed shadow Trainer that keeps its
     snapshots and metrics.
     """
-    from .sweep import VectorizedSeedSweep
+    from .sweep import VectorizedSeedSweep, check_one_device
 
+    check_one_device(args_list[0])
     base = args_list[0].copy()
     device = resolve_device(device or base.device or "cuda")
     _check_unported(base)
@@ -512,7 +582,21 @@ def main(argv=None) -> None:
         else:
             flags[key] = tri[flags[key]]
     args.update(flags)
+    joined = not is_distributed()
+    _, _, device = maybe_initialize_distributed(args)
+    args.device = str(device)
+    joined = joined and is_distributed()
+    try:
+        _main(args)
+    finally:
+        if joined:  # a group the caller made is the caller's to destroy
+            import torch.distributed as dist
 
+            barrier()
+            dist.destroy_process_group()
+
+
+def _main(args: DotDict) -> None:
     base_dir = args.log_dir
     for sub in ("models", "tensorboard", "norms"):
         os.makedirs(f"{base_dir}/{sub}", exist_ok=True)
@@ -570,9 +654,10 @@ def main(argv=None) -> None:
             for sh in shadows:
                 model_file = sh.snapshot_path[: -len(".pt")]
                 exp_results.setdefault(sh.args.seed, []).append(sh.test_results)
-                if sh.args.get_details and sh.current_true_indices:
+                if sh.args.get_details and sh.current_true_indices and is_lead():
                     dump_true_indices(sh.args, sh, model_file)
-        print_results(configs[-1], exp_results, griderator, model_file)
+        if is_lead():
+            print_results(configs[-1], exp_results, griderator, model_file)
         return
 
     if args.get("vmap_seeds") or args.get("vmap_hparams"):
@@ -592,10 +677,11 @@ def main(argv=None) -> None:
         model_file = trainer.snapshot_path[: -len(".pt")]
         exp_results.setdefault(args.seed, []).append(trainer.test_results)
 
-        if args.get_details and trainer.current_true_indices:
+        if args.get_details and trainer.current_true_indices and is_lead():
             dump_true_indices(args, trainer, model_file)
 
-    print_results(args, exp_results, griderator, model_file)
+    if is_lead():
+        print_results(args, exp_results, griderator, model_file)
 
 
 if __name__ == "__main__":

@@ -53,6 +53,19 @@ from .vectorized import (
 __all__ = ["VectorizedSeedSweep"]
 
 
+def check_one_device(args) -> None:
+    """The sweep composes with one device only, as JAX's composes with one
+    mesh: ``fsdp`` / ``pp_stages`` off, and no process group of more than
+    one rank (``ValueError``: main then runs the group serially)."""
+    from ..data.frame_cache import rank_and_world
+
+    world = rank_and_world()[1]
+    if bool(args.get("fsdp")) or int(args.get("pp_stages") or 1) > 1 or world > 1:
+        raise ValueError(
+            "vmap_seeds composes with one device only (fsdp / pp_stages must be "
+            f"off, and one rank: this world has {world})")
+
+
 class VectorizedSeedSweep:
     """Drive S shadow Trainers through one vectorized training run.
 
@@ -77,10 +90,7 @@ class VectorizedSeedSweep:
         self.args = lead.args
         self.device = lead.device
         self.seeds = [int(sh.args.seed or 0) for sh in self.shadows]
-        if bool(self.args.get("fsdp")) or int(self.args.get("pp_stages") or 1) > 1:
-            raise ValueError(
-                "vmap_seeds composes with one device only (fsdp / pp_stages must be off)"
-            )
+        check_one_device(self.args)
         if bool(self.args.get("device_data")):
             # main's serial fallback for the group honours device_data
             raise ValueError(

@@ -39,8 +39,25 @@ src/audiofakedetect/train_classifier.py:232-1065):
   table of the model's modules and parameter counts (the JAX Trainer
   logs flax's ``tabulate`` there).
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP slice:
-``fsdp`` and ``pp_stages > 1`` (slice 7).
+* ``mesh`` (``parallel/mesh.py``; by default the world's when a process
+  group of two or more ranks is initialized, or of one with ``ddp`` /
+  ``fsdp``) trains across ranks, one process per device as torchrun runs
+  it: the model wrapped in DDP (parameters broadcast from rank 0, the
+  gradients averaged), or with ``fsdp`` sharded by FSDP2
+  (``parallel/fsdp.py``); its BatchNorms take the global batch's moments
+  (``models/layers.py::SyncBatchNorm2d``).  Each rank's loader holds its
+  own slice of every set.  A step's logged loss and accuracy are the means
+  over the ranks, summed once an epoch; eval sums the per-label counts and
+  gathers the rows for EER and the true-index dumps, in dataset order;
+  every rank checks that the others run as many steps and batches (ranks
+  that disagree would deadlock in a collective).  Rank 0 alone writes
+  snapshots and ``.state.pt``; the others wait.  Dropout and augmentation
+  draw from ``seed + rank``, so ranks draw their own masks (JAX draws the
+  global batch's mask from one key).  ``device_data`` streams instead on
+  more than one rank, as the JAX package does on several hosts.
+
+Not ported yet, raising ``NotImplementedError`` with its ROADMAP slice:
+``pp_stages > 1`` (slice 7b, the AST's model-parallel modes).
 """
 
 from __future__ import annotations
@@ -55,6 +72,18 @@ import torch
 from torch import nn
 
 from ..data.loader import batch_to_device, device_prefetch
+from ..models.layers import use_mesh
+from ..parallel.mesh import (
+    agree,
+    all_gather_rows,
+    all_reduce_sum,
+    barrier,
+    get_mesh,
+    is_lead,
+    mesh_group,
+    mesh_rank,
+    mesh_size,
+)
 from ..utils.config import DotDict
 from .metrics import calculate_acc_label, dense_counts_to_dicts, safe_eer
 from .predict import resolve_device
@@ -69,9 +98,19 @@ from .steps import (
 
 _NOT_PORTED = (
     # (args key, is it switched on, ROADMAP slice)
-    ("fsdp", bool, "slice 7: distributed"),
-    ("pp_stages", lambda v: int(v or 1) > 1, "slice 7: distributed"),
+    ("pp_stages", lambda v: int(v or 1) > 1, "slice 7b: the AST model-parallel modes"),
 )
+
+
+def wants_distributed(args: DotDict) -> bool:
+    """``ddp`` or ``fsdp``: the distributed path even on one rank."""
+    return bool(args.get("ddp")) or bool(args.get("fsdp"))
+
+
+def default_mesh(args: DotDict, device):
+    """The mesh a run takes when none is given: the world's, with two or
+    more ranks, or with one when ``ddp`` / ``fsdp`` asks for it."""
+    return get_mesh(device, min_ranks=1 if wants_distributed(args) else 2)
 
 
 def _save_atomically(obj, path: str) -> None:
@@ -81,7 +120,8 @@ def _save_atomically(obj, path: str) -> None:
 
 
 class Trainer:
-    """Train / evaluate a classifier on one device."""
+    """Train / evaluate a classifier on one device, or on one rank of a
+    mesh."""
 
     def __init__(
         self,
@@ -98,7 +138,19 @@ class Trainer:
         norm_stats: Optional[Tuple[np.ndarray, np.ndarray]] = None,
         device: torch.device | str = "cuda",
         writer=None,
+        mesh=None,
     ) -> None:
+        self._fsdp = bool(args.get("fsdp"))
+        pp = int(args.get("pp_stages") or 1)
+        if self._fsdp and pp > 1:
+            raise ValueError(
+                "fsdp and pp_stages>1 are mutually exclusive (ZeRO shards "
+                "parameters over the data axis, GPipe splits the encoder over "
+                "stages)")
+        if bool(args.get("device_data")) and (self._fsdp or pp > 1):
+            raise ValueError(
+                "device_data is for the replicated data-parallel path only "
+                "(disable fsdp / pp_stages, or stream the data)")
         for key, is_on, where in _NOT_PORTED:
             if is_on(args.get(key)):
                 raise NotImplementedError(
@@ -110,7 +162,27 @@ class Trainer:
         # precision (TF32 keeps about three decimal digits)
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+        self.mesh = mesh if mesh is not None else default_mesh(args, self.device)
+        self.rank = mesh_rank(self.mesh)
         self.model = model.to(self.device)
+        self.train_model = self.model
+        self._sharded = self._fsdp and self.mesh is not None
+        if self.mesh is not None:
+            use_mesh(self.model, self.mesh)
+            if self._sharded:
+                from ..parallel.fsdp import DEFAULT_MIN_BYTES, shard_fsdp
+
+                shard_fsdp(self.model, self.mesh,
+                           int(args.get("fsdp_min_bytes") or DEFAULT_MIN_BYTES))
+            else:
+                from torch.nn.parallel import DistributedDataParallel
+
+                # the buffers need no broadcast: the synchronized BatchNorms
+                # move them the same on every rank
+                self.train_model = DistributedDataParallel(
+                    self.model,
+                    device_ids=[self.device] if self.device.type == "cuda" else None,
+                    process_group=mesh_group(self.mesh), broadcast_buffers=False)
         self.transform = transform
         self.args = args
         self.snapshot_path = snapshot_path + ".pt"
@@ -139,6 +211,12 @@ class Trainer:
         # once, each eval set cached by its loader (weakly: a dead loader
         # frees its device memory)
         self._device_data = bool(args.get("device_data"))
+        if self._device_data and mesh_size(self.mesh) > 1:
+            # JAX trainer.py:390-397: the resident path is one process's;
+            # several stream their own slices instead
+            print("warning: device_data runs on one rank only; each of the "
+                  f"{mesh_size(self.mesh)} ranks streams its own slice instead")
+            self._device_data = False
         self._resident = None
         self._resident_eval_cache: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
@@ -157,9 +235,9 @@ class Trainer:
         """Fresh optimizer, random streams and steps for the model's current
         parameters.  Dropout draws from the device's default generator and
         augmentation from one of the trainer's own, both seeded with
-        ``args.seed``."""
+        ``args.seed`` (plus the rank on a mesh: each rank draws its own)."""
         args = self.args
-        seed = int(args.seed or 0)
+        seed = int(args.seed or 0) + self.rank
         torch.manual_seed(seed)
         self.aug_generator = torch.Generator(device=self.device).manual_seed(seed)
         self.optimizer = make_optimizer(
@@ -175,7 +253,7 @@ class Trainer:
             generator=self.aug_generator,
         )
         self.train_step = make_train_step(
-            self.model, self.transform, self.optimizer, **step_kw)
+            self.train_model, self.transform, self.optimizer, **step_kw)
         self.resident_train_step = make_resident_multi_train_step(
             self.model, self.transform, self.optimizer, **step_kw)
         self.eval_step = make_eval_step(self.model, self.transform)
@@ -183,8 +261,13 @@ class Trainer:
 
     def load_variables(self, state_dict: Dict[str, torch.Tensor]) -> None:
         """Install imported weights (e.g. from a ``.pt`` snapshot) and start
-        the optimizer afresh."""
-        self.model.load_state_dict(state_dict, strict=True)
+        the optimizer afresh (every rank of a mesh loads the same)."""
+        if self._sharded:
+            from ..parallel.fsdp import load_full_model_state
+
+            load_full_model_state(self.model, state_dict)
+        else:
+            self.model.load_state_dict(state_dict, strict=True)
         self.init_state()
 
     # ------------------------------------------------------------- training
@@ -197,6 +280,7 @@ class Trainer:
         if self._device_data:
             self._run_resident_epoch(epoch)
             return
+        agree(len(self.train_loader), self.mesh, "the number of training steps")
         steps = device_prefetch(self.train_loader.epoch(epoch), self.device)
         if self.args.get("pbar"):
             from tqdm import tqdm
@@ -256,9 +340,11 @@ class Trainer:
     def _flush_epoch_stats(self, pending, timer, epoch) -> None:
         """Fetch the epoch's deferred stats in one transfer."""
         if pending:
-            fetched = torch.stack(
-                [torch.stack([s["loss"], s["acc"]]) for _, s in pending]
-            ).cpu()
+            fetched = torch.stack([torch.stack([s["loss"], s["acc"]]) for _, s in pending])
+            if self.mesh is not None:
+                # each rank's mean over its own batch -> the global batch's
+                fetched = all_reduce_sum((fetched,), self.mesh)[0] / mesh_size(self.mesh)
+            fetched = fetched.cpu()
             for (step_no, _), (loss, acc) in zip(pending, fetched.tolist()):
                 self.loss_list.append([step_no, epoch, loss])
                 self.accuracy_list.append([step_no, epoch, acc])
@@ -329,6 +415,7 @@ class Trainer:
         count_label = None
         device_results = []
         host_batches = []
+        agree(len(loader), self.mesh, f"the number of {name} batches")
         for batch, device_batch in device_prefetch(
             loader.epoch(0, shuffle=False), self.device
         ):
@@ -348,9 +435,40 @@ class Trainer:
                     batch.get("index"),
                 )
             )
+        if self.mesh is not None:
+            return self._eval_finalize_global(
+                name, ok_label, count_label, device_results, loader)
         return self._eval_finalize(
             name, ok_label, count_label, device_results, host_batches
         )
+
+    def _eval_finalize_global(self, name, ok_label, count_label, device_results, loader):
+        """:meth:`_eval_finalize` over every rank's share of an eval set: the
+        per-label counts summed over the ranks, the rows gathered and put in
+        dataset order (each row's dataset index rebuilt from the loader's
+        order: a batch's frames in order, then its zero-weight pads), so the
+        metrics and the true-index dump are a single process's."""
+        if ok_label is None:
+            return 0.0, 0.0
+        ok_label, count_label = all_reduce_sum((ok_label, count_label), self.mesh)
+        bsz = loader.batch_size
+        order = loader._order(0, False)
+        rows = []
+        for g in range(len(device_results)):
+            idx = order[g * bsz:(g + 1) * bsz]
+            idx = idx[idx >= 0]
+            rows.append(np.pad(idx, (0, bsz - len(idx)), constant_values=-1))
+        local = torch.stack([
+            torch.as_tensor(np.concatenate(rows), dtype=torch.float64, device=self.device),
+            *(torch.cat([r[k] for r in device_results]).double() for k in range(4)),
+        ], dim=1)
+        table = all_gather_rows(local, self.mesh).cpu().numpy()
+        table = table[table[:, 0] >= 0]
+        table = table[np.argsort(table[:, 0], kind="stable")]
+        index, y, out_max, ok_mask, scores = table.T
+        arrays = (y.astype(np.int64), out_max.astype(np.int64), scores.astype(np.float32))
+        true_index = index[ok_mask > 0].astype(np.int64) if loader.include_index else None
+        return self._metrics(name, ok_label, count_label, *arrays, true_index)
 
     def _resident_eval_data(self, loader):
         """The loader's eval set in device memory (cached), or None to
@@ -419,8 +537,6 @@ class Trainer:
         """
         if ok_label is None:
             return 0.0, 0.0
-        ok_label = ok_label.cpu().numpy()
-        count_label = count_label.cpu().numpy()
         ys: List[np.ndarray] = []
         outs: List[np.ndarray] = []
         scores: List[np.ndarray] = []
@@ -439,6 +555,17 @@ class Trainer:
         y_arr = np.concatenate(ys) if ys else np.zeros(0)
         out_arr = np.concatenate(outs) if outs else np.zeros(0)
         score_arr = np.concatenate(scores) if scores else np.zeros(0)
+        true_index = np.concatenate(true_indices) if true_indices else None
+        return self._metrics(name, ok_label, count_label, y_arr, out_arr, score_arr,
+                             true_index)
+
+    def _metrics(self, name, ok_label, count_label, y_arr, out_arr, score_arr,
+                 true_index) -> Tuple[float, float]:
+        """Accuracy tables, EER and the true-index dump of one eval pass
+        from its counts and rows."""
+        if torch.is_tensor(ok_label):
+            ok_label = ok_label.cpu().numpy()
+            count_label = count_label.cpu().numpy()
         ok_dict, count_dict = dense_counts_to_dicts(ok_label, count_label)
         acc_list = [
             (
@@ -458,8 +585,8 @@ class Trainer:
             f"{name} - eer: {eer:2.4f} (score eer: {score_eer:2.4f}), "
             f"Val acc: {val_acc * 100:2.2f} %"
         )
-        if true_indices:
-            self.current_true_indices[name] = np.concatenate(true_indices)
+        if true_index is not None:
+            self.current_true_indices[name] = true_index
         self.validation_list.append([name, val_acc, eer])
         return val_acc, eer
 
@@ -509,12 +636,43 @@ class Trainer:
 
     # ----------------------------------------------------------- checkpoints
 
+    def model_state(self) -> dict:
+        """The reference-layout state dict on the CPU (under FSDP gathered
+        from the shards: every rank calls it, rank 0 gets it)."""
+        if self._sharded:
+            from ..parallel.fsdp import full_model_state
+
+            return full_model_state(self.model)
+        return {k: v.detach().cpu() for k, v in self.model.state_dict().items()}
+
+    def optimizer_state(self) -> dict:
+        """``optimizer.state_dict()``, whole (under FSDP gathered: every
+        rank calls it, rank 0 gets it, keyed by parameter index as a
+        single-device run's)."""
+        if self._sharded:
+            from ..parallel.fsdp import full_optimizer_state
+
+            return full_optimizer_state(self.model, self.optimizer)
+        return self.optimizer.state_dict()
+
+    def _rng_states(self) -> dict:
+        states = {"aug_generator": self.aug_generator.get_state(),
+                  "torch_rng": torch.get_rng_state()}
+        if self.device.type == "cuda":
+            states["cuda_rng"] = torch.cuda.get_rng_state(self.device)
+        return states
+
     def save_snapshot(self, epoch: int) -> None:
         """Write the reference-layout ``.pt`` snapshot, its ``.norm.pkl``
-        and the full state for ``--resume``."""
-        model_state = {
-            k: v.detach().cpu() for k, v in self.model.state_dict().items()
-        }
+        and the full state for ``--resume`` (on a mesh: gathered by every
+        rank, written by rank 0 while the others wait)."""
+        model_state = self.model_state()
+        blob = self.full_state(epoch, model_state, self.optimizer_state())
+        if is_lead():
+            self._write_snapshot(epoch, model_state, blob)
+        barrier()
+
+    def _write_snapshot(self, epoch: int, model_state: dict, blob: dict) -> None:
         _save_atomically(
             {"MODEL_STATE": model_state, "EPOCHS_RUN": epoch}, self.snapshot_path
         )
@@ -526,35 +684,50 @@ class Trainer:
                     [np.asarray(mean, np.float32), np.asarray(std, np.float32)],
                     fh,
                 )
-        _save_atomically(self.full_state(epoch, model_state), self.state_path)
+        _save_atomically(blob, self.state_path)
         print(f"Epoch {epoch + 1} | Training snapshot saved at {self.snapshot_path}")
 
-    def full_state(self, epoch: int, model_state=None) -> dict:
+    def full_state(self, epoch: int, model_state=None, optimizer_state=None) -> dict:
         """The ``.state.pt`` blob: model, optimizer, epoch, step and the
-        random streams (the device's default generators included)."""
+        random streams (the device's default generators included; on a
+        mesh every rank's, as ``rank_rng``)."""
         if model_state is None:
-            model_state = {k: v.detach().cpu() for k, v in self.model.state_dict().items()}
+            model_state = self.model_state()
         full_state = {
             "model": model_state,
-            "optimizer": self.optimizer.state_dict(),
+            "optimizer": self.optimizer_state() if optimizer_state is None else optimizer_state,
             "epoch": epoch,
             "step": self.step_total,
-            "aug_generator": self.aug_generator.get_state(),
-            "torch_rng": torch.get_rng_state(),
+            **self._rng_states(),
         }
-        if self.device.type == "cuda":
-            full_state["cuda_rng"] = torch.cuda.get_rng_state(self.device)
+        if self.mesh is not None:
+            import torch.distributed as dist
+
+            ranks = [None] * mesh_size(self.mesh)
+            dist.all_gather_object(ranks, self._rng_states(), group=mesh_group(self.mesh))
+            full_state["rank_rng"] = ranks
         return full_state
 
     def load_full_state(self, blob: dict) -> None:
         """Install a :meth:`full_state` blob; ``train()`` then continues
-        from the epoch after the stored one."""
+        from the epoch after the stored one.  Every rank of a mesh loads the
+        same blob and takes its own random streams from it when it holds
+        one for each rank (else rank 0's)."""
         self.load_variables(blob["model"])
-        self.optimizer.load_state_dict(blob["optimizer"])
-        self.aug_generator.set_state(blob["aug_generator"])
-        torch.set_rng_state(blob["torch_rng"])
-        if self.device.type == "cuda" and "cuda_rng" in blob:
-            torch.cuda.set_rng_state(blob["cuda_rng"], self.device)
+        if self._sharded:
+            from ..parallel.fsdp import load_full_optimizer_state
+
+            load_full_optimizer_state(self.model, self.optimizer, blob["optimizer"])
+        else:
+            self.optimizer.load_state_dict(blob["optimizer"])
+        rng = blob
+        ranks = blob.get("rank_rng")
+        if ranks is not None and len(ranks) == mesh_size(self.mesh):
+            rng = ranks[self.rank]
+        self.aug_generator.set_state(rng["aug_generator"])
+        torch.set_rng_state(rng["torch_rng"])
+        if self.device.type == "cuda" and "cuda_rng" in rng:
+            torch.cuda.set_rng_state(rng["cuda_rng"], self.device)
         # the stored epoch is the COMPLETED epoch's index: running it
         # again would apply its gradients twice
         self.epochs_run = int(blob["epoch"]) + 1

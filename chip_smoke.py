@@ -166,7 +166,26 @@ Phases, in order; any failure propagates and the script exits non-zero
     (G = 4), streamed through ``device_prefetch`` and on a fixed batch, with
     its host enqueue time; three seeds as serial runs, ``"scan"`` (fused),
     and serial and ``"vmap"`` (unfused); ``FrameLoader`` decoding against a
-    warm frame cache (float32 and int16); a [128, 1, 22050] H2D copy.
+    warm frame cache (float32 and int16); a [128, 1, 22050] H2D copy;
+25. analysis: level-14 haar fingerprints of the corpus through kernel 1,
+    ``--only-ig`` through kernels 5 and 6, block-norm statistics, the CWT
+    and the energy, against plain or the CPU, and timed;
+26. data parallelism (one card: NCCL on one rank, or gloo processes on
+    ``cuda:0``): (a) the headline DCNN (all three fused flags, batch 128, 2
+    epochs with validation, test and snapshot) through ``main`` with
+    ``--ddp`` and with ``--fsdp`` under a one-rank torchrun environment,
+    loss by loss against phase 15's run without a group, kernels 1, 2, 5
+    and 6 counted; one FSDP step of the base384 AST (kernel 4 in each
+    block); (b) two gloo ranks on the card (``--mesh-rank``), the
+    full-width DCNN at 64 frames a rank, fused (kernels 1, 2, 5, 6 on each
+    rank) and unfused, and the LCNN with kernel 3, against one process at
+    B = 128 (loss, the update of one SGD step, running buffers; ranks bit
+    for bit; launches per rank); (c) level-14 haar fingerprints of the
+    corpus sharded over the two ranks against kernel 1 and the plain
+    cascade; (d) the fused step at B = 128 plain / DDP / FSDP on one NCCL
+    rank, the two-rank step and the sharded cascade (host-staged), beside
+    the card's name and power limit; and which collectives gloo runs on
+    CUDA tensors here (``tools/dist_probe.py``).
 
 The last lines are the kernels' JSON record, the measurements with the
 card's name and power limit, and ``{"ok": true, "device": ...}``.
@@ -182,6 +201,7 @@ import os
 import pickle
 import statistics
 import subprocess
+import sys
 import tempfile
 import threading
 import time
@@ -4206,6 +4226,510 @@ def analysis_phase(wpt, mods, root: str, data: str, snapshot: str, card_line: st
     return out
 
 
+# ---- data parallelism (phase 26)
+# the card's machine has one card: ranks are NCCL on it alone (one rank), or
+# separate processes on cuda:0 joined by gloo, which stages every
+# collective through the host (tools/dist_probe.py: gloo runs all_reduce,
+# broadcast and all_gather_into_tensor on CUDA tensors; FSDP2's step dies
+# there, so FSDP's two-rank numerics are held on the CPU only)
+MESH_RANKS = 2
+MESH_LR = 1e-2  # one SGD step: the parameters move by lr x the gradient
+# the update (parameters after one SGD step less before) of the two-rank
+# DDP step against one process at B = 128, per tensor, relative to its
+# largest entry: the same gradients summed in another order (each rank's
+# cuDNN weight gradient over 64 frames, then the ranks' sum) and the
+# BatchNorm's one-pass moments against cuDNN's centred ones; the updates
+# are ~1e-5 (lr 1e-2).  First set at 1e-2 from phase 10 (cuDNN moves a
+# first-block dW by 3e-3 of its largest entry between two orders); the
+# card read 1.04e-2 (DCNN, fused: dil_conv.4.bias), 7.8e-3 (unfused) and
+# 2.07e-2 (LCNN: lcnn.13.weight), NVIDIA H100 80GB HBM3, 700 W, so the
+# bound is 5e-2.  A fault shows at O(1): a gradient not averaged over the
+# ranks doubles the update, and moments not summed move the loss and the
+# buffers (read: 8.6e-8 and <= 3e-6)
+MESH_UPDATE_RTOL = 5e-2
+# running buffers of the same steps, relative to each buffer's largest
+# entry: one-pass moments summed over two ranks against cuDNN's centred
+# ones over 128 frames
+MESH_BUFFER_RTOL = 1e-4
+# level-14 haar of a 196,608-sample clip over two ranks (a stride-2 conv1d a
+# level, cuDNN) against kernel 1's dense cascade: fp32 sums of two taps a
+# level in another order; the JAX package's own bound for this pair on the
+# CPU (tests/test_parallel.py::test_level14_haar_design_point)
+SP_RAW_ATOL = 2e-4
+# the mean |WPT| spectra of the corpus, the same two routes, relative to
+# the largest entry
+SP_SPECTRUM_RTOL = 1e-5
+GLOO_CHECKS = ("all_reduce", "broadcast", "all_gather", "all_gather_into_tensor",
+               "reduce_scatter", "reduce_scatter_tensor", "all_to_all_single",
+               "ddp_step", "fsdp2_step")
+
+
+def free_port() -> str:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return str(s.getsockname()[1])
+
+
+@contextlib.contextmanager
+def torchrun_env(rank: int, world: int):
+    """torchrun's variables for this process (a fresh port)."""
+    env = {"RANK": str(rank), "WORLD_SIZE": str(world), "LOCAL_RANK": str(rank),
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": free_port()}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def mesh_main(mods, root: str, data: str, mode: str) -> dict:
+    """``experiment.main`` with ``--<mode>`` under a one-rank torchrun
+    environment (NCCL), the headline DCNN with all three flags, dropout 0;
+    the Trainer it ran and kernels 1, 2, 5 and 6's launches over the run."""
+    import torch.distributed as dist
+
+    from audiodeepfake_detection_tpu_torch.train import experiment
+
+    trainers = []
+    run = experiment.run_experiment
+
+    def record(*a, **kw):
+        trainers.append(run(*a, **kw))
+        return trainers[-1]
+
+    experiment.run_experiment = record
+    dcnn_counts(mods, reset=True)
+    t0 = time.perf_counter()
+    try:
+        with torchrun_env(0, 1):
+            sweep_main(root, data, f"log_mesh_{mode}", [0], {"fused_layer2": [True]},
+                       "--fused-layer1", "train", "--fused-pool", "train",
+                       "--dropout-cnn", "0", "--dropout-lstm", "0", f"--{mode}")
+    finally:
+        experiment.run_experiment = run
+    torch.cuda.synchronize()
+    counts = dcnn_counts(mods)
+    (trainer,) = trainers
+    if dist.is_initialized() or trainer.mesh is None:
+        raise AssertionError(f"--{mode}: group left {dist.is_initialized()}, mesh {trainer.mesh}")
+    return {"trainer": trainer, "launches": counts, "wall_s": time.perf_counter() - t0}
+
+
+def sgd_step_state(model, transform, batch, run=None):
+    """One SGD step (``run`` is the wrapped model, if any): the loss and the
+    state dict after it, on the CPU."""
+    from audiodeepfake_detection_tpu_torch.train.steps import make_train_step
+
+    opt = torch.optim.SGD(model.parameters(), lr=MESH_LR)
+    stats = make_train_step(run or model, transform, opt)(batch)
+    return stats, {k: v.detach().float().cpu().clone() for k, v in model.state_dict().items()}
+
+
+def dcnn_transform(norm):
+    from audiodeepfake_detection_tpu_torch.train.transforms import (
+        make_transform, normalized_transform)
+
+    return normalized_transform(make_transform(train_args("", "", "")),
+                                *[np.asarray(v) for v in norm])
+
+
+MESH_FLAGS = {"fused": dict(fused_layer1=True, fused_pool=True, fused_layer2=True),
+              "unfused": {}}
+
+
+def mesh_rank_worker(directory: str, rank: int) -> None:
+    """One of the two gloo ranks on ``cuda:0`` (``--mesh-rank``): (b) a
+    full-width DCNN step at 64 frames a rank, fused and unfused, and an LCNN
+    step with kernel 3, each under DDP with the synchronized BatchNorm,
+    launches counted; the fused step timed; (c) level-14 haar
+    fingerprints of the corpus over the two ranks, one clip whole and
+    timed."""
+    import torch.distributed as dist
+    from torch.nn.parallel import DistributedDataParallel
+
+    from audiodeepfake_detection_tpu_torch.analysis.fingerprints import (
+        generator_fingerprints, load_clips)
+    from audiodeepfake_detection_tpu_torch.models.dcnn import DCNN
+    from audiodeepfake_detection_tpu_torch.models.lcnn import LCNN
+    from audiodeepfake_detection_tpu_torch.ops import (
+        fused_conv1_cuda, fused_conv2_cuda, fused_pool_cuda, wpt_cuda)
+    from audiodeepfake_detection_tpu_torch.parallel.mesh import (
+        all_reduce_sum, get_mesh, mesh_group, shard_batch)
+    from audiodeepfake_detection_tpu_torch.parallel.sequence import sp_wpt_analysis
+
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    store = dist.FileStore(os.path.join(directory, "store"), MESH_RANKS)
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=MESH_RANKS)
+    mesh = get_mesh("cuda")
+    inputs = torch.load(os.path.join(directory, "inputs.pt"), weights_only=False)
+    mods = (wpt_cuda, fused_conv1_cuda, fused_pool_cuda, fused_conv2_cuda)
+    transform = dcnn_transform(inputs["norm"])
+    batch = shard_batch(mesh, {k: v.cuda() for k, v in inputs["batch"].items()})
+
+    def global_loss(stats):
+        return float(all_reduce_sum((stats["loss"].reshape(1),), mesh)[0]) / MESH_RANKS
+
+    out = {}
+    for form, flags in MESH_FLAGS.items():
+        model = DCNN(time_dim=12, dropout_cnn=0.0, dropout_lstm=0.0, mesh=mesh, **flags).cuda()
+        model.load_state_dict(inputs["dcnn"])
+        ddp = DistributedDataParallel(model, device_ids=[0], process_group=mesh_group(mesh),
+                                      broadcast_buffers=False)
+        dcnn_counts(mods, reset=True)
+        stats, state = sgd_step_state(model, transform, batch, ddp)
+        torch.cuda.synchronize()
+        out[form] = {"loss": global_loss(stats), "state": state, "launches": dcnn_counts(mods)}
+        if form == "fused":
+            from audiodeepfake_detection_tpu_torch.train.steps import make_optimizer, make_train_step
+
+            step = make_train_step(ddp, transform, make_optimizer(model.parameters(), 4e-4, 1e-3))
+            out["step_ms"] = windows_ms({"ddp_gloo": lambda: step(batch)}, reps=2,
+                                        windows=3)["ddp_gloo"]
+        del model, ddp
+    lcnn = LCNN(fused_layer1=True, dropout=0.0, mesh=mesh).cuda()
+    lcnn.load_state_dict(inputs["lcnn"])
+    ddp = DistributedDataParallel(lcnn, device_ids=[0], process_group=mesh_group(mesh),
+                                  broadcast_buffers=False)
+    fused_conv1_cuda.MFM_FWD_LAUNCHES = fused_conv1_cuda.MFM_BWD_LAUNCHES = 0
+    image = shard_batch(mesh, {k: v.cuda() for k, v in inputs["lcnn_batch"].items()})
+    stats, state = sgd_step_state(lcnn, lambda a: a, image, ddp)
+    torch.cuda.synchronize()
+    out["lcnn"] = {"loss": global_loss(stats), "state": state,
+                   "launches": {"mfm_fwd": fused_conv1_cuda.MFM_FWD_LAUNCHES,
+                                "mfm_bwd": fused_conv1_cuda.MFM_BWD_LAUNCHES}}
+    del lcnn, ddp
+
+    # (c) the sequence-parallel cascade: no launch of kernel 1
+    wpt_cuda.LAUNCHES = wpt_cuda.LEVEL_LAUNCHES = 0
+    spectra = generator_fingerprints(inputs["data"], ["fbmelgan"], real_name="ljspeech",
+                                     wavelet="haar", level=14, max_files=FINGERPRINT_CLIPS,
+                                     device="cuda", mesh=mesh)
+    clip = load_clips(os.path.join(inputs["data"], "A_ljspeech"), 1)[0]
+    block = MESH_RANKS << 14
+    x = torch.from_numpy(clip[None, : len(clip) // block * block]).cuda()
+    whole = sp_wpt_analysis(x, "haar", 14, mesh)
+    torch.cuda.synchronize()
+    out["sp"] = {"spectra": spectra, "clip": whole.cpu(), "kernel_launches": wpt_cuda.LAUNCHES,
+                 "ms": windows_ms({"sp": lambda: sp_wpt_analysis(x, "haar", 14, mesh)},
+                                  reps=3, windows=3)["sp"]}
+    torch.save(out, os.path.join(directory, f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def update_rel(got: dict, want: dict, before: dict, keys) -> dict:
+    """Per tensor: the largest difference of two steps' updates relative to
+    the tensor's largest update entry, and that entry."""
+    out = {}
+    for k in keys:
+        du, dv = got[k] - before[k], want[k] - before[k]
+        scale = float(dv.abs().max())
+        out[k] = (float((du - dv).abs().max()) / scale if scale > 0 else 0.0, scale)
+    return out
+
+
+def worst_update(rel: dict) -> float:
+    return max(v[0] for v in rel.values())
+
+
+def buffer_rel(got: dict, want: dict) -> float:
+    return max(float((got[k] - want[k]).abs().max() / want[k].abs().max())
+               for k in want if "running_" in k)
+
+
+def mesh_two_ranks(root: str, data: str, norm, card_line: str) -> dict:
+    """(b) and (c): two gloo processes on ``cuda:0`` (``--mesh-rank``)
+    against one process at B = 128 and kernel 1's dense cascade."""
+    from audiodeepfake_detection_tpu_torch.analysis.fingerprints import load_clips
+    from audiodeepfake_detection_tpu_torch.models.dcnn import DCNN
+    from audiodeepfake_detection_tpu_torch.models.lcnn import LCNN
+    from audiodeepfake_detection_tpu_torch.ops import wpt_cuda
+    from audiodeepfake_detection_tpu_torch.ops.wpt import wpt_analysis
+
+    directory = os.path.join(root, "mesh")
+    os.makedirs(directory)
+    torch.manual_seed(0)
+    dcnn = DCNN(time_dim=12).state_dict()
+    torch.manual_seed(1)
+    lcnn = LCNN().state_dict()
+    gen = torch.Generator().manual_seed(14)
+    inputs = {"dcnn": dcnn, "lcnn": lcnn, "norm": [np.asarray(v) for v in norm], "data": data,
+              "batch": {k: torch.from_numpy(v) for k, v in host_batches(1, seed=12)[0].items()},
+              "lcnn_batch": {"audio": torch.randn(BATCH, 1, 256, 101, generator=gen),
+                             "label": torch.randint(0, 2, (BATCH,), generator=gen)}}
+    torch.save(inputs, os.path.join(directory, "inputs.pt"))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mesh-rank",
+                               directory, str(r)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(MESH_RANKS)]
+    outs = [p.communicate(timeout=600)[0] for p in procs]
+    if any(p.returncode for p in procs):
+        raise AssertionError("two-rank workers failed:\n" + "\n".join(
+            f"--- rank {r} (exit {p.returncode}) ---\n{o[-8000:]}"
+            for r, (p, o) in enumerate(zip(procs, outs))))
+    ranks = [torch.load(os.path.join(directory, f"rank{r}.pt"), weights_only=False)
+             for r in range(MESH_RANKS)]
+    wall = time.perf_counter() - t0
+
+    # one process at B = 128 from the same weights and batch
+    transform = dcnn_transform(norm)
+    batch = {k: v.cuda() for k, v in inputs["batch"].items()}
+    before = {k: v.float().clone() for k, v in dcnn.items()}
+    out = {"wall_s": wall}
+    for form, flags in MESH_FLAGS.items():
+        model = DCNN(time_dim=12, dropout_cnn=0.0, dropout_lstm=0.0, **flags).cuda()
+        model.load_state_dict(dcnn)
+        stats, want = sgd_step_state(model, transform, batch)
+        # the card's own floor: the same one-process step again
+        model.load_state_dict(dcnn)
+        _, again = sgd_step_state(model, transform, batch)
+        got = ranks[0][form]
+        same = all(torch.equal(got["state"][k], ranks[1][form]["state"][k]) for k in want)
+        params = [k for k in want if "running_" not in k and "num_batches" not in k]
+        row = {"loss": got["loss"], "single_loss": float(stats["loss"]),
+               "loss_rel": abs(got["loss"] - float(stats["loss"])) / abs(float(stats["loss"])),
+               "update_rel_per_tensor": update_rel(got["state"], want, before, params),
+               "buffer_rel": buffer_rel(got["state"], want), "ranks_bit_equal": same,
+               "launches": [r[form]["launches"] for r in ranks]}
+        row["update_rel"] = worst_update(row["update_rel_per_tensor"])
+        row["update_rel_repeat"] = worst_update(update_rel(again, want, before, params))
+        out[form] = row
+        top = sorted(row["update_rel_per_tensor"].items(), key=lambda kv: -kv[1][0])[:4]
+        log(f"  (b) {form} DCNN step, 2 gloo ranks x 64 against one process x 128: loss "
+            f"{row['loss']:.6f} / {row['single_loss']:.6f} (rel {row['loss_rel']:.2e}), update "
+            f"{row['update_rel']:.2e} (worst tensors, (rel, largest update): {top}; one process "
+            f"against itself {row['update_rel_repeat']:.2e}), buffers "
+            f"{row['buffer_rel']:.2e}, ranks bit-equal {same}, launches per rank "
+            f"{row['launches']}")
+        if not (row["loss_rel"] <= LOSS_RTOL and row["update_rel"] <= MESH_UPDATE_RTOL
+                and row["buffer_rel"] <= MESH_BUFFER_RTOL and same):
+            raise AssertionError(f"two-rank {form} DCNN step: {row}")
+        del model
+    want_fused = {"conv1_fwd": 1, "conv1_bwd": 1, "pool_fwd": 1, "pool_bwd": 1,
+                  "conv2_fwd": 1, "conv2_bwd": 1}
+    for counts in out["fused"]["launches"]:
+        if counts["wpt"] < 1 or any(counts[k] != v for k, v in want_fused.items()):
+            raise AssertionError(f"fused two-rank launches {counts}, want {want_fused}")
+    if any(v for c in out["unfused"]["launches"] for k, v in c.items() if k != "wpt"):
+        raise AssertionError(f"unfused two-rank launches {out['unfused']['launches']}")
+
+    lcnn_model = LCNN(fused_layer1=True, dropout=0.0).cuda()
+    lcnn_model.load_state_dict(lcnn)
+    image = {k: v.cuda() for k, v in inputs["lcnn_batch"].items()}
+    stats, want = sgd_step_state(lcnn_model, lambda a: a, image)
+    got = ranks[0]["lcnn"]
+    params = [k for k in want if "running_" not in k and "num_batches" not in k]
+    row = {"loss": got["loss"], "single_loss": float(stats["loss"]),
+           "loss_rel": abs(got["loss"] - float(stats["loss"])) / abs(float(stats["loss"])),
+           "update_rel_per_tensor": update_rel(
+               got["state"], want, {k: v.float() for k, v in lcnn.items()}, params),
+           "buffer_rel": buffer_rel(got["state"], want),
+           "ranks_bit_equal": all(torch.equal(got["state"][k], ranks[1]["lcnn"]["state"][k])
+                                  for k in want),
+           "launches": [r["lcnn"]["launches"] for r in ranks]}
+    row["update_rel"] = worst_update(row["update_rel_per_tensor"])
+    out["lcnn"] = row
+    top = sorted(row["update_rel_per_tensor"].items(), key=lambda kv: -kv[1][0])[:4]
+    log(f"  (b) LCNN step (kernel 3), 2 gloo ranks x 64 against one process x 128: loss "
+        f"{row['loss']:.6f} / {row['single_loss']:.6f} (rel {row['loss_rel']:.2e}), update "
+        f"{row['update_rel']:.2e} (worst tensors: {top}), buffers {row['buffer_rel']:.2e}, "
+        f"ranks bit-equal {row['ranks_bit_equal']}, launches per rank {row['launches']}")
+    if not (row["loss_rel"] <= LOSS_RTOL and row["update_rel"] <= MESH_UPDATE_RTOL
+            and row["buffer_rel"] <= MESH_BUFFER_RTOL and row["ranks_bit_equal"]
+            and all(c == {"mfm_fwd": 1, "mfm_bwd": 1} for c in row["launches"])):
+        raise AssertionError(f"two-rank LCNN step: {row}")
+    del lcnn_model
+    out["step_ms_host_staged"] = [r["step_ms"] for r in ranks]
+    log(f"  (d) fused DCNN step over 2 gloo ranks on one card at 64 a rank, HOST-STAGED "
+        f"collectives [{card_line}]: {[round(r['step_ms']['ms'], 3) for r in ranks]} ms "
+        f"(windows {[r['step_ms']['windows_ms'] for r in ranks]})")
+
+    # (c) the same crops through kernel 1 and the plain cascade
+    sp = ranks[0]["sp"]
+    block = MESH_RANKS << 14
+    spectra = {}
+    for name, gen_dir in (("ljspeech", "A_ljspeech"), ("fbmelgan", "B_fbmelgan")):
+        acc = {"kernel": 0.0, "plain": 0.0}
+        clips = load_clips(os.path.join(data, gen_dir), FINGERPRINT_CLIPS)
+        for clip in clips:
+            x = torch.from_numpy(clip[None, : len(clip) // block * block]).cuda()
+            acc["kernel"] = acc["kernel"] + wpt_cuda.wpt_packets(x, "haar", 14, False, 2.0)[0] \
+                .abs().mean(-1)
+            acc["plain"] = acc["plain"] + wpt_analysis(x, "haar", 14)[0].abs().mean(-1)
+        spectra[name] = {k: (v / len(clips)).cpu().numpy() for k, v in acc.items()}
+    spec_err = {f"{n}_{k}": rel_max(sp["spectra"][n]["wpt"], spectra[n][k])
+                for n in spectra for k in ("kernel", "plain")}
+    clip = load_clips(os.path.join(data, "A_ljspeech"), 1)[0]
+    x = torch.from_numpy(clip[None, : len(clip) // block * block]).cuda()
+    kernel = lambda: wpt_cuda.wpt_packets_cuda(x, "haar", 14)  # noqa: E731
+    raw = {"kernel": float((sp["clip"] - kernel().cpu()).abs().max()),
+           "plain": float((sp["clip"] - wpt_analysis(x, "haar", 14).cpu()).abs().max())}
+    same = torch.equal(sp["clip"], ranks[1]["sp"]["clip"])
+    dense_ms = median_ms({"kernel": kernel}, reps=10)["kernel"]
+    out["sp"] = {"spectrum_rel": spec_err, "raw_abs": raw, "ranks_bit_equal": same,
+                 "samples": int(x.shape[-1]), "kernel_launches": sp["kernel_launches"],
+                 "sp_ms": [r["sp"]["ms"] for r in ranks], "dense_kernel_ms": dense_ms}
+    log(f"  (c) level-14 haar over 2 gloo ranks, {2 * FINGERPRINT_CLIPS} clips cropped to "
+        f"{x.shape[-1]} samples: spectra against kernel 1 / plain {spec_err}; one clip raw "
+        f"{raw}, ranks bit-equal {same}; kernel-1 launches in the sharded cascade "
+        f"{sp['kernel_launches']}")
+    log(f"  (d) one clip [{card_line}]: sp_wpt_analysis over 2 gloo ranks (HOST-STAGED) "
+        f"{[round(r['sp']['ms']['ms'], 3) for r in ranks]} ms against kernel 1 dense "
+        f"{dense_ms:.4f} ms")
+    if not (max(spec_err.values()) <= SP_SPECTRUM_RTOL and max(raw.values()) <= SP_RAW_ATOL
+            and same and sp["kernel_launches"] == 0):
+        raise AssertionError(f"sequence-parallel WPT over 2 ranks: {out['sp']}")
+    return out
+
+
+def mesh_nccl_steps(mods, fa_cuda, norm, ast_norm, card_line: str) -> dict:
+    """(a) one FSDP step of the base384 AST (kernel 4) and (d) the fused
+    DCNN step at B = 128 under a one-rank NCCL group: plain, DDP and FSDP,
+    timed in one call."""
+    import torch.distributed as dist
+    from torch.nn.parallel import DistributedDataParallel
+
+    from audiodeepfake_detection_tpu_torch.data.loader import batch_to_device
+    from audiodeepfake_detection_tpu_torch.models.ast import ASTModel
+    from audiodeepfake_detection_tpu_torch.models.layers import use_mesh
+    from audiodeepfake_detection_tpu_torch.parallel.fsdp import shard_fsdp
+    from audiodeepfake_detection_tpu_torch.parallel.mesh import get_mesh, mesh_group
+    from audiodeepfake_detection_tpu_torch.train.steps import make_optimizer, make_train_step
+    from audiodeepfake_detection_tpu_torch.train.transforms import (
+        make_transform, normalized_transform)
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        mesh = get_mesh("cuda", min_ranks=1)
+        flags = MESH_FLAGS["fused"]
+        fixed = batch_to_device(host_batches(1, seed=10)[0], torch.device("cuda"))
+        fns = {}
+        model, transform, opt = dcnn_step_parts(norm, **flags)
+        plain = make_train_step(model, transform, opt)
+        fns["plain"] = lambda: plain(fixed)
+        model2, transform2, _ = dcnn_step_parts(norm, **flags)
+        use_mesh(model2, mesh)
+        ddp = DistributedDataParallel(model2, device_ids=[0], process_group=mesh_group(mesh),
+                                      broadcast_buffers=False)
+        ddp_step = make_train_step(ddp, transform2, make_optimizer(model2.parameters(), 4e-4, 1e-3))
+        fns["ddp"] = lambda: ddp_step(fixed)
+        model3, transform3, _ = dcnn_step_parts(norm, **flags)
+        use_mesh(model3, mesh)
+        shard_fsdp(model3, mesh)
+        fsdp_step = make_train_step(model3, transform3,
+                                    make_optimizer(model3.parameters(), 4e-4, 1e-3))
+        fns["fsdp"] = lambda: fsdp_step(fixed)
+        steps = windows_ms(fns, reps=3)
+        for row in steps.values():
+            row["frames_per_s"] = BATCH / row["ms"] * 1e3
+        # where DDP's time goes on one rank: device time by kernel group
+        profiles = {name: profile_train(fns[name]) for name in ("plain", "ddp")}
+        log(f"  (d) fused DCNN step at B={BATCH}, one NCCL rank [{card_line}]: " + ", ".join(
+            f"{k} {v['ms']:.3f} ms (windows {['%.3f' % w for w in v['windows_ms']]}, spread "
+            f"{v['spread_pct']:.1f} %)" for k, v in steps.items()))
+        del fns, plain, ddp, ddp_step, fsdp_step, model, model2, model3
+
+        # one FSDP step of phase 18's AST, kernel 4 in its blocks (each block
+        # a unit of its own at the default min_bytes)
+        args = ast_args("", "", "")
+        ast_transform = normalized_transform(make_transform(args),
+                                             *[np.asarray(v) for v in ast_norm])
+        gen = torch.Generator().manual_seed(6)
+        batch = {"audio": (0.3 * torch.randn(AST_BATCH, 1, SR, generator=gen)).cuda(),
+                 "label": torch.randint(0, 2, (AST_BATCH,), generator=gen).cuda()}
+        with torch.no_grad():
+            tdim = ast_transform(batch["audio"]).shape[-1]
+        torch.manual_seed(0)
+        ast = ASTModel(input_tdim=tdim, fused_attention=True).cuda()
+        shard_fsdp(ast, mesh)
+        ast_step = make_train_step(ast, ast_transform, make_optimizer(
+            ast.parameters(), args.learning_rate, args.weight_decay))
+        fa_cuda.MHA_FWD_LAUNCHES = fa_cuda.MHA_BWD_LAUNCHES = 0
+        stats = ast_step(batch)
+        torch.cuda.synchronize()
+        ast_launches = {"fwd": fa_cuda.MHA_FWD_LAUNCHES, "bwd": fa_cuda.MHA_BWD_LAUNCHES}
+        blocks = len(ast.v.blocks)
+        loss = float(stats["loss"])
+        ast_ms = windows_ms({"fsdp_ast": lambda: ast_step(batch)}, reps=2, windows=3)["fsdp_ast"]
+        log(f"  (a) one FSDP step of the base384 AST on one NCCL rank: loss {loss:.6f}, "
+            f"kernel 4 launches {ast_launches} ({blocks} blocks), then {ast_ms['ms']:.3f} ms a "
+            f"step [{card_line}]")
+        if ast_launches != {"fwd": blocks, "bwd": blocks} or not np.isfinite(loss):
+            raise AssertionError(f"FSDP AST step: loss {loss}, kernel 4 launches {ast_launches}")
+        del ast, ast_step
+    finally:
+        dist.destroy_process_group()
+    return {"steps": steps, "profile": profiles,
+            "ast": {"loss": loss, "launches": ast_launches, "ms": ast_ms}}
+
+
+def gloo_collectives() -> dict:
+    """What gloo performs on CUDA tensors on this machine: two processes on
+    ``cuda:0`` (``tools/dist_probe.py``; point-to-point is left out: a
+    rank that tries it aborts)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools", "dist_probe.py")
+    spec = importlib.util.spec_from_file_location("dist_probe", path)
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    return probe.probe(MESH_RANKS, "gloo", timeout=180, only=GLOO_CHECKS)
+
+
+def mesh_phase(mods, fa_cuda, root: str, data: str, norm, ast_norm, mid_losses,
+               card_line: str) -> dict:
+    """Phase 26: (a) the headline DCNN through ``main`` with ``--ddp`` and
+    ``--fsdp`` on one NCCL rank against phase 15's run (b) without a group,
+    and an FSDP step of the AST; (b), (c) two gloo ranks on the card; (d)
+    the times; and which collectives gloo runs on CUDA tensors here."""
+    t_phase = time.perf_counter()
+    out = {}
+    steps = EPOCHS * STEPS_PER_EPOCH
+    for mode in ("ddp", "fsdp"):
+        run = mesh_main(mods, root, data, mode)
+        trainer = run.pop("trainer")
+        losses = [row[2] for row in trainer.loss_list]
+        worst = loss_rel_diff(losses, mid_losses)
+        want = {"conv1_fwd": steps, "conv1_bwd": steps, "pool_fwd": steps, "pool_bwd": steps,
+                "conv2_fwd": steps, "conv2_bwd": steps}
+        log(f"  (a) main --{mode}, one NCCL rank: losses {['%.6f' % v for v in losses]} (worst "
+            f"rel diff to phase 15's run without a group {worst:.2e}), test "
+            f"{trainer.test_results}, launches {run['launches']}, {run['wall_s']:.1f} s wall")
+        if any(run["launches"][k] != v for k, v in want.items()) or run["launches"]["wpt"] < steps:
+            raise AssertionError(f"--{mode} launch counts {run['launches']}, want {want}")
+        if not worst <= LOSS_RTOL:
+            raise AssertionError(f"--{mode} losses differ by {worst} > {LOSS_RTOL}")
+        if not os.path.exists(trainer.snapshot_path) or not os.path.exists(trainer.state_path):
+            raise AssertionError(f"--{mode} wrote no snapshot")
+        out[mode] = {**run, "losses": losses, "loss_rel_diff": worst,
+                     "test": list(trainer.test_results)}
+        del trainer
+    out["nccl"] = mesh_nccl_steps(mods, fa_cuda, norm, ast_norm, card_line)
+    out["two_ranks"] = mesh_two_ranks(root, data, norm, card_line)
+    t0 = time.perf_counter()
+    out["gloo_cuda"] = gloo_collectives()
+    answers = {name: sorted({str(r.get(name, r.get("exit"))) for r in out["gloo_cuda"].values()})
+               for name in GLOO_CHECKS}
+    log(f"  gloo on CUDA tensors, 2 processes on cuda:0 ({time.perf_counter() - t0:.1f} s): "
+        f"{answers}")
+    log("  FSDP over 2 gloo ranks on one card: not run (gloo's FSDP2 step dies on CUDA "
+        "tensors, above); its two-rank numerics are held on the CPU only "
+        "(tests/test_torch_parallel.py)")
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4351,8 +4875,18 @@ def main() -> None:
         analysis_run = analysis_phase(
             wpt, (wpt_cuda, fused_conv1_cuda, fused_pool_cuda, fused_conv2_cuda), root, data,
             int8_dcnn, card_line)
+        log("[26 data parallelism]")
+        mesh_run = mesh_phase((wpt_cuda, fused_conv1_cuda, fused_pool_cuda, fused_conv2_cuda),
+                              flash_attention_cuda, root, data, trained["norm"], ast_run["norm"],
+                              mid["b"]["losses"], card_line)
 
     sweep_launches = sweep_run["scan"]["launches"]
+    # phase 26: the headline DCNN through main --ddp on one NCCL rank
+    # (kernels 1, 2, 5, 6), the LCNN step on each of two gloo ranks (kernel
+    # 3), one FSDP step of the AST (kernel 4)
+    mesh_launches = mesh_run["ddp"]["launches"]
+    mesh_mfm = mesh_run["two_ranks"]["lcnn"]["launches"][0]
+    mesh_mha = mesh_run["nccl"]["ast"]["launches"]
     ig_launches = analysis_run["ig"]["launches"]
     l14 = analysis_run["fingerprints"]
     main_key = f"{MAIN[0]}-L{MAIN[1]}-B64-T{SR}"
@@ -4400,7 +4934,7 @@ def main() -> None:
                       "as padded rows; first level staged by coalesced loads; R outputs of "
                       "both children from one float4 window, taps from the constant bank",
             "launches": served["launches"], "train_launches": trained["launches"]["wpt"],
-            "sweep_launches": sweep_launches["wpt"],
+            "sweep_launches": sweep_launches["wpt"], "mesh_launches": mesh_launches["wpt"],
             "max_abs_err": errs[main_key],
             "ms": times[64]["wpt_kernel_ms"], "plain_ms": times[64]["wpt_plain_ms"],
             "device_ms": times[64]["wpt_device_ms"], "split": times[64]["split"],
@@ -4414,6 +4948,7 @@ def main() -> None:
             "replaces": "audiodeepfake_detection_tpu/ops/fused_conv1.py:376",
             "launches": trained["launches"]["fwd"],
             "sweep_launches": sweep_launches["conv1_fwd"],
+            "mesh_launches": mesh_launches["conv1_fwd"],
             "max_abs_err": fused_errs[train_key]["fwd_max_abs_err"],
             "ms": train_times["fwd_kernel_ms"], "plain_ms": train_times["fwd_plain_ms"],
             "device_ms": train_times["fwd_device_ms"],
@@ -4427,6 +4962,7 @@ def main() -> None:
             "replaces": "audiodeepfake_detection_tpu/ops/fused_conv1.py:472",
             "launches": trained["launches"]["bwd"],
             "sweep_launches": sweep_launches["conv1_bwd"],
+            "mesh_launches": mesh_launches["conv1_bwd"],
             "max_abs_err": fused_errs[train_key]["dW_max_abs_err"],
             "ms": train_times["bwd_kernel_ms"], "plain_ms": train_times["bwd_plain_ms"],
             "device_ms": train_times["bwd_device_ms"],
@@ -4435,7 +4971,7 @@ def main() -> None:
         {
             "name": "fused_conv_mfm_fwd", "route": "cuda", "source": fused_src,
             "replaces": "audiodeepfake_detection_tpu/ops/fused_conv1.py:756",
-            "launches": lcnn["launches"]["mfm_fwd"],
+            "launches": lcnn["launches"]["mfm_fwd"], "mesh_launches": mesh_mfm["mfm_fwd"],
             "max_abs_err": mfm_errs[lcnn_key]["fwd_max_abs_err"],
             "ms": lcnn_times["fwd_kernel_ms"], "plain_ms": lcnn_times["fwd_plain_ms"],
             "bound_ms": mfwd_b, "bound_by": mfwd_by, "library_ms": None,
@@ -4445,7 +4981,7 @@ def main() -> None:
             # fixed-order sum of its per-block partials
             "name": "fused_conv_mfm_bwd", "route": "cuda", "source": fused_src,
             "replaces": "audiodeepfake_detection_tpu/ops/fused_conv1.py:806",
-            "launches": lcnn["launches"]["mfm_bwd"],
+            "launches": lcnn["launches"]["mfm_bwd"], "mesh_launches": mesh_mfm["mfm_bwd"],
             "max_abs_err": mfm_errs[lcnn_key]["dW_max_abs_err"],
             "ms": lcnn_times["bwd_kernel_ms"], "plain_ms": lcnn_times["bwd_plain_ms"],
             "bound_ms": mbwd_b, "bound_by": mbwd_by, "library_ms": None,
@@ -4455,6 +4991,7 @@ def main() -> None:
             "replaces": "audiodeepfake_detection_tpu/ops/fused_pool.py:197",
             "launches": mid_launches["pool_fwd"], "ig_launches": ig_launches["pool_fwd"],
             "sweep_launches": sweep_launches["pool_fwd"],
+            "mesh_launches": mesh_launches["pool_fwd"],
             "max_abs_err": mid_errs[pool_key]["fwd_max_abs_err"],
             "ms": mid_times["pool2"]["fwd_kernel_ms"],
             "plain_ms": mid_times["pool2"]["fwd_plain_ms"],
@@ -4468,6 +5005,7 @@ def main() -> None:
             "replaces": "audiodeepfake_detection_tpu/ops/fused_pool.py:241",
             "launches": mid_launches["pool_bwd"], "ig_launches": ig_launches["pool_bwd"],
             "sweep_launches": sweep_launches["pool_bwd"],
+            "mesh_launches": mesh_launches["pool_bwd"],
             "max_abs_err": mid_errs[pool_key]["dx_max_abs_err"],
             "ms": mid_times["pool2"]["bwd_kernel_ms"],
             "plain_ms": mid_times["pool2"]["bwd_plain_ms"],
@@ -4479,6 +5017,7 @@ def main() -> None:
             "replaces": "audiodeepfake_detection_tpu/ops/fused_conv2.py:323",
             "launches": mid_launches["conv2_fwd"], "ig_launches": ig_launches["conv2_fwd"],
             "sweep_launches": sweep_launches["conv2_fwd"],
+            "mesh_launches": mesh_launches["conv2_fwd"],
             "max_abs_err": mid_errs[conv2_key]["fwd_max_abs_err"],
             "ms": mid_times["conv2"]["fwd_kernel_ms"],
             "plain_ms": mid_times["conv2"]["fwd_plain_ms"],
@@ -4493,6 +5032,7 @@ def main() -> None:
             "replaces": "audiodeepfake_detection_tpu/ops/fused_conv2.py:383",
             "launches": mid_launches["conv2_bwd"], "ig_launches": ig_launches["conv2_bwd"],
             "sweep_launches": sweep_launches["conv2_bwd"],
+            "mesh_launches": mesh_launches["conv2_bwd"],
             "max_abs_err": mid_errs[conv2_key]["dw_max_abs_err"],
             "ms": mid_times["conv2"]["bwd_kernel_ms"],
             "plain_ms": mid_times["conv2"]["bwd_plain_ms"],
@@ -4508,7 +5048,7 @@ def main() -> None:
             "name": "flash_mha_fwd", "route": "cuda", "source": mha_src,
             "tokens": AST_SHAPE[1], "design": mha_fwd_design,
             "replaces": "audiodeepfake_detection_tpu/ops/flash_attention.py:137",
-            "launches": ast_run["launches"]["fwd"],
+            "launches": ast_run["launches"]["fwd"], "mesh_launches": mesh_mha["fwd"],
             "max_abs_err": mha_errs[mha_key]["fwd_max_abs_err"],
             "ms": f32["fwd_kernel_ms"], "plain_ms": f32["fwd_plain_ms"],
             "bound_ms": afwd_b, "bound_by": afwd_by, "library_ms": f32["fwd_library_ms"],
@@ -4519,7 +5059,7 @@ def main() -> None:
             "name": "flash_mha_bwd", "route": "cuda", "source": mha_src,
             "tokens": AST_SHAPE[1], "design": mha_bwd_design,
             "replaces": "audiodeepfake_detection_tpu/ops/flash_attention.py:156",
-            "launches": ast_run["launches"]["bwd"],
+            "launches": ast_run["launches"]["bwd"], "mesh_launches": mesh_mha["bwd"],
             "max_abs_err": mha_errs[mha_key]["dqkv_max_abs_err"],
             "ms": f32["bwd_kernel_ms"], "plain_ms": f32["bwd_plain_ms"],
             "bound_ms": abwd_b, "bound_by": abwd_by, "library_ms": f32["bwd_library_ms"],
@@ -4592,7 +5132,7 @@ def main() -> None:
         "bf16_timing": bf16_times, "bf16_profile": bf16_prof,
         "int8_vs_plain": int8_errs, "int8_imma": int8_imma, "int8": int8_run,
         "int8_timing": int8_times, "export": export_run, "sweep": sweep_run,
-        "analysis": analysis_run,
+        "analysis": analysis_run, "mesh": mesh_run,
     }))
     print(card_line)
     print(json.dumps({"ok": True, "device": {
@@ -4601,4 +5141,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--mesh-rank"]:  # one of phase 26's two gloo ranks
+        mesh_rank_worker(sys.argv[2], int(sys.argv[3]))
+    else:
+        main()

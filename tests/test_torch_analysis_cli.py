@@ -99,9 +99,13 @@ def test_fingerprints_cli_matches_jax(corpus, tmp_path):
                 np.testing.assert_array_equal(got, want)
         else:
             assert (ours / name).read_bytes() == (theirs / name).read_bytes()
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        cli.main(["fingerprints", "--data-path", str(corpus), "--generators", "fbmelgan",
-                  "--sp", "--device", "cpu", "--out-dir", str(tmp_path / "sp")])
+    # --sp outside a process group: one rank, the dense transform (as JAX's
+    # one-device mesh), the same files and bits
+    cli.main(["fingerprints", "--data-path", str(corpus), "--generators", "fbmelgan",
+              "--max-files", "2", "--sp", "--device", "cpu", "--out-dir", str(tmp_path / "sp")])
+    assert _files(tmp_path / "sp") == _files(ours)
+    for name in _files(ours):
+        assert (tmp_path / "sp" / name).read_bytes() == (ours / name).read_bytes(), name
 
 
 def test_energy_cli_matches_jax(corpus, tmp_path):

@@ -54,6 +54,8 @@ def test_sources_found():
         "ops/flash_attention_cuda.py", "models/ast.py", "ops/cwt.py",
         "analysis/cli.py", "analysis/fingerprints.py", "analysis/integrated_gradients.py",
         "analysis/model_diffs.py", "analysis/plots.py", "analysis/stats.py",
+        "parallel/__init__.py", "parallel/mesh.py", "parallel/fsdp.py",
+        "parallel/sequence.py",
     ):
         assert f"audiodeepfake_detection_tpu_torch/{new}" in names
     assert "chip_smoke.py" in names
@@ -152,3 +154,53 @@ def test_toolchain_is_touched_only_inside_functions():
                 name = ast.unparse(call.func)
                 assert name not in ("ctypes.CDLL", "subprocess.run", "compile_library", "build"), (
                     f"{path.name} calls {name} at import time")
+
+
+def _device_defaults(path):
+    """The ``default=`` of every ``add_argument("--device", ...)`` call."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for call in (n for n in ast.walk(tree) if isinstance(n, ast.Call)):
+        if (isinstance(call.func, ast.Attribute) and call.func.attr == "add_argument"
+                and call.args and isinstance(call.args[0], ast.Constant)
+                and call.args[0].value == "--device"):
+            yield next(ast.unparse(k.value) for k in call.keywords if k.arg == "default")
+
+
+@pytest.mark.parametrize("module", [
+    "train/experiment.py", "train/predict.py", "train/serve.py", "train/export.py",
+    "analysis/cli.py"])
+def test_entry_points_default_to_cuda(module):
+    """Every CLI's ``--device`` defaults to ``cuda`` (the experiment's via
+    ``default_config``), as do the Trainer, the scoring service and the
+    distributed analysis entry points: the CPU must be asked for."""
+    import inspect
+
+    from audiodeepfake_detection_tpu_torch.analysis.fingerprints import mean_wpt_spectrum
+    from audiodeepfake_detection_tpu_torch.train.serve import ScoringService, service_from_snapshot
+    from audiodeepfake_detection_tpu_torch.train.trainer import Trainer
+    from audiodeepfake_detection_tpu_torch.utils.config import default_config
+
+    defaults = list(_device_defaults(PORT / module))
+    assert defaults and all(d in ("'cuda'", "d.device") for d in defaults), defaults
+    assert default_config().device == "cuda"
+    for fn in (Trainer, ScoringService, service_from_snapshot, mean_wpt_spectrum):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+
+
+def test_torchrun_rank_without_a_card_raises(monkeypatch):
+    """Under torchrun's environment a ``cuda`` run takes ``cuda:<LOCAL_RANK>``
+    and NCCL; with no such card it raises instead of joining gloo on the
+    CPU."""
+    import torch
+
+    from audiodeepfake_detection_tpu_torch.train.experiment import maybe_initialize_distributed
+    from audiodeepfake_detection_tpu_torch.utils.config import DotDict
+
+    for key, value in dict(RANK="0", WORLD_SIZE="2", LOCAL_RANK="0",
+                           MASTER_ADDR="127.0.0.1", MASTER_PORT="1").items():
+        monkeypatch.setenv(key, value)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(RuntimeError, match="has no card"):
+        maybe_initialize_distributed(DotDict(device="cuda"))
+    monkeypatch.delenv("RANK")
+    assert maybe_initialize_distributed(DotDict(device="cuda"))[:2] == (0, 1)

@@ -216,9 +216,19 @@ def test_zero_alpha_trains_on_the_fused_path(tmp_path):
     [("fsdp", True, "slice 7"), ("pp_stages", 2, "slice 7")],
 )
 def test_unsupported_trainer_flags_name_their_slice(tmp_path, flag, value, where):
+    """``pp_stages > 1`` names its slice (7b).  ``fsdp`` is ported (slice 7a):
+    without a process group it is the one-device path, and what it still
+    refuses is ``pp_stages`` beside it, as the JAX Trainer does."""
     args = _args("unused", tmp_path, tmp_path, **{flag: value})
     model = DCNN(time_dim=1, ochannels1=8, ochannels2=8, ochannels3=12,
                  ochannels4=16, ochannels5=4)
+    if flag == "fsdp":
+        assert Trainer(model, lambda a: a, args, str(tmp_path / "snap"),
+                       device="cpu").mesh is None
+        args.pp_stages = 2
+        with pytest.raises(ValueError, match="mutually exclusive"):
+            Trainer(model, lambda a: a, args, str(tmp_path / "snap"), device="cpu")
+        return
     with pytest.raises(NotImplementedError, match=f"{flag}.*{where}|{where}"):
         Trainer(model, lambda a: a, args, str(tmp_path / "snap"), device="cpu")
 
@@ -228,9 +238,16 @@ def test_unsupported_trainer_flags_name_their_slice(tmp_path, flag, value, where
     [(dict(fsdp=True), "slice 7"), (dict(pp_stages=2), "slice 7")],
 )
 def test_unsupported_experiment_flags_name_their_slice(corpus, tmp_path, extra, where):
-    """What ``run_experiment`` still refuses: the distributed modes.  (Slice
-    9's ``only_ig``, ``tensorboard`` and ``block_norm`` statistics run:
+    """What ``run_experiment`` still refuses: ``pp_stages > 1`` (slice 7b),
+    and ``fsdp`` beside it (slice 7a ported ``fsdp`` itself:
+    ``tests/test_torch_parallel.py``).  (Slice 9's ``only_ig``,
+    ``tensorboard`` and ``block_norm`` statistics run:
     ``tests/test_torch_analysis*.py``.)"""
+    if extra.get("fsdp"):
+        with pytest.raises(ValueError, match="mutually exclusive"):
+            run_experiment(_args(corpus, tmp_path / "log", tmp_path / "meta",
+                                 pp_stages=2, **extra))
+        return
     with pytest.raises(NotImplementedError, match=where):
         run_experiment(_args(corpus, tmp_path / "log", tmp_path / "meta", **extra))
 
