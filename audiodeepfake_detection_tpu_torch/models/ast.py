@@ -19,7 +19,9 @@ attn.proj, norm2, mlp.fc1, mlp.fc2}``, ``v.norm``) and the head as
 only when ``attn_drop_rate == 0``, as in JAX; otherwise the einsum path
 runs.  ``remat_blocks`` recomputes each block in the backward
 (``torch.utils.checkpoint``; the recomputation launches the forward kernel
-again).  ``dtype=torch.bfloat16`` mirrors the flax ``dtype`` casts: every
+again); ``remat_policy`` names the ``jax.checkpoint_policies`` policy of
+a selective recomputation (:data:`REMAT_POLICIES`) and implies it.
+``dtype=torch.bfloat16`` mirrors the flax ``dtype`` casts: every
 Linear and the patch Conv compute in bf16 from float32 master weights,
 ``norm1`` / ``norm2`` emit bf16, the token stream is bf16 after ``embed``,
 and ``norm``, the head's LayerNorm and Linear stay float32.
@@ -36,12 +38,17 @@ and distillation tokens, a truncated-normal (0.02) positional embedding.
 feeds the fused attention as it is).  The patch embedding and the head
 stay in the working type; calling a scales dict in training raises.
 
-Not carried: ``remat_policy`` (a ``jax.checkpoint_policies`` name;
-ROADMAP.md "Left out of slice 5"), which raises ``NotImplementedError``.
+``embed`` / ``encode`` / ``classify`` are the three phases the GPipe
+pipeline runs apart (``parallel/pipeline.py``; ``encode`` takes a stage's
+range of blocks), and ``parallel/tensor.py`` shards each block's Linears
+over a ``"model"`` mesh dim in place (Megatron tensor parallelism: a
+block's ``num_heads`` is then its rank's share, and ``tp_group`` the
+group its all-reduces run over).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from collections.abc import Mapping
 from typing import Optional
@@ -49,10 +56,15 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ..ops.flash_attention import flash_mha_packed
 from ..ops.quantize import dense_int8_weights, int8_sites, quantized_dense
+from ..parallel.mesh import copy_to_ranks, reduce_from_ranks
 
 _SIZES = {
     "tiny224": dict(embed_dim=192, depth=12, num_heads=3),
@@ -61,6 +73,24 @@ _SIZES = {
     "base384": dict(embed_dim=768, depth=12, num_heads=12),
 }
 PATCH = 16
+
+_aten = torch.ops.aten
+_DOTS = (_aten.mm, _aten.addmm, _aten.bmm, _aten.baddbmm, _aten.matmul)
+_DOTS_NO_BATCH = (_aten.mm, _aten.addmm)
+#: ``remat_policy`` name (the ``jax.checkpoint_policies`` ones that take no
+#: argument) -> the ops whose outputs the backward keeps; every other op of
+#: a block is recomputed.  ``"everything_saveable"`` keeps all, which is the
+#: block without a checkpoint; ``"nothing_saveable"`` keeps none, which is
+#: ``remat_blocks``.  Kernel 4 is no dot (as a ``pallas_call`` is none to
+#: JAX): under the dot policies its forward launches again in the backward.
+REMAT_POLICIES = {
+    "everything_saveable": "all",
+    "nothing_saveable": (),
+    "dots_saveable": _DOTS,
+    "checkpoint_dots": _DOTS,
+    "dots_with_no_batch_dims_saveable": _DOTS_NO_BATCH,
+    "checkpoint_dots_with_no_batch_dims": _DOTS_NO_BATCH,
+}
 
 
 def ast_patch_grid(
@@ -84,12 +114,14 @@ def _linear(features_in: int, features_out: int) -> nn.Linear:
     return layer
 
 
-def _dense(layer: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
+def _dense(layer: nn.Linear, x: torch.Tensor, dtype, bias: bool = True) -> torch.Tensor:
     """flax ``nn.Dense(dtype=...)``: input, kernel and bias cast to the
-    compute type (float32 master weights receive the gradients)."""
+    compute type (float32 master weights receive the gradients); without
+    the bias where ``bias`` is False."""
+    b = layer.bias if bias else None
     if dtype is None:
-        return layer(x)
-    return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+        return F.linear(x, layer.weight, b)
+    return F.linear(x.to(dtype), layer.weight.to(dtype), None if b is None else b.to(dtype))
 
 
 def _layer_norm(norm: nn.LayerNorm, x: torch.Tensor, dtype) -> torch.Tensor:
@@ -145,6 +177,8 @@ class _Block(nn.Module):
     ) -> None:
         super().__init__()
         self.num_heads = num_heads
+        # the "model" group of a tensor-parallel block (parallel/tensor.py)
+        self.tp_group = None
         self.dtype = dtype
         self.fused_attention = fused_attention
         self.drop_rate = drop_rate
@@ -162,6 +196,7 @@ class _Block(nn.Module):
         """``sites``: the block's int8 sites (``Int8Sites`` scoped to
         ``block_{i}/``), or None."""
         dt = self.dtype
+        group = self.tp_group
 
         def dense(layer: nn.Linear, h: torch.Tensor, name: str) -> torch.Tensor:
             scale = sites.scale(name, h) if sites is not None else None
@@ -171,24 +206,49 @@ class _Block(nn.Module):
             y = quantized_dense(h, layer.weight, scale, out_dtype=h.dtype, baked=rec)
             return y + layer.bias.to(h.dtype)
 
+        def row_dense(layer: nn.Linear, h: torch.Tensor, name: str) -> torch.Tensor:
+            """A row-parallel Linear under tensor parallelism: the rank's
+            partial product summed over the ranks, then the bias once."""
+            if group is None:
+                return dense(layer, h, name)
+            y = reduce_from_ranks(_dense(layer, h, dt, bias=False), group)
+            return y + layer.bias.to(y.dtype)
+
         h = _layer_norm(self.norm1, x, dt)
-        b, n, d = h.shape
-        head_dim = d // self.num_heads
+        if group is not None:
+            h = copy_to_ranks(h, group)
+        b, n, _ = h.shape
+        heads = self.num_heads  # this rank's share under tensor parallelism
         qkv = dense(self.attn.qkv, h, "qkv")
+        head_dim = qkv.shape[-1] // (3 * heads)
         if self.fused_attention and self.attn_drop_rate == 0.0:
             # the kernel takes the Dense output's [B, N, 3HD] layout as it is
-            h = flash_mha_packed(qkv, self.num_heads, 1.0 / math.sqrt(head_dim))
+            h = flash_mha_packed(qkv, heads, 1.0 / math.sqrt(head_dim))
         else:
-            q, k, v = qkv.reshape(b, n, 3, self.num_heads, head_dim).unbind(2)
+            q, k, v = qkv.reshape(b, n, 3, heads, head_dim).unbind(2)
             attn = torch.einsum("bnhd,bmhd->bhnm", q, k) / math.sqrt(head_dim)
             attn = self._dropout(torch.softmax(attn, dim=-1), self.attn_drop_rate)
-            h = torch.einsum("bhnm,bmhd->bnhd", attn, v).reshape(b, n, d)
-        h = self._dropout(dense(self.attn.proj, h, "proj"), self.drop_rate)
+            h = torch.einsum("bhnm,bmhd->bnhd", attn, v).reshape(b, n, heads * head_dim)
+        h = self._dropout(row_dense(self.attn.proj, h, "proj"), self.drop_rate)
         x = x + self.drop_path(h)
         h = _layer_norm(self.norm2, x, dt)
+        if group is not None:
+            h = copy_to_ranks(h, group)
         h = self._dropout(F.gelu(dense(self.mlp.fc1, h, "fc1")), self.drop_rate)
-        h = self._dropout(dense(self.mlp.fc2, h, "fc2"), self.drop_rate)
+        h = self._dropout(row_dense(self.mlp.fc2, h, "fc2"), self.drop_rate)
         return x + self.drop_path(h)
+
+
+def _selective(saved: tuple):
+    """The forward and recompute contexts of a checkpoint that keeps the
+    outputs of the ``saved`` ops and recomputes the rest."""
+
+    def policy(ctx, op, *args, **kwargs):
+        if op.overloadpacket in saved:
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return create_selective_checkpoint_contexts(policy)
 
 
 class _PatchEmbed(nn.Module):
@@ -237,12 +297,12 @@ class ASTModel(nn.Module):
         quant=None,
     ) -> None:
         super().__init__()
-        if remat_policy is not None:
-            raise NotImplementedError(
-                f"remat_policy={remat_policy!r} (a jax.checkpoint_policies name) "
-                "is not ported (ROADMAP.md, left out of slice 5: remat_policy); "
-                "remat_blocks recomputes whole blocks"
-            )
+        if remat_policy is not None and (
+                not isinstance(remat_policy, str) or remat_policy not in REMAT_POLICIES):
+            raise ValueError(
+                f"remat_policy={remat_policy!r}: the supported jax.checkpoint_policies "
+                f"names are {sorted(REMAT_POLICIES)} (the policy factories need "
+                "names the AST does not tag, or host offload)")
         if dtype not in (None, torch.float32, torch.bfloat16):
             raise ValueError(f"dtype must be None, float32 or bfloat16: {dtype!r}")
         self.label_dim = label_dim
@@ -252,8 +312,11 @@ class ASTModel(nn.Module):
         self.dtype = None if dtype == torch.float32 else dtype
         self.quant = quant
         self.fused_attention = fused_attention
-        self.remat_blocks = remat_blocks
+        # as in JAX, a policy implies remat
+        self.remat_blocks = remat_blocks or remat_policy is not None
+        self.remat_policy = remat_policy
         self.drop_rate = drop_rate
+        self.attn_drop_rate, self.drop_path_rate = attn_drop_rate, drop_path_rate
         cfg = _SIZES[model_size]
         d, depth = cfg["embed_dim"], cfg["depth"]
         f_dim, t_dim = ast_patch_grid(fstride, tstride, input_fdim, input_tdim)
@@ -290,15 +353,22 @@ class ASTModel(nn.Module):
             h = h.to(self.dtype)
         return F.dropout(h, self.drop_rate, self.training) if self.drop_rate else h
 
-    def encode(self, h: torch.Tensor) -> torch.Tensor:
-        """The DeiT encoder: all transformer blocks in sequence."""
+    def encode(self, h: torch.Tensor, blocks: Optional[range] = None) -> torch.Tensor:
+        """The DeiT encoder: the transformer blocks in sequence (those of
+        ``blocks``, a range of indices, when given: a pipeline stage's)."""
         sites = int8_sites(self)
-        for i, block in enumerate(self.v.blocks):
+        remat = self.remat_blocks and self.training and torch.is_grad_enabled()
+        saved = REMAT_POLICIES.get(self.remat_policy, ())
+        for i in range(len(self.v.blocks)) if blocks is None else blocks:
+            block = self.v.blocks[i]
             scoped = sites.scope(f"block_{i}/") if sites is not None else None
-            if self.remat_blocks and self.training and torch.is_grad_enabled():
-                h = checkpoint(block, h, scoped, use_reentrant=False)
-            else:
+            if not remat or saved == "all":
                 h = block(h, scoped)
+            elif saved:
+                h = checkpoint(block, h, scoped, use_reentrant=False,
+                               context_fn=functools.partial(_selective, saved))
+            else:
+                h = checkpoint(block, h, scoped, use_reentrant=False)
         return h
 
     def classify(self, h: torch.Tensor) -> torch.Tensor:

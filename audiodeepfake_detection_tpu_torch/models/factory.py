@@ -76,8 +76,9 @@ def _build_ast(args: DotDict, nclasses: int) -> ASTModel:
     ``input_fdim`` is the probed ``input_dim[-2]`` (256 without one),
     ``input_tdim`` is ``flattend_size`` (the reference repurposes that key),
     else the probed ``input_dim[-1]``, else 101.  ``ast_model_size`` /
-    ``ast_drop_*`` / ``ast_fused_attention`` / ``ast_remat`` reach the
-    constructor; ``ast_remat_policy`` is refused there."""
+    ``ast_drop_*`` / ``ast_fused_attention`` / ``ast_remat`` /
+    ``ast_remat_policy`` reach the constructor (which refuses a policy name
+    it does not support)."""
     input_dim = args.input_dim
     input_fdim = int(input_dim[-2]) if input_dim else 256
     if args.flattend_size:

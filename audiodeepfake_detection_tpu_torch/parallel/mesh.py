@@ -10,7 +10,9 @@ src/audiofakedetect/train_classifier.py:44-47), so what JAX derives is
 spelled out here:
 
 * :func:`get_mesh` -- a ``DeviceMesh`` with one ``"data"`` dim over the
-  world (``None`` with no group, or with one rank unless asked for);
+  world (``None`` with no group, or with one rank unless asked for), or
+  the two-dimensional meshes of the AST's model-parallel modes
+  (:func:`data_stage_mesh`; ``parallel/tensor.py``, ``pipeline.py``);
 * :func:`shard_batch` -- a rank's slice of a global batch.  The training
   path needs none: ``FrameLoader`` already hands each rank its own strided
   slice (``data/loader.py``), the ``DistributedSampler`` role.  JAX's
@@ -48,29 +50,52 @@ def is_distributed() -> bool:
     return dist.is_available() and dist.is_initialized()
 
 
-def get_mesh(device=None, min_ranks: int = 2):
-    """The world as a ``DeviceMesh`` with one ``"data"`` dim, or ``None``.
+def get_mesh(device=None, min_ranks: int = 2, axis_names: Sequence[str] = (AXIS,),
+             shape: Optional[Sequence[int]] = None):
+    """The world as a ``DeviceMesh``, or ``None``.
 
-    ``None`` with no process group, or with fewer than ``min_ranks`` ranks:
-    one rank is the single-device path unless the caller asks for the
-    distributed one (``min_ranks=1``: ``--ddp`` / ``--fsdp`` on one rank
-    run DDP / FSDP and the synchronized BatchNorm all the same).
-    ``device``: where the rank's tensors live (``"cuda"`` or ``"cpu"``;
-    default ``"cuda"`` under NCCL, else ``"cpu"``).
+    One ``"data"`` dim by default; ``axis_names`` / ``shape`` name and size
+    the dims of another layout (JAX ``get_mesh``: a ``("data", "model")``
+    mesh for tensor parallelism, ``("data", "stage")`` for the pipeline),
+    ranks laid out row-major, the last dim fastest (``shape`` defaults to
+    the world along the first dim, 1 along the others).  ``None`` with no
+    process group, or with fewer than ``min_ranks`` ranks: one rank is the
+    single-device path unless the caller asks for the distributed one
+    (``min_ranks=1``: ``--ddp`` / ``--fsdp`` on one rank run DDP / FSDP and
+    the synchronized BatchNorm all the same).  ``device``: where the rank's
+    tensors live (``"cuda"`` or ``"cpu"``; default ``"cuda"`` under NCCL,
+    else ``"cpu"``).
     """
     if not is_distributed() or dist.get_world_size() < min_ranks:
         return None
     if device is None:
         device = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    world = dist.get_world_size()
+    names = tuple(axis_names)
+    shape = (world,) + (1,) * (len(names) - 1) if shape is None else tuple(shape)
+    if int(np.prod(shape)) != world:
+        raise ValueError(f"mesh shape {shape} does not cover the world of {world} ranks")
     device_type = torch.device(device).type
-    key = (id(dist.group.WORLD), device_type)
+    key = (id(dist.group.WORLD), device_type, names, shape)
     if key not in _MESHES:
         from torch.distributed.device_mesh import init_device_mesh
 
-        _MESHES.clear()  # a mesh of a destroyed group is dead
-        _MESHES[key] = init_device_mesh(
-            device_type, (dist.get_world_size(),), mesh_dim_names=(AXIS,))
+        if any(k[0] != key[0] for k in _MESHES):
+            _MESHES.clear()  # the meshes of a destroyed group are dead
+        _MESHES[key] = init_device_mesh(device_type, shape, mesh_dim_names=names)
     return _MESHES[key]
+
+
+def data_stage_mesh(pp_stages: int, device=None):
+    """The ``("data", "stage")`` mesh of the GPipe pipeline (JAX
+    ``data_stage_mesh``): ``pp_stages`` ranks along ``"stage"``, the fast
+    dim, and the rest along ``"data"``.  Raises when ``pp_stages`` does not
+    divide the world (1 without a process group)."""
+    n = dist.get_world_size() if is_distributed() else 1
+    if n % pp_stages:
+        raise ValueError(f"pp_stages={pp_stages} does not divide {n} devices")
+    return get_mesh(device, min_ranks=1, axis_names=("data", "stage"),
+                    shape=(n // pp_stages, pp_stages))
 
 
 def mesh_size(mesh, axis: str = AXIS) -> int:
@@ -176,6 +201,70 @@ def all_reduce_sum(tensors: Sequence[torch.Tensor], mesh, axis: str = AXIS):
         out.append(summed[at:at + t.numel()].view(t.shape))
         at += t.numel()
     return tuple(out)
+
+
+class _CopyToRanks(torch.autograd.Function):
+    """Megatron's ``f``: identity forward, the cotangents summed over the
+    group backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
+        return g, None
+
+
+class _ReduceFromRanks(torch.autograd.Function):
+    """Megatron's ``g``: the sum over the group forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.contiguous().clone()
+        dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_ranks(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` as it is, where each rank of ``group`` goes on with its own
+    part of the work: the backward sums the ranks' cotangents (the input of
+    a column-parallel Linear)."""
+    return _CopyToRanks.apply(x, group)
+
+
+def reduce_from_ranks(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over ``group``'s ranks of their partial ``x``, where every
+    rank then computes the same loss: the backward hands each rank its own
+    cotangent, once (the output of a row-parallel Linear; the pipeline's
+    output leaving its last stage).  Unlike :func:`all_reduce_sum`, whose
+    backward sums the cotangents, right where each rank's loss differs."""
+    return _ReduceFromRanks.apply(x, group)
+
+
+def all_reduce_grads(params, mesh, axis: str = AXIS, mean: bool = True) -> None:
+    """Each parameter's gradient summed over ``mesh[axis]`` (averaged with
+    ``mean``), as one all-reduce of their concatenation; a parameter
+    without a gradient counts zero, and takes the sum as its own."""
+    if mesh is None or mesh_size(mesh, axis) == 1:
+        return
+    params = list(params)
+    flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
+                      for p in params])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=mesh_group(mesh, axis))
+    if mean:
+        flat /= mesh_size(mesh, axis)
+    at = 0
+    for p in params:
+        p.grad = flat[at:at + p.numel()].view_as(p)
+        at += p.numel()
 
 
 def all_gather_rows(t: torch.Tensor, mesh, axis: str = AXIS) -> torch.Tensor:

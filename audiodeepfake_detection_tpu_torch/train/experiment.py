@@ -53,7 +53,7 @@ from ..utils.config import (
 from ..utils.naming import experiment_model_file, tensorboard_dir
 from .predict import resolve_device
 from .results import print_results
-from .trainer import Trainer, default_mesh, wants_distributed
+from .trainer import Trainer, check_modes, default_mesh, wants_distributed
 from .transforms import get_transforms, normalized_transform
 
 
@@ -192,10 +192,11 @@ def maybe_initialize_distributed(args: DotDict):
 
 
 def mesh_for(args: DotDict, device):
-    """The experiment's device mesh (JAX ``mesh_for``): the world's
-    ``("data",)`` mesh under a process group of two or more ranks, or of
-    one with ``--ddp`` / ``--fsdp``; else None (one device).  ``pp_stages >
-    1`` (a ``("data", "stage")`` mesh) waits for slice 7b."""
+    """The experiment's device mesh (JAX ``mesh_for``): the ``("data",
+    "stage")`` mesh of the GPipe pipeline with ``pp_stages > 1``; else the
+    world's ``("data",)`` mesh under a process group of two or more ranks,
+    or of one with ``--ddp`` / ``--fsdp``; else None (one device).  Built
+    per grid point: ``pp_stages`` can be a grid axis."""
     return default_mesh(args, device)
 
 
@@ -229,8 +230,13 @@ def norm_batches_fn(train_loader):
 def loader_shard_kw(args: DotDict) -> dict:
     """Per-process feeding policy, the one source for every loader the
     serial and the vectorized paths build (they must feed identically, or
-    the sweep's data order leaves the serial grid's)."""
+    the sweep's data order leaves the serial grid's).  Under the pipeline
+    (``pp_stages > 1``) the stages of a data row read the same slice: the
+    loaders shard by the data coordinate over the data rows."""
     rank, world = rank_and_world()
+    pp = int(args.get("pp_stages") or 1)
+    if pp > 1 and world % pp == 0:  # data_stage_mesh's layout: stage fastest
+        rank, world = rank // pp, world // pp
     return dict(
         process_index=rank,
         process_count=world,
@@ -340,6 +346,7 @@ def run_experiment(args: DotDict, device: "torch.device | str | None" = None,
     ``args.tensorboard`` the run's writer (rank 0's) is closed at its end.
     """
     device = resolve_device(device or args.device or "cuda")
+    check_modes(args)
     if mesh is None:
         mesh = mesh_for(args, device)
     _check_unported(args)

@@ -56,8 +56,17 @@ src/audiofakedetect/train_classifier.py:232-1065):
   global batch's mask from one key).  ``device_data`` streams instead on
   more than one rank, as the JAX package does on several hosts.
 
-Not ported yet, raising ``NotImplementedError`` with its ROADMAP slice:
-``pp_stages > 1`` (slice 7b, the AST's model-parallel modes).
+* ``pp_stages > 1`` trains the AST with its encoder pipelined over a
+  ``("data", "stage")`` mesh (``parallel/pipeline.py``; built by
+  ``data_stage_mesh`` when none is given): no DDP wrapper, the gradients
+  combined over the stages and averaged over ``"data"`` inside the step,
+  the same optimizer step on every rank.  Each data row's ranks read the
+  same slice of every set (the loaders shard by the data coordinate),
+  draw the same augmentation, and evaluate it with the plain model; the
+  eval counts and rows, the logged stats and the random streams gather
+  over ``"data"`` alone.  Refused, as in the JAX Trainer: ``fsdp``,
+  ``device_data`` and ``grad_accum > 1`` beside it, a model without
+  ``embed`` / ``classify``, non-zero dropout rates.
 """
 
 from __future__ import annotations
@@ -78,7 +87,9 @@ from ..parallel.mesh import (
     all_gather_rows,
     all_reduce_sum,
     barrier,
+    data_stage_mesh,
     get_mesh,
+    has_axis,
     is_lead,
     mesh_group,
     mesh_rank,
@@ -96,21 +107,57 @@ from .steps import (
     make_train_step,
 )
 
-_NOT_PORTED = (
-    # (args key, is it switched on, ROADMAP slice)
-    ("pp_stages", lambda v: int(v or 1) > 1, "slice 7b: the AST model-parallel modes"),
-)
-
-
 def wants_distributed(args: DotDict) -> bool:
     """``ddp`` or ``fsdp``: the distributed path even on one rank."""
     return bool(args.get("ddp")) or bool(args.get("fsdp"))
 
 
 def default_mesh(args: DotDict, device):
-    """The mesh a run takes when none is given: the world's, with two or
-    more ranks, or with one when ``ddp`` / ``fsdp`` asks for it."""
+    """The mesh a run takes when none is given: the ``("data", "stage")``
+    mesh with ``pp_stages > 1``; else the world's, with two or more ranks,
+    or with one when ``ddp`` / ``fsdp`` asks for it."""
+    pp = int(args.get("pp_stages") or 1)
+    if pp > 1:
+        return data_stage_mesh(pp, device)
     return get_mesh(device, min_ranks=1 if wants_distributed(args) else 2)
+
+
+def check_modes(args: DotDict) -> None:
+    """The modes that exclude each other (JAX ``Trainer``), refused before
+    any mesh is built: ``fsdp`` with ``pp_stages > 1``, ``device_data``
+    with either."""
+    fsdp, pp = bool(args.get("fsdp")), int(args.get("pp_stages") or 1) > 1
+    if fsdp and pp:
+        raise ValueError(
+            "fsdp and pp_stages>1 are mutually exclusive (ZeRO shards "
+            "parameters over the data axis, GPipe splits the encoder over "
+            "stages)")
+    if bool(args.get("device_data")) and (fsdp or pp):
+        raise ValueError(
+            "device_data is for the replicated data-parallel path only "
+            "(disable fsdp / pp_stages, or stream the data)")
+
+
+def check_pipeline(model: nn.Module, args: DotDict) -> None:
+    """What ``pp_stages > 1`` refuses (JAX ``Trainer``): a model without
+    separable ``embed`` / ``classify`` phases, a non-zero dropout rate (the
+    pipelined encoder runs without dropout), ``grad_accum > 1``."""
+    if not (hasattr(model, "embed") and hasattr(model, "classify")):
+        raise ValueError(
+            "pp_stages>1 supports encoder-stack models with separable "
+            "embed/encode/classify phases (the AST); "
+            f"{type(model).__name__} has no embed/classify methods")
+    rates = {a: float(getattr(model, a, 0.0) or 0.0)
+             for a in ("drop_rate", "attn_drop_rate", "drop_path_rate")}
+    nonzero = {a: r for a, r in rates.items() if r > 0.0}
+    if nonzero:
+        raise ValueError(
+            "pp_stages>1 runs the encoder without dropout; set these rates to 0 "
+            f"or disable PP: {nonzero}")
+    if int(args.get("grad_accum") or 1) > 1:
+        raise ValueError(
+            "grad_accum>1 and pp_stages>1 are mutually exclusive (the pipeline "
+            "already microbatches inside the step)")
 
 
 def _save_atomically(obj, path: str) -> None:
@@ -140,34 +187,29 @@ class Trainer:
         writer=None,
         mesh=None,
     ) -> None:
+        check_modes(args)
         self._fsdp = bool(args.get("fsdp"))
         pp = int(args.get("pp_stages") or 1)
-        if self._fsdp and pp > 1:
-            raise ValueError(
-                "fsdp and pp_stages>1 are mutually exclusive (ZeRO shards "
-                "parameters over the data axis, GPipe splits the encoder over "
-                "stages)")
-        if bool(args.get("device_data")) and (self._fsdp or pp > 1):
-            raise ValueError(
-                "device_data is for the replicated data-parallel path only "
-                "(disable fsdp / pp_stages, or stream the data)")
-        for key, is_on, where in _NOT_PORTED:
-            if is_on(args.get(key)):
-                raise NotImplementedError(
-                    f"{key}={args.get(key)!r} is not ported yet (ROADMAP.md "
-                    f"queue 1, {where})"
-                )
+        self._pp = pp
+        self._pp_microbatches = int(args.get("pp_microbatches") or 2)
+        if pp > 1:
+            check_pipeline(model, args)
         self.device = resolve_device(device)
         # fp32 convolutions and products, like the JAX reference's HIGHEST
         # precision (TF32 keeps about three decimal digits)
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         self.mesh = mesh if mesh is not None else default_mesh(args, self.device)
+        if pp > 1 and not has_axis(self.mesh, "stage"):
+            raise ValueError(
+                "pp_stages>1 requires a mesh with a 'stage' axis "
+                f"(got axes {self.mesh.mesh_dim_names})")
+        # the data coordinate: the stages of a data row draw alike
         self.rank = mesh_rank(self.mesh)
         self.model = model.to(self.device)
         self.train_model = self.model
         self._sharded = self._fsdp and self.mesh is not None
-        if self.mesh is not None:
+        if self.mesh is not None and pp == 1:
             use_mesh(self.model, self.mesh)
             if self._sharded:
                 from ..parallel.fsdp import DEFAULT_MIN_BYTES, shard_fsdp
@@ -252,8 +294,16 @@ class Trainer:
             grad_accum=self.grad_accum,
             generator=self.aug_generator,
         )
-        self.train_step = make_train_step(
-            self.train_model, self.transform, self.optimizer, **step_kw)
+        if self._pp > 1:
+            from ..parallel.pipeline import make_pp_trainer_step
+
+            self.train_step = make_pp_trainer_step(
+                self.model, self.transform, self.optimizer, self.mesh,
+                self._pp_microbatches,
+                **{k: v for k, v in step_kw.items() if k != "grad_accum"})
+        else:
+            self.train_step = make_train_step(
+                self.train_model, self.transform, self.optimizer, **step_kw)
         self.resident_train_step = make_resident_multi_train_step(
             self.model, self.transform, self.optimizer, **step_kw)
         self.eval_step = make_eval_step(self.model, self.transform)

@@ -185,7 +185,20 @@ Phases, in order; any failure propagates and the script exits non-zero
     cascade; (d) the fused step at B = 128 plain / DDP / FSDP on one NCCL
     rank, the two-rank step and the sharded cascade (host-staged), beside
     the card's name and power limit; and which collectives gloo runs on
-    CUDA tensors here (``tools/dist_probe.py``).
+    CUDA tensors here (``tools/dist_probe.py``);
+27. the AST's model parallelism (two gloo ranks on ``cuda:0``,
+    ``--mp-rank``) and ``remat_policy``: kernel 4 against plain at a rank's
+    6 local heads and at one microbatch; (a) base384 tensor-parallel over
+    ``("data", "model") = (1, 2)`` at B = 8 (logits, gathered gradients
+    and state against one process, kernel 4's launches and head counts);
+    (b) the GPipe pipeline over ``("data", "stage") = (1, 2)`` at B = 32 in
+    4 microbatches (logits and gradients against one process, kernel 4's
+    launches with the bubble ticks), two Trainer steps with the mesh
+    against a one-process Trainer, ranks bit for bit, rank 0's snapshot in
+    one process; (c) one base384 step under no remat, ``remat_blocks`` and
+    each supported policy (loss, gradients, kernel 4's launches, peak
+    memory); (d) the TP forward and the PP step (host-staged) against one
+    process, beside the card's name and power limit.
 
 The last lines are the kernels' JSON record, the measurements with the
 card's name and power limit, and ``{"ok": true, "device": ...}``.
@@ -3878,9 +3891,14 @@ IG_KERNEL_RTOL = 1e-4
 # 700 W), so the bound is 1e-2, and the per-row reading below shows where
 # it sits
 IG_UNFUSED_RTOL = 1e-2
-# a path image's gradient, fused against unfused, relative to its largest
-# entry: fp32 sums in another order (kernel 6's dx split TF32); a row above
-# this holds a max-pool choice the two roundings made differently
+# a path image's gradient relative to its largest entry.  Through kernels 5
+# and 6 against their plain versions in the same folded model, whose
+# forwards agree bit for bit (phase 14), so every pool chooses alike: fp32
+# sums of dx in another order (kernel 6's split TF32), held on every row.
+# Fused against unfused, a row above this holds a max-pool choice the two
+# roundings made differently; any row may hold one (the image itself did
+# on one card run of four, at 1.07e-2), so that reading is held only to
+# most rows agreeing: a wrong dx moves every row
 IG_GRAD_RTOL = 1e-4
 # the mean and last images of the two IG runs: the same transform of the
 # same frames, each run with its own normalization pass on the card
@@ -4016,7 +4034,8 @@ def ig_phase(mods, root: str, data: str, snapshot: str, card_line: str) -> dict:
     JAX's message, ``fused_pool`` and ``fused_layer2`` at ``"always"``:
     kernels 5 and 6 forward and ``dx`` at B = 201) against the same with
     the blocks' plain versions, and against unfused; each path image's
-    gradient fused against unfused; completeness; a trace; the times."""
+    gradient through the kernels against their plain versions and against
+    unfused; completeness; a trace; the times."""
     from audiodeepfake_detection_tpu_torch.analysis.integrated_gradients import integrated_grad
     from audiodeepfake_detection_tpu_torch.train import profiling
     from audiodeepfake_detection_tpu_torch.train.experiment import run_experiment
@@ -4085,14 +4104,28 @@ def ig_phase(mods, root: str, data: str, snapshot: str, card_line: str) -> dict:
     with torch.no_grad():
         imgs = fused["trainer"].transform(torch.from_numpy(batch["audio"][:3]).cuda())
     gf, gu = path_grads(fm, imgs[0], 1), path_grads(um, imgs[0], 1)
-    row_err = ((gf - gu).flatten(1).abs().amax(1) / gu.flatten(1).abs().amax(1)).cpu().numpy()
-    apart = np.nonzero(row_err > IG_GRAD_RTOL)[0]
-    log(f"  path gradients of one image, fused against unfused: {len(apart)} of 201 rows "
-        f"above {IG_GRAD_RTOL} of their largest (alpha index {apart.tolist()[:12]}, up to "
-        f"{row_err.max():.3e}); alpha = 1: {row_err[-1]:.3e}")
-    if not row_err[-1] <= IG_GRAD_RTOL:
-        raise AssertionError(f"image gradient fused against unfused: {row_err[-1]} > "
-                             f"{IG_GRAD_RTOL}")
+    with plain_mid_blocks():
+        gp = path_grads(fm, imgs[0], 1)
+
+    def rows_apart(ref):
+        err = ((gf - ref).flatten(1).abs().amax(1) / ref.flatten(1).abs().amax(1)).cpu().numpy()
+        return err, np.nonzero(err > IG_GRAD_RTOL)[0]
+
+    kernel_err, kernel_apart = rows_apart(gp)
+    row_err, apart = rows_apart(gu)
+    log(f"  path gradients of one image through kernels 5 and 6 against their plain "
+        f"versions: {len(kernel_apart)} of 201 rows above {IG_GRAD_RTOL} of their largest "
+        f"(up to {kernel_err.max():.3e})")
+    log(f"  the same, fused against unfused: {len(apart)} of 201 rows above {IG_GRAD_RTOL} "
+        f"(alpha index {apart.tolist()[:12]}, up to {row_err.max():.3e}); alpha = 1: "
+        f"{row_err[-1]:.3e}")
+    if len(kernel_apart):
+        raise AssertionError(f"path gradients, kernels 5 and 6 against plain: rows "
+                             f"{kernel_apart.tolist()} above {IG_GRAD_RTOL} (up to "
+                             f"{kernel_err.max()})")
+    if not 2 * len(apart) < len(row_err):
+        raise AssertionError(f"path gradients fused against unfused: {len(apart)} of "
+                             f"{len(row_err)} rows above {IG_GRAD_RTOL}")
     completeness = []
     for img in imgs:
         attr = integrated_grad(fm, img, 1)
@@ -4128,6 +4161,7 @@ def ig_phase(mods, root: str, data: str, snapshot: str, card_line: str) -> dict:
         del run["trainer"]
     return {"runs": runs, "images": images, "launches": fused["launches"],
             "rel_err": errs, "rows_apart": apart.tolist(), "row_rel_err_max": float(row_err.max()),
+            "kernel_row_rel_err_max": float(kernel_err.max()),
             "image_grad_rel_err": float(row_err[-1]), "completeness": completeness,
             "trace_kernel_events": kernels, "fused_ms": ms["fused"], "unfused_ms": ms["unfused"]}
 
@@ -4730,6 +4764,356 @@ def mesh_phase(mods, fa_cuda, root: str, data: str, norm, ast_norm, mid_losses,
     return out
 
 
+# ---- the AST's model parallelism (phase 27)
+MP_RANKS = 2
+MP_BATCH = 32  # the pipeline's batch: 4 microbatches of 8 frames
+MP_MICROBATCHES = 4
+TP_BATCH = 8  # tensor parallelism: two all-reduces a block each way, host-staged
+TP_HEADS = AST_SHAPE[2] // MP_RANKS  # 6 heads of 64 a rank
+MP_LR, MP_WD = 1e-4, 0.01  # phase 18's AST optimizer
+# TP logits against one process, relative to the largest logit: each
+# row-parallel output summed over two ranks in another order than one
+# GEMM's k-loop, in each of 12 blocks
+TP_LOGIT_RTOL = 1e-5
+# TP gradients, gathered, against one process, of each tensor's largest
+# entry: the same reordered sums, through the backward
+TP_GRAD_RTOL = 1e-4
+# the pipeline: the same kernels on other batch splits (microbatches of 8
+# for cuBLAS), the gradients summed over the stages
+PP_LOGIT_RTOL = 1e-5
+PP_GRAD_RTOL = 2e-4
+# remat_policy against no remat: the same kernels on the same inputs recompute
+# the same bits; 1e-6 of each tensor's largest entry allows a reordered sum
+REMAT_RTOL = 1e-6
+MP_LAUNCHES = {"tp": {"fwd": AST_BLOCKS, "bwd": AST_BLOCKS},
+               # 6 blocks a stage x (M + S - 1) = 5 ticks, the bubble ticks too
+               "pp": {"fwd": 30, "bwd": 30}}
+
+
+def tensor_rel(got: dict, want: dict) -> float:
+    """Largest difference over tensors, each relative to its largest entry."""
+    return max(float((got[k].float() - want[k].float()).abs().max()
+                     / want[k].float().abs().max().clamp(min=1e-30)) for k in want)
+
+
+def logits_rel(got, want) -> float:
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+def fresh_ast(state, **kw):
+    """A base384 AST with the fused attention, built on the card, holding
+    ``state``."""
+    from audiodeepfake_detection_tpu_torch.models.ast import ASTModel
+
+    with torch.device("cuda"):
+        model = ASTModel(fused_attention=True, **kw)
+    model.load_state_dict(state)
+    return model
+
+
+def ast_grads(model) -> dict:
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+
+def state_digest(model) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for key, val in model.state_dict().items():
+        h.update(key.encode())
+        h.update(val.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def mp_rank_worker(directory: str, rank: int) -> None:
+    """One of phase 27's two gloo ranks on ``cuda:0`` (``--mp-rank``): (a)
+    the base384 AST tensor-parallel over ``("data", "model") = (1, 2)``: one
+    forward and backward at B = 8 (kernel 4 on 6 heads a rank, counted, its
+    head counts read by a spy), the gathered gradients and state, the
+    forward timed; (b) the pipeline over ``("data", "stage") = (1, 2)`` at B
+    = 32 in 4 microbatches: logits and combined gradients, kernel 4
+    counted, then two Trainer steps with the mesh, a snapshot, the state's
+    digest and the step timed.  Rank 0 also holds each against one
+    process's unsharded model."""
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from audiodeepfake_detection_tpu_torch.ops import flash_attention_cuda as fa_cuda
+    from audiodeepfake_detection_tpu_torch.parallel.mesh import data_stage_mesh, get_mesh
+    from audiodeepfake_detection_tpu_torch.parallel.pipeline import (
+        combine_pp_grads, pp_ast_logits)
+    from audiodeepfake_detection_tpu_torch.parallel.tensor import (
+        full_ast_state, shard_ast_params)
+    from audiodeepfake_detection_tpu_torch.train.trainer import Trainer
+    from audiodeepfake_detection_tpu_torch.utils.config import DotDict, default_config
+
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    store = dist.FileStore(os.path.join(directory, "store"), MP_RANKS)
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=MP_RANKS)
+    inputs = torch.load(os.path.join(directory, "inputs.pt"), weights_only=False)
+    state = inputs["state"]
+    x, y = inputs["images"].cuda(), inputs["labels"].cuda()
+    xt, yt = x[:TP_BATCH], y[:TP_BATCH]
+
+    def counts():
+        torch.cuda.synchronize()
+        return {"fwd": fa_cuda.MHA_FWD_LAUNCHES, "bwd": fa_cuda.MHA_BWD_LAUNCHES}
+
+    ref = {}
+    if rank == 0:  # one process, unsharded, on the same inputs
+        model = fresh_ast(state)
+        for name, (xb, yb) in (("tp", (xt, yt)), ("pp", (x, y))):
+            model.zero_grad(set_to_none=True)
+            logits = model(xb)
+            F.cross_entropy(logits, yb).backward()
+            ref[name] = (logits.detach(), ast_grads(model))
+        del model
+    out = {}
+
+    # (a) tensor parallelism
+    mesh = get_mesh("cuda", axis_names=("data", "model"), shape=(1, MP_RANKS))
+    model = shard_ast_params(fresh_ast(state), mesh)
+    heads, forward = [], fa_cuda.forward
+
+    def spy(qkv, h, scale, want_stats):
+        heads.append(h)
+        return forward(qkv, h, scale, want_stats)
+
+    fa_cuda.forward = spy
+    fa_cuda.MHA_FWD_LAUNCHES = fa_cuda.MHA_BWD_LAUNCHES = 0
+    logits = model(xt)
+    F.cross_entropy(logits, yt).backward()
+    launches = counts()
+    fa_cuda.forward = forward
+    grads = full_ast_state(model, mesh, tensors={n: p.grad for n, p in model.named_parameters()})
+    gathered = full_ast_state(model, mesh)
+    row = {"launches": launches, "heads": sorted(set(heads)),
+           "state_bit_equal": all(torch.equal(gathered[k].cpu(), v) for k, v in state.items())}
+    if rank == 0:
+        row["logits_rel"] = logits_rel(logits, ref["tp"][0])
+        row["grad_rel"] = tensor_rel(grads, ref["tp"][1])
+    del grads, gathered
+    with torch.no_grad():
+        row["forward_ms"] = windows_ms({"tp": lambda: model(xt)}, reps=2, windows=3)["tp"]
+    out["tp"] = row
+    del model, logits
+
+    # (b) the pipeline
+    mesh = data_stage_mesh(MP_RANKS, "cuda")
+    model = fresh_ast(state)
+    fa_cuda.MHA_FWD_LAUNCHES = fa_cuda.MHA_BWD_LAUNCHES = 0
+    logits = pp_ast_logits(model, x, mesh, MP_MICROBATCHES, data_axis="data")
+    F.cross_entropy(logits, y).backward()
+    combine_pp_grads(model, mesh, "stage", "data")
+    row = {"launches": counts()}
+    if rank == 0:
+        row["logits_rel"] = logits_rel(logits, ref["pp"][0])
+        row["grad_rel"] = tensor_rel(ast_grads(model), ref["pp"][1])
+    del model, logits, ref
+    args = default_config()
+    args.update(learning_rate=MP_LR, weight_decay=MP_WD, seed=0, pp_stages=MP_RANKS,
+                pp_microbatches=MP_MICROBATCHES)
+    trainer = Trainer(fresh_ast(state), lambda a: a, DotDict(args),
+                      os.path.join(directory, "pp_trainer"), device="cuda", mesh=mesh)
+    batch = {"audio": x, "label": y}
+    fa_cuda.MHA_FWD_LAUNCHES = fa_cuda.MHA_BWD_LAUNCHES = 0
+    row["trainer_losses"] = [float(trainer.train_step(batch)["loss"]) for _ in range(2)]
+    row["trainer_launches"] = counts()
+    trainer.save_snapshot(0)
+    trainer.model.eval()
+    with torch.no_grad():
+        row["eval_logits"] = trainer.model(x[:8]).cpu()
+    row["digest"] = state_digest(trainer.model)
+    row["snapshot"] = trainer.snapshot_path
+    row["step_ms"] = windows_ms({"pp": lambda: trainer.train_step(batch)}, reps=1,
+                                windows=3)["pp"]
+    out["pp"] = row
+    torch.save(out, os.path.join(directory, f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def mha_new_shapes(fa, fa_cuda) -> dict:
+    """Kernel 4 against its plain version at phase 27's shapes: a rank's 6
+    local heads at B = 8 (tensor parallelism) and one microbatch of 8
+    frames with 12 heads (the pipeline), N = 227."""
+    out = {}
+    for i, (name, (b, heads)) in enumerate({"tp": (TP_BATCH, TP_HEADS),
+                                            "pp": (MP_BATCH // MP_MICROBATCHES, 12)}.items()):
+        qkv, g = mha_case(b, AST_SHAPE[1], heads, torch.float32, seed=270 + i)
+        want = fa.plain_mha_packed(qkv, heads, 0.125)
+        (wgrad,) = torch.autograd.grad(want, qkv, g)
+        y, dqkv = mha_run(fa, fa_cuda, qkv, g, heads)
+        torch.cuda.synchronize()
+        out[f"{name}-B{b}-N{AST_SHAPE[1]}-H{heads}"] = row = {
+            "fwd_max_abs_err": (y - want).abs().max().item(), "dqkv_rel_err": rel_err(dqkv, wgrad)}
+        log(f"  kernel 4 at the {name} shape [{b}, {AST_SHAPE[1]}, 3 x {heads} x 64] against "
+            f"plain: out max|err| {row['fwd_max_abs_err']:.3e}, dqkv rel "
+            f"{row['dqkv_rel_err']:.2e}")
+        if not (row["fwd_max_abs_err"] <= MHA_FWD_ATOL and row["dqkv_rel_err"] <= MHA_GRAD_RTOL):
+            raise AssertionError(f"kernel 4 at the {name} shape: {row}")
+    return out
+
+
+def remat_runs(fa_cuda, state, x, y) -> dict:
+    """(c) one base384 training step (forward, backward) under no remat,
+    ``remat_blocks`` and each supported ``remat_policy``: loss and gradients
+    against no remat, kernel 4's launches, the peak of allocated memory."""
+    import torch.nn.functional as F
+
+    from audiodeepfake_detection_tpu_torch.models.ast import REMAT_POLICIES
+
+    model = fresh_ast(state).train()
+    out, base = {}, None
+    for name in ("none", "remat_blocks", *REMAT_POLICIES):
+        model.remat_blocks = name != "none"
+        model.remat_policy = name if name in REMAT_POLICIES else None
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # allocated before the step: the weights, and no remat's gradients
+        # kept for the comparison after the first run
+        before = torch.cuda.memory_allocated() / 2**20
+        fa_cuda.MHA_FWD_LAUNCHES = fa_cuda.MHA_BWD_LAUNCHES = 0
+        loss = F.cross_entropy(model(x), y)
+        loss.backward()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        row = {"loss": float(loss.detach()), "launches": {"fwd": fa_cuda.MHA_FWD_LAUNCHES,
+                                                          "bwd": fa_cuda.MHA_BWD_LAUNCHES},
+               "peak_mib": peak, "before_mib": before, "step_peak_mib": peak - before}
+        grads = ast_grads(model)
+        if base is None:
+            base = (row["loss"], grads)
+        row["loss_diff"] = abs(row["loss"] - base[0])
+        row["grad_rel"] = tensor_rel(grads, base[1])
+        saved = name == "none" or REMAT_POLICIES.get(name) == "all"
+        want = {"fwd": AST_BLOCKS * (1 if saved else 2), "bwd": AST_BLOCKS}
+        log(f"  (c) {name}: loss {row['loss']:.6f} (diff {row['loss_diff']:.1e}), gradients "
+            f"{row['grad_rel']:.1e} of each tensor's largest from no remat, kernel 4 "
+            f"{row['launches']} (want {want}), peak {row['peak_mib']:.0f} MiB, "
+            f"{row['step_peak_mib']:.0f} of them above what the step found allocated")
+        if not (row["loss_diff"] <= REMAT_RTOL and row["grad_rel"] <= REMAT_RTOL
+                and row["launches"] == want):
+            raise AssertionError(f"remat {name}: {row}")
+        out[name] = row
+        del grads, loss
+    del model, base
+    return out
+
+
+def model_parallel_phase(fa, fa_cuda, root: str, card_line: str) -> dict:
+    """Phase 27: kernel 4 at the model-parallel shapes; (c) ``remat_policy``
+    in one process; the one-process references timed; then (a) tensor
+    parallelism and (b) the pipeline on two gloo ranks on ``cuda:0``
+    (``--mp-rank``), held against one process; rank 0's snapshot in one
+    process."""
+    import torch.nn.functional as F
+
+    from audiodeepfake_detection_tpu_torch.models.ast import ASTModel
+    from audiodeepfake_detection_tpu_torch.train.trainer import Trainer
+    from audiodeepfake_detection_tpu_torch.utils.config import DotDict, default_config
+
+    t_phase = time.perf_counter()
+    out = {"mha_vs_plain": mha_new_shapes(fa, fa_cuda)}
+    directory = os.path.join(root, "model_parallel")
+    os.makedirs(directory)
+    torch.manual_seed(0)
+    with torch.device("cuda"):
+        state = {k: v.cpu() for k, v in ASTModel(fused_attention=True).state_dict().items()}
+    gen = torch.Generator().manual_seed(27)
+    inputs = {"state": state, "images": torch.randn(MP_BATCH, 1, 256, 101, generator=gen),
+              "labels": torch.randint(0, 2, (MP_BATCH,), generator=gen)}
+    torch.save(inputs, os.path.join(directory, "inputs.pt"))
+    x, y = inputs["images"].cuda(), inputs["labels"].cuda()
+    out["remat"] = remat_runs(fa_cuda, state, x, y)
+
+    # the one-process references of (a) and (b)'s times, and (b)'s losses
+    model = fresh_ast(state)
+    with torch.no_grad():
+        plain_fwd = windows_ms({"fwd": lambda: model(x[:TP_BATCH])}, reps=2, windows=3)["fwd"]
+    del model
+    args = default_config()
+    args.update(learning_rate=MP_LR, weight_decay=MP_WD, seed=0)
+    one = Trainer(fresh_ast(state), lambda a: a, DotDict(args), os.path.join(directory, "one"),
+                  device="cuda")
+    batch = {"audio": x, "label": y}
+    one_losses = [float(one.train_step(batch)["loss"]) for _ in range(2)]
+    one_step = windows_ms({"one": lambda: one.train_step(batch)}, reps=1, windows=3)["one"]
+    del one
+
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mp-rank",
+                               directory, str(r)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(MP_RANKS)]
+    outs = [p.communicate(timeout=600)[0] for p in procs]
+    if any(p.returncode for p in procs):
+        raise AssertionError("model-parallel ranks failed:\n" + "\n".join(
+            f"--- rank {r} (exit {p.returncode}) ---\n{o[-8000:]}"
+            for r, (p, o) in enumerate(zip(procs, outs))))
+    ranks = [torch.load(os.path.join(directory, f"rank{r}.pt"), weights_only=False)
+             for r in range(MP_RANKS)]
+    out["ranks_wall_s"] = time.perf_counter() - t0
+
+    tp = ranks[0]["tp"]
+    out["tp"] = {**tp, "launches": [r["tp"]["launches"] for r in ranks],
+                 "heads": [r["tp"]["heads"] for r in ranks], "plain_forward_ms": plain_fwd}
+    log(f"  (a) TP over (data, model) = (1, 2), base384, B = {TP_BATCH}: logits "
+        f"{tp['logits_rel']:.2e} of the largest from one process, gradients "
+        f"{tp['grad_rel']:.2e} of each tensor's largest, state gathered bit-equal "
+        f"{[r['tp']['state_bit_equal'] for r in ranks]}, kernel 4 {out['tp']['launches']} "
+        f"at heads {out['tp']['heads']}")
+    log(f"  (d) TP forward at B = {TP_BATCH} over 2 gloo ranks, HOST-STAGED [{card_line}]: "
+        f"{[round(r['tp']['forward_ms']['ms'], 3) for r in ranks]} ms against one process "
+        f"{plain_fwd['ms']:.3f} ms")
+    if not (tp["logits_rel"] <= TP_LOGIT_RTOL and tp["grad_rel"] <= TP_GRAD_RTOL
+            and all(r["tp"]["state_bit_equal"] for r in ranks)
+            and all(r["tp"]["launches"] == MP_LAUNCHES["tp"] for r in ranks)
+            and all(r["tp"]["heads"] == [TP_HEADS] for r in ranks)):
+        raise AssertionError(f"tensor parallelism: {out['tp']}")
+
+    pp = ranks[0]["pp"]
+    # rank 0's snapshot in one process: the logits rank 0's model gave
+    model = fresh_ast(torch.load(pp["snapshot"], weights_only=True)["MODEL_STATE"]).eval()
+    with torch.no_grad():
+        snap_logits = model(x[:8]).cpu()
+    del model
+    out["pp"] = {
+        "logits_rel": pp["logits_rel"], "grad_rel": pp["grad_rel"],
+        "launches": [r["pp"]["launches"] for r in ranks],
+        "trainer_launches": [r["pp"]["trainer_launches"] for r in ranks],
+        "trainer_losses": pp["trainer_losses"], "one_process_losses": one_losses,
+        "loss_rel": loss_rel_diff(pp["trainer_losses"], one_losses),
+        "ranks_bit_equal": ranks[1]["pp"]["digest"] == pp["digest"],
+        "snapshot_logits_equal": torch.equal(snap_logits, pp["eval_logits"]),
+        "snapshot_logits_rel": logits_rel(snap_logits, pp["eval_logits"]),
+        "step_ms": [r["pp"]["step_ms"] for r in ranks], "one_process_step_ms": one_step}
+    row = out["pp"]
+    log(f"  (b) PP over (data, stage) = (1, 2), base384, B = {MP_BATCH} in "
+        f"{MP_MICROBATCHES} microbatches: logits {row['logits_rel']:.2e} of the largest from "
+        f"one process, gradients {row['grad_rel']:.2e} of each tensor's largest, kernel 4 "
+        f"{row['launches']} a rank (predicted {MP_LAUNCHES['pp']}); two Trainer steps: losses "
+        f"{row['trainer_losses']} against one process {one_losses} (rel {row['loss_rel']:.2e}), "
+        f"kernel 4 {row['trainer_launches']}, ranks bit-equal {row['ranks_bit_equal']}, rank "
+        f"0's snapshot in one process: logits equal {row['snapshot_logits_equal']} "
+        f"({row['snapshot_logits_rel']:.1e})")
+    log(f"  (d) PP train step over 2 gloo ranks, HOST-STAGED [{card_line}]: "
+        f"{[round(r['ms'], 3) for r in row['step_ms']]} ms against one process "
+        f"{one_step['ms']:.3f} ms")
+    if not (row["logits_rel"] <= PP_LOGIT_RTOL and row["grad_rel"] <= PP_GRAD_RTOL
+            and row["loss_rel"] <= LOSS_RTOL and row["ranks_bit_equal"]
+            and row["snapshot_logits_rel"] <= TP_LOGIT_RTOL
+            and all(c == MP_LAUNCHES["pp"] for c in row["launches"])
+            and all(c == {k: 2 * v for k, v in MP_LAUNCHES["pp"].items()}
+                    for c in row["trainer_launches"])):
+        raise AssertionError(f"pipeline: {row}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4879,6 +5263,8 @@ def main() -> None:
         mesh_run = mesh_phase((wpt_cuda, fused_conv1_cuda, fused_pool_cuda, fused_conv2_cuda),
                               flash_attention_cuda, root, data, trained["norm"], ast_run["norm"],
                               mid["b"]["losses"], card_line)
+        log("[27 the AST's model parallelism and remat_policy]")
+        mp_run = model_parallel_phase(flash_attention, flash_attention_cuda, root, card_line)
 
     sweep_launches = sweep_run["scan"]["launches"]
     # phase 26: the headline DCNN through main --ddp on one NCCL rank
@@ -4887,6 +5273,14 @@ def main() -> None:
     mesh_launches = mesh_run["ddp"]["launches"]
     mesh_mfm = mesh_run["two_ranks"]["lcnn"]["launches"][0]
     mesh_mha = mesh_run["nccl"]["ast"]["launches"]
+    # phase 27, rank 0 of two gloo ranks: one TP step (6 heads a launch),
+    # one pipelined step and two Trainer steps (microbatches of 8), and
+    # remat_policy's dots_saveable step in one process (recomputed forward)
+    mp_mha = {way: {"tp": mp_run["tp"]["launches"][0][way],
+                    "pp": mp_run["pp"]["launches"][0][way],
+                    "pp_trainer": mp_run["pp"]["trainer_launches"][0][way],
+                    "remat_dots_saveable": mp_run["remat"]["dots_saveable"]["launches"][way]}
+              for way in ("fwd", "bwd")}
     ig_launches = analysis_run["ig"]["launches"]
     l14 = analysis_run["fingerprints"]
     main_key = f"{MAIN[0]}-L{MAIN[1]}-B64-T{SR}"
@@ -5049,6 +5443,7 @@ def main() -> None:
             "tokens": AST_SHAPE[1], "design": mha_fwd_design,
             "replaces": "audiodeepfake_detection_tpu/ops/flash_attention.py:137",
             "launches": ast_run["launches"]["fwd"], "mesh_launches": mesh_mha["fwd"],
+            "model_parallel_launches": mp_mha["fwd"],
             "max_abs_err": mha_errs[mha_key]["fwd_max_abs_err"],
             "ms": f32["fwd_kernel_ms"], "plain_ms": f32["fwd_plain_ms"],
             "bound_ms": afwd_b, "bound_by": afwd_by, "library_ms": f32["fwd_library_ms"],
@@ -5060,6 +5455,7 @@ def main() -> None:
             "tokens": AST_SHAPE[1], "design": mha_bwd_design,
             "replaces": "audiodeepfake_detection_tpu/ops/flash_attention.py:156",
             "launches": ast_run["launches"]["bwd"], "mesh_launches": mesh_mha["bwd"],
+            "model_parallel_launches": mp_mha["bwd"],
             "max_abs_err": mha_errs[mha_key]["dqkv_max_abs_err"],
             "ms": f32["bwd_kernel_ms"], "plain_ms": f32["bwd_plain_ms"],
             "bound_ms": abwd_b, "bound_by": abwd_by, "library_ms": f32["bwd_library_ms"],
@@ -5132,7 +5528,7 @@ def main() -> None:
         "bf16_timing": bf16_times, "bf16_profile": bf16_prof,
         "int8_vs_plain": int8_errs, "int8_imma": int8_imma, "int8": int8_run,
         "int8_timing": int8_times, "export": export_run, "sweep": sweep_run,
-        "analysis": analysis_run, "mesh": mesh_run,
+        "analysis": analysis_run, "mesh": mesh_run, "model_parallel": mp_run,
     }))
     print(card_line)
     print(json.dumps({"ok": True, "device": {
@@ -5143,5 +5539,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-rank"]:  # one of phase 26's two gloo ranks
         mesh_rank_worker(sys.argv[2], int(sys.argv[3]))
+    elif sys.argv[1:2] == ["--mp-rank"]:  # one of phase 27's two gloo ranks
+        mp_rank_worker(sys.argv[2], int(sys.argv[3]))
     else:
         main()

@@ -126,6 +126,70 @@ def test_fused_attention_and_remat_equal_the_plain_path_on_cpu(jax_model):
             torch.testing.assert_close(other[name], g, rtol=1e-4, atol=1e-6, msg=name)
 
 
+@pytest.mark.parametrize("policy", sorted(ast.REMAT_POLICIES))
+def test_remat_policy_matches_plain_and_jax(jax_model, policy):
+    """Each supported policy against no remat and against JAX's
+    ``remat_policy`` model, with JAX's ``test_remat_policy_matches_plain``
+    criteria: loss within 1e-6, gradients within 1e-4 (measured 0.0 against
+    no remat on the CPU)."""
+    model, variables, x, y = jax_model
+    jmodel = jax_ast.ASTModel(**GEOMETRY, remat_policy=policy)
+
+    def loss_fn(params):
+        return _loss(jmodel.apply({"params": params}, jnp.asarray(x), train=True), y)
+
+    jloss, jgrads = jax.jit(jax.value_and_grad(loss_fn))(variables["params"])
+    want = state_dict_from_jax({"params": jax.tree.map(np.asarray, jgrads)}, "ast")
+    results = []
+    for kw in (dict(), dict(remat_policy=policy)):
+        port = _port_model(variables, fused_attention=True, **kw).train()
+        loss = torch.nn.functional.cross_entropy(port(torch.from_numpy(x)), torch.from_numpy(y))
+        loss.backward()
+        results.append((loss.item(), {n: p.grad for n, p in port.named_parameters()}))
+    (plain_loss, plain), (loss, grads) = results
+    assert abs(loss - plain_loss) < 1e-6 and abs(loss - float(jloss)) < 1e-6
+    for name, g in grads.items():
+        assert (g - plain[name]).abs().max().item() < 1e-4, name
+        assert (g - want[name]).abs().max().item() < 1e-4, name
+
+
+def test_remat_policy_keeps_what_it_names(jax_model):
+    """The ops each policy leaves to the backward: counted as they run in
+    the backward, the products of no remat (``mm`` for the Linears' gradients,
+    ``bmm`` for the attention's einsums, kernel 4's plain version here) plus
+    those the recomputation repeats (a Linear's forward is an ``addmm``).  ``everything_saveable`` repeats none;
+    ``nothing_saveable`` every one."""
+    from collections import Counter
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    _, variables, x, y = jax_model
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops[func.overloadpacket.__name__] += 1
+            return func(*args, **(kwargs or {}))
+
+    counts = {}
+    for policy in (None, *ast.REMAT_POLICIES):
+        port = _port_model(variables, fused_attention=True, remat_policy=policy).train()
+        loss = torch.nn.functional.cross_entropy(port(torch.from_numpy(x)), torch.from_numpy(y))
+        with Count() as count:
+            loss.backward()
+        counts[policy] = (count.ops["mm"] + count.ops["addmm"], count.ops["bmm"])
+    mm, bmm = counts[None]
+    assert counts["everything_saveable"] == (mm, bmm)
+    assert counts["nothing_saveable"][0] > mm and counts["nothing_saveable"][1] > bmm
+    assert counts["dots_saveable"] == counts["checkpoint_dots"] == (mm, bmm)
+    no_batch = counts["dots_with_no_batch_dims_saveable"]
+    assert no_batch == counts["checkpoint_dots_with_no_batch_dims"]
+    assert no_batch[0] == mm and no_batch[1] == counts["nothing_saveable"][1]
+
+
 def test_bfloat16_mode_matches_the_jax_bf16_model(jax_model):
     """bf16 Dense / Conv from f32 weights, bf16 token stream, f32 head."""
     _, variables, x, _ = jax_model
@@ -261,8 +325,12 @@ def test_factory_geometry_and_knobs():
     assert ast.ast_patch_grid(10, 10, 256, 101) == (25, 9)  # the stft image [256, 101]
     with pytest.raises(RuntimeError, match="Model not valid"):
         get_model(DotDict(base, flattend_size=101), "modules")
-    with pytest.raises(NotImplementedError, match="remat_policy"):
-        get_model(DotDict(base, ast_remat_policy="dots_saveable"), "modules")
+    # the policy reaches the model and implies remat (JAX
+    # tests/test_more_models.py::test_remat_and_fused_attention_knobs)
+    model = get_model(DotDict(base, ast_remat_policy="dots_saveable"), "modules")
+    assert model.remat_policy == "dots_saveable" and model.remat_blocks
+    with pytest.raises(ValueError, match="supported jax.checkpoint_policies names"):
+        get_model(DotDict(base, ast_remat_policy="save_only_these_names"), "modules")
     assert ast.ASTModel(**GEOMETRY, quant="calibrate").quant == "calibrate"  # int8 sites
     dcnn = get_model(DotDict(input_dim=[8, 1, 256, 95], module="DCNN", dtype="bfloat16",
                              flattend_size=320, time_dim_add=1), "modules")

@@ -6,14 +6,18 @@ CPU, one thread each), each with torchrun's variables (``RANK``,
 bound to 0 for each launch), runs ``train.experiment.main`` on a tiny wav
 corpus with ``--ddp``, then with ``--fsdp`` (narrow DCNN, packets, 2 epochs
 with validation, test, snapshot and true-index dump), then ``analysis.cli
-fingerprints --sp``.  Held here:
+fingerprints --sp``, then ``--pp-stages 2`` (a ``test64`` AST, embed 64,
+depth 4, its encoder pipelined over the two ranks, kernel 4's plain
+version in its blocks).  Held here:
 
 * rank 0 alone writes the snapshots, the ``.state.pt`` files, the results
   and the true-index dumps; each launch leaves no process group behind;
 * each ``.pt`` loads into a single-process model behind the scorer and
   scores as the resumed ``.state.pt`` does, and its test metrics and
   true-index dump equal one process's evaluation of it;
-* ``fingerprints --sp`` writes the JAX CLI's files and arrays.
+* ``fingerprints --sp`` writes the JAX CLI's files and arrays;
+* ``--pp-stages 2`` trains, rank 0 alone writes, and its snapshot
+  evaluates in one process as the two ranks evaluated it.
 """
 
 import json
@@ -58,6 +62,11 @@ GRID = {"module": ["DCNN"], "time_dim_add": [1], "flattend_size": [320],
         "only_use": [["real", "fbmelgan"]], "limit_train": [(100, 100, 100)],
         "learning_rate": [4e-4], "weight_decay": [1e-3], "get_details": [True],
         **{k: [v] for k, v in WIDTHS.items()}}
+#: the pipelined AST's grid point (the test64 size is patched in by the ranks)
+GRID_PP = {"module": ["AST"], "ast_model_size": ["test64"], "ast_fused_attention": [True],
+           "flattend_size": [None],  # the AST's time patches from the probed image
+           **{k: GRID[k] for k in ("only_use", "limit_train", "learning_rate", "weight_decay",
+                                   "get_details")}}
 FLAGS = ["--device", "cpu", "--epochs", "2", "--batch-size", "4", "--model", "modules",
          "--transform", "packets", "--wavelet", "haar", "--log-scale",
          "--calc-normalization", "--init-seeds", "0"]
@@ -76,16 +85,19 @@ def run(tmp_path_factory):
                  else 0.3 * rng.randn(4 * SR))
             _write_wav(corpus / dirname / f"clip{i}.wav", x.astype(np.float32))
     (root / "meta").mkdir()
-    grid = dict(GRID, data_path=[str(corpus)], save_path=[str(root / "meta")])
-    config = root / "grid.py"
-    config.write_text(f"def get_config():\n    return {grid!r}\n")
+    paths = dict(data_path=[str(corpus)], save_path=[str(root / "meta")])
+    for name, grid in (("grid", GRID), ("grid_pp", GRID_PP)):
+        (root / f"{name}.py").write_text(
+            f"def get_config():\n    return {dict(grid, **paths)!r}\n")
     prefix = ["--data-prefix", str(corpus) + "/fake_22050_22050_0.7_fbmelgan"]
-    spec = {mode: ["--enable-gs", "--config", str(config), *FLAGS, *prefix,
+    spec = {mode: ["--enable-gs", "--config", str(root / "grid.py"), *FLAGS, *prefix,
                    "--log-dir", str(root / mode), f"--{mode}"] for mode in MODES}
+    spec["pp"] = ["--enable-gs", "--config", str(root / "grid_pp.py"), *FLAGS, *prefix,
+                  "--log-dir", str(root / "pp"), "--pp-stages", "2"]
     spec["sp"] = ["fingerprints", "--data-path", str(corpus), "--generators", "fbmelgan",
                   "--max-files", "2", "--sp", "--device", "cpu", "--out-dir", str(root / "sp")]
     (root / "argv.json").write_text(json.dumps(spec))
-    ports = [_free_port() for _ in range(3)]
+    ports = [_free_port() for _ in range(4)]
     workers.spawn("cli", str(root), 2, extra=ports, env=lambda rank: {
         "RANK": str(rank), "WORLD_SIZE": "2", "LOCAL_RANK": str(rank),
         "MASTER_ADDR": "127.0.0.1"})
@@ -93,10 +105,10 @@ def run(tmp_path_factory):
     return root, corpus, ranks
 
 
-def _args(root, corpus, mode):
+def _args(root, corpus, mode, grid=GRID):
     """The configuration of a launch's grid point, as ``main`` builds it."""
     a = default_config()
-    a.update({k: v[0] for k, v in GRID.items()})
+    a.update({k: v[0] for k, v in grid.items()})
     a.update(data_path=str(corpus), save_path=str(root / "meta"),
              data_prefix=str(corpus) + "/fake_22050_22050_0.7_fbmelgan",
              log_dir=str(root / mode), transform="packets", wavelet="haar", log_scale=True,
@@ -150,6 +162,33 @@ def test_snapshot_scores_and_evaluates_as_one_process(run, mode):
                 and w[0] == "true_ind" and f"/{mode}/" in w[1])
     got = np.load(dump, allow_pickle=True).item()
     np.testing.assert_array_equal(got["known"], trainer.current_true_indices["test known"])
+
+
+def test_pp_stages_trains_through_main(run, monkeypatch):
+    """``main --pp-stages 2``: rank 0 alone writes the two epochs' ``.pt``
+    and ``.state.pt``, the results and the true-index dump; the snapshot,
+    loaded into one process's AST, evaluates as the two ranks did."""
+    from audiodeepfake_detection_tpu_torch.models import ast
+
+    root, corpus, ranks = run
+    monkeypatch.setitem(ast._SIZES, "test64", workers.AST_SIZE["test64"])
+    assert ranks[1]["pp_writes"] == []
+    writes = ranks[0]["pp_writes"]
+    paths = [w for w in writes if isinstance(w, str)]
+    assert len([p for p in paths if p.endswith(".state.pt")]) == 2 and len(paths) == 4
+    assert [w[0] for w in writes if isinstance(w, tuple)] == ["true_ind", "results"]
+    snapshot = next(p for p in paths if ".state" not in p)
+    args = _args(root, corpus, "pp", GRID_PP)
+    loaders = create_data_loaders(args)
+    base, mean, std = get_transforms(args, device="cpu")
+    args.input_dim = get_input_dims(args, base, "cpu")
+    trainer = Trainer(get_model(args, "modules"), normalized_transform(base, mean, std), args,
+                      snapshot[:-len(".pt")], *loaders, device="cpu")
+    trainer.load_snapshot()
+    assert trainer.model.get_name() == "AST" and trainer.epochs_run == 2
+    results = [float(r) for r in trainer.testing()]
+    distributed = next(w[1] for w in writes if isinstance(w, tuple) and w[0] == "results")
+    assert distributed == {0: [results]} or distributed == {"0": [results]}
 
 
 def test_fingerprints_sp_writes_the_jax_files(run, tmp_path, eight_devices):

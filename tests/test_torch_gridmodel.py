@@ -169,9 +169,11 @@ def test_factory_gridmodel_regression_and_what_stays_unported():
     reg = factory.get_model(DotDict(module="Regression", input_dim=[4, 1, 16, 9]), "modules")
     assert reg.get_name() == "Regression" and reg.linear.weight.shape == (2, 144)
     assert factory.compute_parameter_total(reg) == 2 * 144 + 2
-    with pytest.raises(NotImplementedError, match="remat_policy"):
-        factory.get_model(DotDict(module="AST", input_dim=[4, 1, 256, 101],
-                                  ast_remat_policy="dots_saveable"), "modules")
+    # the policy reaches the AST (JAX tests/test_more_models.py:466-472)
+    ast = factory.get_model(DotDict(module="AST", input_dim=[8, 1, 64, 48],
+                                    ast_model_size="tiny224",
+                                    ast_remat_policy="dots_saveable"), "modules")
+    assert ast.remat_policy == "dots_saveable" and ast.remat_blocks
     # dtype: bfloat16 reaches the LCNN; the grid model ignores it and runs
     # float32, as the JAX package's (its get_gridsearch_model takes no dtype)
     lcnn = factory.get_model(DotDict(features="none", num_of_scales=256, dtype="bfloat16"),

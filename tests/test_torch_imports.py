@@ -55,7 +55,7 @@ def test_sources_found():
         "analysis/cli.py", "analysis/fingerprints.py", "analysis/integrated_gradients.py",
         "analysis/model_diffs.py", "analysis/plots.py", "analysis/stats.py",
         "parallel/__init__.py", "parallel/mesh.py", "parallel/fsdp.py",
-        "parallel/sequence.py",
+        "parallel/sequence.py", "parallel/tensor.py", "parallel/pipeline.py",
     ):
         assert f"audiodeepfake_detection_tpu_torch/{new}" in names
     assert "chip_smoke.py" in names

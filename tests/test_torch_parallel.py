@@ -383,7 +383,7 @@ def _args(**extra):
 @pytest.mark.parametrize("extra,error,match", [
     (dict(fsdp=True, pp_stages=2), ValueError, "mutually exclusive"),
     (dict(device_data=True, fsdp=True), ValueError, "device_data is for"),
-    (dict(pp_stages=2), NotImplementedError, "slice 7b"),
+    (dict(pp_stages=2), ValueError, "DCNN has no embed/classify methods"),
 ])
 def test_trainer_refusals(tmp_path, extra, error, match):
     with pytest.raises(error, match=match):

@@ -215,10 +215,16 @@ def test_zero_alpha_trains_on_the_fused_path(tmp_path):
     "flag,value,where",
     [("fsdp", True, "slice 7"), ("pp_stages", 2, "slice 7")],
 )
-def test_unsupported_trainer_flags_name_their_slice(tmp_path, flag, value, where):
-    """``pp_stages > 1`` names its slice (7b).  ``fsdp`` is ported (slice 7a):
-    without a process group it is the one-device path, and what it still
-    refuses is ``pp_stages`` beside it, as the JAX Trainer does."""
+def test_unsupported_trainer_flags_name_their_slice(tmp_path, ast_test_size, flag, value,
+                                                    where):
+    """What the Trainer refuses beside ``fsdp`` and ``pp_stages`` (both
+    ported, slice 7a and 7b), as the JAX Trainer does: ``fsdp`` without a
+    process group is the one-device path and refuses ``pp_stages`` beside
+    it; ``pp_stages > 1`` refuses a DCNN (no ``embed`` / ``classify``),
+    dropout rates and ``grad_accum``, and a world it does not divide (one
+    rank without a process group)."""
+    from audiodeepfake_detection_tpu_torch.models.ast import ASTModel
+
     args = _args("unused", tmp_path, tmp_path, **{flag: value})
     model = DCNN(time_dim=1, ochannels1=8, ochannels2=8, ochannels3=12,
                  ochannels4=16, ochannels5=4)
@@ -229,8 +235,19 @@ def test_unsupported_trainer_flags_name_their_slice(tmp_path, flag, value, where
         with pytest.raises(ValueError, match="mutually exclusive"):
             Trainer(model, lambda a: a, args, str(tmp_path / "snap"), device="cpu")
         return
-    with pytest.raises(NotImplementedError, match=f"{flag}.*{where}|{where}"):
-        Trainer(model, lambda a: a, args, str(tmp_path / "snap"), device="cpu")
+    refusals = [
+        (model, {}, "DCNN has no embed/classify methods"),
+        (ASTModel(input_fdim=64, input_tdim=48, model_size="test32", drop_path_rate=0.1), {},
+         r"without dropout; set these rates to 0 or disable PP: \{'drop_path_rate': 0.1\}"),
+        (ASTModel(input_fdim=64, input_tdim=48, model_size="test32"), {"grad_accum": 2},
+         "grad_accum>1 and pp_stages>1 are mutually exclusive"),
+        (ASTModel(input_fdim=64, input_tdim=48, model_size="test32"), {},
+         "pp_stages=2 does not divide 1 devices"),
+    ]
+    for net, extra, match in refusals:
+        with pytest.raises(ValueError, match=match):
+            Trainer(net, lambda a: a, DotDict(args, **extra), str(tmp_path / "snap"),
+                    device="cpu")
 
 
 @pytest.mark.parametrize(
@@ -238,17 +255,19 @@ def test_unsupported_trainer_flags_name_their_slice(tmp_path, flag, value, where
     [(dict(fsdp=True), "slice 7"), (dict(pp_stages=2), "slice 7")],
 )
 def test_unsupported_experiment_flags_name_their_slice(corpus, tmp_path, extra, where):
-    """What ``run_experiment`` still refuses: ``pp_stages > 1`` (slice 7b),
-    and ``fsdp`` beside it (slice 7a ported ``fsdp`` itself:
-    ``tests/test_torch_parallel.py``).  (Slice 9's ``only_ig``,
-    ``tensorboard`` and ``block_norm`` statistics run:
-    ``tests/test_torch_analysis*.py``.)"""
+    """What ``run_experiment`` refuses beside ``fsdp`` and ``pp_stages``
+    (both ported: ``tests/test_torch_parallel.py``,
+    ``tests/test_torch_model_parallel.py``): ``fsdp`` beside ``pp_stages``,
+    and ``pp_stages`` that does not divide the world, as JAX's
+    ``data_stage_mesh`` refuses it (one rank without a process group).
+    (Slice 9's ``only_ig``, ``tensorboard`` and ``block_norm`` statistics
+    run: ``tests/test_torch_analysis*.py``.)"""
     if extra.get("fsdp"):
         with pytest.raises(ValueError, match="mutually exclusive"):
             run_experiment(_args(corpus, tmp_path / "log", tmp_path / "meta",
                                  pp_stages=2, **extra))
         return
-    with pytest.raises(NotImplementedError, match=where):
+    with pytest.raises(ValueError, match="pp_stages=2 does not divide 1 devices"):
         run_experiment(_args(corpus, tmp_path / "log", tmp_path / "meta", **extra))
 
 

@@ -359,47 +359,174 @@ def case_parallel(directory: str, rank: int, world: int) -> dict:
     return out
 
 
+# ------------------------------------------------- the AST's model parallelism
+
+#: the test size patched into the AST's ``_SIZES`` (embed 64, depth 4, 4
+#: heads of 16) and the image geometry of tests/test_torch_model_parallel.py
+AST_SIZE = {"test64": dict(embed_dim=64, depth=4, num_heads=4)}
+AST_GEOMETRY = dict(input_fdim=64, input_tdim=48, model_size="test64")
+MICROBATCHES = 2
+PP_LR, PP_WD = 1e-3, 1e-3
+
+
+def _ast(state, **kw):
+    from audiodeepfake_detection_tpu_torch.models import ast
+
+    ast._SIZES.update(AST_SIZE)
+    model = ast.ASTModel(**AST_GEOMETRY, fused_attention=True, **kw)
+    model.load_state_dict(state)
+    return model
+
+
+def _grads(model):
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+
+def tp_step(inputs, mesh):
+    """The AST tensor-parallel over ``"model"``, its batch over ``"data"``:
+    logits of this rank's share, one backward's gradients averaged over
+    ``"data"`` and gathered, and the gathered state."""
+    import torch.nn.functional as F
+
+    from audiodeepfake_detection_tpu_torch.parallel.mesh import all_reduce_grads, shard_batch
+    from audiodeepfake_detection_tpu_torch.parallel.tensor import full_ast_state, shard_ast_params
+
+    model = shard_ast_params(_ast(inputs["state"]), mesh)
+    local = shard_batch(mesh, {"image": inputs["image"], "label": inputs["label"]})
+    out = model(local["image"])
+    F.cross_entropy(out, local["label"].long()).backward()
+    all_reduce_grads(model.parameters(), mesh, "data")
+    return {"logits": out.detach(), "heads": [b.num_heads for b in model.v.blocks],
+            "qkv_rows": model.v.blocks[0].attn.qkv.weight.shape[0],
+            "grads": full_ast_state(model, mesh, tensors=_grads(model)),
+            "state": full_ast_state(model, mesh)}
+
+
+def pp_cases(inputs, mesh, directory: str):
+    """The pipelined AST over ``("data", "stage")``: logits and combined
+    gradients; the divisibility error; ``make_pp_train_step`` over four
+    steps on one batch; a Trainer step with its snapshot; the refusals a
+    world of 4 gives."""
+    import torch
+    import torch.nn.functional as F
+
+    from audiodeepfake_detection_tpu_torch.parallel.mesh import data_stage_mesh, shard_batch
+    from audiodeepfake_detection_tpu_torch.parallel.pipeline import (
+        combine_pp_grads, make_pp_train_step, pp_ast_logits, stage_blocks)
+    from audiodeepfake_detection_tpu_torch.train.steps import make_optimizer
+    from audiodeepfake_detection_tpu_torch.train.trainer import Trainer
+    from audiodeepfake_detection_tpu_torch.utils.config import DotDict, default_config
+
+    out = {}
+    local = shard_batch(mesh, {"image": inputs["image"], "label": inputs["label"]})
+    model = _ast(inputs["state"])
+    out["blocks"] = list(stage_blocks(model, mesh))
+    logits = pp_ast_logits(model, local["image"], mesh, MICROBATCHES, data_axis="data")
+    F.cross_entropy(logits, local["label"].long()).backward()
+    combine_pp_grads(model, mesh, "stage", "data")
+    out["logits"], out["grads"] = logits.detach(), _grads(model)
+    try:
+        pp_ast_logits(model, torch.zeros(6, 1, 64, 48), mesh, 4, data_axis="data")
+    except ValueError as exc:
+        out["per_shard"] = str(exc)
+
+    model = _ast(inputs["state"])
+    step = make_pp_train_step(model, make_optimizer(model.parameters(), 4e-4, 1e-3), mesh,
+                              MICROBATCHES, data_axis="data")
+    out["learn"] = [float(step(local)["loss"]) for _ in range(4)]
+
+    args = default_config()
+    args.update(learning_rate=PP_LR, weight_decay=PP_WD, seed=0, pp_stages=2,
+                pp_microbatches=MICROBATCHES, ckpt_every=1)
+    trainer = Trainer(_ast(inputs["state"]), lambda a: a, DotDict(args),
+                      os.path.join(directory, "pp_snapshot"), device="cpu", mesh=mesh)
+    stats = trainer.train_step({"audio": local["image"], "label": local["label"]})
+    trainer.save_snapshot(0)
+    opt = trainer.optimizer
+    out["trainer"] = {
+        "loss": float(stats["loss"]), "state": _state(trainer.model),
+        "exp_avg_sq": {n: opt.state[p]["exp_avg_sq"].clone()
+                       for n, p in trainer.model.named_parameters()},
+        "snapshot": trainer.snapshot_path, "rank": trainer.rank}
+    try:
+        data_stage_mesh(3)
+    except ValueError as exc:
+        out["not_dividing"] = str(exc)
+    return out
+
+
+def case_model_parallel(directory: str, rank: int, world: int) -> dict:
+    """Everything ``tests/test_torch_model_parallel.py`` holds, on 4 ranks:
+    tensor parallelism over a ``(2, 2)`` ``("data", "model")`` mesh and the
+    pipeline over a ``(2, 2)`` ``("data", "stage")`` mesh."""
+    import torch
+
+    from audiodeepfake_detection_tpu_torch.parallel.mesh import data_stage_mesh, get_mesh
+    from audiodeepfake_detection_tpu_torch.train.trainer import Trainer
+    from audiodeepfake_detection_tpu_torch.utils.config import DotDict, default_config
+
+    inputs = torch.load(os.path.join(directory, "inputs.pt"), weights_only=False)
+    tp_mesh = get_mesh("cpu", axis_names=("data", "model"), shape=(2, 2))
+    out = {"tp": tp_step(inputs, tp_mesh),
+           "pp": pp_cases(inputs, data_stage_mesh(2, "cpu"), directory)}
+    args = default_config()
+    args.update(learning_rate=PP_LR, weight_decay=0.0, pp_stages=2)
+    try:
+        Trainer(_ast(inputs["state"]), lambda a: a, DotDict(args),
+                os.path.join(directory, "no_stage"), device="cpu", mesh=tp_mesh)
+    except ValueError as exc:
+        out["no_stage_axis"] = str(exc)
+    return out
+
+
 # ------------------------------------------------------------ the CLI
 
 
 def case_cli(directory: str, rank: int, world: int, *ports: str) -> dict:
     """``main`` with ``--ddp``, then with ``--fsdp``, then ``analysis.cli
-    fingerprints --sp``, each under torchrun's environment (a port each);
-    records which rank wrote what."""
+    fingerprints --sp``, then ``main --pp-stages 2`` (the ``test64`` AST),
+    each under torchrun's environment (a port each); records which rank
+    wrote what (the pipeline's launch apart)."""
     from audiodeepfake_detection_tpu_torch.analysis import cli
+    from audiodeepfake_detection_tpu_torch.models import ast
     from audiodeepfake_detection_tpu_torch.train import experiment, trainer
 
+    ast._SIZES.update(AST_SIZE)
     spec = json.load(open(os.path.join(directory, "argv.json")))
-    writes = []
+    writes, pp_writes = [], []
+    sink = [writes]
     save, results, dump = trainer._save_atomically, experiment.print_results, \
         experiment.dump_true_indices
     def save_atomically(obj, path):
-        writes.append(path)
+        sink[0].append(path)
         save(obj, path)
 
     trainer._save_atomically = save_atomically
 
     def print_results(args, exp_results, *a):
-        writes.append(("results", {k: [list(map(float, r)) for r in v]
-                                   for k, v in exp_results.items()}))
+        sink[0].append(("results", {k: [list(map(float, r)) for r in v]
+                                    for k, v in exp_results.items()}))
         return results(args, exp_results, *a)
 
     experiment.print_results = print_results
     def dump_true_indices(*a):
         path = dump(*a)
-        writes.append(("true_ind", path))
+        sink[0].append(("true_ind", path))
         return path
 
     experiment.dump_true_indices = dump_true_indices
-    for argv, port in zip((spec["ddp"], spec["fsdp"], spec["sp"]), ports):
+    for name, port in zip(("ddp", "fsdp", "sp", "pp"), ports):
         os.environ["MASTER_PORT"] = port
+        argv = spec[name]
+        if name == "pp":
+            sink[0] = pp_writes
         if argv[0] == "fingerprints":
             cli.main(argv)
         else:
             experiment.main(argv)
     import torch.distributed as dist
 
-    return {"writes": writes, "group_left": dist.is_initialized()}
+    return {"writes": writes, "pp_writes": pp_writes, "group_left": dist.is_initialized()}
 
 
 def main() -> None:
@@ -417,7 +544,8 @@ def main() -> None:
         store = dist.FileStore(os.path.join(directory, "store"), world)
         dist.init_process_group("gloo", store=store, rank=rank, world_size=world,
                                 timeout=datetime.timedelta(seconds=120))
-        out = case_parallel(directory, rank, world)
+        case_fn = case_model_parallel if case == "model_parallel" else case_parallel
+        out = case_fn(directory, rank, world)
         dist.barrier()
         dist.destroy_process_group()
     torch.save(out, os.path.join(directory, f"{case}_rank{rank}.pt"))
