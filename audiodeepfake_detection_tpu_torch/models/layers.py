@@ -52,7 +52,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.quantize import conv_int8_weights, quantized_conv
+from ..ops.int8_conv import int8_conv_site
+from ..ops.int8_conv_cuda import output_plane
+from ..ops.quantize import conv_int8_weights, conv_site_record
 from ..parallel.mesh import all_reduce_sum, mesh_size
 
 
@@ -231,28 +233,45 @@ def folded_bn_conv(
     accumulated them, else :func:`one_pass_moments` in training, as in the
     JAX function.
 
-    ``act_scale``: the site's calibrated activation scale; the main
-    convolution then runs on the int8 path (``ops/quantize.py``) with the
-    weights folded in float32 and quantized per output channel, and the
-    map's convolution and the bias stay in the compute type.  ``baked``
-    (``Int8Sites.baked`` of the site) gives the site's baked record from
-    the function that makes it, or None."""
+    ``act_scale``: the site's calibrated activation scale; the site then
+    runs on the int8 path (``ops/int8_conv.py::int8_conv_site``: the main
+    convolution with the weights folded in float32 and quantized per output
+    channel, then the map and the bias added in the compute type; one
+    kernel on the card).  ``baked`` (``Int8Sites.baked`` of the site) gives
+    the site's baked record (with the map at the baked input's plane) from
+    the function that makes it, or None; an eval-mode site with a baked
+    record whose map fits the input computes no BatchNorm statistics."""
     dt = x.dtype
-    if bn.training and moments is None:
-        moments = batch_moments(bn, x)
-    s, t = batch_norm_scale_shift(bn, x, moments)
     weight = conv.weight
+
+    def scale_shift():
+        m = batch_moments(bn, x) if bn.training and moments is None else moments
+        return batch_norm_scale_shift(bn, x, m)
+
+    def fold_map(t):  # the convolution of the constant map t: [Cout, Ho, Wo]
+        t_map = t.to(dt).reshape(1, -1, 1, 1).expand(1, x.shape[1], *x.shape[2:])
+        return F.conv2d(t_map, weight.to(dt), None, *_conv_args(conv))[0]
+
+    def folded():  # in float32: the codes do not inherit the compute type's rounding
+        s, t = scale_shift()
+        return weight.float() * s.reshape(1, -1, 1, 1), fold_map(t)
+
+    bias = conv.bias.to(dt)
     if act_scale is None:
+        s, t = scale_shift()
         y = F.conv2d(x, (weight * s.reshape(1, -1, 1, 1)).to(dt), None, *_conv_args(conv))
-    else:
-        # folded in float32: the codes do not inherit the compute type's rounding
-        w32 = weight.float() * s.reshape(1, -1, 1, 1)
-        rec = baked(lambda: conv_int8_weights(w32)) if baked is not None else None
-        y = quantized_conv(x, w32, act_scale, conv.padding[0], conv.dilation[0],
-                           out_dtype=dt, baked=rec)
-    t_map = t.to(dt).reshape(1, -1, 1, 1).expand(1, x.shape[1], *x.shape[2:])
-    const = F.conv2d(t_map, weight.to(dt), None, *_conv_args(conv))
-    return y + const + conv.bias.to(dt).reshape(-1, 1, 1)
+        return y + fold_map(t) + bias.reshape(-1, 1, 1)
+    rec = baked(lambda: conv_site_record(*folded())) if baked is not None else None
+    plane = (weight.shape[0], *output_plane(*x.shape[2:], weight.shape[2], conv.padding[0],
+                                            conv.dilation[0]))
+    const = None if rec is None or bn.training else rec.get("map")
+    if rec is None:
+        w32, const = folded()
+        rec = conv_int8_weights(w32)
+    elif const is None or const.dtype != dt or tuple(const.shape) != plane:
+        const = fold_map(scale_shift()[1])  # baked at another plane or type
+    return int8_conv_site(x, act_scale, rec, conv.padding[0], conv.dilation[0], const=const,
+                          bias=bias)
 
 
 def conv_in_dtype(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
@@ -280,12 +299,12 @@ def quantized_conv_bias(
 ) -> torch.Tensor:
     """An un-normalised conv site on the int8 path (the JAX DCNN's ``cnn_0``,
     the LCNN's ``lcnn_0``, ``lcnn_3`` and ``lcnn_16``): ``quantized_conv(x,
-    weight, act_scale) + bias``, in ``x``'s type."""
+    weight, act_scale) + bias``, in ``x``'s type, as one site
+    (``ops/int8_conv.py::int8_conv_site``)."""
     w32 = conv.weight.float()
-    rec = baked(lambda: conv_int8_weights(w32)) if baked is not None else None
-    y = quantized_conv(x, w32, act_scale, conv.padding[0], conv.dilation[0],
-                       out_dtype=x.dtype, baked=rec)
-    return y + conv.bias.to(x.dtype).reshape(-1, 1, 1)
+    rec = baked(lambda: conv_site_record(w32)) if baked is not None else None
+    return int8_conv_site(x, act_scale, rec if rec is not None else conv_int8_weights(w32),
+                          conv.padding[0], conv.dilation[0], bias=conv.bias.to(x.dtype))
 
 
 def run_layers(layers, x: torch.Tensor, folded: bool, sites=None, start: int = 0) -> torch.Tensor:

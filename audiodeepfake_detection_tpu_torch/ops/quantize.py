@@ -30,8 +30,9 @@ Flax's ``sow`` and variable collections become plain objects here:
   site;
 * in ``"calibrate"`` mode a :class:`QuantObserver` on the model records
   each site's input absmax, the maximum over batches;
-* baked ``{w_q, s_w}`` records are non-persistent buffers of the int8
-  model, so they move with ``.to()`` and ``state_dict()`` keeps the
+* baked records (``{w_q, s_w}``; a conv site's codes also in the
+  kernel's layout, and a folded site's map) are non-persistent buffers of
+  the int8 model, so they move with ``.to()`` and ``state_dict()`` keeps the
   reference ``.pt`` layout.
 
 :func:`with_quant` is JAX's ``model.clone(quant=...)``: a second model
@@ -46,13 +47,15 @@ from typing import Callable, Dict, Iterable, Optional
 
 import torch
 
-from .int8_conv import int8_conv
+from .int8_conv import int8_conv, quantize_activation_nhwc
+from .int8_conv_cuda import site_weights
 
 #: conv sites quantized by default: the DCNN's six front convs carry ~99% of
 #: its operations; the dilated block and the head stay in the working type
 DEFAULT_INT8_SITES = ("cnn_0", "cnn_4", "cnn_7", "cnn_11", "cnn_14", "cnn_17")
 CALIBRATE = "calibrate"
 _BAKED = "int8_baked__"  # name prefix of the baked records' buffers
+_PARTS = ("w_q", "s_w", "rows", "map")  # what a baked record may hold
 
 
 def quantize_activation(x: torch.Tensor, scale: float) -> torch.Tensor:
@@ -61,19 +64,6 @@ def quantize_activation(x: torch.Tensor, scale: float) -> torch.Tensor:
     inv = 1.0 / max(float(scale), 1e-30)
     q = torch.round(x.float() * inv)
     return torch.clamp(q, -127.0, 127.0).to(torch.int8)
-
-
-def quantize_activation_nhwc(x: torch.Tensor, scale: float) -> torch.Tensor:
-    """:func:`quantize_activation` of ``x [B, C, H, W]`` as contiguous NHWC
-    codes ``[B, H, W, C]``, the layout ``int8_conv`` reads (one elementwise
-    pass and a layout-changing copy of the codes)."""
-    inv = 1.0 / max(float(scale), 1e-30)
-    q = torch.clamp(torch.round(x.float() * inv), -127.0, 127.0)
-    codes = torch.empty(
-        x.shape, dtype=torch.int8, device=x.device, memory_format=torch.channels_last
-    )
-    codes.copy_(q)  # exact: the values are integers in [-127, 127]
-    return codes.permute(0, 2, 3, 1).contiguous()
 
 
 def quantize_weight_per_channel(w: torch.Tensor):
@@ -96,9 +86,22 @@ def dense_int8_weights(weight: torch.Tensor) -> Dict[str, torch.Tensor]:
 
 
 def conv_int8_weights(w_eff: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """The baked record of an effective (folded) OIHW conv kernel."""
+    """The weight record of an effective (folded) OIHW conv kernel."""
     w_q, s_w = quantize_weight_per_channel(w_eff)
     return {"w_q": w_q, "s_w": s_w}
+
+
+def conv_site_record(w_eff: torch.Tensor, fold_map: Optional[torch.Tensor] = None):
+    """The baked record of an int8 conv site: :func:`conv_int8_weights` of
+    the effective kernel, its codes in the kernel's layout (``rows``,
+    ``ops/int8_conv_cuda.py::site_weights``) and, for a site with a
+    BatchNorm folded in, the fold's ``[Cout, Ho, Wo]`` map in the working
+    type (``map``)."""
+    rec = conv_int8_weights(w_eff)
+    rec["rows"] = site_weights(rec["w_q"])
+    if fold_map is not None:
+        rec["map"] = fold_map
+    return rec
 
 
 def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -203,18 +206,19 @@ class Int8Sites:
         return None
 
     def baked(self, name: str, make_record: Callable[[], Dict[str, torch.Tensor]]):
-        """The site's baked ``{w_q, s_w}`` record; made by ``make_record``
-        and stored while :func:`bake_int8_weights` runs; otherwise None
-        (the weights quantize on the fly)."""
+        """The site's baked record (``{w_q, s_w}``, a dense site's; a conv
+        site's also ``rows`` and, if folded, ``map``: :func:`conv_site_record`);
+        made by ``make_record`` and stored while :func:`bake_int8_weights`
+        runs; otherwise None (the weights quantize on the fly)."""
         owner = self.owner
-        key = _record_name(self.prefix + name)
-        if key + "__w_q" in owner._buffers:
-            return {"w_q": owner._buffers[key + "__w_q"], "s_w": owner._buffers[key + "__s_w"]}
+        key = _record_name(self.prefix + name) + "__"
+        if key + "w_q" in owner._buffers:
+            return {p: owner._buffers[key + p] for p in _PARTS if key + p in owner._buffers}
         if not getattr(owner, "int8_baking", False):
             return None
         rec = make_record()
-        for part in ("w_q", "s_w"):
-            owner.register_buffer(f"{key}__{part}", rec[part].detach(), persistent=False)
+        for part, t in rec.items():
+            owner.register_buffer(key + part, t.detach(), persistent=False)
         return rec
 
 
@@ -316,11 +320,13 @@ def quantize_dcnn(model, images, include=DEFAULT_INT8_SITES, margin: float = 1.0
 
 def bake_int8_weights(model: torch.nn.Module, image: torch.Tensor) -> torch.nn.Module:
     """Quantize the weights of every active int8 site once: one forward
-    pass of ``image`` stores each site's ``{w_q, s_w}`` (of the effective,
-    BatchNorm-folded kernel) as non-persistent buffers of ``model``, which
-    later forwards read instead of requantizing.  Records baked before are
-    dropped first, so a re-bake after a BatchNorm update refreshes them.
-    Returns ``model``."""
+    pass of ``image`` stores each site's record (``{w_q, s_w}`` of the
+    effective, BatchNorm-folded kernel; a conv site's codes also in the
+    kernel's layout, and a folded site's map at ``image``'s plane) as
+    non-persistent buffers of ``model``, which later forwards read instead
+    of requantizing and laying out.  Records baked before are dropped
+    first, so a re-bake after a BatchNorm update refreshes them.  Returns
+    ``model``."""
     for name in [k for k in model._buffers if k.startswith(_BAKED)]:
         del model._buffers[name]
         model._non_persistent_buffers_set.discard(name)
@@ -333,8 +339,7 @@ def bake_int8_weights(model: torch.nn.Module, image: torch.Tensor) -> torch.nn.M
 
 
 def baked_records(model: torch.nn.Module) -> Dict[str, Dict[str, torch.Tensor]]:
-    """``{site: {"w_q", "s_w"}}`` of the records :func:`bake_int8_weights`
-    stored."""
+    """``{site: record}`` of the records :func:`bake_int8_weights` stored."""
     out: Dict[str, Dict[str, torch.Tensor]] = {}
     for name, t in model._buffers.items():
         if name.startswith(_BAKED):

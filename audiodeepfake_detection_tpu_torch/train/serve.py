@@ -421,20 +421,24 @@ def service_from_snapshot(
     pcm16: bool = False,
     chunk: int = 0,
     device: torch.device | str = "cuda",
+    use_kernel: bool = True,
 ) -> ScoringService:
     """Build a ready-to-start service from a config-encoded ``.pt``.
 
     ``int8`` quantizes post-training (``ops/quantize.py``) with activation
     scales calibrated on ``calibrate`` (files/dirs; at most 4 batches of
     their frames) through the same normalized transform the service scores
-    with, and bakes the int8 weights once.
+    with, and bakes the int8 weights once.  ``use_kernel`` (the JAX
+    package's ``use_pallas``): the wavelet-packet transform through its op
+    (the CUDA kernel on the card, the plain cascade on the CPU), or, when
+    False, the plain PyTorch cascade on any device.
     """
     from ..data.wavio import audio_read
     from ..ops.audio import resample
     from .predict import _expand_inputs, build_scorer_from_snapshot, quantize_for_scoring
 
     model, transform, cfg = build_scorer_from_snapshot(
-        snapshot, norm=norm, mean=mean, std=std
+        snapshot, norm=norm, mean=mean, std=std, use_kernel=use_kernel
     )
     sr, sec = int(cfg.sample_rate), float(cfg.seconds)
     if int8:
@@ -508,6 +512,10 @@ def main(argv=None) -> None:
         "--device", default="cuda",
         help="torch device to score on (default cuda; cpu must be asked for)",
     )
+    parser.add_argument(
+        "--no-kernel", dest="use_kernel", action="store_false",
+        help="the plain PyTorch wavelet-packet cascade instead of its CUDA kernel",
+    )
     args = parser.parse_args(argv)
     # fp32 convolutions, like the JAX reference's HIGHEST precision
     torch.backends.cudnn.allow_tf32 = False
@@ -524,6 +532,7 @@ def main(argv=None) -> None:
         pcm16=args.pcm16,
         chunk=args.chunk,
         device=args.device,
+        use_kernel=args.use_kernel,
     )
     with service:
         service.serve(args.host, args.port)

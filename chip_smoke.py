@@ -25,7 +25,9 @@ Phases, in order; any failure propagates and the script exits non-zero
 4. serve: a seeded full-width DCNN snapshot behind ``service_from_snapshot``
    on ``cuda``, answering concurrent HTTP uploads; scores checked against
    the same snapshot scored on the CPU, and the kernel's launch count read
-   over exactly this run;
+   over exactly this run; then the same behind ``use_kernel=False``
+   (serve's ``--no-kernel``): no kernel-1 launch, its scores against the
+   kernel service's;
 5. time: the wavelet-packet kernel through its launcher (CUDA-event
    medians) and on the device (profile) against the plain cascade at batch
    1, 8, 64 and 128, and the whole scorer (device audio -> P(fake)) with
@@ -125,21 +127,25 @@ Phases, in order; any failure propagates and the script exits non-zero
     the DCNN step (b) and the LCNN step in float32 and bf16, the scorer at
     B = 64 and 128 on a float32 and a bf16 DCNN object; profiles of the
     bf16 steps;
-22. post-training int8: the s8 implicit-GEMM convolution against its plain
-    version (a float64 convolution of the codes) at every DCNN site shape
-    (B = 64 and 128), every LCNN site shape (B = 128), the dilated sites and
-    an odd plane, int32 accumulators and float32 / bf16 outputs bit-equal,
-    repeats the same bits, the IMMA instructions of its six variants
-    counted; phase 7's DCNN snapshot behind ``service_from_snapshot(int8=True,
-    calibrate=<corpus clips>)`` over HTTP, the WPT's and the int8 conv's
-    launches (per site) read over exactly the requests, the scores against
-    the same int8 model on the CPU and against float32 on the card; phase
-    11's LCNN through ``score_files(int8=True)``; phase 18's AST quantized,
-    baked and scored at B = 64, kernel 4's launches read; the kernel per
-    DCNN site at B = 64 through its launcher and as device time against
-    plain, its bound and cuDNN's fp32 / bf16 convolutions (a yardstick),
-    the DCNN scorer at B = 64 and 128 and the AST scorer at B = 64 in fp32,
-    bf16 and int8;
+22. post-training int8: the int8 site kernel against its plain version (a
+    float64 convolution of the codes) at every DCNN site shape (B = 64 and
+    128), every LCNN site shape (B = 128), the dilated sites and an odd
+    plane: whole sites (quantized on load, map and bias in the epilogue)
+    in float32 and bf16, and the codes-in mode's int32 accumulators and
+    float32 / bf16 outputs, each bit-equal, repeats the same bits; the IMMA
+    instructions of its MMA variants and the IDP (dp4a) of its Cin = 1
+    variants counted; phase 7's DCNN snapshot behind
+    ``service_from_snapshot(int8=True, calibrate=<corpus clips>)`` over
+    HTTP, the WPT's and the site kernel's launches (per site; every one
+    with the baked layout) read over exactly the requests, the scores
+    against the same int8 model on the CPU and against float32 on the
+    card; phase 11's LCNN through ``score_files(int8=True)``; phase 18's AST
+    quantized, baked and scored at B = 64, kernel 4's launches read; each
+    DCNN site at B = 64 and 128 through its launcher, as device time, as
+    the layer runs it, and as the codes-in composition it replaced, against
+    its fused bound, plain and cuDNN's fp32 / bf16 convolutions (a
+    yardstick); the DCNN and LCNN scorers at B = 64 and 128 and the AST
+    scorer at B = 64 in fp32, bf16 and int8;
 23. the serving export: phase 7's DCNN scorer, the same int8-baked, a DCNN
     with all three fused flags, phase 11's LCNN with its fused block and
     phase 18's AST exported with ``torch.export`` on ``cuda`` (symbolic
@@ -339,6 +345,11 @@ INT8_LCNN_SITES = {
     "lcnn_19": (64, 64, 3, 1, 1, 12, 32), "lcnn_22": (32, 64, 1, 0, 1, 12, 32),
     "lcnn_25": (32, 64, 3, 1, 1, 12, 32),
 }
+# the sites with no BatchNorm in front: bias only, no map
+INT8_UNFOLDED = ("cnn_0", "lcnn_0", "lcnn_3", "lcnn_16")
+# the first sites: the models hand them the transform's [B, 1, F, T] image
+# permuted to [B, 1, T, F] (time on H), a view
+INT8_TRANSPOSED = ("cnn_0", "lcnn_0")
 INT8_EXTRA_CASES = {  # name: (B, Cin, Cout, k, padding, dilation, H, W)
     "odd-plane": (3, 16, 40, 3, 1, 1, 7, 13),
     "dil_1": (64, 12, 12, 3, 1, 1, 64, 32), "dil_4": (64, 12, 12, 5, 2, 2, 64, 32),
@@ -564,6 +575,39 @@ def serve(wpt_cuda, snapshot: str, kernel_on_path: bool = True):
         return wpt_cuda.LAUNCHES
 
     return serve_service(svc, cpu_score, clips, pcms, reset, read, kernel_on_path)
+
+
+def serve_plain_cascade(wpt_cuda, snapshot: str, kernel_served: dict) -> dict:
+    """Phase 4, last: the snapshot behind ``service_from_snapshot(...,
+    use_kernel=False)`` (serve's ``--no-kernel``): the same uploads, no
+    kernel-1 launch over them, the scores against the CPU and against the
+    kernel service's within the serving tolerance."""
+    from audiodeepfake_detection_tpu_torch.train.predict import (
+        build_scorer_from_snapshot, make_score_fn)
+    from audiodeepfake_detection_tpu_torch.train.serve import service_from_snapshot
+
+    rng = np.random.RandomState(7)  # phase 4's clips
+    clips = [(1.0, SR), (2.5, SR), (5.0, SR), (2.0, 2 * SR)]
+    pcms = [rng.randint(-12000, 12000, int(s * r)).astype(np.int16) for s, r in clips]
+    svc = service_from_snapshot(snapshot, device="cuda", batch_size=64, use_kernel=False)
+    model, transform, _ = build_scorer_from_snapshot(snapshot)
+    cpu_score = make_score_fn(model, transform, "cpu")
+
+    def reset():
+        wpt_cuda.LAUNCHES = wpt_cuda.LEVEL_LAUNCHES = 0
+
+    def read():
+        return wpt_cuda.LAUNCHES + wpt_cuda.LEVEL_LAUNCHES
+
+    out = serve_service(svc, cpu_score, clips, pcms, reset, read, kernel_on_path=False)
+    diff = max(float(np.abs(np.asarray(a["frame_scores"]) - np.asarray(b["frame_scores"])).max())
+               for a, b in zip(out["clips"], kernel_served["clips"]))
+    out["max_abs_diff_vs_kernel_service"] = diff
+    log(f"  --no-kernel service: {out['launches']} kernel-1 launches, max |plain - kernel "
+        f"service| {diff:.3e} (limit {SCORE_ATOL})")
+    if out["launches"] != 0 or not diff <= SCORE_ATOL:
+        raise AssertionError(f"--no-kernel service: {out['launches']} launches, diff {diff}")
+    return out
 
 
 def serve_service(svc, cpu_score, clips, pcms, reset, read, kernel_on_path: bool = True,
@@ -2832,27 +2876,45 @@ def bf16_rows(run, errs, times):
 # ---- phase 22: post-training int8
 
 
-def int8_bound(b, cin, cout, k, pad, dil, h, w, itemsize=4):
-    """The int8 convolution's least time: the int8 codes read once, the
-    weight codes once, the output written once in the working type; 2
-    operations per product of the true K (no padding) at the int8 rate."""
+def int8_bound(b, cin, cout, k, pad, dil, h, w, itemsize=4, folded=True):
+    """A whole int8 site's least time: the working-type activation read
+    once, the weight codes and scales once, the map (folded sites) and the
+    bias once, the output written once in the working type; 2 operations
+    per product of the true K (no padding) at the int8 rate.  The codes
+    never leave the chip."""
     ho, wo = h + 2 * pad - dil * (k - 1), w + 2 * pad - dil * (k - 1)
-    n_bytes = b * h * w * cin + cout * cin * k * k + b * cout * ho * wo * itemsize
+    n_bytes = (b * cin * h * w * itemsize + cout * cin * k * k + 4 * cout
+               + (cout * ho * wo * itemsize if folded else 0) + cout * itemsize
+               + b * cout * ho * wo * itemsize)
     return bound_ms(n_bytes, 2.0 * b * ho * wo * cout * cin * k * k, INT8_FLOP_PER_S)
 
 
-def int8_device_ms(icc, x_q, w_q, scale, pad: int, dil: int, n: int = 20) -> float:
-    """Device ms per launch of the int8 convolution: CUDA events around ``n``
-    launches (weights laid out once) queued behind a spin of the card, so
-    they run back to back and the launcher's host work is not in the time.
-    (Not a profile: in one run eight profiles in a row kept no record of
-    this kernel at the DCNN's cnn_4.)"""
-    rows = icc.gemm_weights(w_q)
-    ho, wo = icc.output_plane(x_q.shape[1], x_q.shape[2], w_q.shape[2], pad, dil)
-    out = torch.empty((x_q.shape[0], w_q.shape[0], ho, wo), device=x_q.device)
+def int8_device_ms(icc, x, scale, rec, const, bias, pad: int, dil: int, n: int = 20) -> float:
+    """Device ms per launch of the int8 kernel: CUDA events around ``n``
+    launches (baked layout, output allocated once) queued behind a spin of
+    the card, so they run back to back and the launcher's host work is not
+    in the time.  (Not a profile: in one run eight profiles in a row kept
+    no record of this kernel at the DCNN's cnn_4.)  A whole site, or, where
+    ``x`` is int8 NHWC codes, the codes-in mode (``scale``: the ``[Cout]``
+    dequantizing scale; float32 out; ``const`` and ``bias`` unread)."""
+    cout, k = rec["w_q"].shape[0], rec["w_q"].shape[2]
+    codes_in = x.dtype == torch.int8
+    if codes_in:
+        b, h, w, cin = x.shape
+    else:
+        b, cin, h, w = x.shape
+    plan = icc.plan_for(x, cout, k, pad, dil)
+    ho, wo = icc.output_plane(h, w, k, pad, dil)
+    out = torch.empty((b, cout, ho, wo), dtype=torch.float32 if codes_in else x.dtype,
+                      device=x.device)
 
     def run():
-        icc.launch(x_q, rows, scale, out, w_q.shape[2], pad, dil)
+        if codes_in:
+            icc.launch(x, rec["rows"], scale, None, None, out, (b, h, w, cin), k, pad, dil,
+                       plan, 1.0, 1.0)
+        else:
+            icc.launch(x, rec["rows"], rec["s_w"], const, bias, out, (b, h, w, cin), k, pad,
+                       dil, plan, 1.0 / max(float(scale), 1e-30), float(scale))
 
     times = []
     for _ in range(3):
@@ -2878,67 +2940,118 @@ def int8_case(gen, b, cin, cout, k, h, w):
     return x_q, w_q, scale
 
 
-def int8_vs_plain(ic, icc):
-    """Phase 22, first: the int8 convolution against its plain version at
-    every DCNN site shape (B = 64 and 128), every LCNN site shape (B = 128),
-    the dilated sites, and an odd plane; the int32 accumulators and the
-    float32 and bf16 outputs bit-equal to plain, a repeat the same bits, one
-    launch a call; then the IMMA instructions of each compiled variant."""
-    gen = torch.Generator().manual_seed(22)
-    cases = [(f"dcnn-{site}-B{b}", b, *geo)
+def int8_site_case(gen, b, cin, cout, k, pad, dil, h, w, dtype, folded=True,
+                   transposed=False):
+    """A whole site: a working-type activation (``transposed``: a view of
+    ``[B, Cin, W, H]`` memory, as the models hand their first site), its
+    calibrated scale, a baked record of random float32 weights
+    (``conv_site_record``), the fold's map (folded sites) and a bias in
+    ``dtype``."""
+    from audiodeepfake_detection_tpu_torch.ops.quantize import conv_site_record
+
+    ho, wo = h + 2 * pad - dil * (k - 1), w + 2 * pad - dil * (k - 1)
+    if transposed:
+        x = torch.randn(b, cin, w, h, generator=gen).cuda().to(dtype).permute(0, 1, 3, 2)
+    else:
+        x = torch.randn(b, cin, h, w, generator=gen).cuda().to(dtype)
+    w32 = (torch.randn(cout, cin, k, k, generator=gen) / (cin * k * k) ** 0.5).cuda()
+    const = (0.1 * torch.randn(cout, ho, wo, generator=gen)).cuda().to(dtype) if folded else None
+    bias = (0.1 * torch.randn(cout, generator=gen)).cuda().to(dtype)
+    scale = float(x.float().abs().max()) / 127.0
+    return x, scale, conv_site_record(w32, const), const, bias
+
+
+def int8_cases():
+    """``(name, site, B, Cin, Cout, k, padding, dilation, H, W)`` of every
+    geometry phase 22 checks: the DCNN sites at B = 64 and 128, the LCNN
+    sites at B = 128, the dilated sites and an odd plane."""
+    cases = [(f"dcnn-{site}-B{b}", site, b, *geo)
              for b in (64, 128) for site, geo in INT8_DCNN_SITES.items()]
-    cases += [(f"lcnn-{site}-B128", 128, *geo) for site, geo in INT8_LCNN_SITES.items()]
-    cases += [(name, *geo) for name, geo in INT8_EXTRA_CASES.items()]
+    cases += [(f"lcnn-{site}-B128", site, 128, *geo) for site, geo in INT8_LCNN_SITES.items()]
+    return cases + [(name, name, *geo) for name, geo in INT8_EXTRA_CASES.items()]
+
+
+def int8_vs_plain(ic, icc):
+    """Phase 22, first: the int8 kernel against its plain version at every
+    geometry of :func:`int8_cases`: whole sites (float32 and bf16; the map
+    at folded sites) and the codes-in mode (int32 accumulators, float32 and
+    bf16 outputs), each bit-equal to plain, a repeat the same bits, one
+    launch a call; then the tensor-core (IMMA) and dp4a (IDP) instructions
+    of each compiled variant."""
+    import re
+
+    gen = torch.Generator().manual_seed(22)
     errs = {}
-    for name, b, cin, cout, k, pad, dil, h, w in cases:
+
+    def check(name, fn, want, counter):
+        before = getattr(icc, counter)
+        got, again = fn(), fn()
+        torch.cuda.synchronize()
+        if getattr(icc, counter) - before != 2 or not torch.equal(got, again):
+            raise AssertionError(f"int8 {name}: launches or repeats")
+        err = 0.0 if torch.equal(got, want) else (got.double() - want.double()).abs().max().item()
+        errs[name] = err
+        if err != 0.0 or got.dtype != want.dtype:
+            raise AssertionError(f"int8 {name}: max|kernel - plain| {err}, {got.dtype}")
+
+    cases = int8_cases()
+    for name, site, b, cin, cout, k, pad, dil, h, w in cases:
+        folded = site not in INT8_UNFOLDED
+        for dt in (torch.float32, torch.bfloat16):
+            x, scale, rec, const, bias = int8_site_case(gen, b, cin, cout, k, pad, dil, h, w, dt,
+                                                        folded, site in INT8_TRANSPOSED)
+            want = ic.int8_conv_site_plain(x, scale, rec["w_q"], rec["s_w"], const, bias, pad, dil)
+            check(f"site-{name}-{str(dt)[6:]}",
+                  lambda: ic.int8_conv_site(x, scale, rec, pad, dil, const=const, bias=bias),
+                  want, "SITE_LAUNCHES")
+            del x, rec, want
         x_q, w_q, scale = int8_case(gen, b, cin, cout, k, h, w)
         acc = ic.int8_conv_plain(x_q, w_q, None, pad, dil, torch.int32)
         for dt in (torch.int32, torch.float32, torch.bfloat16):
-            before = icc.LAUNCHES
-            got = ic.int8_conv(x_q, w_q, scale, pad, dil, dt)
-            again = ic.int8_conv(x_q, w_q, scale, pad, dil, dt)
             want = acc if dt == torch.int32 else ic.dequantize(acc, scale, dt)
-            torch.cuda.synchronize()
-            if icc.LAUNCHES - before != 2 or not torch.equal(got, again):
-                raise AssertionError(f"int8 conv {name} {dt}: launches or repeats")
-            err = 0.0 if torch.equal(got, want) else (got.double() - want.double()).abs().max().item()
-            errs[f"{name}-{str(dt)[6:]}"] = err
-            if err != 0.0:
-                raise AssertionError(f"int8 conv {name} {dt}: max|kernel - plain| {err}")
-        del acc, got, again, want
-    log(f"  {len(cases)} geometries x (int32, float32, bfloat16): bit-equal to plain, "
-        "repeats the same bits")
-    imma = {}
+            check(f"{name}-{str(dt)[6:]}", lambda: ic.int8_conv(x_q, w_q, scale, pad, dil, dt),
+                  want, "LAUNCHES")
+        del acc, want
+    log(f"  {len(cases)} geometries: whole sites (float32, bfloat16) and codes in (int32, "
+        "float32, bfloat16) bit-equal to plain, repeats the same bits")
+    counts = {}
     for mangled, ops in sass_opcodes(icc._LIB).items():
-        if "int8_conv_kernel" in mangled:
-            out = "bfloat16" if "bfloat16" in mangled else ("float32" if "IfLb" in mangled
-                                                            else "int32")
-            imma[f"{out}-{'vec16' if 'Lb1E' in mangled else 'bytes'}"] = ops["IMMA"]
-    log(f"  IMMA instructions per int8-conv kernel: {imma}")
-    if len(imma) != 6 or min(imma.values()) <= 0:
-        raise AssertionError(f"int8 conv tensor-core instructions: {imma}")
-    return errs, imma
+        hit = re.search(r"int8_site_(mma|cin1)_kernelILi(\d)E(f|i|13__nv_bfloat16)Li(\d)E", mangled)
+        if hit:
+            route, kind, out, n = hit.groups()
+            key = f"{route}-{('f32', 'bf16', 's8')[int(kind)]}-{dict(f='f32', i='s32').get(out, 'bf16')}-{n}"
+            counts[key] = ops["IMMA" if route == "mma" else "IDP"]
+    log(f"  IMMA (MMA route) / IDP (Cin = 1 route) instructions per variant: {counts}")
+    mma = [v for key, v in counts.items() if key.startswith("mma")]
+    cin1 = [v for key, v in counts.items() if key.startswith("cin1")]
+    if len(mma) != 20 or len(cin1) != 15 or min(mma + cin1) <= 0:
+        raise AssertionError(f"int8 kernel instructions: {counts}")
+    return errs, counts
 
 
 def int8_site_spy(icc, sites: dict):
-    """Patch the launcher to count launches per site, the site told by its
-    geometry (Cin, Cout, k, dilation, H, W); returns ``(counts, restore)``."""
-    launch = icc.forward
+    """Patch the site launcher to count launches per site, the site told by
+    its geometry (Cin, Cout, k, dilation, H, W), and the launches that had
+    to lay the weights out (no baked layout); returns ``(counts, restore)``
+    (``counts["unbaked"]``: those launches)."""
+    launch = icc.site_forward
     by_geo = {(g[0], g[1], g[2], g[4], g[5], g[6]): site for site, g in sites.items()}
     counts = {site: 0 for site in sites}
+    counts["unbaked"] = 0
 
-    def spy(x_q, w_q, scale, padding, dilation, out_dtype):
-        b, h, w, cin = x_q.shape
+    def spy(x, act_scale, w_q, s_w, rows, const, bias, padding, dilation):
+        b, cin, h, w = x.shape
         key = (cin, w_q.shape[0], w_q.shape[2], dilation, h, w)
         if key not in by_geo:
             raise AssertionError(f"an int8 launch at no known site: {key}")
         counts[by_geo[key]] += 1
-        return launch(x_q, w_q, scale, padding, dilation, out_dtype)
+        counts["unbaked"] += rows is None
+        return launch(x, act_scale, w_q, s_w, rows, const, bias, padding, dilation)
 
-    icc.forward = spy
+    icc.site_forward = spy
 
     def restore():
-        icc.forward = launch
+        icc.site_forward = launch
 
     return counts, restore
 
@@ -2995,12 +3108,13 @@ def serve_int8(wpt_cuda, icc, snapshot: str, data: str):
     launched = {}
 
     def reset():
-        wpt_cuda.LAUNCHES = icc.LAUNCHES = 0
+        wpt_cuda.LAUNCHES = icc.LAUNCHES = icc.SITE_LAUNCHES = 0
         for site in counts:
             counts[site] = 0
 
     def read():
-        launched["int8"] = icc.LAUNCHES
+        launched["int8"] = icc.SITE_LAUNCHES
+        launched["codes_in"] = icc.LAUNCHES
         return wpt_cuda.LAUNCHES
 
     try:
@@ -3008,12 +3122,16 @@ def serve_int8(wpt_cuda, icc, snapshot: str, data: str):
     finally:
         restore()
     d = out["dispatches"]
+    unbaked = counts.pop("unbaked")
     out.update(int8_launches=launched["int8"], site_launches=dict(counts),
                scales=dict(scales), service_build_s=build_s)
-    log(f"  int8 launches {launched['int8']} ({counts}) for {d} dispatches; service built "
+    log(f"  int8 site launches {launched['int8']} ({counts}), {unbaked} without the baked "
+        f"layout, codes-in launches {launched['codes_in']}, for {d} dispatches; service built "
         f"(calibrated, baked, warmed up) in {build_s:.1f} s")
-    if launched["int8"] != 6 * d or set(counts.values()) != {d}:
-        raise AssertionError(f"int8 launches {launched['int8']} {counts} for {d} dispatches")
+    if (launched["int8"] != 6 * d or set(counts.values()) != {d} or unbaked
+            or launched["codes_in"]):
+        raise AssertionError(f"int8 launches {launched} {counts} ({unbaked} unbaked) for {d} "
+                             "dispatches")
     q, f = [], []
     for (sec, rate), pcm, clip in zip(clips, pcms, out["clips"]):
         frames = svc.frame_clip(pcm.astype(np.float32) / 32768.0, rate)
@@ -3035,19 +3153,22 @@ def score_lcnn_int8(icc, snapshot: str, data: str):
     model, transform, _ = build_scorer_from_snapshot(snapshot)
     fp = score_files(model, transform, paths, "cuda", batch_size=64)
     counts, restore = int8_site_spy(icc, INT8_LCNN_SITES)
-    icc.LAUNCHES = 0
+    icc.SITE_LAUNCHES = 0
     try:
         q = score_files(model, transform, paths, "cuda", batch_size=64, int8=True)
         torch.cuda.synchronize()
     finally:
         restore()
     # one int8 forward to bake, then the 80 frames in two batches of 64
-    log(f"  LCNN int8: {len(paths)} clips, launches {icc.LAUNCHES} ({counts})")
-    if icc.LAUNCHES != 27 or set(counts.values()) != {3}:
-        raise AssertionError(f"LCNN int8 launches {icc.LAUNCHES}: {counts}")
+    unbaked = counts.pop("unbaked")
+    log(f"  LCNN int8: {len(paths)} clips, launches {icc.SITE_LAUNCHES} ({counts}), "
+        f"{unbaked} without the baked layout")
+    if icc.SITE_LAUNCHES != 27 or set(counts.values()) != {3} or unbaked:
+        raise AssertionError(f"LCNN int8 launches {icc.SITE_LAUNCHES}: {counts}, {unbaked}")
     drift = int8_drift("LCNN score_files, int8 vs fp32 on the card",
                        [q[p] for p in paths], [fp[p] for p in paths])
-    return {"launches": icc.LAUNCHES, "site_launches": dict(counts), "drift_vs_fp32": drift}
+    return {"launches": icc.SITE_LAUNCHES, "site_launches": dict(counts),
+            "drift_vs_fp32": drift}
 
 
 def corpus_frames(data: str, n: int) -> np.ndarray:
@@ -3089,73 +3210,120 @@ def ast_int8(fa_cuda, model, transform, data: str):
     return qmodel, {"sites": len(sites), "mha_launches": launches, "drift_vs_fp32": drift}
 
 
-def int8_timing(ic, icc, snapshot: str, ast_model, ast_q, ast_transform, card_line: str):
-    """Phase 22, last: the int8 convolution at each DCNN site (B = 64, float32
-    out) through its launcher and as device time, against plain, its bound,
-    the whole quantized site (the quantizing pass + the kernel) and cuDNN's
-    float32 and bf16 convolution of the same shape (a yardstick only); the
-    DCNN scorer in float32, bf16 and int8 at B = 64 and 128; the AST scorer
-    in float32, bf16 and int8 at B = 64."""
+def int8_site_times(ic, icc, card_line: str, gen) -> dict:
+    """Phase 22: each DCNN site at B = 64 and 128 (float32): the site kernel
+    through its launcher (the op, baked layout), as device time, and as the
+    layer runs it (``folded_bn_conv(act_scale=)`` / ``quantized_conv_bias``
+    on a baked record); the codes-in composition it replaced (the quantizing
+    pass, the codes-in kernel, ``+ map``, ``+ bias``) and that kernel's
+    device time; its fused bound; plain, and cuDNN's float32 / bf16
+    convolution of the same shape (a yardstick only)."""
     import torch.nn.functional as F
+    from torch import nn
+
+    from audiodeepfake_detection_tpu_torch.models import layers
+
+    out = {}
+    for b in (64, 128):
+        rows = out[b] = {}
+        for site, (cin, cout, k, pad, dil, h, w) in INT8_DCNN_SITES.items():
+            folded = site not in INT8_UNFOLDED
+            x, scale, rec, const, bias = int8_site_case(gen, b, cin, cout, k, pad, dil, h, w,
+                                                        torch.float32, folded,
+                                                        site in INT8_TRANSPOSED)
+            conv = nn.Conv2d(cin, cout, k, padding=pad, dilation=dil).cuda().eval()
+            bn = nn.BatchNorm2d(cin).cuda().eval()
+            with torch.no_grad():
+                bn.running_mean.uniform_(-0.5, 0.5)
+                bn.running_var.uniform_(0.5, 2.0)
+            cache = {}
+
+            def baked(make, cache=cache):  # the layer's record, baked on its first call
+                if "rec" not in cache:
+                    cache["rec"] = make()
+                return cache["rec"]
+
+            sx = float(scale) * rec["s_w"]
+            fns = {
+                "site": lambda: ic.int8_conv_site(x, scale, rec, pad, dil, const=const, bias=bias),
+                "layer": (lambda: layers.folded_bn_conv(bn, conv, x, act_scale=scale, baked=baked))
+                if folded else (lambda: layers.quantized_conv_bias(conv, x, scale, baked)),
+                "codes_in": lambda: (ic.int8_conv(ic.quantize_activation_nhwc(x, scale),
+                                                  rec["w_q"], sx, pad, dil)
+                                     + (const if folded else 0) + bias.reshape(-1, 1, 1)),
+            }
+            xb, wb = x.bfloat16(), conv.weight.detach().bfloat16()
+            fns.update(
+                plain=lambda: ic.int8_conv_site_plain(x, scale, rec["w_q"], rec["s_w"], const,
+                                                      bias, pad, dil),
+                cudnn_fp32=lambda: F.conv2d(x, conv.weight, padding=pad, dilation=dil),
+                cudnn_bf16=lambda: F.conv2d(xb, wb, padding=pad, dilation=dil))
+            with torch.no_grad():
+                ms = median_ms(fns, reps=5)
+            device = int8_device_ms(icc, x, scale, rec, const, bias, pad, dil)
+            codes_in_device = int8_device_ms(icc, ic.quantize_activation_nhwc(x, scale), sx, rec,
+                                             None, None, pad, dil)
+            bound, by = int8_bound(b, cin, cout, k, pad, dil, h, w, folded=folded)
+            rows[site] = {**{f"{k_}_ms": v for k_, v in ms.items()}, "device_ms": device,
+                          "codes_in_device_ms": codes_in_device, "bound_ms": bound,
+                          "bound_by": by}
+            log(f"  {site} B={b} [{card_line}]: site {ms['site']:.4f} ms through the launcher, "
+                f"{device:.4f} ms device ({bound / device:.0%} of the bound {bound:.4f} ms, "
+                f"{by}); as the layer runs it {ms['layer']:.4f}; the codes-in composition "
+                f"{ms['codes_in']:.4f} (its kernel {codes_in_device:.4f} device); plain "
+                f"{ms['plain']:.4f}; cuDNN fp32 {ms['cudnn_fp32']:.4f}, bf16 "
+                f"{ms['cudnn_bf16']:.4f}")
+            del x, xb, rec, const, bias, fns
+        total = {k_: sum(v[k_] for v in rows.values()) for k_ in next(iter(rows.values()))
+                 if k_ != "bound_by"}
+        rows["six_sites"] = total
+        log(f"  the six sites together, B={b}: " + ", ".join(
+            f"{k_} {v:.4f}" for k_, v in total.items()))
+    return out
+
+
+def int8_timing(ic, icc, snapshot: str, lcnn_snapshot: str, ast_model, ast_q, ast_transform,
+                card_line: str):
+    """Phase 22, last: :func:`int8_site_times`; the DCNN and LCNN scorers in
+    float32, bf16 and int8 at B = 64 and 128; the AST scorer in float32,
+    bf16 and int8 at B = 64."""
+    import copy
 
     from audiodeepfake_detection_tpu_torch.models.ast import ASTModel
-    from audiodeepfake_detection_tpu_torch.models.dcnn import DCNN
-    from audiodeepfake_detection_tpu_torch.ops.quantize import (
-        conv_int8_weights, quantized_conv)
     from audiodeepfake_detection_tpu_torch.train.predict import (
         build_scorer_from_snapshot, make_score_fn, quantize_for_scoring)
 
     gen = torch.Generator().manual_seed(24)
-    out = {"sites": {}}
-    b = 64
-    for site, (cin, cout, k, pad, dil, h, w) in INT8_DCNN_SITES.items():
-        x_q, w_q, scale = int8_case(gen, b, cin, cout, k, h, w)
-        x = torch.randn(b, cin, h, w, generator=gen).cuda()
-        wf = torch.randn(cout, cin, k, k, generator=gen).cuda()
-        rec = conv_int8_weights(wf)
-        xb, wb = x.bfloat16(), wf.bfloat16()
-
-        def kernel():
-            return ic.int8_conv(x_q, w_q, scale, pad, dil)
-
-        ms = median_ms({
-            "plain": lambda: ic.int8_conv_plain(x_q, w_q, scale, pad, dil),
-            "kernel": kernel,
-            "site": lambda: quantized_conv(x, None, 0.02, pad, dil, baked=rec),
-            "cudnn_fp32": lambda: F.conv2d(x, wf, padding=pad, dilation=dil),
-            "cudnn_bf16": lambda: F.conv2d(xb, wb, padding=pad, dilation=dil),
-        }, reps=5)
-        device = int8_device_ms(icc, x_q, w_q, scale, pad, dil)
-        bound, by = int8_bound(b, cin, cout, k, pad, dil, h, w)
-        out["sites"][site] = {**{f"{k_}_ms": v for k_, v in ms.items()}, "device_ms": device,
-                              "bound_ms": bound, "bound_by": by}
-        log(f"  {site} B={b} [{card_line}]: kernel {ms['kernel']:.4f} ms through the "
-            f"launcher, {device:.4f} ms device ({bound / device:.0%} of the bound "
-            f"{bound:.4f} ms, {by}); plain {ms['plain']:.4f}; quantize + kernel "
-            f"{ms['site']:.4f}; cuDNN fp32 {ms['cudnn_fp32']:.4f}, bf16 {ms['cudnn_bf16']:.4f}")
-        del x_q, w_q, x, wf, xb, wb
-    total = {k_: sum(v[k_] for v in out["sites"].values())
-             for k_ in ("kernel_ms", "device_ms", "bound_ms", "site_ms", "cudnn_fp32_ms",
-                        "cudnn_bf16_ms")}
-    out["six_sites"] = total
-    log("  the six sites together: " + ", ".join(f"{k_} {v:.4f}" for k_, v in total.items()))
-
-    model, transform, _ = build_scorer_from_snapshot(snapshot)
-    bf = DCNN(time_dim=12, dtype=torch.bfloat16)
-    bf.load_state_dict(model.state_dict())
+    out = {"sites": int8_site_times(ic, icc, card_line, gen)}
     audio = {bb: (0.3 * torch.randn(bb, 1, SR, generator=gen)).cuda() for bb in (64, 128)}
     frames = list(audio[128][:, 0].cpu().numpy())
-    q = quantize_for_scoring(model, transform, frames, "cuda", 64)
-    scorers = {"fp32": make_score_fn(model, transform, "cuda"),
-               "bf16": make_score_fn(bf, transform, "cuda"),
-               "int8": make_score_fn(q, transform, "cuda")}
-    out["dcnn_scorer_ms"] = {}
-    for bb, a in audio.items():
-        sms = median_ms({name: (lambda fn=fn: fn(a)) for name, fn in scorers.items()}, reps=5)
-        out["dcnn_scorer_ms"][bb] = {**sms, **{f"{k_}_frames_per_s": bb / v * 1e3
-                                                for k_, v in sms.items()}}
-        log(f"  DCNN scorer B={bb} [{card_line}]: " + ", ".join(
-            f"{k_} {v:.3f} ms ({bb / v * 1e3:.1f} frames/s)" for k_, v in sms.items()))
+    for name, path in (("dcnn", snapshot), ("lcnn", lcnn_snapshot)):
+        model, transform, _ = build_scorer_from_snapshot(path)
+        bf = copy.deepcopy(model)
+        bf.dtype = torch.bfloat16
+        q = quantize_for_scoring(model, transform, frames, "cuda", 64)
+        scorers = {"fp32": make_score_fn(model, transform, "cuda"),
+                   "bf16": make_score_fn(bf, transform, "cuda"),
+                   "int8": make_score_fn(q, transform, "cuda")}
+        if name == "dcnn":  # the site launches of one int8 scoring call at B = 128
+            counts, restore = int8_site_spy(icc, INT8_DCNN_SITES)
+            try:
+                scorers["int8"](audio[128])
+                torch.cuda.synchronize()
+            finally:
+                restore()
+            out["b128_launches"] = {site: counts[site] for site in INT8_DCNN_SITES}
+            log(f"  int8 DCNN scorer, one call at B=128: site launches {counts}")
+            if min(out["b128_launches"].values()) != 1 or counts["unbaked"]:
+                raise AssertionError(f"int8 DCNN scorer at B=128: launches {counts}")
+        out[f"{name}_scorer_ms"] = {}
+        for bb, a in audio.items():
+            sms = median_ms({k_: (lambda fn=fn: fn(a)) for k_, fn in scorers.items()}, reps=5)
+            out[f"{name}_scorer_ms"][bb] = {**sms, **{f"{k_}_frames_per_s": bb / v * 1e3
+                                                      for k_, v in sms.items()}}
+            log(f"  {name.upper()} scorer B={bb} [{card_line}]: " + ", ".join(
+                f"{k_} {v:.3f} ms ({bb / v * 1e3:.1f} frames/s)" for k_, v in sms.items()))
+        del model, bf, q, scorers
 
     ast_bf = ASTModel(input_tdim=ast_model.input_tdim, fused_attention=True,
                       dtype=torch.bfloat16).cuda()
@@ -3184,13 +3352,14 @@ def op_counters(mods) -> dict:
         "adfd::fused_conv2_prelu_pool": (f2, "CONV2_FWD_LAUNCHES"),
         "adfd::flash_mha_packed": (fa, "MHA_FWD_LAUNCHES"),
         "adfd::int8_conv": (icc, "LAUNCHES"),
+        "adfd::int8_conv_site": (icc, "SITE_LAUNCHES"),
     }
 
 
 def export_scorers(dcnn_snapshot: str, lcnn_snapshot: str, ast_model, ast_transform,
                    data: str):
     """Phase 23's scorers: ``(name, model, transform, adfd ops per call)``.
-    Phase 7's DCNN snapshot (kernel 1), int8-baked (the int8 convolution),
+    Phase 7's DCNN snapshot (kernel 1), int8-baked (the int8 site kernel),
     with all three fused flags (kernels 2, 5 and 6); phase 11's LCNN with
     its fused block (kernel 3); phase 18's AST (kernel 4)."""
     import copy
@@ -3208,7 +3377,7 @@ def export_scorers(dcnn_snapshot: str, lcnn_snapshot: str, ast_model, ast_transf
     return [
         ("dcnn", model, transform, {"adfd::wpt_packets": 1}),
         ("dcnn-int8", q, transform,
-         {"adfd::wpt_packets": 1, "adfd::int8_conv": len(DEFAULT_INT8_SITES)}),
+         {"adfd::wpt_packets": 1, "adfd::int8_conv_site": len(DEFAULT_INT8_SITES)}),
         ("dcnn-fused", fused, transform,
          {"adfd::wpt_packets": 1, "adfd::fused_conv1_prelu_pool": 1,
           "adfd::fused_conv2_prelu_pool": 1, "adfd::fused_prelu_pool": 1}),
@@ -3349,28 +3518,38 @@ def op_dispatch(mods, card_line: str, reps: int = 50) -> dict:
 
 
 def int8_rows(errs, served, times):
-    """The ``kernels`` rows of the int8 convolution, one per DCNN site at B =
-    64: launches at the site over phase 22's HTTP run, checked and timed in
-    phase 22 (``library_ms`` null: no PyTorch call convolves int8 on CUDA;
-    cuDNN's float32 and bf16 times stand beside it as a yardstick)."""
+    """The ``kernels`` rows of the int8 site kernel, one per DCNN site at B =
+    64 and one at B = 128: launches at the site over phase 22's HTTP run
+    (B = 64 dispatches) and in one int8 DCNN scoring call at B = 128,
+    checked and timed in phase 22 (``library_ms`` null: no PyTorch call convolves int8
+    on CUDA; cuDNN's float32 and bf16 times stand beside it as a
+    yardstick)."""
     rows = []
-    for site in INT8_DCNN_SITES:
-        t = times["sites"][site]
-        rows.append({
-            "name": f"int8_conv_{site}", "route": "cuda",
-            "source": "audiodeepfake_detection_tpu_torch/csrc/int8_conv.cu",
-            "replaces": "audiodeepfake_detection_tpu/ops/quantize.py:113 int8_conv "
-                        "(XLA s8 conv, no Pallas kernel)",
-            "design": "implicit GEMM, mma.sync m16n8k32 s8 (IMMA), 64 x 64 tiles, 32-deep "
-                      "steps double-buffered in shared memory, NCHW epilogue",
-            "launches": served["site_launches"][site],
-            "max_abs_err": errs[f"dcnn-{site}-B64-float32"],
-            "ms": t["kernel_ms"], "plain_ms": t["plain_ms"], "device_ms": t["device_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
-            "cudnn_fp32_ms": t["cudnn_fp32_ms"], "cudnn_bf16_ms": t["cudnn_bf16_ms"],
-        })
+    for b in (64, 128):
+        for site in INT8_DCNN_SITES:
+            t = times["sites"][b][site]
+            rows.append({
+                "name": f"int8_conv_{site}" + ("" if b == 64 else "_b128"), "route": "cuda",
+                "source": "audiodeepfake_detection_tpu_torch/csrc/int8_conv.cu",
+                "replaces": "audiodeepfake_detection_tpu/ops/quantize.py:113 int8_conv and :135 "
+                            "quantized_conv (XLA s8 conv, no Pallas kernel)",
+                "design": "a whole site: codes made on load (register loads; at an N tile "
+                          "of 32 the NCHW rows staged by cp.async; the codes-in mode copies "
+                          "16-byte code words by cp.async) into a channels-innermost halo, "
+                          "implicit im2col by ldmatrix, mma.sync m16n8k32 s8 with N tiles of "
+                          "32-128 shaped to Cout, weights in fragment order through a cp.async "
+                          "ring (Cin = 1: dp4a), scale + map + bias in the epilogue, NCHW runs "
+                          "from shared memory",
+                "launches": (served["site_launches"][site] if b == 64
+                             else times["b128_launches"][site]),
+                "max_abs_err": errs[f"site-dcnn-{site}-B{b}-float32"],
+                "ms": t["site_ms"], "plain_ms": t["plain_ms"], "device_ms": t["device_ms"],
+                "layer_ms": t["layer_ms"], "codes_in_ms": t["codes_in_ms"],
+                "codes_in_device_ms": t["codes_in_device_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
+                "cudnn_fp32_ms": t["cudnn_fp32_ms"], "cudnn_bf16_ms": t["cudnn_bf16_ms"],
+            })
     return rows
-
 
 
 # ---- sweeps and resident data (phase 24)
@@ -5153,6 +5332,8 @@ def main() -> None:
         snapshot = write_snapshot(root)
         log("[4 serve]")
         served = serve(wpt_cuda, snapshot)
+        log("  the same behind --no-kernel (the plain cascade)")
+        served["no_kernel"] = serve_plain_cascade(wpt_cuda, snapshot, served)
         log("[5 time]")
         times = timing(wpt_cuda, wpt, snapshot, card_line)
 
@@ -5242,8 +5423,8 @@ def main() -> None:
         log("  phase 18's AST, int8")
         ast_q, int8_run["ast"] = ast_int8(flash_attention_cuda, ast_model, ast_transform, data)
         log("  time")
-        int8_times = int8_timing(int8_conv, int8_conv_cuda, int8_dcnn, ast_model, ast_q,
-                                 ast_transform, card_line)
+        int8_times = int8_timing(int8_conv, int8_conv_cuda, int8_dcnn, lcnn_snapshot, ast_model,
+                                 ast_q, ast_transform, card_line)
         del ast_q
         log("[23 the serving export]")
         export_mods = (wpt_cuda, fused_conv1_cuda, fused_pool_cuda, fused_conv2_cuda,

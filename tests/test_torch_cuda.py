@@ -1041,13 +1041,17 @@ def test_int8_conv_is_plain_bit_for_bit(card, site, dtype):
 
 
 def test_int8_conv_takes_an_input_off_the_16_byte_grid(card):
-    """Cin = 64 at an odd address: the byte loads, the same bits."""
+    """Cin = 64 at an odd address: the byte loads (not the cp.async of
+    16-byte code words), the same bits."""
     b, c_in, c_out, k, pad, dil, h, w = _INT8_SITES["cnn_7"]
     x_q, w_q, scale = _int8_case(b, c_in, c_out, k, h, w, card, seed=1)
     flat = torch.empty(x_q.numel() + 1, dtype=torch.int8, device=card)
     shifted = flat[1:].view(x_q.shape)
     shifted.copy_(x_q)
     assert shifted.data_ptr() % 16 != 0
+    plan = int8_conv_cuda.plan_for
+    assert plan(shifted, c_out, k, pad, dil).staging == int8_conv_cuda.STAGE_LOADS
+    assert plan(x_q, c_out, k, pad, dil).staging == int8_conv_cuda.STAGE_CODES
     got = int8_conv.int8_conv(shifted, w_q, scale, pad, dil)
     assert torch.equal(got, int8_conv.int8_conv_plain(x_q, w_q, scale, pad, dil))
 
@@ -1068,6 +1072,143 @@ def test_int8_conv_refuses_what_it_does_not_take(card):
         int8_conv_cuda.forward(x_q.cpu(), w_q.cpu(), scale.cpu(), 1, 1, torch.float32)
 
 
+# ---- the whole int8 site (the same kernel source, site mode)
+
+
+def _site_case(b, c_in, c_out, k, pad, dil, h, w, device, dtype, seed=0):
+    """A working-type activation, its scale (clipping the top of the range),
+    a weight record (baked layout too), a map and a bias in ``dtype``."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, c_in, h, w, generator=gen)
+    ho, wo = h + 2 * pad - dil * (k - 1), w + 2 * pad - dil * (k - 1)
+    rec = {"w_q": torch.randint(-127, 128, (c_out, c_in, k, k), generator=gen, dtype=torch.int8),
+           "s_w": torch.rand(c_out, generator=gen) * 1e-2 + 1e-4}
+    rec["rows"] = int8_conv_cuda.site_weights(rec["w_q"])
+    const = torch.randn(c_out, ho, wo, generator=gen).to(dtype)
+    bias = torch.randn(c_out, generator=gen).to(dtype)
+    scale = float(x.abs().max()) / 127.0 * 0.8
+    to = lambda t: t.to(device)  # noqa: E731
+    return (to(x.to(dtype)), scale, {n: to(t) for n, t in rec.items()}, to(const), to(bias))
+
+
+@pytest.mark.parametrize("folded", [False, True], ids=["bias", "map-bias"])
+@pytest.mark.parametrize("site", sorted(_INT8_SITES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_site_is_plain_bit_for_bit(card, site, dtype, folded):
+    """The whole site (quantize on load, product, scale, map, bias) equals
+    its plain version bit for bit, baked and with the layout made at call
+    time; a repeat gives the same bits; one launch a call."""
+    b, c_in, c_out, k, pad, dil, h, w = _INT8_SITES[site]
+    x, scale, rec, const, bias = _site_case(b, c_in, c_out, k, pad, dil, h, w, card, dtype)
+    const = const if folded else None
+    before = int8_conv_cuda.SITE_LAUNCHES
+    got = int8_conv.int8_conv_site(x, scale, rec, pad, dil, const=const, bias=bias)
+    fly = int8_conv.int8_conv_site(x, scale, {"w_q": rec["w_q"], "s_w": rec["s_w"]}, pad, dil,
+                                   const=const, bias=bias)
+    want = int8_conv.int8_conv_site_plain(x, scale, rec["w_q"], rec["s_w"], const, bias, pad, dil)
+    torch.cuda.synchronize()
+    assert int8_conv_cuda.SITE_LAUNCHES - before == 2
+    assert got.dtype == dtype and got.shape == want.shape and got.is_contiguous()
+    assert torch.equal(got, want) and torch.equal(fly, want)
+
+
+@pytest.mark.parametrize("site", ["cnn_0", "cnn_4", "lcnn_13", "dil_7"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_site_codes_are_quantize_activation_nhwc(card, site, dtype):
+    """The codes the kernel makes, read back through an identity 1x1
+    product at a power-of-two scale (every output is its code exactly),
+    equal ``quantize_activation_nhwc``'s, ties (x * inv = n + 0.5) and the
+    clipped range included."""
+    b, c_in, _, _, _, _, h, w = _INT8_SITES[site]
+    gen = torch.Generator().manual_seed(5)
+    s_x = 2.0 ** -6  # inv = 64 exactly
+    x = torch.randn(b, c_in, h, w, generator=gen) * 2.5  # |x * 64| beyond 127 too
+    x[:, :, ::3] = (torch.randint(-140, 140, x[:, :, ::3].shape, generator=gen) + 0.5) * s_x
+    x = x.to(dtype).to(card)
+    rec = {"w_q": torch.eye(c_in, dtype=torch.int8).reshape(c_in, c_in, 1, 1).to(card),
+           "s_w": torch.full((c_in,), 64.0, device=card)}
+    got = int8_conv.int8_conv_site(x, s_x, rec, 0, 1)
+    codes = int8_conv.quantize_activation_nhwc(x, s_x)
+    assert torch.equal(got.float(), codes.permute(0, 3, 1, 2).float())
+
+
+def test_int8_site_takes_an_input_off_the_16_byte_grid(card):
+    b, c_in, c_out, k, pad, dil, h, w = _INT8_SITES["cnn_7"]
+    x, scale, rec, const, bias = _site_case(b, c_in, c_out, k, pad, dil, h, w, card,
+                                            torch.float32, seed=2)
+    flat = torch.empty(x.numel() + 1, device=card)
+    shifted = flat[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.data_ptr() % 16 != 0
+    got = int8_conv.int8_conv_site(shifted, scale, rec, pad, dil, const=const, bias=bias)
+    want = int8_conv.int8_conv_site_plain(x, scale, rec["w_q"], rec["s_w"], const, bias, pad, dil)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_site_stages_rows_of_a_strided_view_off_the_grid(card, dtype):
+    """The cp.async prologue (N tile 32, rows contiguous along W) on a
+    view whose rows start off the 16-byte grid and whose channels are
+    strided (one element in, every other channel of a wider tensor): the
+    same bits as plain."""
+    b, c_in, c_out, k, pad, dil, h, w = _INT8_SITES["cnn_14"]
+    x, scale, rec, const, bias = _site_case(b, c_in, c_out, k, pad, dil, h, w, card, dtype,
+                                            seed=4)
+    wide = torch.zeros(b, 2 * c_in, h, w + 3, dtype=dtype, device=card)
+    view = wide[:, ::2, :, 1:w + 1]
+    view.copy_(x)
+    assert view.stride(3) == 1 and not view.is_contiguous()
+    plan = int8_conv_cuda.plan_for(view, c_out, k, pad, dil)
+    assert plan.staging == int8_conv_cuda.STAGE_ROWS
+    got = int8_conv.int8_conv_site(view, scale, rec, pad, dil, const=const, bias=bias)
+    want = int8_conv.int8_conv_site_plain(x, scale, rec["w_q"], rec["s_w"], const, bias, pad, dil)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("site", ["cnn_0", "odd"])
+def test_int8_site_reads_a_transposed_view(card, site):
+    """The DCNN hands its first site a transposed view of the transform's
+    [B, 1, F, T] image: any strides, the same bits as plain."""
+    b, c_in, c_out, k, pad, dil, h, w = _INT8_SITES[site]
+    x, scale, rec, const, bias = _site_case(b, c_in, c_out, k, pad, dil, w, h, card,
+                                            torch.float32, seed=3)
+    view = x.permute(0, 1, 3, 2)
+    ho, wo = h + 2 * pad - dil * (k - 1), w + 2 * pad - dil * (k - 1)
+    const = torch.randn(c_out, ho, wo, device=card)
+    got = int8_conv.int8_conv_site(view, scale, rec, pad, dil, const=const, bias=bias)
+    want = int8_conv.int8_conv_site_plain(view, scale, rec["w_q"], rec["s_w"], const, bias, pad,
+                                          dil)
+    assert not view.is_contiguous() and torch.equal(got, want)
+
+
+def test_int8_site_refuses_what_it_does_not_take(card):
+    x, scale, rec, const, bias = _site_case(1, 8, 16, 3, 1, 1, 5, 6, card, torch.float32)
+    site = int8_conv.int8_conv_site
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        site(x.half(), scale, rec, 1)
+    with pytest.raises(ValueError, match="NCHW activation"):
+        site(x[0], scale, rec, 1)
+    with pytest.raises(ValueError, match="rows"):
+        site(x, scale, {**rec, "rows": rec["rows"][:1]}, 1)
+    with pytest.raises(ValueError, match="map"):
+        site(x, scale, rec, 1, const=const[:, :2])
+    with pytest.raises(ValueError, match="bias"):
+        site(x, scale, rec, 1, bias=bias.bfloat16())
+    with pytest.raises(ValueError, match="leave an output"):
+        site(x, scale, rec, 0, dilation=3)
+    with pytest.raises(ValueError, match="taps"):
+        wide = {"w_q": torch.zeros(4, 1, 9, 9, dtype=torch.int8, device=card),
+                "s_w": torch.ones(4, device=card)}
+        site(torch.zeros(1, 1, 20, 20, device=card), scale, wide, 4)
+    with pytest.raises(ValueError, match="shared memory"):
+        deep = {"w_q": torch.zeros(8, 2048, 3, 3, dtype=torch.int8, device=card),
+                "s_w": torch.ones(8, device=card)}
+        site(torch.zeros(1, 2048, 8, 64, device=card), scale, deep, 1)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        int8_conv_cuda.site_forward(x.cpu(), scale, rec["w_q"].cpu(), rec["s_w"].cpu(), None,
+                                    None, None, 1, 1)
+
+
 # ------------------------------------------------- the adfd ops (serving export)
 
 
@@ -1086,6 +1227,8 @@ def _op_cases(device):
     x5, a5 = r(4, 96, 48, 129), torch.tensor([0.25], device=device)
     x6, w6, c6 = r(4, 64, 48, 129), r(576, 96, scale=0.05), r(96, 48, 129, scale=0.1)
     xq, wq, sq = _int8_case(4, 64, 96, 3, 48, 129, device, seed=3)
+    xs, ss, rs, cs, bs = _site_case(4, 64, 96, 3, 1, 1, 48, 129, device, torch.float32, seed=4)
+    site_args = (xs, ss, rs["w_q"], rs["s_w"], rs["rows"], cs, bs, 1, 1)
     ops = torch.ops.adfd
     return {
         "wpt_packets": (ops.wpt_packets.default, (x1, "sym5", 8, True, 2.0),
@@ -1126,13 +1269,16 @@ def _op_cases(device):
         "int8_conv": (ops.int8_conv.default, (xq, wq, sq, 1, 1, torch.float32),
                       lambda: int8_conv_cuda.forward(xq, wq, sq, 1, 1, torch.float32),
                       (int8_conv_cuda, "LAUNCHES")),
+        "int8_conv_site": (ops.int8_conv_site.default, site_args,
+                           lambda: int8_conv_cuda.site_forward(*site_args),
+                           (int8_conv_cuda, "SITE_LAUNCHES")),
     }
 
 
 _OP_CASE_NAMES = ("wpt_packets", "wpt_packets-raw", "fused_conv1_prelu_pool",
                   "fused_conv1_prelu_pool-bf16", "fused_conv_mfm_pool", "flash_mha_packed",
                   "flash_mha_packed-bf16", "fused_prelu_pool", "fused_conv2_prelu_pool",
-                  "int8_conv")
+                  "int8_conv", "int8_conv_site")
 
 
 @pytest.mark.parametrize("case", _OP_CASE_NAMES)

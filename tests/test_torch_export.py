@@ -34,10 +34,11 @@ from audiodeepfake_detection_tpu_torch.models.dcnn import DCNN
 from audiodeepfake_detection_tpu_torch.models.lcnn import LCNN
 from audiodeepfake_detection_tpu_torch.models.regression import Regression
 from audiodeepfake_detection_tpu_torch.models.torch_import import state_dict_from_jax
-from audiodeepfake_detection_tpu_torch.ops import lfcc, library, stft, wpt
+from audiodeepfake_detection_tpu_torch.ops import int8_conv_cuda, lfcc, library, stft, wpt
 from audiodeepfake_detection_tpu_torch.ops.quantize import (
     DEFAULT_INT8_SITES,
     bake_int8_weights,
+    baked_records,
     quantize_model,
 )
 from audiodeepfake_detection_tpu_torch.train import export, predict
@@ -247,7 +248,7 @@ def _dcnn_int8():
         img = transform(torch.from_numpy(_audio(3, SR, seed=11)))
     qmodel, _ = quantize_model(model, [img], include=DEFAULT_INT8_SITES)
     return bake_int8_weights(qmodel, img), transform, SR, {
-        "adfd::wpt_packets": 1, "adfd::int8_conv": len(DEFAULT_INT8_SITES)}
+        "adfd::wpt_packets": 1, "adfd::int8_conv_site": len(DEFAULT_INT8_SITES)}
 
 
 def _lcnn():
@@ -274,9 +275,10 @@ def test_model_artifacts_equal_make_score_fn(make, tmp_path):
     ep, meta = _roundtrip(export.export_scorer(model, transform, win, "cpu"),
                           tmp_path / "sym.adfx")
     assert meta["in_shape"] == ["b", "1", str(win)] and export.adfd_ops(ep) == ops
-    if "adfd::int8_conv" in ops:
+    if "adfd::int8_conv_site" in ops:
+        # w_q, s_w and the kernel's layout at each site, the map at the five folded ones
         baked = [k for k in ep.constants if "int8_baked__" in k]
-        assert len(baked) == 2 * len(DEFAULT_INT8_SITES)
+        assert len(baked) == sum(map(len, baked_records(model).values())) == 3 * 6 + 5
     for b in (1, 2, 5):
         audio = _audio(b, win, seed=20 + b)
         _equal(_call(ep, audio), score(torch.from_numpy(audio)))
@@ -319,6 +321,12 @@ _OP_CASES = {
                           torch.rand(4, generator=_gen(2)), 1, 2, torch.float32),
     "int8_conv-int32": lambda: (_codes(2, 5, 5, 2), _codes(3, 2, 1, 1, seed=1), None, 0, 1,
                                 torch.int32),
+    "int8_conv_site": lambda: (_r(2, 3, 6, 7), 0.02, _codes(4, 3, 3, 3, seed=1),
+                               torch.rand(4, generator=_gen(2)), None, None, _r(4, seed=3), 1, 2),
+    "int8_conv_site-bf16-baked": lambda: (
+        _r(2, 1, 5, 6, dtype=torch.bfloat16), 0.01, _codes(3, 1, 3, 3, seed=1),
+        torch.rand(3, generator=_gen(2)), int8_conv_cuda.site_weights(_codes(3, 1, 3, 3, seed=1)),
+        _r(3, 5, 6, seed=4, dtype=torch.bfloat16), _r(3, seed=5, dtype=torch.bfloat16), 1, 1),
 }
 
 
@@ -342,7 +350,8 @@ def test_every_forward_a_scorer_reaches_is_an_op():
     library.load()
     assert sorted(n for n in dir(torch.ops.adfd) if not n.startswith("_") and n != "name") == [
         "flash_mha_packed", "fused_conv1_prelu_pool", "fused_conv2_prelu_pool",
-        "fused_conv_mfm_pool", "fused_prelu_pool", "int8_conv", "wpt_packets"]
+        "fused_conv_mfm_pool", "fused_prelu_pool", "int8_conv", "int8_conv_site",
+        "wpt_packets"]
 
 
 # ----------------------------------------------- the caches after a trace

@@ -42,7 +42,7 @@ from audiodeepfake_detection_tpu_torch.models.lcnn import LCNN
 from audiodeepfake_detection_tpu_torch.models.regression import Regression
 from audiodeepfake_detection_tpu_torch.ops import int8_conv_cuda
 from audiodeepfake_detection_tpu_torch.ops import quantize as pq
-from audiodeepfake_detection_tpu_torch.ops.int8_conv import int8_conv
+from audiodeepfake_detection_tpu_torch.ops.int8_conv import int8_conv, int8_conv_site
 from audiodeepfake_detection_tpu_torch.train import predict
 from audiodeepfake_detection_tpu_torch.train.metrics import calculate_eer
 from audiodeepfake_detection_tpu_torch.train.serve import service_from_snapshot
@@ -168,6 +168,77 @@ def test_quantized_conv_is_jax_bit_for_bit(kind, dtype):
     assert acc.dtype == torch.int32
     np.testing.assert_array_equal(acc.numpy(), np.asarray(jacc).transpose(0, 3, 1, 2))
     assert int8_conv_cuda.LAUNCHES == 0  # CPU tensors never reach the kernel
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", sorted(SITE_KINDS))
+def test_int8_site_is_the_composition_it_replaces(kind, dtype):
+    """The whole-site entry against what the layers computed before it: the
+    codes-in ``quantized_conv``, then ``+ map`` and ``+ bias`` in the
+    working type; folded (with a map) and not, on the fly and baked; and
+    against JAX's ``quantized_conv`` plus map plus bias, op by op: 0.0."""
+    cin, cout, k, pad, dil, h, w = SITE_KINDS[kind]
+    rng = np.random.RandomState(cin * 10 + k + 7)
+    ho, wo = h + 2 * pad - dil * (k - 1), w + 2 * pad - dil * (k - 1)
+    x = rng.randn(2, cin, h, w).astype(np.float32)
+    wt = (0.3 * rng.randn(cout, cin, k, k)).astype(np.float32)
+    fold_map = rng.randn(cout, ho, wo).astype(np.float32)
+    bias = rng.randn(cout).astype(np.float32)
+    scale = float(np.abs(x).max()) / 127.0 * 0.9  # clips the top of the range
+    tdt = getattr(torch, dtype)
+    xt, mt, bt = (torch.from_numpy(a).to(tdt) for a in (x, fold_map, bias))
+    w32 = torch.from_numpy(wt)
+    records = (pq.conv_int8_weights(w32), pq.conv_site_record(w32, mt))
+    composed = pq.quantized_conv(xt, w32, scale, pad, dil)
+    for const in (None, mt):
+        want = (composed if const is None else composed + const[None]) + bt.reshape(-1, 1, 1)
+        for rec in records:
+            got = int8_conv_site(xt, scale, rec, pad, dil, const=const, bias=bt)
+            assert got.dtype == tdt and got.is_contiguous() and torch.equal(got, want)
+    jdt = jnp.dtype(dtype)
+    jy = jq.quantized_conv(jnp.asarray(x.transpose(0, 2, 3, 1)).astype(jdt),
+                           jnp.asarray(wt.transpose(2, 3, 1, 0)), scale, pad, dil)
+    jy = jy + jnp.asarray(fold_map.transpose(1, 2, 0)).astype(jdt) + jnp.asarray(bias).astype(jdt)
+    got = int8_conv_site(xt, scale, records[1], pad, dil, const=mt, bias=bt)
+    _bits(got, np.asarray(jy.astype(jnp.float32)).transpose(0, 3, 1, 2))
+    assert int8_conv_cuda.SITE_LAUNCHES == 0
+
+
+@pytest.mark.parametrize("kind", sorted(SITE_KINDS))
+def test_site_weights_are_the_kernels_layout(kind):
+    """``site_weights`` read back index by index as the kernel reads it
+    (Cin = 1: taps in ``kh * k + kw`` order; otherwise lane ``4 g + t`` of
+    step ``s``, n8 tile ``j`` holds channel ``8 j + g``'s reduction indices
+    ``32 s + 16 h + 4 t + e``, tap-major over Cin padded to 32), zero
+    codes beyond Cout and Cin; N tiles shaped to Cout."""
+    cin, cout, k, pad, dil, h, w = SITE_KINDS[kind]
+    w_q = torch.from_numpy(np.random.RandomState(k).randint(-127, 128, (cout, cin, k, k))
+                           ).to(torch.int8)
+    rows = int8_conv_cuda.site_weights(w_q)
+    assert rows.dtype == torch.int8 and rows.is_contiguous()
+    assert tuple(rows.shape) == int8_conv_cuda.weights_shape(cout, cin, k)
+    plan = int8_conv_cuda.site_plan(h, w, cin, cout, k, pad, dil)
+    wn = w_q.numpy()
+    if cin == 1:
+        want = np.zeros(rows.shape, np.int8)
+        want[:, :k * k] = wn.reshape(cout, k * k)
+        np.testing.assert_array_equal(rows.numpy(), want)
+        assert plan.route == -rows.shape[1] // 16 and plan.grid_y == 1
+        assert plan.tr * plan.tw <= plan.threads <= int8_conv_cuda.CIN1_THREADS
+        return
+    steps, n8, lanes, nbytes = rows.shape
+    cin_p = -(-cin // 32) * 32
+    s, j, lane, e = np.meshgrid(*(np.arange(n) for n in rows.shape), indexing="ij")
+    n = 8 * j + lane // 4
+    kidx = 32 * s + 16 * (e // 4) + 4 * (lane % 4) + e % 4
+    tap, c = kidx // cin_p, kidx % cin_p
+    live = (n < cout) & (c < cin)
+    want = np.where(live, wn[np.minimum(n, cout - 1), np.minimum(c, cin - 1), tap // k, tap % k], 0)
+    np.testing.assert_array_equal(rows.numpy(), want)
+    bn = {2: 32, 4: 64, 6: 96, 8: 128}[plan.route]  # channels a CTA
+    assert bn == min(128, -(-cout // 32) * 32) and plan.grid_y * bn == n8 * 8 >= cout
+    assert plan.tr * plan.tw <= int8_conv_cuda.MMA_POSITIONS and plan.tw <= int8_conv_cuda.MAX_RUN
+    assert steps == k * k * cin_p // 32 and plan.smem <= int8_conv_cuda.MAX_SMEM
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -319,6 +390,60 @@ def test_baked_equals_on_the_fly_and_keeps_the_state_dict(pair):
         assert torch.equal(qmodel(x), fresh(x))
 
 
+def test_baked_site_records_are_the_call_time_layout_and_map():
+    """Every baked conv record holds the kernel's layout of its codes and,
+    at a folded site, the map the un-baked call computes at that input's
+    plane; a re-bake after a BatchNorm update refreshes both; a call at
+    another plane computes its map anew."""
+    from audiodeepfake_detection_tpu_torch.models import layers
+
+    port = _seeded_port("DCNN", seed=6)[0]
+    scales = {s: 0.02 for s in ("cnn_0", "cnn_4", "cnn_7", "dil_4")}
+    qmodel = pq.with_quant(port, scales)
+    x = torch.from_numpy(np.random.RandomState(8).randn(*DCNN_SHAPE).astype(np.float32))
+    seen = []
+    site = layers.int8_conv_site
+
+    def spy(x, act_scale, record, padding, dilation=1, const=None, bias=None):
+        seen.append((record, const))
+        return site(x, act_scale, record, padding, dilation, const=const, bias=bias)
+
+    def sites_of(model):
+        seen.clear()
+        with torch.inference_mode():
+            model(x)
+        return list(seen)
+
+    maps = []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(layers, "int8_conv_site", spy)
+        for _ in range(2):
+            fly = sites_of(pq.with_quant(port, scales))  # un-baked: made at call time
+            pq.bake_int8_weights(qmodel, x[:1])
+            baked = sites_of(qmodel)
+            records = pq.baked_records(qmodel)
+            assert len(fly) == len(baked) == len(records) == 4
+            for (frec, fconst), (brec, bconst) in zip(fly, baked):
+                assert "rows" not in frec and any(brec["w_q"] is r["w_q"] for r in records.values())
+                assert torch.equal(brec["w_q"], frec["w_q"]) and torch.equal(brec["s_w"], frec["s_w"])
+                assert torch.equal(brec["rows"], int8_conv_cuda.site_weights(frec["w_q"]))
+                assert (fconst is None) == ("map" not in brec)
+                if fconst is not None:
+                    assert bconst is brec["map"] and torch.equal(bconst, fconst)
+            with torch.no_grad():  # a BatchNorm update: the next bake refreshes the maps
+                for bn in (m for m in port.modules() if isinstance(m, torch.nn.BatchNorm2d)):
+                    bn.running_mean.add_(0.25)
+            maps.append(records["cnn_4"]["map"])
+    bn, conv = port.cnn[3], port.cnn[4]  # site cnn_4: the BatchNorm in front, the 1x1 conv
+    other = torch.randn(1, conv.in_channels, 5, 7)  # a plane the baked map does not fit
+    rec = pq.baked_records(qmodel)["cnn_4"]
+    with torch.inference_mode():
+        got = layers.folded_bn_conv(bn, conv, other, act_scale=0.02, baked=lambda make: rec)
+        want = layers.folded_bn_conv(bn, conv, other, act_scale=0.02)
+    assert got.shape[-2:] == (5, 7) and torch.equal(got, want)
+    assert not torch.equal(maps[0], maps[1])
+
+
 def test_refusals():
     model = DCNN(**NARROW)
     qmodel = pq.with_quant(model, {"cnn_4": 0.01})
@@ -455,3 +580,49 @@ def test_predict_int8_cli_and_int8_service_score_on_cpu(int8_snapshot, capsys):
         service_from_snapshot(snapshot, device="cpu", int8=True, calibrate=[])
     with pytest.raises(ValueError, match="shorter than one frame"):
         service_from_snapshot(snapshot, device="cpu", int8=True, calibrate=[clips[2][0]])
+
+
+# (Cin, Cout, k, padding, dilation, H, W) -> the MMA route's tile (tr, tw)
+_DCNN_TILES = {
+    (64, 96, 3, 1, 1, 48, 129): (2, 43),   # cnn_7: Wo 129 in runs of 43
+    (96, 128, 3, 1, 1, 24, 64): (2, 64),   # cnn_11: whole rows
+    (128, 32, 3, 1, 1, 24, 64): (4, 32),   # cnn_14: N tile 32, rows by cp.async
+    (32, 64, 3, 1, 1, 24, 64): (2, 64),    # cnn_17
+}
+
+
+@pytest.mark.parametrize("geo", sorted(_DCNN_TILES))
+def test_site_plan_splits_wo_into_even_runs(geo):
+    """The MMA route's tile on a contiguous activation: whole rows where
+    Wo fits ``MAX_RUN``, else Wo split evenly into runs of at most
+    ``MAX_RUN`` columns; at an N tile of 32 the rows by cp.async, on runs of
+    ``ROWS_RUN``; at most ``MMA_POSITIONS`` positions.  A transposed view
+    loads into registers."""
+    cin, cout, k, pad, dil, h, w = geo
+    x = torch.zeros(1, cin, h, w)
+    plan = int8_conv_cuda.plan_for(x, cout, k, pad, dil)
+    assert (plan.tr, plan.tw) == _DCNN_TILES[geo]
+    rows = int8_conv_cuda.STAGE_ROWS if cout == 32 else int8_conv_cuda.STAGE_LOADS
+    assert plan.staging == rows
+    assert plan.tr * plan.tw <= int8_conv_cuda.MMA_POSITIONS
+    view = torch.zeros(1, cin, w, h).permute(0, 1, 3, 2)
+    assert int8_conv_cuda.plan_for(view, cout, k, pad, dil).staging == int8_conv_cuda.STAGE_LOADS
+
+
+def test_plan_copies_aligned_code_words_only():
+    """The codes-in prologue copies 16-byte code words by cp.async where Cin
+    is a multiple of 16 and the codes lie on the 16-byte grid, else loads
+    them into registers; the rows' prologue falls back to register loads
+    where its buffers leave no room in shared memory."""
+    plan = int8_conv_cuda.plan_for
+    codes = torch.zeros(2, 5, 6, 64, dtype=torch.int8)
+    shifted = torch.zeros(codes.numel() + 1, dtype=torch.int8)[1:].view(codes.shape)
+    assert codes.data_ptr() % 16 == 0 and shifted.data_ptr() % 16 != 0
+    assert plan(codes, 32, 3, 1, 1).staging == int8_conv_cuda.STAGE_CODES
+    assert plan(shifted, 32, 3, 1, 1).staging == int8_conv_cuda.STAGE_LOADS
+    assert plan(codes[..., :12].contiguous(), 32, 3, 1, 1).staging == int8_conv_cuda.STAGE_LOADS
+    wide = torch.zeros(1, 12, 64, 32)  # dil_7: 7x7 at dilation 4, N tile 32
+    assert plan(wide, 12, 5, 2, 2).staging == int8_conv_cuda.STAGE_ROWS
+    fallback = plan(wide, 12, 7, 2, 4)
+    assert fallback.staging == int8_conv_cuda.STAGE_LOADS
+    assert fallback.smem <= int8_conv_cuda.MAX_SMEM

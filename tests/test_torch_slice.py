@@ -279,3 +279,41 @@ def test_predict_cli_scores_files(snapshot, wav_files, capsys):
     int8 = json.loads(capsys.readouterr().out)
     assert sorted(int8) == sorted(scores)
     assert all(abs(int8[p] - scores[p]) < 0.1 and int8[p] != scores[p] for p in scores)
+
+
+def test_service_kernel_switch_scores_through_the_plain_cascade(snapshot, monkeypatch):
+    """``use_kernel=False`` (serve's ``--no-kernel``, JAX's ``--no-pallas``)
+    scores through the plain wavelet-packet cascade, never the op, as
+    ``make_score_fn`` does through the plain transform; the default goes
+    through the op; the CLI flag reaches the builder."""
+    from audiodeepfake_detection_tpu_torch.train import serve
+
+    calls = []
+    op = wpt_cuda.wpt_packets
+    monkeypatch.setattr(wpt_cuda, "wpt_packets", lambda *a: calls.append(a) or op(*a))
+    audio = (_pcm(2 * SR, seed=7).astype(np.float32) / 32768.0)
+    with service_from_snapshot(snapshot, batch_size=2, device="cpu", use_kernel=False) as svc:
+        calls.clear()
+        score, frame_scores = svc.score_clip(audio, SR)
+    assert not calls
+    model, transform, _ = predict.build_scorer_from_snapshot(snapshot, use_kernel=False)
+    direct = predict.make_score_fn(model, transform, "cpu")(
+        torch.from_numpy(audio.reshape(2, 1, SR))).numpy()
+    np.testing.assert_array_equal(frame_scores, direct)
+    with service_from_snapshot(snapshot, batch_size=2, device="cpu") as default:
+        calls.clear()
+        _, op_scores = default.score_clip(audio, SR)
+    assert calls  # the default goes through the op (its plain version here)
+    np.testing.assert_allclose(op_scores, frame_scores, atol=1e-6)
+
+    seen = []
+
+    def builder(snapshot, **kw):
+        seen.append(kw["use_kernel"])
+        raise KeyboardInterrupt
+
+    monkeypatch.setattr(serve, "service_from_snapshot", builder)
+    for flags in ([], ["--no-kernel"]):
+        with pytest.raises(KeyboardInterrupt):
+            serve.main([snapshot, "--device", "cpu", *flags])
+    assert seen == [True, False]
