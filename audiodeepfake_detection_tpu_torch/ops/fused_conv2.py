@@ -28,10 +28,14 @@ columns past the pooled region) and ``dalpha``.
 float32 in gives float32 out with float32 arithmetic.  bfloat16 ``x`` gives
 bfloat16 out: ``w`` and ``alpha`` are rounded to bfloat16, products
 accumulate in float32, ``corr`` stays float32, and the moments are those of
-the rounded output.  Gradients come back in each argument's type.  (The
-kernels take the selected conv value of ``dalpha`` back from the stored
-output, ``out / alpha``: under bfloat16 that is 2**-9 per term coarser than
-the plain version, as in the JAX kernel.)
+the rounded output.  In the backward the cotangent of the conv output is
+rounded to bfloat16 once before the two products that give ``dx`` and
+``dw`` (``dcorr`` and ``dalpha`` take it in float32), as the JAX kernel
+rounds ``d_row``: the kernels and the plain version (through
+``_RoundCotangent``) do the same.  Gradients come back in each
+argument's type.  (The kernels take the selected conv value of ``dalpha``
+back from the stored output, ``out / alpha``: under bfloat16 that is 2**-9
+per term coarser than the plain version, as in the JAX kernel.)
 
 On a CUDA tensor the public functions launch the hand-written kernels of
 ``csrc/fused_conv2.cu`` (the contraction is theirs: no ``F.conv2d``, no
@@ -63,13 +67,33 @@ def _rounded(x, w, alpha):
     return w.to(x.dtype).float(), alpha.to(x.dtype).float()
 
 
+class _RoundCotangent(torch.autograd.Function):
+    """The identity forward; its backward rounds the cotangent to bfloat16
+    (and back to float32), as the JAX kernel rounds the conv output's
+    cotangent before its bf16 products."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(torch.bfloat16).float()
+
+
+def _weight(wq, c_in, c_out):
+    """``[9 * Cin, Cout]`` as torch's ``[Cout, Cin, 3, 3]`` conv weight."""
+    return wq.reshape(K, K, c_in, c_out).permute(3, 2, 0, 1)
+
+
 def _plain_pooled(x, w, corr, alpha) -> torch.Tensor:
     """Float32 ``[B, Cout, H//2, W//2]`` holding the values the block
     stores."""
     wq, aq = _rounded(x, w, alpha)
-    c_in, c_out = x.shape[1], w.shape[1]
-    weight = wq.reshape(K, K, c_in, c_out).permute(3, 2, 0, 1)
-    conv = F.conv2d(x.float(), weight, padding=1) + corr.float()
+    conv = F.conv2d(x.float(), _weight(wq, x.shape[1], w.shape[1]), padding=1)
+    if x.dtype == torch.bfloat16:
+        conv = _RoundCotangent.apply(conv)
+    conv = conv + corr.float()
     act = torch.where(conv >= 0, conv, aq * conv)
     # floor mode; its backward takes the first maximum of a window
     return straight_through_round(F.max_pool2d(act, 2), x.dtype)
@@ -84,6 +108,45 @@ def plain_conv2_prelu_pool_stats(x, w, corr, alpha):
     """Plain version with the ``(sum, sumsq)`` of the rounded output."""
     o32 = _plain_pooled(x, w, corr, alpha)
     return o32.to(x.dtype), o32.sum(dim=(0, 2, 3)), (o32 * o32).sum(dim=(0, 2, 3))
+
+
+def plain_conv2_grads_from_code(x, w, corr, alpha, code, out, g, gs=None, gq=None):
+    """The block's gradients ``(dx, dw, dcorr, dalpha)`` in plain PyTorch ops
+    at a given selection and stored output ``out``: the conv-output
+    cotangent is built from the pooled output's (``g``) and the moments'
+    (``gs``, ``gq``; ``None``: no moments) cotangents, scaled by the slope where ``code`` (``phase |
+    negative << 2``, the kernels' selection code) says negative, and put at
+    the selected phase; rounded to bfloat16 for the two products under
+    bfloat16 ``x``, as the plain version rounds it; then
+    ``torch.nn.grad.conv2d_input`` / ``conv2d_weight``.  ``dalpha`` sums
+    the selected conv value (the plain version's float32 convolution) times
+    the cotangent over the negative selections.  Gradients in each
+    argument's type, as autograd returns them."""
+    wq, aq = _rounded(x, w, alpha)
+    b, c_in, h, win = x.shape
+    c_out = w.shape[1]
+    h2, w2 = h // 2, win // 2
+    gt = g.float()
+    if gs is not None:
+        gt = gt + gs.float()[:, None, None] + 2 * out.float() * gq.float()[:, None, None]
+    neg = code >= 4
+    sel = (code & 3).long()
+    pooled_d = torch.where(neg, aq * gt, gt)
+    d = torch.zeros((b, c_out, h, win), dtype=torch.float32, device=x.device)
+    weight = _weight(wq, c_in, c_out)
+    conv = F.conv2d(x.float(), weight, padding=1) + corr.float()
+    conv_sel = torch.zeros_like(gt)
+    for ph in range(4):
+        at = (slice(None), slice(None), slice(ph >> 1, 2 * h2, 2), slice(ph & 1, 2 * w2, 2))
+        d[at] = torch.where(sel == ph, pooled_d, 0.0)
+        conv_sel = torch.where(sel == ph, conv[at], conv_sel)
+    dr = d.to(torch.bfloat16).float() if x.dtype == torch.bfloat16 else d
+    dx = torch.nn.grad.conv2d_input(x.shape, weight, dr, padding=1)
+    dw = torch.nn.grad.conv2d_weight(x.float(), weight.shape, dr, padding=1)
+    dw = dw.permute(2, 3, 1, 0).reshape(9 * c_in, c_out)
+    dalpha = torch.where(neg, conv_sel * gt, 0.0).sum().reshape(1)
+    return (dx.to(x.dtype), dw.to(w.dtype), d.sum(dim=0).to(corr.dtype),
+            dalpha.to(alpha.dtype))
 
 
 class _FusedConv2(torch.autograd.Function):

@@ -1,13 +1,16 @@
 """Launchers of the fused conv 3x3 + PReLU + max-pool CUDA kernels
 (``csrc/fused_conv2.cu``).
 
-``forward`` launches one kernel (FMA pipe, a two-stage ``cp.async`` ring).
-``backward`` launches three: ``dx`` (the transposed convolution) and ``dw``
-(split over ``B * H * W``), both implicit GEMMs on the tensor cores with
-split-TF32 products, and a small one for ``dcorr`` and ``dalpha``; it
-finishes the cross-block sums with one ``torch.sum`` each over per-block
-partials (fixed order: results are bit-for-bit reproducible).  The
-launchers check device, type, shape and contiguity,
+``forward`` launches one kernel: for float32 ``x`` on the FMA pipe in
+cuDNN's summation order, for bfloat16 ``x`` an implicit GEMM on the tensor
+cores (``mma.sync`` m16n8k16) with PReLU, pool, code and moments in its
+epilogue.  ``backward`` launches three: ``dx`` (the transposed convolution)
+and ``dw`` (split over ``B * H * W``), both implicit GEMMs on the tensor
+cores (float32: split-TF32 products; bfloat16: bf16 products of the
+conv-output cotangent rounded to bf16), and a small one for ``dcorr`` and
+``dalpha``; it finishes the cross-block sums with one ``torch.sum`` each
+over per-block partials (fixed order: results are bit-for-bit
+reproducible).  The launchers check device, type, shape and contiguity,
 allocate outputs and scratch with ``torch.empty`` / ``torch.zeros``, run on
 the current stream and do not synchronise.  ``CONV2_FWD_LAUNCHES`` counts
 forward kernel launches; ``CONV2_BWD_LAUNCHES`` grows by one per
@@ -17,9 +20,10 @@ and the plain PyTorch versions live in ``ops/fused_conv2.py``.
 The only tensor work outside the kernels is the re-arrangement of the
 ``[9 * Cin, Cout]`` weights (a few hundred KB) into the orders the kernels
 read, zero-padded to whole tiles so that every slab is one run of 16-byte
-copies: ``[channel tiles][Cin_pad][9][nt]`` for the forward, flipped
-``[Cin tiles][Cout_pad][9 * 64 + 8]`` for ``dx`` and ``[Cin, 9, Cout]`` for
-the small kernel.
+copies: float32 ``[channel tiles][Cin_pad][9][nt]`` for the forward, flipped
+``[Cin tiles][Cout_pad][9 * 64 + 8]`` for ``dx``; bfloat16 in the
+tensor cores' B-fragment order for both (``forward_weights_bf16``,
+``dx_weights_bf16``); ``[Cin, 9, Cout]`` for the small kernel.
 
 The library is compiled at first use (``cuda_build.compile_library``) and
 bound with ``ctypes``; nothing here touches the CUDA toolchain at import
@@ -67,6 +71,17 @@ DW_THREADS = 12 * 32
 # partials, so the buffer stays at a few MB
 DW_TARGET_BLOCKS = 132
 SMALL_THREADS = 256
+# bf16 route: 16 channels of K a stage; a staged position holds 16 channels
+# and 8 bf16 of padding (48 B: an odd number of 16-byte slots)
+BF_CHUNK = 16
+BF_POS = 24
+BF_THREADS = 256
+BF_NF = (2, 4, 6, 8)  # n8 tiles a forward warp owns: N tiles of 32 .. 128 channels
+BF_X = 4 * 2 * (TILE_WINDOWS + 1) * BF_POS  # bf16 of the forward's halo: kBfX
+BX_D = (DX_ROWS + 4) * (DX_COLS + 4) * BF_POS  # bf16 of dx's d ring: kBxD
+BX_SLAB = 9 * (DX_CI // 8) * 32 * 8  # bytes of a dx chunk's weights
+BW_X = 4 * (2 * DW_WINDOWS + 2) * (DW_CI + 8)  # bf16 of dw's x tile: kBwX
+BW_D = DW_CO * (4 * DW_WINDOWS + 8)  # bf16 of dw's d tile: kBwD
 
 _LIB: Optional[ctypes.CDLL] = None
 _BUILD_LOCK = threading.Lock()
@@ -82,11 +97,12 @@ def build() -> str:
         lib_path, report = compile_library(SOURCE)
         lib = ctypes.CDLL(str(lib_path))
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.fused_conv2_fwd_launch.argtypes = [vp] * 7 + [ci] * 12 + [vp]
+        lib.fused_conv2_fwd_launch.argtypes = [vp] * 7 + [ci] * 11 + [vp]
+        lib.fused_conv2_fwd_bf16_launch.argtypes = [vp] * 7 + [ci] * 9 + [vp]
         lib.fused_conv2_dx_launch.argtypes = [vp] * 8 + [ci] * 10 + [vp]
         lib.fused_conv2_dw_launch.argtypes = [vp] * 8 + [ci] * 10 + [vp]
         lib.fused_conv2_small_launch.argtypes = [vp] * 11 + [ci] * 8 + [vp]
-        for fn in ("fwd", "dx", "dw", "small"):
+        for fn in ("fwd", "fwd_bf16", "dx", "dw", "small"):
             getattr(lib, f"fused_conv2_{fn}_launch").restype = ci
         lib.fused_conv2_error_string.argtypes = [ci]
         lib.fused_conv2_error_string.restype = ctypes.c_char_p
@@ -114,6 +130,17 @@ class TilePlan(NamedTuple):
     grid_x: int  # B * row pairs * column tiles
     grid_y: int  # channel tiles of nt = threads // 32 * nc
     smem_bytes: int  # two stages of the x tile + weight slab
+
+
+class Bf16Plan(NamedTuple):
+    """How the bf16 forward kernel cuts its output: a pooled row's 32
+    windows by ``16 * nf`` output channels a block."""
+
+    nf: int  # n8 tiles a warp owns (2, 4, 6 or 8)
+    threads: int  # 8 warps: 4 (pixels) x 2 (channels)
+    grid_x: int  # B * row pairs * column tiles
+    grid_y: int  # channel tiles of 16 * nf
+    smem_bytes: int  # two stages of the halo + weight fragments
 
 
 class DxPlan(NamedTuple):
@@ -168,22 +195,43 @@ def tile_plan(b: int, h: int, w: int, c_out: int) -> TilePlan:
                     4 * STAGES * CHUNK * (PLANE + 9 * nt))
 
 
-def dx_plan(b: int, h: int, w: int, c_in: int, c_out: int) -> DxPlan:
+def bf16_tile_plan(b: int, h: int, w: int, c_out: int) -> Bf16Plan:
+    """bf16 forward plan: the smallest N tile that holds ``c_out``, or
+    above 128 channels the one that pads least (ties to the wider)."""
+    _geometry(b, h, w, c_out)
+    if c_out <= 16 * BF_NF[-1]:
+        nf = min(f for f in BF_NF if 16 * f >= c_out)
+    else:
+        nf = min(BF_NF, key=lambda f: (_ceil_div(c_out, 16 * f) * 16 * f, -f))
+    nt = 16 * nf
+    grid_x = _grid(b * (h // 2) * _ceil_div(w // 2, TILE_WINDOWS),
+                   f"B={b} with {h // 2} x {w // 2} pool windows")
+    return Bf16Plan(nf, BF_THREADS, grid_x, _ceil_div(c_out, nt),
+                    STAGES * (2 * BF_X + 288 * nt))
+
+
+def dx_plan(b: int, h: int, w: int, c_in: int, c_out: int, bf16: bool = False) -> DxPlan:
     _geometry(b, h, w, c_in, c_out)
     grid_x = _grid(b * _ceil_div(h, DX_ROWS) * _ceil_div(w, DX_COLS),
                    f"dx of B={b}, H={h}, W={w}")
+    if bf16:  # two stages of the d ring and the weights, then (gs, gq)
+        cout_pad = _ceil_div(c_out, BF_CHUNK) * BF_CHUNK
+        return DxPlan(DX_THREADS, grid_x, _ceil_div(c_in, DX_CI), cout_pad,
+                      STAGES * (2 * BX_D + BX_SLAB) + 4 * 2 * cout_pad)
     return DxPlan(DX_THREADS, grid_x, _ceil_div(c_in, DX_CI),
                   _ceil_div(c_out, CHUNK) * CHUNK,
                   4 * STAGES * CHUNK * (2 * DX_PLANE + DX_W_ROW))
 
 
-def dw_plan(b: int, h: int, w: int, c_in: int, c_out: int) -> DwPlan:
+def dw_plan(b: int, h: int, w: int, c_in: int, c_out: int, bf16: bool = False) -> DwPlan:
     _geometry(b, h, w, c_in, c_out)
     tiles = _ceil_div(c_in, DW_CI) * _ceil_div(c_out, DW_CO)
     steps = b * (h // 2) * _ceil_div(w // 2, DW_WINDOWS)
     splits = max(1, min(steps, DW_TARGET_BLOCKS // tiles, 65535))
-    # d: big and small; then the block's moment cotangents
-    smem = 4 * (STAGES * (DW_CI * DW_X_PLANE + 2 * DW_CO * DW_D_ROW) + 2 * DW_CO)
+    if bf16:  # x and d in bf16
+        smem = STAGES * 2 * (BW_X + BW_D) + 4 * 2 * DW_CO
+    else:  # d: big and small; then the block's moment cotangents
+        smem = 4 * (STAGES * (DW_CI * DW_X_PLANE + 2 * DW_CO * DW_D_ROW) + 2 * DW_CO)
     return DwPlan(DW_THREADS, _grid(tiles, f"dw of Cin={c_in}, Cout={c_out}"), splits,
                   steps, smem)
 
@@ -246,6 +294,56 @@ def dx_weights(w: torch.Tensor, c_in: int, c_out: int, cout_pad: int) -> torch.T
     return F.pad(wf.reshape(tiles, cout_pad, 9 * DX_CI), (0, DX_W_ROW - 9 * DX_CI))
 
 
+def forward_weights_bf16(w: torch.Tensor, c_in: int, c_out: int, nt: int) -> torch.Tensor:
+    """``[9 * Cin, Cout]`` -> bf16 B fragments ``[Cout tiles][Cin_pad / 16]
+    [9][nt / 8][8][4][4]``, zero past both ends: lane ``gl * 4 + tl`` of n8
+    tile ``j`` holds column ``8 j + gl`` at k = 2 tl, 2 tl + 1, 2 tl + 8,
+    2 tl + 9 of the chunk (one ``uint2``)."""
+    tiles, chunks = _ceil_div(c_out, nt), _ceil_div(c_in, BF_CHUNK)
+    wk = F.pad(w.view(9, c_in, c_out),
+               (0, tiles * nt - c_out, 0, chunks * BF_CHUNK - c_in)).to(torch.bfloat16)
+    # [tap, chunk, k half, tl, k pair, tile, j, gl]
+    wk = wk.view(9, chunks, 2, 4, 2, tiles, nt // 8, 8)
+    return wk.permute(5, 1, 0, 6, 7, 3, 2, 4).reshape(tiles, chunks, 9, nt // 8, 8, 4, 4)
+
+
+def dx_weights_bf16(w: torch.Tensor, c_in: int, c_out: int, cout_pad: int) -> torch.Tensor:
+    """``[9 * Cin, Cout]`` -> flipped bf16 B fragments ``[Cin tiles][Cout_pad
+    / 16][9][8][8][4][4]``: tap ``(eh, ew)`` holds ``w`` at ``(2 - eh, 2 -
+    ew)``, k the chunk's output channels, columns the tile's 64 input
+    channels in eight n8 tiles, fragments as in :func:`forward_weights_bf16`."""
+    tiles, chunks = _ceil_div(c_in, DX_CI), cout_pad // BF_CHUNK
+    wf = w.view(3, 3, c_in, c_out).flip(0, 1).reshape(9, c_in, c_out)
+    wf = F.pad(wf, (0, cout_pad - c_out, 0, tiles * DX_CI - c_in)).to(torch.bfloat16)
+    # [tap, tile, j, gl, chunk, k half, tl, k pair]
+    wf = wf.view(9, tiles, DX_CI // 8, 8, chunks, 2, 4, 2)
+    return wf.permute(1, 4, 0, 2, 3, 6, 5, 7).reshape(tiles, chunks, 9, DX_CI // 8, 8, 4, 4)
+
+
+def _forward_bf16(x, w, corr, alpha, want_code: bool, want_stats: bool):
+    b, c_in, h, win = x.shape
+    c_out = w.shape[1]
+    plan = bf16_tile_plan(b, h, win, c_out)
+    wf = forward_weights_bf16(w, c_in, c_out, 16 * plan.nf)
+    shape = (b, c_out, h // 2, win // 2)
+    out = torch.empty(shape, dtype=x.dtype, device=x.device)
+    code = torch.empty(shape, dtype=torch.uint8, device=x.device) if want_code else None
+    partials = (
+        torch.empty((plan.grid_x, 2, c_out), dtype=torch.float32, device=x.device)
+        if want_stats
+        else None
+    )
+    err = _lib().fused_conv2_fwd_bf16_launch(
+        x.data_ptr(), wf.data_ptr(), corr.data_ptr(), alpha.data_ptr(), out.data_ptr(),
+        code.data_ptr() if want_code else None,
+        partials.data_ptr() if want_stats else None,
+        c_in, c_out, h, win, plan.nf, plan.grid_x, plan.grid_y, plan.smem_bytes,
+        x.device.index, _stream(x),
+    )
+    _check(err, f"{WHAT} bf16 forward launch")
+    return out, code, partials
+
+
 def forward(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -265,27 +363,30 @@ def forward(
     """
     global CONV2_FWD_LAUNCHES
     b, c_in, c_out, h, win = check_inputs(x, w, corr, alpha)
-    plan = tile_plan(b, h, win, c_out)
-    nt = plan.threads // 32 * plan.nc
-    wk = forward_weights(w, c_in, c_out, nt)
-    shape = (b, c_out, h // 2, win // 2)
-    out = torch.empty(shape, dtype=x.dtype, device=x.device)
-    code = torch.empty(shape, dtype=torch.uint8, device=x.device) if want_code else None
-    partials = (
-        torch.empty((plan.grid_x, 2, c_out), dtype=torch.float32, device=x.device)
-        if want_stats
-        else None
-    )
-    err = _lib().fused_conv2_fwd_launch(
-        x.data_ptr(), wk.data_ptr(), corr.data_ptr(), alpha.data_ptr(),
-        out.data_ptr(),
-        code.data_ptr() if want_code else None,
-        partials.data_ptr() if want_stats else None,
-        c_in, wk.shape[1], c_out, h, win, int(x.dtype == torch.bfloat16), plan.nc,
-        plan.grid_x, plan.grid_y, plan.threads, plan.smem_bytes,
-        x.device.index, _stream(x),
-    )
-    _check(err, f"{WHAT} forward launch")
+    if x.dtype == torch.bfloat16:
+        out, code, partials = _forward_bf16(x, w, corr, alpha, want_code, want_stats)
+    else:
+        plan = tile_plan(b, h, win, c_out)
+        nt = plan.threads // 32 * plan.nc
+        wk = forward_weights(w, c_in, c_out, nt)
+        shape = (b, c_out, h // 2, win // 2)
+        out = torch.empty(shape, dtype=x.dtype, device=x.device)
+        code = torch.empty(shape, dtype=torch.uint8, device=x.device) if want_code else None
+        partials = (
+            torch.empty((plan.grid_x, 2, c_out), dtype=torch.float32, device=x.device)
+            if want_stats
+            else None
+        )
+        err = _lib().fused_conv2_fwd_launch(
+            x.data_ptr(), wk.data_ptr(), corr.data_ptr(), alpha.data_ptr(),
+            out.data_ptr(),
+            code.data_ptr() if want_code else None,
+            partials.data_ptr() if want_stats else None,
+            c_in, wk.shape[1], c_out, h, win, plan.nc,
+            plan.grid_x, plan.grid_y, plan.threads, plan.smem_bytes,
+            x.device.index, _stream(x),
+        )
+        _check(err, f"{WHAT} forward launch")
     CONV2_FWD_LAUNCHES += 1
     if not want_stats:
         return out, code, None, None
@@ -297,13 +398,14 @@ def _dx(x, w, alpha, g, out, code, gs, gq) -> torch.Tensor:
     """The ``dx`` kernel, on arguments ``backward`` has checked."""
     b, c_in, h, win = x.shape
     c_out = w.shape[1]
-    plan = dx_plan(b, h, win, c_in, c_out)
-    wdx = dx_weights(w, c_in, c_out, plan.cout_pad)
+    bf16 = x.dtype == torch.bfloat16
+    plan = dx_plan(b, h, win, c_in, c_out, bf16)
+    wdx = (dx_weights_bf16 if bf16 else dx_weights)(w, c_in, c_out, plan.cout_pad)
     dx = torch.empty_like(x)
     err = _lib().fused_conv2_dx_launch(
         wdx.data_ptr(), alpha.data_ptr(), g.data_ptr(), out.data_ptr(),
         code.data_ptr(), gs.data_ptr(), gq.data_ptr(), dx.data_ptr(),
-        c_in, c_out, plan.cout_pad, h, win, int(x.dtype == torch.bfloat16),
+        c_in, c_out, plan.cout_pad, h, win, int(bf16),
         plan.grid_x, plan.grid_y, plan.smem_bytes, x.device.index, _stream(x),
     )
     _check(err, f"{WHAT} dx launch")
@@ -314,14 +416,15 @@ def _dw(x, w, alpha, g, out, code, gs, gq) -> torch.Tensor:
     """The ``dw`` kernel: ``[9 * Cin, Cout]`` float32."""
     b, c_in, h, win = x.shape
     c_out = w.shape[1]
-    plan = dw_plan(b, h, win, c_in, c_out)
+    bf16 = x.dtype == torch.bfloat16
+    plan = dw_plan(b, h, win, c_in, c_out, bf16)
     partials = torch.empty(
         (plan.splits, 9 * c_in, c_out), dtype=torch.float32, device=x.device
     )
     err = _lib().fused_conv2_dw_launch(
         x.data_ptr(), alpha.data_ptr(), g.data_ptr(), out.data_ptr(), code.data_ptr(),
         gs.data_ptr(), gq.data_ptr(), partials.data_ptr(), b, c_in, c_out, h, win,
-        int(x.dtype == torch.bfloat16), plan.tiles, plan.splits, plan.smem_bytes,
+        int(bf16), plan.tiles, plan.splits, plan.smem_bytes,
         x.device.index, _stream(x),
     )
     _check(err, f"{WHAT} dw launch")

@@ -78,9 +78,16 @@ Phases, in order; any failure propagates and the script exits non-zero
     forward at its headline shape
     must read 0.0 against plain (cuDNN's summation order); its fp32 dx and
     dw there are held against a float64 rebuild from its own code, under a
-    cap that one TF32 pass (modelled on the same inputs) must exceed; the
-    tensor-core (HMMA) instructions of its dx / dw kernels are counted in
-    the built library (``cuobjdump -sass``: > 0; the forward's: 0);
+    cap that one TF32 pass (modelled on the same inputs) must exceed; its
+    bf16 route (the tensor cores throughout): every selection code against
+    the first maximum of plain's fp32 convolution, a code or a stored value
+    differing only at a near-tie (and where one does, plain's gradients
+    taken at the kernel's selection and stored values), ties in bf16 too,
+    and its bf16 dx / dw against a float64 rebuild from its own code with
+    the cotangent rounded to bf16, under caps the unrounded rebuild must
+    exceed; the tensor-core (HMMA) instructions of its kernels are counted
+    in the built library (``cuobjdump -sass``: dx / dw > 0 in both types,
+    the bf16 forward > 0, the fp32 forward 0);
 15. train with the fused mid blocks: the corpus through ``run_experiment``
     on ``cuda`` with (a) ``fused_layer1`` + ``fused_pool`` and (b) those +
     ``fused_layer2`` (2 epochs with validation, test and snapshot, dropout
@@ -123,7 +130,10 @@ Phases, in order; any failure propagates and the script exits non-zero
     launches of kernels 2, 3, 5 and 6 counted and the type each was given
     read (bf16 only); ``make_score_fn`` on the bf16 DCNN object against its
     eval step; the four kernels against plain in bf16 at the path's shapes
-    and argument types, timed through their launchers and as device time;
+    and argument types (kernel 6 with phase 14's code check and near-tie
+    rule), timed through their launchers and as device time (kernel 6's
+    backward also kernel by kernel, beside cuDNN's bf16 convolution of the
+    same conv alone, a yardstick);
     the DCNN step (b) and the LCNN step in float32 and bf16, the scorer at
     B = 64 and 128 on a float32 and a bf16 DCNN object; profiles of the
     bf16 steps;
@@ -297,6 +307,35 @@ SPLIT_TF32_RTOL = 5e-5
 # bf16 dalpha of the conv block: the kernel takes the conv value back from the
 # stored bf16 output (out / alpha: 2**-9 per term) and the terms cancel
 MID_BF16_DALPHA_RTOL = 3e-2
+# kernel 6's bf16 codes against the plain version's fp32 convolution of the
+# same bf16 values: each side's conv value is 576 exact products plus corr
+# (577 terms) summed in fp32, in two orders -- cuDNN's rounded sum, within
+# 577 * 2**-24 * S of the exact value, and the tensor core's truncating one,
+# within 577 * 2**-23 * S (S: the sum of the terms' magnitudes).  A window
+# whose code differs must be a near-tie: its two values, after the PReLU
+# (which scales a gap by at most max(1, |alpha|)), within the four bounds
+# together, CONV2_TIE_UNITS * (S_kernel's + S_plain's); a sign bit alone may
+# differ only where the value lies within CONV2_TIE_UNITS * S of zero.  The
+# same bound holds the stored bf16 values: where the two sides store other
+# bf16 values at the same selection, the kernel's must lie within half its
+# own bf16 ulp plus max(1, |alpha|) * CONV2_TIE_UNITS * S of the plain
+# side's fp32 value (a rounding near-tie; a value far below S, where the
+# sum cancels, may then lie several bf16 ulps off)
+CONV2_TIE_UNITS = 577 * (2.0 ** -24 + 2.0 ** -23)
+# kernel 6's bf16 dw against a float64 rebuild from its own code with the
+# conv-output cotangent rounded to bf16 as the kernels round it, of the
+# largest entry: bf16 products are exact in fp32, so what is left is the
+# kernels' fp32 sums (~1e-7 to 5e-7 in the numpy model of
+# tests/test_torch_fused_conv2.py); the rebuild from the unrounded cotangent
+# lies ~1.6e-3 away (the same model), and the check asserts that it reads
+# above this cap on the same inputs
+CONV2_BF16_D_RTOL = 1e-4
+# its bf16 dx is stored in bf16, whose rounding (2**-9 of each value) hides
+# the cotangent's; so dx is held by the share of its elements that differ
+# from the rebuild rounded to bf16: the fp32 sums move a value across a bf16
+# rounding boundary rarely (the model: 1e-4 to 2e-4 of the elements), the
+# unrounded cotangent often (0.43 of them); the check asserts both sides
+CONV2_BF16_DX_SHARE = 1e-2
 # ---- the AST path (phases 17-19)
 AST_SHAPE = (32, 227, 12)  # B, N (25 x 9 patches + cls + dist), heads of 64 (base384)
 STREAM_SHAPE = (32, 477, 12)  # the same AST on 2 s frames (25 x 19 patches + 2), phase 20
@@ -1209,18 +1248,26 @@ def profile_train(train_step, n: int = 5, kernel_groups=KERNEL_GROUPS):
     for _ in range(2):
         train_step()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            train_step()
-        torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    # kernel rows only: an operator's row repeats its kernels' device time,
-    # and a user range (``Optimizer.step#...``) spans kernels and host gaps
-    rows = [(e.key, e.self_device_time_total / 1e3 / n, e.count // n)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and not e.is_user_annotation and e.self_device_time_total > 0]
+    # a profile that kept no kernel record is taken again: CUPTI loses
+    # records now and then (kernel_device_ms), once all of a 2 s AST step's
+    for _ in range(8):
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                train_step()
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+        # kernel rows only: an operator's row repeats its kernels' device
+        # time, and a user range (``Optimizer.step#...``) spans kernels and
+        # host gaps
+        rows = [(e.key, e.self_device_time_total / 1e3 / n, e.count // n)
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.is_user_annotation and e.self_device_time_total > 0]
+        if rows:
+            break
+    else:
+        raise AssertionError("eight profiles of the step kept no kernel record")
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
     log(f"  wall {wall_ms:.3f} ms/step (profiler on), device kernels {device_ms:.3f} ms/step "
@@ -1671,15 +1718,15 @@ def conv2_case(b, c_in, c_out, h, w, dtype, alpha, seed):
     return [a.requires_grad_() for a in args], cot
 
 
-def tie_cases(slope):
+def tie_cases(slope, dtype=torch.float32):
     """Windows whose four values are equal: a constant negative plane for
     the pool, and for the conv a channel with zero weights under a constant
     negative ``corr`` (at a zero slope every such window also ties at 0)."""
-    (x, alpha), pool_cot = pool_case(3, 4, 8, 10, torch.float32, slope, seed=70)
+    (x, alpha), pool_cot = pool_case(3, 4, 8, 10, dtype, slope, seed=70)
     with torch.no_grad():
         x[0] = -1.5
         x[1] = x[1, :, ::2, ::2].repeat_interleave(2, 1).repeat_interleave(2, 2)
-    conv_args, conv_cot = conv2_case(3, 3, 4, 8, 10, torch.float32, slope, seed=71)
+    conv_args, conv_cot = conv2_case(3, 3, 4, 8, 10, dtype, slope, seed=71)
     with torch.no_grad():
         conv_args[1][:, 0] = 0.0
         conv_args[2][0] = -0.75
@@ -1716,6 +1763,8 @@ def mid_vs_plain(fp, f2):
              "odd-B2-Cin40-Cout160-H51-W70-zero-slope"),
             (lambda: tie_cases(0.0)[1], "ties-zero-slope-B3-Cin3-Cout4-H8-W10"),
             (lambda: tie_cases(0.25)[1], "ties-B3-Cin3-Cout4-H8-W10"),
+            (lambda: tie_cases(0.0, bf16)[1], "ties-zero-slope-B3-Cin3-Cout4-H8-W10"),
+            (lambda: tie_cases(0.25, bf16)[1], "ties-B3-Cin3-Cout4-H8-W10"),
         ]),
     )
     out = {}
@@ -1735,6 +1784,9 @@ def mid_vs_plain(fp, f2):
             y, s, q, *grads = runs[0]
             bitwise = all(torch.equal(u, v) for u, v in zip(*runs))
             fp32 = dtype == f32
+            codes = None
+            if block == "conv2" and not fp32:  # check (a), and check (c)'s near-tie rule
+                codes, pgrads = conv2_near_tie_rule(f2, args, cot, pgrads)
             fwd_err = (y.float() - py.float()).abs().max().item()
             fwd_tol = py.float().abs().max().item() * 2.0 ** -7 if not fp32 else (
                 POOL_ATOL if block == "pool" else CONV2_FWD_ATOL)
@@ -1748,8 +1800,11 @@ def mid_vs_plain(fp, f2):
             if block == "conv2":
                 out[key]["dw_max_abs_err"] = (
                     grads[1].float() - pgrads[1].float()).abs().max().item()
+            if codes is not None:
+                out[key]["codes"] = codes
             log(f"  {key}: out max|err| {fwd_err:.3e} (tol {fwd_tol:.1e}), moments rel "
-                f"{max(sums.values()):.2e}, grads rel {gerr}, repeat bit-equal {bitwise}")
+                f"{max(sums.values()):.2e}, grads rel {gerr}, repeat bit-equal {bitwise}"
+                + ("" if codes is None else f"; codes {codes}"))
             # float32 corr keeps a float32 dcorr under bf16 inputs as well
             tols = {n: MID_SUM_RTOL if fp32 or n == "dcorr" else FUSED_BF16_RTOL for n in names}
             if block == "conv2" and not fp32:
@@ -1859,6 +1914,91 @@ def conv2_cotangent(y, code, g, gs, gq, alpha, h, win):
     return d
 
 
+def conv2_code_check(conv2_cuda, x, w, corr, alpha):
+    """Check (a): every selection code of kernel 6's bf16 forward on these
+    arguments against the first maximum of the plain version's fp32
+    convolution of the same bf16 values (TF32 off); a code may differ only
+    at a near-tie (``CONV2_TIE_UNITS``), and where the codes agree a stored
+    bf16 value may differ from the plain version's only at a rounding
+    near-tie (the same bound, plus half a bf16 ulp).  Returns the counts,
+    the worst gaps (a selection's in fp32 ulps of the larger value; each as
+    a share of its bound), and the kernel's ``(out, code)``."""
+    import torch.nn.functional as F
+
+    x, w, corr, alpha = (t.detach() for t in (x, w, corr, alpha))
+    wq, aq = w.to(x.dtype).float().contiguous(), alpha.to(x.dtype).float().contiguous()
+    c32 = corr.float().contiguous()
+    y, code, _, _ = conv2_cuda.forward(x, wq, c32, aq, True, False)
+    b, c_in, h, win = x.shape
+    c_out = w.shape[1]
+    weight = wq.view(3, 3, c_in, c_out).permute(3, 2, 0, 1)
+    phases = [(p >> 1, p & 1) for p in range(4)]
+
+    def by_phase(t):  # [4, B, Cout, H // 2, W // 2]
+        return torch.stack([t[:, :, r:2 * (h // 2):2, c:2 * (win // 2):2] for r, c in phases])
+
+    pre = by_phase(F.conv2d(x.float(), weight, padding=1) + c32)
+    mag = by_phase(F.conv2d(x.float().abs(), weight.abs(), padding=1) + c32.abs())
+    act = torch.where(pre >= 0, pre, aq * pre)
+    first = act.argmax(dim=0)  # the first of several maxima
+    plain_code = first | (pre.gather(0, first[None])[0] < 0).long() << 2
+    kph = (code & 3).long()
+    differ = code.long() != plain_code
+    n_differ = int(differ.sum())
+    worst_ulps = worst_share = 0.0
+    if n_differ:
+        def at(t, idx):
+            return t.gather(0, idx[None])[0][differ]
+
+        a_p, a_k, pre_k = at(act, first), at(act, kph), at(pre, kph)
+        s_p, s_k = at(mag, first), at(mag, kph)
+        sign_only = (first == kph)[differ]
+        gap = torch.where(sign_only, pre_k.abs(), a_p - a_k)
+        bound = CONV2_TIE_UNITS * torch.where(
+            sign_only, s_k, max(1.0, abs(aq.item())) * (s_k + s_p))
+        ulp = torch.maximum(a_p.abs(), a_k.abs()).clamp(min=2.0 ** -126) * 2.0 ** -23
+        worst_ulps = (gap / ulp).max().item()
+        worst_share = (gap / bound).max().item()
+    # the stored values where the selections agree: the kernel's within half
+    # its ulp plus the bound of the plain side's fp32 value
+    v_p = act.gather(0, first[None])[0]
+    rounding = ~differ & (y != v_p.to(y.dtype))
+    n_rounding = int(rounding.sum())
+    worst_rounding = 0.0
+    if n_rounding:
+        k = y[rounding].float()
+        half_ulp = torch.where(k == 0, 0.0,
+                               torch.ldexp(torch.ones_like(k), torch.frexp(k)[1] - 9))
+        bound = CONV2_TIE_UNITS * max(1.0, abs(aq.item())) * mag.gather(0, first[None])[0]
+        gap = ((k - v_p[rounding]).abs() - half_ulp).clamp(min=0.0)
+        worst_rounding = (gap / bound[rounding]).max().item()
+    result = {"windows": differ.numel(), "codes_differ": n_differ,
+              "worst_gap_ulps": worst_ulps, "worst_gap_of_bound": worst_share,
+              "stored_differ": n_rounding, "worst_rounding_gap_of_bound": worst_rounding}
+    if not (worst_share <= 1.0 and worst_rounding <= 1.0):
+        raise AssertionError(f"kernel 6 bf16 codes or stored values beyond a near-tie: {result}")
+    return result, y, code
+
+
+def conv2_near_tie_rule(f2, args, cot, pgrads):
+    """Checks (a) and (c) on a bf16 case: the kernel's codes and stored
+    values against plain (``conv2_code_check``); where some differ
+    (near-ties of a selection or of a rounding), the plain side's gradients
+    are taken at the kernel's selection and stored values
+    (``plain_conv2_grads_from_code``: the moments' share of the cotangent,
+    2 out gq, reads the stored output), else ``pgrads`` stand.  Returns
+    ``(the code check with "near_tie_rule", the plain gradients)``."""
+    from audiodeepfake_detection_tpu_torch.ops import fused_conv2_cuda
+
+    codes, y, code = conv2_code_check(fused_conv2_cuda, *args)
+    codes["near_tie_rule"] = codes["codes_differ"] + codes["stored_differ"] > 0
+    if codes["near_tie_rule"]:
+        g, gs, gq = cot
+        pgrads = f2.plain_conv2_grads_from_code(*(a.detach() for a in args), code, y, g, gs, gq)
+        torch.cuda.synchronize()
+    return codes, pgrads
+
+
 def conv2_split_tf32_check(conv2_cuda):
     """Phase 14: kernel 6's fp32 ``dx`` and ``dw`` at ``CONV2_SHAPE``
     against a float64 rebuild from its own code, and the same rebuild from
@@ -1893,6 +2033,61 @@ def conv2_split_tf32_check(conv2_cuda):
             raise AssertionError(f"kernel 6 {name} is not fp32-accurate: {r}")
         if not r["one_tf32_pass"] > SPLIT_TF32_RTOL:
             raise AssertionError(f"the cap cannot tell one TF32 pass from split TF32: {r}")
+    return out
+
+
+def conv2_bf16_grads_check(conv2_cuda):
+    """Check (b): kernel 6's bf16 ``dx``, ``dw``, ``dcorr`` and ``dalpha``
+    at ``CONV2_SHAPE`` against a float64 rebuild from its own code: the
+    conv-output cotangent as the kernels form it (float32 operations, one
+    rounding each), rounded to bf16 for ``dx`` (the share of its bf16
+    elements off the rebuild's, ``CONV2_BF16_DX_SHARE``) and ``dw`` (of the
+    largest entry, ``CONV2_BF16_D_RTOL``), each cap exceeded by the rebuild
+    from the unrounded cotangent; unrounded for ``dcorr``, and ``dalpha``
+    from the stored output (``out / alpha``, the kernels' arithmetic), both
+    within ``MID_SUM_RTOL`` of the largest entry (``rel_err``)."""
+    (x, w, corr, alpha), (g, gs, gq) = conv2_case(*CONV2_SHAPE, torch.bfloat16, 0.25, 81)
+    x, w, corr = x.detach(), w.detach().float(), corr.detach()
+    alpha = alpha.detach().float()
+    y, code, _, _ = conv2_cuda.forward(x, w, corr, alpha, True, True)
+    dx, dw, dcorr, da = conv2_cuda.backward(x, w, corr, alpha, g, y, code, gs, gq)
+    h, win = x.shape[2:]
+    # the kernels' d before its rounding, operation by operation in float32
+    gt = (g.float() + gs[:, None, None]) + (2 * y.float()) * gq[:, None, None]
+    sel = torch.where(code >= 4, alpha * gt, gt)
+    d64 = conv2_cotangent(y, code, g, gs, gq, alpha, h, win)  # float64, unrounded
+    d_r = conv2_cotangent(y, code, sel.bfloat16(), torch.zeros_like(gs), torch.zeros_like(gq),
+                          torch.ones_like(alpha), h, win)  # the same at the kernels' bf16 values
+    neg = code >= 4
+    want_dalpha = torch.where(neg, y.double() / alpha.double() * gt.double(), 0.0).sum()
+    (dx_r, dw_r), (dx_u, dw_u) = conv2_dense_grads(x, w, d_r), conv2_dense_grads(x, w, d64)
+    dx_r = dx_r.bfloat16()
+
+    def share(got):  # of dx's elements off the rounded rebuild, in bf16
+        return (got.bfloat16() != dx_r).double().mean().item()
+
+    out = {"dx": {"kernel_share": share(dx), "unrounded_rebuild_share": share(dx_u),
+                  "kernel": rel_err(dx, dx_r)},
+           "dw": {"kernel": rel_err(dw, dw_r), "unrounded_rebuild": rel_err(dw_u, dw_r)}}
+    out["dcorr"] = {"kernel": rel_err(dcorr, d64.sum(dim=0))}
+    out["dalpha"] = {"kernel": rel_err(da, want_dalpha.reshape(1))}
+    del d64, d_r, dx_r, dw_r, dx_u, dw_u
+    torch.cuda.synchronize()
+    log(f"  kernel 6 bf16 grads at {CONV2_SHAPE} against float64 from its code (dx: share "
+        f"of elements off the rebuild in bf16, cap {CONV2_BF16_DX_SHARE:.0e}; dw of the "
+        f"largest entry, cap {CONV2_BF16_D_RTOL:.0e}; dcorr / dalpha {MID_SUM_RTOL:.0e}): "
+        f"{out}")
+    caps = (("dx", "kernel_share", "unrounded_rebuild_share", CONV2_BF16_DX_SHARE),
+            ("dw", "kernel", "unrounded_rebuild", CONV2_BF16_D_RTOL))
+    for name, kernel, unrounded, cap in caps:
+        if not out[name][kernel] <= cap:
+            raise AssertionError(f"kernel 6 bf16 {name} off its rebuild: {out[name]}")
+        if not out[name][unrounded] > cap:
+            raise AssertionError(f"the cap cannot tell a rounded d from an unrounded one: "
+                                 f"{out[name]}")
+    for name in ("dcorr", "dalpha"):
+        if not out[name]["kernel"] <= MID_SUM_RTOL:
+            raise AssertionError(f"kernel 6 bf16 {name} off its rebuild: {out[name]}")
     return out
 
 
@@ -2169,22 +2364,25 @@ def hmma_per_kernel(lib) -> dict:
 
 
 def conv2_mma_count(conv2_cuda) -> dict:
-    """Phase 14, last: HMMA instructions in kernel 6.  The dx and dw kernels
-    (split TF32 on the tensor cores) must have them in both types, the
-    forward (the FMA pipe, in cuDNN's summation order) none."""
+    """Phase 14, last: HMMA instructions in kernel 6.  The float32 forward
+    (the FMA pipe, in cuDNN's summation order; two variants) must have none,
+    the bf16 forward (m16n8k16; four N tiles) some, and the dx and dw
+    kernels (split TF32, or bf16) some in both types."""
     import re
 
     found = {}
     for mangled, n_mma in hmma_per_kernel(conv2_cuda._LIB).items():
-        kind = re.search(r"fused_conv2_(fwd|dx|dw|small)_kernel", mangled)
+        kind = re.search(r"fused_conv2_(fwd|dx|dw|small)(_bf16)?_kernel", mangled)
         if kind:
-            dtype = "bfloat16" if "bfloat16" in mangled else "float32"
-            nc = re.search(r"Li(\d+)E", mangled)  # the forward's channels a thread
-            found[f"{kind.group(1)}-{dtype}" + (f"-nc{nc.group(1)}" if nc else "")] = n_mma
+            dtype = "bfloat16" if kind.group(2) or "bfloat16" in mangled else "float32"
+            n = re.search(r"Li(\d+)E", mangled)  # channels a thread, or n8 tiles a warp
+            found[f"{kind.group(1)}-{dtype}" + (f"-{n.group(1)}" if n else "")] = n_mma
     log(f"  HMMA instructions per kernel-6 kernel: {found}")
     gemms = {k: v for k, v in found.items() if k.startswith(("dx-", "dw-"))}
-    fwd = {k: v for k, v in found.items() if k.startswith("fwd-")}
-    if len(gemms) != 4 or min(gemms.values()) <= 0 or len(fwd) != 4 or any(fwd.values()):
+    fwd32 = {k: v for k, v in found.items() if k.startswith("fwd-float32")}
+    fwd16 = {k: v for k, v in found.items() if k.startswith("fwd-bfloat16")}
+    if (len(gemms) != 4 or min(gemms.values()) <= 0 or len(fwd32) != 2 or any(fwd32.values())
+            or len(fwd16) != 4 or min(fwd16.values()) <= 0):
         raise AssertionError(f"kernel 6 tensor-core instructions: {found}")
     return found
 
@@ -2702,6 +2900,9 @@ def bf16_vs_plain(fc, fp, f2):
         want = outs(plain_fn)
         pgrads = torch.autograd.grad(want, wrt, cot)
         torch.cuda.synchronize()
+        codes = None
+        if name == "conv2":  # checks (a) and (c)'s near-tie rule, as phase 14
+            codes, pgrads = conv2_near_tie_rule(f2, args, cot, pgrads)
         n_out = len(want)
         got, grads = runs[0][:n_out], runs[0][n_out:]
         bitwise = all(torch.equal(u, v) for u, v in zip(*runs))
@@ -2723,8 +2924,10 @@ def bf16_vs_plain(fc, fp, f2):
         }
         if name == "conv2":
             out[name]["dw_max_abs_err"] = (grads[1].float() - pgrads[1].float()).abs().max().item()
+            out[name]["codes"] = codes
         log(f"  {name} {out[name]['x']} {out[name]['types']}: out max|err| {fwd_err:.3e} (tol "
-            f"{fwd_tol:.1e}), moments rel {sums}, grads rel {gerr}, repeat bit-equal {bitwise}")
+            f"{fwd_tol:.1e}), moments rel {sums}, grads rel {gerr}, repeat bit-equal {bitwise}"
+            + ("" if codes is None else f"; codes {codes}"))
         if not (fwd_err <= fwd_tol and all(v <= MID_SUM_RTOL for v in sums.values())
                 and all(gerr[n] <= tols[n] for n in names)):
             raise AssertionError(f"bf16 {name} vs plain: {out[name]}")
@@ -2781,12 +2984,12 @@ def bf16_timing(fc, fused_cuda, fp, pool_cuda, f2, conv2_cuda, norm, lcnn_norm, 
     ccot = cases["conv2"][4]
     craw = (cx.detach(), cw.detach().float(), ccorr.detach().float(), calpha.detach().float())
     cy, ccode, _, _ = conv2_cuda.forward(*craw, True, True)
+    conv2_bwd_keys = {"dx": "fused_conv2_dx_bf16_kernel", "dw": "fused_conv2_dw_bf16_kernel",
+                      "small": "fused_conv2_small_kernel"}
     kernels["conv2"] = dict(
         fwd=lambda: conv2_cuda.forward(*craw, True, True),
         bwd=lambda: conv2_cuda.backward(*craw, ccot[0], cy, ccode, ccot[1], ccot[2]),
-        fwd_keys={"k": "fused_conv2_fwd_kernel"},
-        bwd_keys={"dx": "fused_conv2_dx_kernel", "dw": "fused_conv2_dw_kernel",
-                  "small": "fused_conv2_small_kernel"},
+        fwd_keys={"k": "fused_conv2_fwd_bf16_kernel"}, bwd_keys=conv2_bwd_keys,
         bounds=conv2_bounds(*CONV2_SHAPE, itemsize=2, flop_per_s=BF16_FLOP_PER_S)[:2])
     for name, k in kernels.items():
         fused_fn, plain_fn, args, wrt, cot_, _ = cases[name]
@@ -2808,6 +3011,8 @@ def bf16_timing(fc, fused_cuda, fp, pool_cuda, f2, conv2_cuda, norm, lcnn_norm, 
             f"plain "
             f"{bwd['plain']:.4f} ms, bound {bb:.4f} ms ({bby})")
         del graph
+    out["conv2"].update(conv2_bf16_yardstick(kernels["conv2"]["bwd"], conv2_bwd_keys, craw,
+                                             ccot[0], card_line))
     del kernels, cases
 
     flags = dict(fused_pool=True, fused_layer2=True)
@@ -2844,6 +3049,34 @@ def bf16_timing(fc, fused_cuda, fp, pool_cuda, f2, conv2_cuda, norm, lcnn_norm, 
 
 
 
+def conv2_bf16_yardstick(backward, bwd_keys, raw, g, card_line: str) -> dict:
+    """Phase 21: kernel 6's bf16 backward as its dx, dw and dcorr / dalpha
+    kernels' device time (a profile), and, as a yardstick, cuDNN's bf16
+    convolution of the same conv alone at ``CONV2_SHAPE``: forward,
+    ``conv2d_input`` and ``conv2d_weight`` through ``median_ms``.  Not the
+    same function (no corr, PReLU, pool, code, moments; a dense cotangent):
+    a measure of what the card's library does with the same products."""
+    import torch.nn.functional as F
+
+    x, w = raw[0], raw[1]
+    _, c_in, c_out, h, win = CONV2_SHAPE
+    weight = w.view(3, 3, c_in, c_out).permute(3, 2, 0, 1).contiguous().bfloat16()
+    d = F.interpolate(g.float(), scale_factor=2).bfloat16()
+    d = F.pad(d, (0, win - d.shape[-1], 0, h - d.shape[-2]))
+    lib = median_ms({
+        "fwd": lambda: F.conv2d(x, weight, padding=1),
+        "dgrad": lambda: torch.nn.grad.conv2d_input(x.shape, weight, d, padding=1),
+        "wgrad": lambda: torch.nn.grad.conv2d_weight(x, weight.shape, d, padding=1),
+    }, reps=5)
+    apart = kernel_device_ms(backward, bwd_keys)
+    log(f"  kernel 6 bf16 backward's kernels, device time [{card_line}]: " + ", ".join(
+        f"{k} {ms_or_not(v)} ms" for k, v in apart.items()) + "; cuDNN bf16 conv alone "
+        f"(yardstick, not the same function): fwd {lib['fwd']:.4f}, conv2d_input "
+        f"{lib['dgrad']:.4f}, conv2d_weight {lib['wgrad']:.4f} ms")
+    return {"bwd_device_apart_ms": apart, "cudnn_bf16_fwd_ms": lib["fwd"],
+            "cudnn_bf16_dgrad_ms": lib["dgrad"], "cudnn_bf16_wgrad_ms": lib["wgrad"]}
+
+
 def bf16_rows(run, errs, times):
     """The ``kernels`` rows of kernels 2, 3, 5 and 6 in bf16 on phase 21's
     path: launches from its bf16 runs, errors and times from its checks."""
@@ -2858,6 +3091,11 @@ def bf16_rows(run, errs, times):
         ("fused_conv2", "conv2", "dcnn", "fused_conv2.cu", "fused_conv2.py:323",
          "fused_conv2.py:383"),
     )
+    # kernel 6's bf16 route (PR 22): its own tensor-core kernels
+    conv2_kernels = {
+        "fwd": "fused_conv2_fwd_bf16_kernel (mma.sync m16n8k16, epilogue in registers)",
+        "bwd": "fused_conv2_dx_bf16_kernel + fused_conv2_dw_bf16_kernel (mma.sync m16n8k16, "
+               "d rounded to bf16) + fused_conv2_small_kernel"}
     rows = []
     for name, key, model, source, fwd_line, bwd_line in table:
         t = times[key]
@@ -2871,6 +3109,8 @@ def bf16_rows(run, errs, times):
                 "device_ms": t[f"{way}_device_ms"], "bound_ms": t[f"{way}_bound_ms"],
                 "bound_by": t[f"{way}_bound_by"], "library_ms": None,
             })
+            if key == "conv2":
+                rows[-1]["kernel"] = conv2_kernels[way]
     return rows
 
 # ---- phase 22: post-training int8
@@ -5369,6 +5609,7 @@ def main() -> None:
         log("[14 fused mid blocks vs plain]")
         mid_errs = mid_vs_plain(fused_pool, fused_conv2)
         mid_errs["conv2-split-tf32"] = conv2_split_tf32_check(fused_conv2_cuda)
+        mid_errs["conv2-bf16-from-code"] = conv2_bf16_grads_check(fused_conv2_cuda)
         mid_mma = conv2_mma_count(fused_conv2_cuda)
         log("[15 train with the fused mid blocks]")
         mid = train_mid(wpt_cuda, fused_conv1_cuda, fused_pool_cuda, fused_conv2_cuda,

@@ -676,6 +676,31 @@ CONV2_SUM_RTOL = 1e-4
 CONV2_NAMES = ("dx", "dw", "dcorr", "dalpha")
 
 
+def _chip_smoke():
+    """``chip_smoke.py`` (imports neither JAX nor the JAX package): its
+    checks of kernel 6's bf16 codes and its HMMA count."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _conv2_plain_grads(args, cot, want_out):
+    """The plain side's gradients: autograd of the plain version, or under
+    bf16, where a code of the kernel differs from the plain version's first
+    maximum (a near-tie, within ``chip_smoke.CONV2_TIE_UNITS``), the plain
+    gradients at the kernel's selection (``chip_smoke.py``'s near-tie
+    rule)."""
+    wgrads = torch.autograd.grad(want_out, args, cot, retain_graph=True)
+    if args[0].dtype == torch.bfloat16:
+        _, wgrads = _chip_smoke().conv2_near_tie_rule(fused_conv2, args, cot, wgrads)
+    return wgrads
+
+
 def _conv2_inputs(b, c_in, c_out, h, w, dtype, device, alpha=0.25, seed=0):
     rng = np.random.RandomState(seed)
     make = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)  # noqa: E731
@@ -716,7 +741,7 @@ def _conv2_matches_plain(card, b, c_in, c_out, h, w, alpha, dtype):
     assert (fused_conv2_cuda.CONV2_FWD_LAUNCHES, fused_conv2_cuda.CONV2_BWD_LAUNCHES) == (
         before[0] + 1, before[1] + 1)
     want, ws, wq = fused_conv2.plain_conv2_prelu_pool_stats(*args)
-    wgrads = torch.autograd.grad([want, ws, wq], args, cot)
+    wgrads = _conv2_plain_grads(args, cot, [want, ws, wq])
     assert out.dtype == dtype and out.shape == want.shape and out.is_contiguous()
     atol = CONV2_FWD_ATOL if dtype == torch.float32 else want.float().abs().max().item() * 2.0**-7
     torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=atol)
@@ -737,14 +762,18 @@ def _conv2_matches_plain(card, b, c_in, c_out, h, w, alpha, dtype):
         assert not grads[2][..., -1].any() and grads[0][..., -1].any()
 
 
-def test_fused_conv2_ties_zero_slope_and_determinism(card):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_conv2_ties_zero_slope_and_determinism(card, dtype):
     """Channel 0 has zero weights and a constant negative ``corr``: every
     window ties (at 0 under a zero slope), the gradient goes to position
     (0, 0) and ``dalpha`` is the true sum, as in the plain version; two runs
     are bit-equal; eval saves no code and skips ``dx`` when ``x`` needs
-    none."""
+    none.  bf16: out within one bf16 ulp, the gradients within the bf16
+    tolerances of ``_conv2_matches_plain``."""
+    bf16 = dtype == torch.bfloat16
+    caps = {"dx": 1e-2, "dw": 1e-2, "dcorr": CONV2_SUM_RTOL, "dalpha": 3e-2} if bf16 else {}
     for alpha in (0.0, 0.25, -0.3):
-        args, cot = _conv2_inputs(3, 3, 4, 8, 10, torch.float32, card, alpha=alpha, seed=3)
+        args, cot = _conv2_inputs(3, 3, 4, 8, 10, dtype, card, alpha=alpha, seed=3)
         with torch.no_grad():
             args[1][:, 0] = 0.0
             args[2][0] = -0.75
@@ -755,10 +784,11 @@ def test_fused_conv2_ties_zero_slope_and_determinism(card):
         for a, b in zip(*runs):
             assert torch.equal(a, b)  # per-block partials, fixed order: no atomics
         want = fused_conv2.plain_conv2_prelu_pool_stats(*args)
-        wgrads = torch.autograd.grad(want, args, cot, retain_graph=True)
-        torch.testing.assert_close(runs[0][0], want[0], rtol=0, atol=CONV2_FWD_ATOL)
+        wgrads = _conv2_plain_grads(args, cot, want)
+        atol = want[0].float().abs().max().item() * 2.0**-7 if bf16 else CONV2_FWD_ATOL
+        torch.testing.assert_close(runs[0][0].float(), want[0].float(), rtol=0, atol=atol)
         for name, g, wg in zip(CONV2_NAMES, runs[0][3:], wgrads):
-            assert _rel(g, wg) <= CONV2_SUM_RTOL, name
+            assert _rel(g, wg) <= caps.get(name, CONV2_SUM_RTOL), name
         dcorr0 = runs[0][5][0]
         assert not dcorr0[1::2].any() and not dcorr0[:, 1::2].any()
         assert wgrads[3].abs().item() > 0.1
@@ -768,9 +798,19 @@ def test_fused_conv2_ties_zero_slope_and_determinism(card):
         assert fused_conv2_cuda.CONV2_BWD_LAUNCHES == before
     params_only = [args[0].detach()] + args[1:]
     out = fused_conv2.fused_conv2_prelu_pool(*params_only)
-    for g, wg in zip(torch.autograd.grad(out, params_only[1:], cot[0]),
-                     torch.autograd.grad(want[0], args[1:], cot[0])):
-        assert _rel(g, wg) <= CONV2_SUM_RTOL
+    for name, g, wg in zip(CONV2_NAMES[1:], torch.autograd.grad(out, params_only[1:], cot[0]),
+                           torch.autograd.grad(want[0], args[1:], cot[0])):
+        assert _rel(g, wg) <= caps.get(name, CONV2_SUM_RTOL)
+
+
+def test_fused_conv2_tensor_cores_by_route(card):
+    """HMMA instructions in the built library (``cuobjdump -sass``, through
+    ``chip_smoke.conv2_mma_count``): the bf16 forward runs on the tensor
+    cores, the float32 forward on the FMA pipe (none), dx and dw on the
+    tensor cores in both types."""
+    fused_conv2_cuda.build()
+    found = _chip_smoke().conv2_mma_count(fused_conv2_cuda)
+    assert min(v for k, v in found.items() if k.startswith("fwd-bfloat16")) > 0
 
 
 def test_fused_conv2_refuses_what_it_does_not_take(card):

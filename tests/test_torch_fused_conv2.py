@@ -154,8 +154,9 @@ def test_bf16_io_matches_jax():
     """bf16 ``x``, ``w`` and ``alpha``, float32 ``corr``: bf16 products,
     float32 sums, one rounding at the store, on both sides; outputs agree to
     one bf16 ulp of the largest value.  Gradients come back in each
-    argument's type.  The JAX backward also rounds the conv-output cotangent
-    to bf16 before its dots, the port does not: 2**-8 relative per term."""
+    argument's type.  Both backwards round the conv-output cotangent to bf16
+    once before the products that give ``dx`` and ``dw`` (the JAX kernel's
+    ``d_row.astype(bf16)``, the port's ``_RoundCotangent``)."""
     h, w, c_in, c_out = 8, 10, 4, 6
     arrays = _inputs(h, w, c_in, c_out, seed=3)
     g = np.random.RandomState(9).randn(2, h // 2, w // 2, c_out).astype(np.float32)
@@ -261,28 +262,44 @@ def test_ties_and_zero_slope_match_the_jax_kernel_and_first_match(alpha):
 
 
 @pytest.mark.parametrize(
-    "b,h,w,c_in,c_out,fwd,dx,dw",
+    "bf16,b,h,w,c_in,c_out,fwd,dx,dw",
     [
         # the headline geometry: 12 channels a thread forward; dx in 8 x 32
         # pixel tiles; dw one block per SM (2 tiles x 66 splits)
-        (128, 48, 129, 64, 96, (12, 256, 128 * 24 * 2, 1), (256, 128 * 6 * 5, 1, 96),
+        (False, 128, 48, 129, 64, 96, (12, 256, 128 * 24 * 2, 1), (256, 128 * 6 * 5, 1, 96),
          (384, 2, 66)),
         # narrow widths: one warp forward; dw takes all 6 steps as splits
-        (2, 7, 9, 3, 5, (8, 32, 2 * 3 * 1, 1), (256, 2 * 1 * 1, 1, 8), (384, 1, 6)),
+        (False, 2, 7, 9, 3, 5, (8, 32, 2 * 3 * 1, 1), (256, 2 * 1 * 1, 1, 8), (384, 1, 6)),
         # wide Cout: three forward channel tiles of 64, two dw tiles of 96
-        (1, 4, 70, 8, 160, (8, 256, 1 * 2 * 2, 3), (256, 1 * 1 * 3, 1, 160), (384, 2, 6)),
+        (False, 1, 4, 70, 8, 160, (8, 256, 1 * 2 * 2, 3), (256, 1 * 1 * 3, 1, 160),
+         (384, 2, 6)),
+        # bf16: the forward's N tile is 96 at the headline (six n8 tiles a
+        # warp), 32 for 5 channels, 128 for 100; above 128 the tile that pads
+        # least (160: five of 32); dx pads Cout to whole 16-channel chunks
+        (True, 128, 48, 129, 64, 96, (6, 256, 128 * 24 * 2, 1), (256, 128 * 6 * 5, 1, 96),
+         (384, 2, 66)),
+        (True, 2, 7, 9, 3, 5, (2, 256, 2 * 3 * 1, 1), (256, 2 * 1 * 1, 1, 16), (384, 1, 6)),
+        (True, 1, 4, 70, 8, 160, (2, 256, 1 * 2 * 2, 5), (256, 1 * 1 * 3, 1, 160),
+         (384, 2, 6)),
+        (True, 2, 48, 129, 72, 100, (8, 256, 2 * 24 * 2, 1), (256, 2 * 6 * 5, 2, 112),
+         (384, 6, 22)),
     ],
 )
-def test_launch_plans_cover_the_outputs(b, h, w, c_in, c_out, fwd, dx, dw):
+def test_launch_plans_cover_the_outputs(bf16, b, h, w, c_in, c_out, fwd, dx, dw):
     """The tilings the CUDA kernels are given (computed on the host)."""
-    plan = fused_conv2_cuda.tile_plan(b, h, w, c_out)
-    assert plan[:4] == fwd
-    assert plan.grid_y * (plan.threads // 32) * plan.nc >= c_out
-    plan_dx = fused_conv2_cuda.dx_plan(b, h, w, c_in, c_out)
+    if bf16:
+        plan = fused_conv2_cuda.bf16_tile_plan(b, h, w, c_out)
+        assert plan[:4] == fwd
+        assert plan.grid_y * 16 * plan.nf >= c_out
+    else:
+        plan = fused_conv2_cuda.tile_plan(b, h, w, c_out)
+        assert plan[:4] == fwd
+        assert plan.grid_y * (plan.threads // 32) * plan.nc >= c_out
+    plan_dx = fused_conv2_cuda.dx_plan(b, h, w, c_in, c_out, bf16)
     assert plan_dx[:4] == dx
     assert plan_dx.grid_x == b * -(-h // 8) * -(-w // 32) and plan_dx.grid_y * 64 >= c_in
-    assert plan_dx.cout_pad % 8 == 0 and plan_dx.cout_pad >= c_out
-    plan_dw = fused_conv2_cuda.dw_plan(b, h, w, c_in, c_out)
+    assert plan_dx.cout_pad % (16 if bf16 else 8) == 0 and plan_dx.cout_pad >= c_out
+    plan_dw = fused_conv2_cuda.dw_plan(b, h, w, c_in, c_out, bf16)
     assert (plan_dw.threads, plan_dw.tiles, plan_dw.splits) == dw
     assert plan_dw.tiles == -(-c_in // 32) * -(-c_out // 96)
     assert plan_dw.splits <= plan_dw.steps == b * (h // 2) * -(-(w // 2) // 16)
@@ -306,13 +323,21 @@ def test_plans_refuse_geometries_the_kernels_do_not_take(plan, h, w):
         fn()
 
 
-@pytest.mark.parametrize("c_in,c_out,nt", [(64, 96, 96), (3, 5, 8), (70, 100, 96)])
-def test_host_weight_layouts_hold_each_weight_where_the_kernels_read_it(c_in, c_out, nt):
+@pytest.mark.parametrize("c_in,c_out,nt,bf16", [
+    (64, 96, 96, False), (3, 5, 8, False), (70, 100, 96, False),
+    (64, 96, 96, True), (3, 5, 32, True), (70, 100, 128, True)])
+def test_host_weight_layouts_hold_each_weight_where_the_kernels_read_it(c_in, c_out, nt, bf16):
     """The forward's ``[Cout tiles][Cin_pad][9][nt]`` and the flipped
     ``[Cin tiles][Cout_pad][9 * 64 + 8]`` of ``dx``: every entry of ``w``
-    once at its place, zeros in the padding."""
+    once at its place, zeros in the padding.  bf16: the m16n8k16 B
+    fragments, lane ``gl * 4 + tl`` of n8 tile ``j`` holding column ``8 j +
+    gl`` at k = 2 tl, 2 tl + 1, 2 tl + 8, 2 tl + 9 of each 16-channel
+    chunk."""
     w = torch.from_numpy(np.random.RandomState(4).randn(9 * c_in, c_out).astype(np.float32))
     w9 = w.view(9, c_in, c_out)
+    if bf16:
+        _bf16_layouts_hold_each_weight(w, w9.bfloat16(), c_in, c_out, nt)
+        return
     wk = fused_conv2_cuda.forward_weights(w, c_in, c_out, nt)
     tiles, cin_pad = -(-c_out // nt), -(-c_in // 8) * 8
     assert wk.shape == (tiles, cin_pad, 9, nt) and wk.is_contiguous()
@@ -329,6 +354,27 @@ def test_host_weight_layouts_hold_each_weight_where_the_kernels_read_it(c_in, c_
     flipped = w9.flip(0)  # tap (dh, dw) -> (2 - dh, 2 - dw): the flat tap order reversed
     assert torch.equal(taps[:c_out, :, :c_in], flipped.permute(2, 0, 1))
     assert not taps[c_out:].any() and not taps[:, :, c_in:].any()
+
+
+def _bf16_layouts_hold_each_weight(w, w9, c_in, c_out, nt):
+    tiles, chunks = -(-c_out // nt), -(-c_in // 16)
+    wk = fused_conv2_cuda.forward_weights_bf16(w, c_in, c_out, nt)
+    assert wk.dtype == torch.bfloat16 and wk.is_contiguous()
+    assert wk.shape == (tiles, chunks, 9, nt // 8, 8, 4, 4)
+    # [tile, chunk, tap, j, gl, tl, (k half, k pair)] -> [tap, k, column]
+    k = wk.view(tiles, chunks, 9, nt // 8, 8, 4, 2, 2).permute(2, 1, 6, 5, 7, 0, 3, 4)
+    full = k.reshape(9, chunks * 16, tiles * nt)
+    assert torch.equal(full[:, :c_in, :c_out], w9)
+    assert not full[:, c_in:].any() and not full[:, :, c_out:].any()
+    cout_pad = -(-c_out // 16) * 16
+    wdx = fused_conv2_cuda.dx_weights_bf16(w, c_in, c_out, cout_pad)
+    ci_tiles = -(-c_in // 64)
+    assert wdx.shape == (ci_tiles, cout_pad // 16, 9, 8, 8, 4, 4) and wdx.is_contiguous()
+    # [tile, chunk, tap, j, gl, tl, (k half, k pair)] -> [tap, input channel, co]
+    k = wdx.view(ci_tiles, cout_pad // 16, 9, 8, 8, 4, 2, 2).permute(2, 0, 3, 4, 1, 6, 5, 7)
+    taps = k.reshape(9, ci_tiles * 64, cout_pad)
+    assert torch.equal(taps[:, :c_in, :c_out], w9.flip(0))
+    assert not taps[:, c_in:].any() and not taps[:, :, c_out:].any()
 
 
 def _tf32(a):
@@ -360,21 +406,8 @@ def test_split_tf32_backward_is_fp32_accurate_and_one_pass_is_not():
     wt = (rng.randn(9 * c_in, c_out) * 0.05).astype(np.float32)
     code = rng.randint(0, 8, (b, h // 2, w // 2, c_out))  # phase | negative << 2
     g = rng.randn(b, h // 2, w // 2, c_out).astype(np.float32)
-    sel = np.where(code >= 4, np.float32(0.25) * g, g)
-    d = np.zeros((b, h, w, c_out), np.float32)
-    for ph in range(4):
-        d[:, ph >> 1 :: 2, ph & 1 :: 2] = np.where((code & 3) == ph, sel, 0.0)
-    dp, xp = (np.pad(t, ((0, 0), (1, 1), (1, 1), (0, 0))) for t in (d, x))
-    taps = [(dh, dw) for dh in range(3) for dw in range(3)]
-    gemms = {
-        "dx": (np.concatenate([dp[:, 2 - dh : 2 - dh + h, 2 - dw : 2 - dw + w] for dh, dw in taps],
-                              -1).reshape(-1, 9 * c_out),
-               np.concatenate([wt[(3 * dh + dw) * c_in : (3 * dh + dw + 1) * c_in].T
-                               for dh, dw in taps])),
-        "dw": (np.concatenate([xp[:, dh : dh + h, dw : dw + w] for dh, dw in taps],
-                              -1).reshape(-1, 9 * c_in).T.copy(),
-               d.reshape(-1, c_out)),
-    }
+    d = _scatter(code, np.where(code >= 4, np.float32(0.25) * g, g), h, w)
+    gemms = _backward_gemms(x, wt, d)
     # the formulations are the block's gradients
     weight = torch.from_numpy(wt).double().reshape(3, 3, c_in, c_out).permute(3, 2, 0, 1)
     d_t = torch.from_numpy(d).double().permute(0, 3, 1, 2)
@@ -399,6 +432,77 @@ def test_split_tf32_backward_is_fp32_accurate_and_one_pass_is_not():
         if name == "dx":
             b16 = torch.from_numpy(bm).bfloat16().float().numpy()
             assert np.array_equal(_tf32(b16), b16)
+
+
+def _scatter(code, sel, h, w):
+    """The conv-output cotangent ``[B, H, W, Cout]``: ``sel`` at the phase
+    ``code`` selects in each window, zero elsewhere, as the kernels build
+    it."""
+    d = np.zeros((sel.shape[0], h, w, sel.shape[-1]), sel.dtype)
+    for ph in range(4):
+        d[:, ph >> 1 : 2 * (h // 2) : 2, ph & 1 : 2 * (w // 2) : 2] = np.where(
+            (code & 3) == ph, sel, 0.0)
+    return d
+
+
+def _backward_gemms(x, wt, d):
+    """The two GEMMs of the ``dx`` / ``dw`` kernels as ``{name: (A, B)}``:
+    ``dx`` is im2col of the padded cotangent with flipped taps against
+    ``w``; ``dw`` is im2col(x)^T . d, rows (tap, ci)."""
+    h, w, c_in, c_out = x.shape[1], x.shape[2], x.shape[3], d.shape[3]
+    dp, xp = (np.pad(t, ((0, 0), (1, 1), (1, 1), (0, 0))) for t in (d, x))
+    taps = [(dh, dw) for dh in range(3) for dw in range(3)]
+    return {
+        "dx": (np.concatenate([dp[:, 2 - dh : 2 - dh + h, 2 - dw : 2 - dw + w] for dh, dw in taps],
+                              -1).reshape(-1, 9 * c_out),
+               np.concatenate([wt[(3 * dh + dw) * c_in : (3 * dh + dw + 1) * c_in].T
+                               for dh, dw in taps])),
+        "dw": (np.concatenate([xp[:, dh : dh + h, dw : dw + w] for dh, dw in taps],
+                              -1).reshape(-1, 9 * c_in).T.copy(),
+               d.reshape(-1, c_out)),
+    }
+
+
+def _bf16(a):
+    """float32 rounded to bf16 (nearest, ties to even) and back."""
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).bfloat16().float().numpy()
+
+
+def test_bf16_backward_rounds_d_once_and_the_cap_tells_it_apart():
+    """The arithmetic of the bf16 ``dx`` / ``dw`` kernels: the conv-output
+    cotangent (the moments' share added and the slope applied, each float32
+    operation rounded on its own) rounded to bf16 once, exact bf16 products,
+    float32 sums: ``dw`` lies within ``chip_smoke.CONV2_BF16_D_RTOL`` of the
+    largest entry of a float64 product of the same rounded cotangent, and
+    ``dx``, stored in bf16, differs from that product rounded to bf16 in a
+    share of its elements below ``CONV2_BF16_DX_SHARE``; both by 10x.  The
+    float64 product of the unrounded cotangent lies at least 10x beyond
+    each cap, so the card's check (``conv2_bf16_grads_check``) tells the
+    two apart."""
+    cs = _chip_smoke()
+    caps = {"dx": cs.CONV2_BF16_DX_SHARE, "dw": cs.CONV2_BF16_D_RTOL}
+    b, c_in, c_out, h, w = 2, 64, 96, 8, 10
+    rng = np.random.RandomState(6)
+    x = _bf16(rng.randn(b, h, w, c_in))
+    wt = _bf16(rng.randn(9 * c_in, c_out) * 0.05)
+    code = rng.randint(0, 8, (b, h // 2, w // 2, c_out))
+    g, out = (_bf16(rng.randn(b, h // 2, w // 2, c_out)) for _ in range(2))
+    gs = (rng.randn(c_out) * 0.01).astype(np.float32)
+    gq = (rng.randn(c_out) * 0.001).astype(np.float32)
+    gt = (g + gs) + (np.float32(2) * out) * gq
+    d = _scatter(code, np.where(code >= 4, np.float32(0.25) * gt, gt), h, w)
+    rounded, unrounded = _backward_gemms(x, wt, _bf16(d)), _backward_gemms(x, wt, d)
+    for name, (a, bm) in rounded.items():
+        ref = a.astype(np.float64) @ bm.astype(np.float64)
+        scale = np.abs(ref).max()
+        fp32 = a @ bm  # exact products (8-bit significands), float32 sums
+        far = unrounded[name][0].astype(np.float64) @ unrounded[name][1].astype(np.float64)
+        if name == "dx":  # stored in bf16: the share of elements off
+            err, gap = (float(np.mean(_bf16(t) != _bf16(ref))) for t in (fp32, far))
+        else:
+            err, gap = (float(np.abs(t - ref).max() / scale) for t in (fp32, far))
+        assert err <= caps[name] / 10, (name, err)
+        assert gap >= 10 * caps[name], (name, gap)
 
 
 def _chip_smoke():
@@ -449,6 +553,105 @@ def test_chip_smokes_float64_rebuild_is_the_blocks_gradient(alpha):
     for name, want, have in zip(("dx", "dw"), (dx, dw), got):
         torch.testing.assert_close(have, want, rtol=0, atol=1e-12, msg=name)
     assert torch.equal(cs.tf32(x), torch.from_numpy(_tf32(x.numpy())))
+
+
+class _RoundCotangent64(torch.autograd.Function):
+    """float64 identity whose backward rounds the cotangent to bf16."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(torch.bfloat16).double()
+
+
+@pytest.mark.parametrize("dtype,alpha", [(torch.float32, 0.25), (torch.bfloat16, -0.3)])
+def test_plain_grads_from_code_are_the_blocks_gradient(dtype, alpha):
+    """``plain_conv2_grads_from_code`` (the plain side of the card's checks
+    at the kernel's selection, where a near-tie makes the two selections
+    differ) at a float64 forward's own selection is float64 autograd's
+    gradient of the block with its moments, odd H and W included; under
+    bf16 with the conv-output cotangent rounded to bf16 in the reference
+    too, and the moments of the output rounded to bf16 as stored."""
+    import torch.nn.functional as F
+
+    b, c_in, c_out, h, w = 2, 8, 12, 7, 9
+    gen = torch.Generator().manual_seed(12)
+    x = torch.randn(b, c_in, h, w, generator=gen).to(dtype)
+    wt = (0.1 * torch.randn(9 * c_in, c_out, generator=gen)).to(dtype)
+    corr = 0.1 * torch.randn(c_out, h, w, generator=gen)
+    a = torch.tensor([alpha]).to(dtype)
+    g = torch.randn(b, c_out, h // 2, w // 2, generator=gen).to(dtype)
+    gs, gq = 0.01 * torch.randn(c_out, generator=gen), 0.001 * torch.randn(c_out, generator=gen)
+    xd, wd, cd, ad = (t.double().requires_grad_() for t in (x, wt, corr, a))
+    conv = F.conv2d(xd, wd.view(3, 3, c_in, c_out).permute(3, 2, 0, 1), padding=1)
+    if dtype == torch.bfloat16:
+        conv = _RoundCotangent64.apply(conv)
+    conv = conv + cd
+    act = torch.where(conv >= 0, conv, ad * conv)
+    y = F.max_pool2d(act, 2)
+    y = y + (y.to(dtype).double() - y).detach()  # the stored values, gradient unchanged
+    want = torch.autograd.grad([y, y.sum((0, 2, 3)), (y * y).sum((0, 2, 3))], [xd, wd, cd, ad],
+                               [g.double(), gs.double(), gq.double()])
+    phases = [(p >> 1, p & 1) for p in range(4)]
+    cands = torch.stack([act[:, :, r:2 * (h // 2):2, c:2 * (w // 2):2] for r, c in phases])
+    pre = torch.stack([conv[:, :, r:2 * (h // 2):2, c:2 * (w // 2):2] for r, c in phases])
+    first = cands.detach().argmax(0)  # the first of several maxima
+    code = (first | (pre.detach().gather(0, first[None])[0] < 0).long() << 2).to(torch.uint8)
+    got = tf2.plain_conv2_grads_from_code(x, wt, corr, a, code, y.detach().to(dtype), g, gs, gq)
+    for name, have, ref, arg in zip(NAMES, got, want, (x, wt, corr, a)):
+        assert have.dtype == arg.dtype, name
+        tol = 1e-5 if have.dtype == torch.float32 else 2.0 ** -8
+        torch.testing.assert_close(have.double(), ref, rtol=0,
+                                   atol=tol * float(ref.abs().max()), msg=name)
+
+
+def test_chip_smokes_code_check_takes_near_ties_only():
+    """``chip_smoke.conv2_code_check`` (check (a) of kernel 6's bf16 route)
+    on the CPU, with the kernel's forward replaced by the plain version's
+    own selection and stored values: nothing differs; a code moved to
+    another phase of a window, or a stored value moved by an ulp, where
+    neither is a near-tie, is refused."""
+    import types
+
+    import torch.nn.functional as F
+
+    cs = _chip_smoke()
+    b, c_in, c_out, h, w = 2, 8, 12, 7, 9
+    gen = torch.Generator().manual_seed(13)
+    x = torch.randn(b, c_in, h, w, generator=gen).bfloat16()
+    wt = (0.1 * torch.randn(9 * c_in, c_out, generator=gen)).bfloat16()
+    corr = 0.1 * torch.randn(c_out, h, w, generator=gen)
+    a = torch.tensor([0.25]).bfloat16()
+    conv = F.conv2d(x.float(), wt.float().view(3, 3, c_in, c_out).permute(3, 2, 0, 1),
+                    padding=1) + corr
+    act = torch.where(conv >= 0, conv, a.float() * conv)
+    phases = [(p >> 1, p & 1) for p in range(4)]
+    cands = torch.stack([act[:, :, r:2 * (h // 2):2, c:2 * (w // 2):2] for r, c in phases])
+    pre = torch.stack([conv[:, :, r:2 * (h // 2):2, c:2 * (w // 2):2] for r, c in phases])
+    first = cands.argmax(0)
+    code = (first | (pre.gather(0, first[None])[0] < 0).long() << 2).to(torch.uint8)
+    y = cands.gather(0, first[None])[0].bfloat16()
+
+    def check(y_k, code_k):
+        fake = types.SimpleNamespace(forward=lambda *args: (y_k, code_k, None, None))
+        return cs.conv2_code_check(fake, x, wt, corr, a)[0]
+
+    got = check(y, code)
+    assert got["windows"] == code.numel() and got["codes_differ"] == got["stored_differ"] == 0
+    # the window whose two best values lie farthest apart
+    top2 = cands.topk(2, dim=0).values
+    far = torch.unravel_index((top2[0] - top2[1]).argmax(), code.shape)
+    moved = code.clone()
+    moved[far] = moved[far] ^ 1
+    with pytest.raises(AssertionError, match="beyond a near-tie"):
+        check(y, moved)
+    bumped = y.clone()
+    bumped[far] = (bumped[far].view(torch.int16) + 1).view(torch.bfloat16)
+    with pytest.raises(AssertionError, match="beyond a near-tie"):
+        check(bumped, code)
 
 
 def test_launcher_refuses_with_the_numbers():
